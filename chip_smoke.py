@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (`gpis_tpu_torch`), one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one printed line or more each; any failure exits nonzero:
+
+0. The card: torch.cuda must be available; its name and power limit.
+1. Build every kernel from gpis_tpu_torch/csrc/ (nvcc, sm_90a).
+2. Each kernel against its plain PyTorch twin on the card, at the slice's
+   shapes (C = 4,096 and 16,384, 8,192-query chunks), with the tolerance
+   stated beside the error, and the kernel's and the twin's time at
+   C = 16,384 (CUDA events).  Kernel D's quad is held per query against
+   the twin run in float64.  Plus the variance-quad regime the JAX
+   package's `_QSPLIT` note measured (C = 1,024, noise 1e-3) held against a
+   float64 plain run.
+3. The slice through the user entry point: ObjectModelSession.start on a
+   16,256-point sphere (capacity 16,384), a few queries, the 64^3 grid and
+   extract_surface.  Gates: surface RMSE < 0.02, no NaN, every kernel
+   launched by this run.  A small float64 session on the card is also held
+   to the CPU path at 1e-6.
+
+The second-to-last line is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+RMSE_GATE = 0.02
+QUAD_REL_TOL = 1e-4  # Kernel D's quad against its float64 twin, per query
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if proc.returncode != 0:
+        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call on the card (CUDA events, after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(name: str, err: float, tol: float, ms: float | None = None,
+          plain_ms: float | None = None, err_name: str = "max_abs_err") -> None:
+    timing = "" if ms is None else f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+    verdict = "ok" if err <= tol else "FAILED"
+    say(f"  {name}: {err_name} {err:.3e} <= tol {tol:.3e} {verdict}{timing}")
+    if not err <= tol:
+        fail(f"{name} disagrees with its plain twin")
+
+
+def factor_and_query_kernels(torch, gen, kq, bw: int, results: dict | None) -> None:
+    """Kernels B, C and D against their twins at capacity C = kq.shape[1];
+    timed, and recorded in `results`, when `results` is given."""
+    from gpis_tpu_torch.kernels import cuda_query
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = kq.device
+    m, c = kq.shape
+
+    def timed(fn, reps):
+        return None if results is None else time_ms(torch, fn, reps)
+
+    # B: panel update at the middle of the factorization.  Inputs scaled
+    # so the products are O(1); tol = 1e-4 x the magnitude sum |a||b| of
+    # the worst output (FP32 accumulation over j0 terms, two sum orders).
+    j0 = c // 2
+    mat = torch.randn((c, c), generator=gen, device=dev) / j0**0.5
+    got = cuda_chol.panel_update(mat.clone(), j0, bw)
+    want = cuda_chol.panel_update_reference(mat.clone(), j0, bw)
+    err = (got - want).abs().max().item()  # whole matrix: outside the panel both are `mat`
+    scale = (mat[j0:, :j0].abs() @ mat[j0:j0 + bw, :j0].abs().T).max().item()
+    del got, want
+    work = mat.clone()
+    ms = timed(lambda: cuda_chol.panel_update(work, j0, bw), 10)
+    plain = timed(lambda: cuda_chol.panel_update_reference(work, j0, bw), 10)
+    check(f"panel_update C={c} j0={j0} B={bw}", err, 1e-4 * scale, ms, plain)
+    if results is not None:
+        results["panel_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    del work
+
+    # C: row update, W lower-triangular with rows < j0 finished.
+    w = torch.tril(mat)
+    l_row = torch.randn((bw, c), generator=gen, device=dev)
+    got = cuda_chol.row_update(w, l_row, j0)
+    want = cuda_chol.row_update_reference(w, l_row, j0)
+    err = (got - want).abs().max().item()
+    scale = (l_row[:, :j0].abs() @ w[:j0, :j0].abs()).max().item()
+    del got, want
+    ms = timed(lambda: cuda_chol.row_update(w, l_row, j0), 10)
+    plain = timed(lambda: cuda_chol.row_update_reference(w, l_row, j0), 10)
+    check(f"row_update C={c} j0={j0} B={bw}", err, 1e-4 * scale, ms, plain)
+    if results is not None:
+        results["row_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    del mat, l_row, w
+
+    # D: staged quad + mean on a real kq chunk and a random lower W, against
+    # the plain twin run in float64 on the same values.
+    w = quad_test_w(torch, c, gen)
+    alpha = torch.randn((c,), generator=gen, device=dev)
+    mean, quad = cuda_query.staged_quad(kq, w, alpha)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(), alpha.double())
+    err_mean = (mean.double() - mean_r).abs().max().item()
+    err_quad = (quad.double() - quad_r).abs().max().item()
+    rel_quad = quad_rel_err(torch, quad, quad_r)
+    tol_mean = 1e-4 * (kq.abs() @ alpha.abs()).max().item()
+    del mean_r, quad_r
+    ms = timed(lambda: cuda_query.staged_quad(kq, w, alpha), 3)
+    plain = timed(lambda: cuda_query.staged_quad_reference(kq, w, alpha), 3)
+    check(f"staged_quad mean M={m} C={c} (tol 1e-4 x sum|kq||alpha|)", err_mean, tol_mean)
+    say(f"  staged_quad quad M={m} C={c}: max_abs_err {err_quad:.3e}")
+    check(f"staged_quad quad M={m} C={c}, per query", rel_quad, QUAD_REL_TOL, ms, plain,
+          err_name="max_rel_err")
+    if results is not None:
+        results["staged_quad"] = dict(max_abs_err=max(err_mean, err_quad), ms=ms,
+                                      plain_ms=plain)
+
+
+def quad_test_w(torch, c: int, gen):
+    """A random lower-triangular W for Kernel D's check.  Row i is scaled by
+    1/sqrt(i+1), so every 64-row tile of W carries a share of each query's
+    quad that a kernel skipping it would miss by far more than QUAD_REL_TOL."""
+    w = torch.tril(torch.randn((c, c), generator=gen, device=gen.device))
+    return w.div_(torch.arange(1, c + 1, device=w.device, dtype=w.dtype).sqrt()[:, None])
+
+
+def quad_rel_err(torch, quad, quad_ref) -> float:
+    """max over queries of |quad - quad_ref| / quad_ref.  quad is a sum of
+    squares, so each query is held to its own value: a missed W row tile or
+    k slice moves some query's quad by 1e-3 or more of itself, float32
+    summation by ~1e-6."""
+    ref = quad_ref.clamp_min(torch.finfo(torch.float64).tiny)
+    return ((quad.double() - quad_ref).abs() / ref).max().item()
+
+
+def phase2(torch, results: dict) -> None:
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_gram, cuda_query
+    from gpis_tpu_torch.kernels import gram as kg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c, m, bw = 16384, 8192, 256
+    params = {"lengthscale": 0.4, "signal_variance": 1.0}
+    x = torch.as_tensor(fibonacci_sphere(c), dtype=torch.float32, device=dev)
+    q = (torch.rand((m, 3), generator=gen, device=dev) * 3.0 - 1.5).contiguous()
+    noise = torch.full((c,), 1e-3, device=dev)
+
+    # A: covariance tile.  Values are <= k(0) + noise ~ 1; the two sides
+    # differ only by the rounding of r2 and exp (a few ulp): tol 1e-5.
+    got = kg.gram("rbf", x, params, noise)
+    want = cuda_gram.cov_reference("rbf", x, x, params, noise=noise, sym=True)
+    err = (got - want).abs().max().item()
+    del got, want
+    ms = time_ms(torch, lambda: kg.gram("rbf", x, params, noise), 5)
+    plain = time_ms(torch, lambda: cuda_gram.cov_reference("rbf", x, x, params, noise=noise,
+                                                           sym=True), 3)
+    check(f"cov gram C={c}", err, 1e-5, ms, plain)
+    results["cov"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    kq = kg.cross_cov("rbf", q, x, params)
+    err_x = (kq - cuda_gram.cov_reference("rbf", q, x, params)).abs().max().item()
+    ms_x = time_ms(torch, lambda: kg.cross_cov("rbf", q, x, params), 5)
+    plain_x = time_ms(torch, lambda: cuda_gram.cov_reference("rbf", q, x, params), 3)
+    check(f"cov cross M={m} C={c}", err_x, 1e-5, ms_x, plain_x)
+    for name, ls in (("rbf", 0.8), ("laplace", 0.8), ("inverse_multiquadric", 0.8),
+                     ("thin_plate", 2.5)):
+        p = {"lengthscale": ls, "signal_variance": 1.1}
+        a, b = q[:1024], x[:4096]
+        want = cuda_gram.cov_reference(name, a, b, p)
+        err_k = (kg.cross_cov(name, a, b, p) - want).abs().max().item()
+        check(f"cov {name} 1024x4096 (tol 1e-5 x max|k|)", err_k,
+              1e-5 * max(1.0, want.abs().max().item()))
+
+    # B, C and D at the blocked factorization's smallest capacity (4,096),
+    # then timed at the slice's 16,384; D on a real 8,192-query kq chunk.
+    factor_and_query_kernels(torch, gen, kq[:, :4096].contiguous(), bw, None)
+    factor_and_query_kernels(torch, gen, kq, bw, results)
+    del kq
+
+    # D in the regime of the `_QSPLIT` note (C = 1024, noise 1e-3, where a
+    # single-pass bf16 quad measured ~1e-2 absolute): float32 kernel against
+    # a float64 plain run of the same GP.  Tol 2e-3 absolute, 5x below that.
+    rng = np.random.default_rng(20260818)
+    x64 = torch.as_tensor(rng.normal(size=(1024, 3)), device=dev)
+    q64 = torch.as_tensor(rng.normal(size=(m, 3)), device=dev)
+    y64 = torch.as_tensor(rng.normal(size=1024) * 0.2, device=dev)
+    p = {"lengthscale": 0.8, "signal_variance": 1.0}
+    k = cuda_gram.cov_reference("rbf", x64, x64, p, noise=torch.full_like(y64, 1e-3), sym=True)
+    l64 = torch.linalg.cholesky(k)
+    w64 = torch.linalg.solve_triangular(l64, torch.eye(1024, dtype=k.dtype, device=dev),
+                                        upper=False)
+    alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
+    kq64 = cuda_gram.cov_reference("rbf", q64, x64, p)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w64, alpha64)
+    mean, quad = cuda_query.staged_quad(*(t.float().contiguous() for t in (kq64, w64, alpha64)))
+    err_q = (quad.double() - quad_r).abs().max().item()
+    err_m = (mean.double() - mean_r).abs().max().item()
+    check("staged_quad quad C=1024 noise=1e-3 f32 vs f64", err_q, 2e-3)
+    check("staged_quad mean C=1024 noise=1e-3 f32 vs f64 (tol 1e-4 x sum|kq||alpha|)",
+          err_m, 1e-4 * (kq64.abs() @ alpha64.abs()).max().item())
+
+
+def phase3(torch, launches) -> dict:
+    from gpis_tpu_torch import ModelConfig, ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    # A small float64 session on the card against the CPU path (the port's
+    # own plain twins): the 1e-6 parity bar of the CPU tests.
+    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                        n_internal=1, block=128, touch_capacity=0, dtype="float64")
+    pts = fibonacci_sphere(896)
+    grids = [ObjectModelSession(small, device=d).start(pts).evaluate_grid(24, 1.5)
+             for d in ("cuda", "cpu")]
+    err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
+    check("slice float64, C=1024, 24^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
+
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      n_internal=1, block=128, touch_capacity=0, grid_resolution=64,
+                      grid_extent=1.5)
+    pts = fibonacci_sphere(16256).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts)
+    mean_q, var_q = sess.query(np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [2.0, 0.0, 0.0]]))
+    mean, var, _ = sess.evaluate_grid()
+    query_s = sess.stats["grid_s"]
+    verts, faces, vvar = sess.extract_surface()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    say(f"  capacity {sess.model.capacity}, query at centre/surface/outside: "
+        f"mean {mean_q.tolist()} var {var_q.tolist()}")
+    say(f"  launches in the slice run: {counts}")
+    rmse = float(np.sqrt(np.mean((np.linalg.norm(verts, axis=1) - 1.0) ** 2))) \
+        if len(verts) else float("nan")
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all()
+                  and np.isfinite(mean_q).all() and np.isfinite(vvar).all())
+    fit_s = sess.stats["fit_s"]
+    ok = finite and rmse < RMSE_GATE and mean.shape == (64, 64, 64)
+    say(json.dumps({
+        "value": fit_s + query_s, "fit_s": fit_s, "query_s": query_s, "surface_rmse": rmse,
+        "n_train": sess.model.capacity, "n_query": 64**3, "ok": ok,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "n_verts": len(verts), "card": card_line(),
+    }))
+    if not finite:
+        fail("NaN or inf in the posterior")
+    if not rmse < RMSE_GATE:
+        fail(f"surface RMSE {rmse} >= {RMSE_GATE}")
+    for name in ("cov", "panel_update", "row_update", "staged_quad"):
+        if counts.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched by the slice run")
+    return counts
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
+    say("phase 0: card")
+    card = card_line()
+    say(card)
+    try:
+        from gpis_tpu_torch import _build
+    except ImportError as e:
+        fail(f"gpis_tpu_torch is not importable from here ({e})")
+
+    say("phase 1: build")
+    lib_path, build_s, log = _build.build()
+    say(f"  built {lib_path} in {build_s:.1f} s")
+    for line in log.splitlines():
+        if "spill" in line and not ("0 bytes spill stores" in line and "0 bytes spill loads" in line):
+            say(f"  ptxas: {line.strip()}")
+    _build.library()
+
+    say("phase 2: kernels against their plain twins")
+    results: dict = {}
+    phase2(torch, results)
+
+    say("phase 3: the slice through ObjectModelSession")
+    counts = phase3(torch, _build.LAUNCHES)
+
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    sources = {
+        "cov": ("gpis_tpu_torch/csrc/cov.cu", "gpis_tpu/kernels/pallas_gram.py:197"),
+        "panel_update": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:180"),
+        "row_update": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:569"),
+        "staged_quad": ("gpis_tpu_torch/csrc/query.cu", "gpis_tpu/kernels/pallas_query.py:319"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[name], **results[name]}
+        for name, (src, rep) in sources.items()
+    ]
+    say(f"total {time.perf_counter() - t_start:.1f} s; {card}")
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

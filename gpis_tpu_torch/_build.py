@@ -1,0 +1,162 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled once, at first use, by
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<hash>/libgpis_kernels.so csrc/*.cu
+
+into a directory keyed by a hash of the sources, and loaded with `ctypes`.
+The library has a plain C interface: each entry point takes raw device
+pointers, sizes and the CUDA stream, launches, and returns
+`cudaGetLastError()`.  Nothing here runs at import time, so the package
+imports on machines without `nvcc` or a GPU (the CPU tests use the plain
+PyTorch twins beside each kernel).
+
+`LAUNCHES` counts kernel launches by wrapper name.  A wrapper adds one only
+where it hands a CUDA tensor to its kernel, so a run can show that its main
+path went through the kernels rather than the twins.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+__all__ = ["LAUNCHES", "build", "library", "call", "check_cuda_args", "resolve_device"]
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+LIB_NAME = "libgpis_kernels.so"
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+_P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+
+# C signatures of csrc/*.cu, one per dtype suffix (_f32, _f64).  A pointer or
+# the stream passed without c_void_p would be cut to 32 bits by ctypes.
+_SIGNATURES = {
+    # a, m, b, n, noise, sym, kernel_id, ls, sv, out, stream
+    "gpis_cov": [_P, _I64, _P, _I64, _P, _I32, _I32, _F64, _F64, _P, _P],
+    # mat, n, j0, bw, stream
+    "gpis_panel_update": [_P, _I64, _I64, _I64, _P],
+    # lrow, w, n, j0, bw, out, stream
+    "gpis_row_update": [_P, _P, _I64, _I64, _I64, _P, _P],
+    # kq, m, w, alpha, c, partial, mean, quad, stream
+    "gpis_staged_quad": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+}
+
+_lib = None
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device a caller asked for.  CUDA that is not there raises: the port
+    never drops to the CPU on its own (pass device="cpu" for the twins)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' explicitly to run the plain PyTorch path"
+        )
+    return dev
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
+
+
+def build() -> tuple[str, float, str]:
+    """Compile csrc/*.cu if the source hash has no library yet.  Returns
+    (library path, seconds spent compiling (0 when cached), compiler output:
+    the -Xptxas -v register / shared-memory / spill report)."""
+    out_dir = os.path.join(BUILD_ROOT, _source_hash())
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path, 0.0, ""
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+        *[s for s in _sources() if s.endswith(".cu")],
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
+    return lib_path, seconds, proc.stdout + proc.stderr
+
+
+def library():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build()[0])
+        for name, argtypes in _SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name + suffix)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+
+
+def call(name: str, like: torch.Tensor, *args) -> None:
+    """Launch entry point `name` for `like`'s dtype on its device's current
+    stream; raise if the launch was refused (cudaGetLastError() != 0)."""
+    fn = getattr(library(), name + _SUFFIX[like.dtype])
+    with torch.cuda.device(like.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}{_SUFFIX[like.dtype]} launch failed: cudaError {err}")
+
+
+def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
+    """Wrapper-side validation before raw pointers reach a kernel: one CUDA
+    device, one dtype (float32, or float64), contiguous row-major storage."""
+    dt = tensors[0].dtype
+    if dt not in _SUFFIX:
+        raise TypeError(f"{what}: dtype {dt} not supported (float32 or float64)")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != dt:
+            raise TypeError(f"{what}: mixed dtypes {dt} and {t.dtype}")
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{what}: all tensors must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")

@@ -1,0 +1,65 @@
+"""Carry a model fitted by the JAX package across to the port (reads the
+in-core value-model layout of gpis_tpu/utils/checkpoint.py:24-85).
+
+A `gpis_tpu` checkpoint is an `.npz` of numpy arrays plus a JSON `meta`
+entry; it is read here with numpy alone.  Joint, committee, sharded and
+out-of-core checkpoints raise NotImplementedError until their models are
+ported.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from gpis_tpu_torch._build import resolve_device
+from gpis_tpu_torch.gp.model import GPModel
+
+__all__ = ["gp_model_from_arrays", "load_jax_checkpoint"]
+
+_FORMAT_VERSION = 1
+_UNPORTED_KINDS = ("joint", "experts", "sharded", "ooc")
+
+
+def gp_model_from_arrays(arrays, meta: dict, device="cuda") -> GPModel:
+    """The port's GPModel from a `gpis_tpu` GPModel's numpy arrays, under the
+    checkpoint's key names (x, y, noise, alpha, chol, linv,
+    param_lengthscale, param_signal_variance, n_touch) and metadata (kernel,
+    n0, pad_noise, linv_is_chol)."""
+    for kind in _UNPORTED_KINDS:
+        if meta.get(kind):
+            raise NotImplementedError(f"{kind} checkpoints are not ported to gpis_tpu_torch yet")
+    if "chol" not in arrays:
+        raise ValueError("checkpoint carries no factor (saved with factor=False)")
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(arrays[key]), device=dev)
+
+    chol = t("chol")
+    if meta.get("linv_is_chol"):
+        linv = chol  # a fit_inference model: its chol field is W
+    elif meta.get("has_linv"):
+        linv = t("linv")
+    else:
+        linv = None
+    return GPModel(
+        x=t("x"), y=t("y"), noise=t("noise"),
+        params={"lengthscale": float(arrays["param_lengthscale"]),
+                "signal_variance": float(arrays["param_signal_variance"])},
+        chol=chol, alpha=t("alpha"), n_touch=int(arrays["n_touch"]),
+        kernel=meta["kernel"], n0=int(meta["n0"]),
+        pad_noise=float(meta.get("pad_noise", 1e10)), linv=linv,
+    )
+
+
+def load_jax_checkpoint(path: str, device="cuda") -> GPModel:
+    """Read a checkpoint written by `gpis_tpu.utils.checkpoint.save_model`."""
+    with np.load(path, allow_pickle=False) as d:
+        meta = json.loads(str(d["meta"]))
+        if meta["format"] != _FORMAT_VERSION:
+            raise ValueError(f"unsupported checkpoint format {meta['format']}")
+        arrays = {k: d[k] for k in d.files if k != "meta"}
+    return gp_model_from_arrays(arrays, meta, device)

@@ -1,0 +1,113 @@
+// Kernel D: the staged variance quad and mean of the dense-grid query.
+//
+// Replaces gpis_tpu/kernels/pallas_query.py `staged_query_from_kq`
+// (pallas_call at :319, body `_staged_kernel` :250).  Given a staged
+// kq = K(Q, X) (m, c), W = L^{-1} (c, c) lower-triangular and alpha (c,):
+//     mean[q] = sum_k kq[q, k] alpha[k]
+//     quad[q] = sum_i (sum_k W[i, k] kq[q, k])^2      (var = k(0) - quad)
+//
+// The TPU kernel carries its v = W kq^T accumulator in scratch across a
+// sequential grid.  GPU blocks run in no order, so that does not carry
+// over.  Instead one block owns a (64-row tile of W, 64-query tile) pair,
+// loops k over the tile's live columns only (k < (i + 1) * 64, the rest of W
+// is zero), keeps v in registers, and writes partial[i, q] = colsum(v^2).
+// A second pass sums the partials over i in a fixed order: no atomics, so a
+// result repeats bit for bit.  The mean is a third, warp-per-query pass.
+//
+// What bounds it on the H100: arithmetic.  A 8,192-query chunk against
+// C = 16,384 is ~C^2 / 2 * m multiply-adds (1.1e12) on 1 GiB of W plus
+// 512 MiB of kq, far above the memory roofline; without tensor cores the
+// bound is the SIMT FP32 rate.  What the design does about it: the shared
+// tiled product of common.cuh (4 x 4 FMA register tiles, k-slices of 16) and
+// the triangular skip, which halves the work.  W is re-read once per query
+// tile; the 50 MB L2 absorbs part of that.  Accumulation: plain FP32 (FP64)
+// FMA, see common.cuh -- the split products of `quad_dot` are not needed.
+#include "common.cuh"
+
+namespace gpis {
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+quad_partial_kernel(const T* __restrict__ kq, int64_t m, const T* __restrict__ w, int64_t c,
+                    T* __restrict__ partial) {
+  __shared__ TileSmem<T> sm;
+  __shared__ T red[16][TILE];
+  const int64_t q_tiles = (m + TILE - 1) / TILE;
+  const int64_t it = blockIdx.x / q_tiles;
+  const int64_t row0 = it * TILE;                                // W row
+  const int64_t q0 = (int64_t)(blockIdx.x % q_tiles) * TILE;    // query
+  const int rows = (int)min64(TILE, c - row0);
+  const int qs = (int)min64(TILE, m - q0);
+  T acc[4][4] = {};
+  nt_product(sm, acc, w + row0 * c, c, rows, kq + q0 * c, c, qs, 0, min64(row0 + TILE, c));
+  // Rows past `rows` and queries past `qs` were loaded as zeros: acc is 0.
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    T s = T(0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s += acc[i][j] * acc[i][j];
+    red[ty][tx + 16 * j] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < TILE && threadIdx.x < qs) {
+    T s = T(0);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) s += red[r][threadIdx.x];
+    partial[it * m + q0 + threadIdx.x] = s;
+  }
+}
+
+template <typename T>
+__global__ void quad_reduce_kernel(const T* __restrict__ partial, int64_t m, int64_t tiles,
+                                   T* __restrict__ quad) {
+  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= m) return;
+  T s = T(0);
+  for (int64_t i = 0; i < tiles; ++i) s += partial[i * m + q];
+  quad[q] = s;
+}
+
+template <typename T>
+__global__ void mean_kernel(const T* __restrict__ kq, int64_t m, const T* __restrict__ alpha,
+                            int64_t c, T* __restrict__ mean) {
+  const int64_t q = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (q >= m) return;
+  const T* row = kq + q * c;
+  T s = T(0);
+  for (int64_t k = lane; k < c; k += 32) s += row[k] * alpha[k];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
+  if (lane == 0) mean[q] = s;
+}
+
+template <typename T>
+static int launch_staged_quad(const T* kq, int64_t m, const T* w, const T* alpha, int64_t c,
+                              T* partial, T* mean, T* quad, void* stream) {
+  if (m == 0 || c == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t tiles = (c + TILE - 1) / TILE;
+  quad_partial_kernel<T><<<ceil_div(c, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
+      kq, m, w, c, partial);
+  quad_reduce_kernel<T><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, tiles, quad);
+  mean_kernel<T><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(kq, m, alpha, c, mean);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gpis
+
+extern "C" {
+
+int gpis_staged_quad_f32(const float* kq, int64_t m, const float* w, const float* alpha,
+                         int64_t c, float* partial, float* mean, float* quad, void* stream) {
+  return gpis::launch_staged_quad<float>(kq, m, w, alpha, c, partial, mean, quad, stream);
+}
+
+int gpis_staged_quad_f64(const double* kq, int64_t m, const double* w, const double* alpha,
+                         int64_t c, double* partial, double* mean, double* quad,
+                         void* stream) {
+  return gpis::launch_staged_quad<double>(kq, m, w, alpha, c, partial, mean, quad, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,76 @@
+"""Kernel A, the covariance tile (csrc/cov.cu), and its plain PyTorch twin.
+
+Replaces the Pallas calls `gram_pallas` (gpis_tpu/kernels/pallas_gram.py:197),
+`cross_cov_pallas` (:109) and `_stage_kq` (gpis_tpu/kernels/pallas_query.py
+:294), which share one body.  The kernel is write-bound (one store per
+element); csrc/cov.cu says how its tiling keeps the stores coalesced and why
+r2 is formed per dimension.
+
+`cov(name, a, b, params, noise=..., sym=...)` takes a CPU tensor to the twin
+`cov_reference` and a CUDA tensor to the kernel; anything the kernel does not
+take raises.  There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpis_tpu_torch import _build
+from gpis_tpu_torch.kernels import functions as kf
+
+__all__ = ["KERNEL_IDS", "pairwise_r2", "cov_reference", "cov"]
+
+# csrc/common.cuh `KernelId`.
+KERNEL_IDS = {"rbf": 0, "laplace": 1, "inverse_multiquadric": 2, "thin_plate": 3}
+
+# One launch is one 1-D grid of 64 x 32 tiles.
+_MAX_BLOCKS = 2**31 - 1
+
+
+def pairwise_r2(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances, x (N,3), z (M,3) -> (N,M), per dimension
+    (no |x|^2 - 2 x.z cancellation)."""
+    d = x[:, None, :] - z[None, :, :]
+    return torch.sum(d * d, dim=-1)
+
+
+def cov_reference(name: str, a, b, params, *, noise=None, sym: bool = False):
+    """Plain twin of the kernel: k(|a_i - b_j|^2); with sym the diagonal is
+    the exact k(0) plus noise (noise may be None)."""
+    k = kf.k_r2(name, pairwise_r2(a, b), params)
+    if sym:
+        diag = torch.full((a.shape[0],), float(kf.k_diag0(name, params)),
+                          dtype=k.dtype, device=k.device)
+        if noise is not None:
+            diag = diag + noise
+        k.diagonal().copy_(diag)
+    return k
+
+
+def cov(name: str, a: torch.Tensor, b: torch.Tensor, params, *, noise=None,
+        sym: bool = False) -> torch.Tensor:
+    """K(a, b) (M, N); sym=True is the Gram mode (b is a, diagonal k(0)+noise)."""
+    if a.ndim != 2 or a.shape[1] != 3 or b.ndim != 2 or b.shape[1] != 3:
+        raise ValueError(f"cov: expected (M,3) and (N,3), got {tuple(a.shape)}, {tuple(b.shape)}")
+    if sym and a.shape[0] != b.shape[0]:
+        raise ValueError("cov: sym=True needs a square Gram (a and b of one length)")
+    if noise is not None and noise.shape != (a.shape[0],):
+        raise ValueError(f"cov: noise must be ({a.shape[0]},), got {tuple(noise.shape)}")
+    if a.device.type == "cpu":
+        return cov_reference(name, a, b, params, noise=noise, sym=sym)
+    if name not in KERNEL_IDS:
+        raise ValueError(f"cov: no CUDA kernel for covariance {name!r}")
+    tensors = (a, b) if noise is None else (a, b, noise)
+    _build.check_cuda_args("cov", *tensors)
+    m, n = a.shape[0], b.shape[0]
+    if -(-m // 64) * -(-n // 32) > _MAX_BLOCKS:
+        raise ValueError(f"cov: {m} x {n} exceeds one launch")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _build.call(
+        "gpis_cov", a, a.data_ptr(), m, b.data_ptr(), n,
+        None if noise is None else noise.data_ptr(), int(sym), KERNEL_IDS[name],
+        float(params["lengthscale"]), float(params["signal_variance"]), out.data_ptr(),
+    )
+    _build.LAUNCHES["cov"] += 1
+    return out
+

@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on a card.
+
+Every test here is marked `cuda` and skips without a card.  The file
+imports no jax (of the JAX package, only the numpy-only `gpis_tpu.config`),
+so it runs on a machine without jax:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpis_tpu.config import ModelConfig
+from gpis_tpu_torch import _build
+from gpis_tpu_torch.api.session import ObjectModelSession
+from gpis_tpu_torch.data.gpis import fibonacci_sphere
+from gpis_tpu_torch.gp import regression
+from gpis_tpu_torch.kernels import cuda_gram, cuda_query
+from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.kernels import gram as kg
+from gpis_tpu_torch.linalg import cuda_chol
+
+pytestmark = pytest.mark.cuda
+
+KERNELS = ["rbf", "thin_plate", "laplace", "inverse_multiquadric"]
+LENGTHSCALE = {"rbf": 0.8, "thin_plate": 2.5, "laplace": 0.8, "inverse_multiquadric": 0.8}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode (their twins run here)")
+    return torch.device("cuda")
+
+
+def _spd(rng, n):
+    g = rng.normal(size=(n, n))
+    return g @ g.T / n + np.eye(n)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_cuda_cov_matches_twin(cuda, name):
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.normal(size=(700, 3)), dtype=torch.float32, device=cuda)
+    noise = torch.full((700,), 1e-3, device=cuda)
+    params = kf.kernel_params(LENGTHSCALE[name], 1.1)
+    got = kg.gram(name, x, params, noise=noise)
+    want = cuda_gram.cov_reference(name, x, x, params, noise=noise, sym=True)
+    # f32 values <= k(0) + noise; the two sides round r2 and k differently.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_panel_and_row_update_match_twins(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, b, j0 = 1024, 256, 512
+    m = torch.randn((n, n), generator=gen, device=cuda) / j0**0.5
+    got = cuda_chol.panel_update(m.clone(), j0, b)
+    # f32 sums of j0 O(1/j0) products in two orders.
+    torch.testing.assert_close(got, cuda_chol.panel_update_reference(m.clone(), j0, b),
+                               rtol=1e-4, atol=1e-4)
+    w = torch.tril(m)
+    l_row = torch.randn((b, n), generator=gen, device=cuda) / j0**0.5
+    torch.testing.assert_close(cuda_chol.row_update(w, l_row, j0),
+                               cuda_chol.row_update_reference(w, l_row, j0), rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_blocked_factor_and_inverse(cuda):
+    a = torch.as_tensor(_spd(np.random.default_rng(12), 512), device=cuda)
+    l = cuda_chol.blocked_cholesky(a.clone(), 256)
+    torch.testing.assert_close(l @ l.T, a, rtol=1e-10, atol=1e-10)
+    w = cuda_chol.blocked_linv(l.clone(), 256, inplace=True)
+    torch.testing.assert_close(w @ l, torch.eye(512, dtype=a.dtype, device=cuda),
+                               rtol=1e-10, atol=1e-10)
+
+
+def test_cuda_staged_quad_matches_twin(cuda):
+    rng = np.random.default_rng(13)
+    c, m = 1024, 1000
+    x = torch.as_tensor(rng.normal(size=(c, 3)), device=cuda)
+    q = torch.as_tensor(rng.normal(size=(m, 3)), device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    l = torch.linalg.cholesky(kg.gram("rbf", x, params, noise=1e-3))
+    # solve_triangular returns column-major; the kernels take row-major only.
+    w = torch.linalg.solve_triangular(l, torch.eye(c, dtype=l.dtype, device=cuda),
+                                      upper=False).contiguous()
+    alpha = torch.as_tensor(rng.normal(size=c), device=cuda)
+    kq = cuda_query.stage_kq("rbf", q, x, params)
+    mean, quad = cuda_query.staged_quad(kq, w, alpha)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq, w, alpha)
+    # float64 on both sides: only the summation order differs.
+    torch.testing.assert_close(quad, quad_r, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(mean, mean_r, rtol=1e-10, atol=1e-10)
+
+
+def test_cuda_untiled_fit_padded_then_linv_matches_cpu(cuda):
+    # n >= 4096 that the 256 block does not tile: the identity-padded blocked
+    # factor, then W = L^{-1} and the staged query, against the CPU path.
+    rng = np.random.default_rng(14)
+    n = 4200
+    x, y, q = rng.normal(size=(n, 3)), rng.normal(size=n) * 0.2, rng.normal(size=(500, 3))
+    params = kf.kernel_params(0.8, 1.0)
+    out = []
+    for dev in (cuda, "cpu"):
+        _build.LAUNCHES.clear()
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        model = regression.with_linv(
+            regression.fit_padded("rbf", t(x), t(y), t(np.full(n, 1e-2)), params, n0=n))
+        assert model.chol.is_contiguous() and not torch.isnan(model.chol.diagonal()).any()
+        out.append([v.cpu().numpy() for v in regression.predict(model, t(q))])
+        if dev is cuda:
+            assert _build.LAUNCHES["panel_update"] > 0 and _build.LAUNCHES["staged_quad"] > 0
+    # The BASELINE.md row-2 bar on mean and variance.
+    np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-6)
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=1e-6)
+
+
+def test_cuda_session_matches_cpu_session(cuda):
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      touch_capacity=0, dtype="float64")
+    pts = fibonacci_sphere(896) * 1.3 + np.array([0.2, 0.0, -0.5])
+    got, want = (ObjectModelSession(cfg, device=d).start(pts).evaluate_grid(16, 1.5)
+                 for d in (cuda, "cpu"))
+    # The BASELINE.md row-2 bar on mean and variance.
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6)
