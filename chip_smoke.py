@@ -6,19 +6,29 @@
 Phases, one printed line or more each; any failure exits nonzero:
 
 0. The card: torch.cuda must be available; its name and power limit.
-1. Build every kernel from gpis_tpu_torch/csrc/ (nvcc, sm_90a).
-2. Each kernel against its plain PyTorch twin on the card, at the slice's
-   shapes (C = 4,096 and 16,384, 8,192-query chunks), with the tolerance
-   stated beside the error, and the kernel's and the twin's time at
-   C = 16,384 (CUDA events).  Kernel D's quad is held per query against
-   the twin run in float64.  Plus the variance-quad regime the JAX
-   package's `_QSPLIT` note measured (C = 1,024, noise 1e-3) held against a
-   float64 plain run.
-3. The slice through the user entry point: ObjectModelSession.start on a
-   16,256-point sphere (capacity 16,384), a few queries, the 64^3 grid and
-   extract_surface.  Gates: surface RMSE < 0.02, no NaN, every kernel
-   launched by this run.  A small float64 session on the card is also held
-   to the CPU path at 1e-6.
+1. Build every kernel from gpis_tpu_torch/csrc/ (one nvcc per source, all
+   started together; sm_90a).
+2. Each kernel against its plain PyTorch twin on the card, at the slices'
+   shapes (C = 4,096 and 16,384, 8,192-query chunks; the joint J = 21,504),
+   with the tolerance stated beside the error, and the kernel's and the
+   twin's time (CUDA events).  The quads of Kernels D and F are held per
+   query against the twin run in float64.  Plus the variance-quad regime
+   the JAX package's `_QSPLIT` note measured (C = 1,024, noise 1e-3) held
+   against a float64 plain run, and the staged route (A or E, then D)
+   timed against the on-the-fly one (F) at one shape: the card's
+   crossover.
+3. The value slice through the user entry point: ObjectModelSession.start
+   on a 16,256-point sphere (capacity 16,384), a few queries, the 64^3
+   grid, extract_surface and a 65,536-point query (the on-the-fly route).
+   Gates: surface RMSE < 0.02, no NaN, the large query agreeing with the
+   chunked staged route, every kernel of the path launched by this run.  A
+   small float64 session on the card is also held to the CPU path at 1e-6.
+4. The joint (surface-normal) slice: start(points, normals=...) on a
+   4,992-point sphere (J = 21,504), the 64^3 grid, extract_surface, a
+   65,536-point query and predict_gradient at 256 surface points.  Gates:
+   surface RMSE < 0.02, min cos(normal, radial) > 0.99, no NaN, every
+   kernel of the path launched by this run; a small float64 joint session
+   on the card held to the CPU path at 1e-6.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -34,7 +44,10 @@ import time
 import numpy as np
 
 RMSE_GATE = 0.02
-QUAD_REL_TOL = 1e-4  # Kernel D's quad against its float64 twin, per query
+COS_GATE = 0.99  # min cos(posterior normal, radial): BASELINE.md's config-2 gate
+QUAD_REL_TOL = 1e-4  # Kernels D and F: quad against the float64 twin, per query
+BIG_QUERY = 65536  # a 256 x 256 depth image: its staged kq exceeds the cap
+JOINT_SPHERE = (4992, 0.35, (0.2, -0.1, 0.05))  # bench/session_scenario.py --normals 4992
 
 
 def fail(msg: str) -> None:
@@ -163,9 +176,109 @@ def quad_rel_err(torch, quad, quad_ref) -> float:
     return ((quad.double() - quad_ref).abs() / ref).max().item()
 
 
+def joint_columns(torch, dev):
+    """Joint metadata at the joint slice's shape: C = 5,120 points on the
+    unit sphere and T = 1,024 touch slots at the origin (coincident among
+    themselves), J = 4C + T = 21,504."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_joint
+
+    x = torch.as_tensor(fibonacci_sphere(5120), dtype=torch.float32, device=dev)
+    return cuda_joint.joint_meta(x, torch.zeros((1024, 3), device=dev))
+
+
+def joint_cov_kernel(torch, gen, q, results: dict) -> None:
+    """Kernel E against its twin: three covariances with coincident points
+    in Gram mode (noise) and cross mode (none); then rbf at the joint
+    slice's shapes, timed."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_joint
+
+    dev = q.device
+    x = torch.as_tensor(fibonacci_sphere(1024), dtype=torch.float32, device=dev)
+    x[512:576] = x[:64]  # distinct indices, coincident points
+    meta = cuda_joint.joint_meta(x, torch.zeros((256, 3), device=dev))
+    noise = torch.rand((meta[0].shape[0],), generator=gen, device=dev) * 9e-3 + 1e-3
+    qmeta = cuda_joint.value_meta(torch.cat([x[:64], q[:1984]]))  # 64 queries on data points
+    worst = 0.0
+    for name, ls in (("rbf", 0.4), ("thin_plate", 2.5), ("inverse_multiquadric", 0.4)):
+        p = {"lengthscale": ls, "signal_variance": 1.0}
+        for mode, rows, nz in (("gram+noise", meta, noise), ("cross", qmeta, None)):
+            want = cuda_joint.joint_rows_reference(name, rows, meta, p, noise_col=nz)
+            err = (cuda_joint.joint_rows(name, rows, meta, p, noise_col=nz) - want).abs().max()
+            tol = 1e-5 * max(1.0, want.abs().max().item())
+            check(f"joint_cov {name} {mode} {rows[0].shape[0]}x{meta[0].shape[0]} "
+                  f"(tol 1e-5 x max|K|)", err.item(), tol)
+            worst = max(worst, err.item())
+            del want
+    p = {"lengthscale": 0.4, "signal_variance": 1.0}
+    meta = joint_columns(torch, dev)
+    j = meta[0].shape[0]
+    noise = torch.full((j,), 1e-3, device=dev)
+    got = cuda_joint.joint_rows("rbf", meta, meta, p, noise_col=noise)
+    want = cuda_joint.joint_rows_reference("rbf", meta, meta, p, noise_col=noise)
+    err = (got - want).abs().max().item()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    del got, want
+    ms = time_ms(torch, lambda: cuda_joint.joint_rows("rbf", meta, meta, p, noise_col=noise), 5)
+    plain = time_ms(torch, lambda: cuda_joint.joint_rows_reference("rbf", meta, meta, p,
+                                                                   noise_col=noise), 1)
+    check(f"joint_cov rbf gram J={j} (tol 1e-5 x max|K|)", err, tol, ms, plain)
+    qmeta = cuda_joint.value_meta(q)
+    want = cuda_joint.joint_rows_reference("rbf", qmeta, meta, p)
+    err_x = (cuda_joint.joint_rows("rbf", qmeta, meta, p) - want).abs().max().item()
+    tol_x = 1e-5 * max(1.0, want.abs().max().item())
+    del want
+    ms_x = time_ms(torch, lambda: cuda_joint.joint_rows("rbf", qmeta, meta, p), 5)
+    plain_x = time_ms(torch, lambda: cuda_joint.joint_rows_reference("rbf", qmeta, meta, p), 1)
+    check(f"joint_cov rbf cross M={q.shape[0]} J={j}", err_x, tol_x, ms_x, plain_x)
+    results["joint_cov"] = dict(max_abs_err=max(worst, err, err_x), ms=ms, plain_ms=plain)
+
+
+def fused_quad_kernel(torch, gen, q, cols, kind: str) -> dict:
+    """Kernel F with generator `kind` against its twin run in float64 at
+    columns `cols`, and timed beside the f32 twin and the staged route."""
+    from gpis_tpu_torch.kernels import cuda_joint, cuda_query
+    from gpis_tpu_torch.kernels import gram as kg
+
+    n = cols.shape[0]
+    p = {"lengthscale": 0.4, "signal_variance": 1.0}
+    w = quad_test_w(torch, n, gen)
+    alpha = torch.randn((n,), generator=gen, device=q.device)
+    mean, quad = cuda_query.fused_quad(kind, "rbf", q, cols, p, alpha, w)
+    kq64 = cuda_query.generated_kq(kind, "rbf", q.double(), cols.double(), p)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w.double(), alpha.double())
+    scale = (kq64.abs() @ alpha.double().abs()).max().item()
+    del kq64
+    err_mean = (mean.double() - mean_r).abs().max().item()
+    err_quad = (quad.double() - quad_r).abs().max().item()
+    rel_quad = quad_rel_err(torch, quad, quad_r)
+    del mean_r, quad_r
+    ms = time_ms(torch, lambda: cuda_query.fused_quad(kind, "rbf", q, cols, p, alpha, w), 3)
+    plain = time_ms(torch, lambda: cuda_query.fused_quad_reference(kind, "rbf", q, cols, p,
+                                                                   alpha, w), 3)
+    def staged():  # the staged route at the same shape: kq written (A or E), then D
+        if kind == "value":
+            kq = kg.cross_cov("rbf", q, cols, p)
+        else:
+            kq = cuda_joint.joint_rows("rbf", cuda_joint.value_meta(q),
+                                       (cols[:, :3], cols[:, 3:6], cols[:, 6]), p)
+        return cuda_query.staged_quad(kq, w, alpha)
+
+    staged_ms = time_ms(torch, staged, 3)
+    shape = f"{kind} M={q.shape[0]} {'C' if kind == 'value' else 'J'}={n}"
+    check(f"fused_quad {shape} mean (tol 1e-4 x sum|kq||alpha|)", err_mean, 1e-4 * scale)
+    say(f"  fused_quad {shape} quad: max_abs_err {err_quad:.3e}")
+    check(f"fused_quad {shape} quad, per query", rel_quad, QUAD_REL_TOL, ms, plain,
+          err_name="max_rel_err")
+    say(f"  crossover {shape}: staged route (kq written, then D) {staged_ms:.4f} ms, "
+        f"on the fly (F) {ms:.4f} ms")
+    return dict(max_abs_err=max(err_mean, err_quad), ms=ms, plain_ms=plain, staged_ms=staged_ms)
+
+
 def phase2(torch, results: dict) -> None:
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
-    from gpis_tpu_torch.kernels import cuda_gram, cuda_query
+    from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
     from gpis_tpu_torch.kernels import gram as kg
 
     dev = torch.device("cuda")
@@ -228,6 +341,22 @@ def phase2(torch, results: dict) -> None:
     check("staged_quad quad C=1024 noise=1e-3 f32 vs f64", err_q, 2e-3)
     check("staged_quad mean C=1024 noise=1e-3 f32 vs f64 (tol 1e-4 x sum|kq||alpha|)",
           err_m, 1e-4 * (kq64.abs() @ alpha64.abs()).max().item())
+    del x64, q64, k, l64, w64, kq64
+
+    # E, then F with both generators at the slices' shapes.
+    joint_cov_kernel(torch, gen, q, results)
+    value = fused_quad_kernel(torch, gen, q, x, "value")
+    joint = fused_quad_kernel(torch, gen, q, cuda_joint.pack_meta(joint_columns(torch, dev)),
+                              "joint")
+    say(json.dumps({"crossover": {k: {"staged_ms": v["staged_ms"], "onthefly_ms": v["ms"]}
+                                  for k, v in (("value_C16384_M8192", value),
+                                               ("joint_J21504_M8192", joint))},
+                    "card": card_line()}))
+    # The kernels line carries the joint instantiation's time (this slice's
+    # path) and the worse error of the two.
+    results["fused_quad"] = dict(max_abs_err=max(value["max_abs_err"], joint["max_abs_err"]),
+                                 ms=joint["ms"], plain_ms=joint["plain_ms"])
+    torch.cuda.empty_cache()
 
 
 def phase3(torch, launches) -> dict:
@@ -248,6 +377,7 @@ def phase3(torch, launches) -> dict:
                       n_internal=1, block=128, touch_capacity=0, grid_resolution=64,
                       grid_extent=1.5)
     pts = fibonacci_sphere(16256).astype(np.float32)
+    big = big_query(torch, pts)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     launches.clear()
@@ -256,20 +386,23 @@ def phase3(torch, launches) -> dict:
     mean, var, _ = sess.evaluate_grid()
     query_s = sess.stats["grid_s"]
     verts, faces, vvar = sess.extract_surface()
+    big_mean, big_var, big_s = timed_query(torch, sess, big)
     torch.cuda.synchronize()
     counts = dict(launches)
     say(f"  capacity {sess.model.capacity}, query at centre/surface/outside: "
         f"mean {mean_q.tolist()} var {var_q.tolist()}")
-    say(f"  launches in the slice run: {counts}")
+    say(f"  launches in the value slice run: {counts}")
     rmse = float(np.sqrt(np.mean((np.linalg.norm(verts, axis=1) - 1.0) ** 2))) \
         if len(verts) else float("nan")
     finite = bool(np.isfinite(mean).all() and np.isfinite(var).all()
-                  and np.isfinite(mean_q).all() and np.isfinite(vvar).all())
+                  and np.isfinite(mean_q).all() and np.isfinite(vvar).all()
+                  and np.isfinite(big_mean).all() and np.isfinite(big_var).all())
     fit_s = sess.stats["fit_s"]
     ok = finite and rmse < RMSE_GATE and mean.shape == (64, 64, 64)
     say(json.dumps({
         "value": fit_s + query_s, "fit_s": fit_s, "query_s": query_s, "surface_rmse": rmse,
         "n_train": sess.model.capacity, "n_query": 64**3, "ok": ok,
+        "big_query_s": big_s, "n_big_query": BIG_QUERY,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "n_verts": len(verts), "card": card_line(),
     }))
@@ -277,9 +410,135 @@ def phase3(torch, launches) -> dict:
         fail("NaN or inf in the posterior")
     if not rmse < RMSE_GATE:
         fail(f"surface RMSE {rmse} >= {RMSE_GATE}")
-    for name in ("cov", "panel_update", "row_update", "staged_quad"):
+    require_launches(counts, ("cov", "panel_update", "row_update", "staged_quad", "fused_quad"),
+                     "value slice")
+    agree_with_chunked(torch, sess, big, big_mean, big_var, "value")
+    return counts
+
+
+def big_query(torch, pts) -> np.ndarray:
+    """BIG_QUERY world-frame points spread over the cloud's bounding box,
+    plus a margin: the size of a 256 x 256 depth image."""
+    rng = np.random.default_rng(7)
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    pad = 0.25 * (hi - lo)
+    return rng.uniform(lo - pad, hi + pad, size=(BIG_QUERY, 3)).astype(np.float32)
+
+
+def timed_query(torch, sess, pts):
+    """sess.query(pts) and its seconds (host clock; query ends in a copy to
+    the host, which synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, var = sess.query(pts)
+    return mean, var, time.perf_counter() - t0
+
+
+def require_launches(counts: dict, names, path: str) -> None:
+    for name in names:
         if counts.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched by the slice run")
+            fail(f"kernel {name} was not launched by the {path} run")
+
+
+def agree_with_chunked(torch, sess, pts, mean, var, what: str) -> None:
+    """The on-the-fly answer of sess.query(pts) against the chunked staged
+    route on the same points.  Both form kq with the same float32
+    expressions (for a value query, Kernel E's blend reduces to Kernel F's
+    joint generator term by term) and sum it in the same tiling order, so
+    they agree bit for bit as compiled today.  The tolerances, 1e-5 x
+    sum|kq||alpha| on the mean and 1e-5 x k(0) on the variance, leave room
+    only for a compiler contracting the two kernels' arithmetic into FMAs
+    differently (Kernel F's own arithmetic is held per query in phase 2)."""
+    from gpis_tpu_torch.gp import derivative as gpd
+    from gpis_tpu_torch.gp.kinds import model_kind
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.kernels import gram as kg
+    from gpis_tpu_torch.surface import grid
+
+    model = sess.model
+    q = sess.frame.to_normalized(torch.as_tensor(pts, device="cuda"))
+    mean_c, var_c = (t.cpu().numpy() for t in grid.evaluate_points_chunked(model, q))
+
+    def cross(qc):
+        if model_kind(model) == "joint":
+            return gpd.joint_cross_value(model, qc)
+        return kg.cross_cov(model.kernel, qc, model.x, model.params)
+
+    scale = max((cross(q[i:i + grid.CHUNK]).abs() @ model.alpha.abs()).max().item()
+                for i in range(0, q.shape[0], grid.CHUNK))
+    k0 = float(kf.k_diag0(model.kernel, model.params))
+    check(f"{what} query of {len(pts)} points (on the fly) vs chunked staged: mean "
+          f"(tol 1e-5 x sum|kq||alpha|)", float(np.abs(mean - mean_c).max()), 1e-5 * scale)
+    check(f"{what} query of {len(pts)} points (on the fly) vs chunked staged: var "
+          f"(tol 1e-5 x k(0))", float(np.abs(var - var_c).max()), 1e-5 * k0)
+
+
+def phase4(torch, launches) -> dict:
+    from gpis_tpu_torch import ModelConfig, ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.gp import derivative as gpd
+
+    # A small float64 joint session on the card against the CPU path.
+    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                        n_internal=1, block=128, touch_capacity=128, dtype="float64")
+    pts = fibonacci_sphere(384)
+    grids = [ObjectModelSession(small, device=d).start(pts, normals=pts).evaluate_grid(16, 1.5)
+             for d in ("cuda", "cpu")]
+    err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
+    check("joint slice float64, C=512 J=2176, 16^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
+
+    n, radius, center = JOINT_SPHERE
+    center = np.asarray(center, np.float32)
+    pts = (fibonacci_sphere(n, radius) + center).astype(np.float32)
+    normals = (pts - center) / radius
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      n_internal=1, block=128, touch_capacity=256)
+    big = big_query(torch, pts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, normals=normals)
+    mean, var, _ = sess.evaluate_grid()
+    query_s = sess.stats["grid_s"]
+    verts, faces, vvar = sess.extract_surface(world_frame=False)
+    big_mean, big_var, big_s = timed_query(torch, sess, big)
+    frame = sess.frame
+    c_n = frame.to_normalized(torch.as_tensor(center, device="cuda"))
+    r_n = radius / float(frame.scale)
+    sel = torch.as_tensor(verts[np.linspace(0, len(verts) - 1, 256).astype(int)],
+                          dtype=sess.dtype, device="cuda")
+    grad = gpd.predict_gradient(sess.model, sel)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    say(f"  joint size J {sess.model.chol.shape[0]} (C {sess.model.capacity}, "
+        f"T {sess.model.touch_capacity}); launches in the joint slice run: {counts}")
+    radial = sel - c_n
+    cos = torch.sum(grad * radial, dim=1) / (grad.norm(dim=1) * radial.norm(dim=1))
+    min_cos = cos.min().item()
+    rad = np.linalg.norm(verts - c_n.cpu().numpy(), axis=1) - r_n
+    rmse = float(np.sqrt(np.mean(rad**2))) if len(verts) else float("nan")
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all() and np.isfinite(vvar).all()
+                  and np.isfinite(big_mean).all() and np.isfinite(big_var).all()
+                  and torch.isfinite(grad).all().item())
+    fit_s = sess.stats["fit_s"]
+    ok = finite and rmse < RMSE_GATE and min_cos > COS_GATE and mean.shape == (64, 64, 64)
+    say(json.dumps({
+        "joint": True, "value": fit_s + query_s, "fit_s": fit_s, "query_s": query_s,
+        "surface_rmse": rmse, "min_normal_cos": min_cos, "n_surface": n,
+        "joint_size": sess.model.chol.shape[0], "n_query": 64**3, "ok": ok,
+        "big_query_s": big_s, "n_big_query": BIG_QUERY,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "n_verts": len(verts), "card": card_line(),
+    }))
+    if not finite:
+        fail("NaN or inf in the joint posterior")
+    if not rmse < RMSE_GATE:
+        fail(f"joint surface RMSE {rmse} >= {RMSE_GATE}")
+    if not min_cos > COS_GATE:
+        fail(f"min cos(normal, radial) {min_cos} <= {COS_GATE}")
+    require_launches(counts, ("joint_cov", "fused_quad", "staged_quad", "panel_update",
+                              "row_update"), "joint slice")
+    agree_with_chunked(torch, sess, big, big_mean, big_var, "joint")
     return counts
 
 
@@ -302,17 +561,24 @@ def main() -> int:
     say("phase 1: build")
     lib_path, build_s, log = _build.build()
     say(f"  built {lib_path} in {build_s:.1f} s")
+    function = "?"
     for line in log.splitlines():
-        if "spill" in line and not ("0 bytes spill stores" in line and "0 bytes spill loads" in line):
-            say(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            function = line.split("Function properties for")[-1].strip()
+        elif "spill" in line and not ("0 bytes spill stores" in line
+                                      and "0 bytes spill loads" in line):
+            say(f"  ptxas: {function}: {line.strip()}")
     _build.library()
 
     say("phase 2: kernels against their plain twins")
     results: dict = {}
     phase2(torch, results)
 
-    say("phase 3: the slice through ObjectModelSession")
-    counts = phase3(torch, _build.LAUNCHES)
+    say("phase 3: the value slice through ObjectModelSession")
+    value_counts = phase3(torch, _build.LAUNCHES)
+
+    say("phase 4: the joint (surface-normal) slice through ObjectModelSession")
+    joint_counts = phase4(torch, _build.LAUNCHES)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -321,10 +587,15 @@ def main() -> int:
         "panel_update": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:180"),
         "row_update": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:569"),
         "staged_quad": ("gpis_tpu_torch/csrc/query.cu", "gpis_tpu/kernels/pallas_query.py:319"),
+        "joint_cov": ("gpis_tpu_torch/csrc/joint.cu", "gpis_tpu/kernels/pallas_joint.py:215"),
+        "fused_quad": ("gpis_tpu_torch/csrc/fused_query.cu",
+                       "gpis_tpu/kernels/pallas_query.py:404, "
+                       "gpis_tpu/kernels/pallas_joint.py:367"),
     }
+    # Launches: the two slice runs' counts, each read right after its run.
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **results[name]}
+         "launches": value_counts.get(name, 0) + joint_counts.get(name, 0), **results[name]}
         for name, (src, rep) in sources.items()
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s; {card}")

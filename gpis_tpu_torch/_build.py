@@ -1,11 +1,13 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled once, at first use, by
+Every `csrc/*.cu` file is compiled once, at first use, by one `nvcc` each,
+all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<hash>/libgpis_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c csrc/<name>.cu -o _build/<hash>/<name>.o
 
-into a directory keyed by a hash of the sources, and loaded with `ctypes`.
+and the objects are linked by `nvcc -shared` into _build/<hash>/libgpis_kernels.so
+(a directory keyed by a hash of the sources), which is loaded with `ctypes`.
 The library has a plain C interface: each entry point takes raw device
 pointers, sizes and the CUDA stream, launches, and returns
 `cudaGetLastError()`.  Nothing here runs at import time, so the package
@@ -50,6 +52,10 @@ _SIGNATURES = {
     "gpis_row_update": [_P, _P, _I64, _I64, _I64, _P, _P],
     # kq, m, w, alpha, c, partial, mean, quad, stream
     "gpis_staged_quad": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+    # rmeta, r, cmeta, s, noise, row0, kernel_id, ls, sv, out, stream
+    "gpis_joint_cov": [_P, _I64, _P, _I64, _P, _I64, _I32, _F64, _F64, _P, _P],
+    # q, m, cols, c, joint, w, alpha, kernel_id, ls, sv, partial, mean, quad, stream
+    "gpis_fused_quad": [_P, _I64, _P, _I64, _I32, _P, _P, _I32, _F64, _F64, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -93,30 +99,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process; raise on the first that failed.  Returns their
+    combined output."""
+    log = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                if other.poll() is None:
+                    other.kill()
+                    other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        log.append(out)
+    return "".join(log)
+
+
 def build() -> tuple[str, float, str]:
-    """Compile csrc/*.cu if the source hash has no library yet.  Returns
-    (library path, seconds spent compiling (0 when cached), compiler output:
-    the -Xptxas -v register / shared-memory / spill report)."""
+    """Compile csrc/*.cu if the source hash has no library yet: one nvcc for
+    each source, all started together, then one link.  Returns (library
+    path, seconds spent compiling (0 when cached), compiler output: the
+    -Xptxas -v register / shared-memory / spill report)."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path, 0.0, ""
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-        *[s for s in _sources() if s.endswith(".cu")],
-    ]
+    tag = os.getpid()
+    nvcc = _nvcc()
+    objs, compiles = [], []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)[:-3]}.{tag}.o")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", src, "-o", obj]
+        objs.append(obj)
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+    log = _run(compiles)
+    tmp = f"{lib_path}.{tag}.tmp"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+    log += _run([(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True))])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
-    return lib_path, seconds, proc.stdout + proc.stderr
+    return lib_path, seconds, log
 
 
 def library():

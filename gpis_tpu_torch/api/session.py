@@ -1,8 +1,10 @@
 """ObjectModelSession, the user-facing orchestrator (port of
-gpis_tpu/api/session.py:62-318 for the in-core value model).
+gpis_tpu/api/session.py:62-318 for the in-core value and joint models).
 
 World frame in, world frame out: the session owns the normalization Frame.
-`start` fits: a session with `touch_capacity == 0` takes the one-matrix-peak
+`start` fits: with `normals=` the joint value + gradient model
+(`gp.derivative.fit_with_normals`, then W once 4C >= 1024); otherwise a
+session with `touch_capacity == 0` takes the one-matrix-peak
 `fit_inference`, any other `fit` + `with_linv`.  `query`, `evaluate_grid`
 and `extract_surface` serve the fitted model.  The verbs not yet ported
 raise NotImplementedError naming the ROADMAP.md §1 item that ports them.
@@ -20,11 +22,29 @@ from gpis_tpu.data import voxel
 from gpis_tpu.surface import marching
 from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.data import gpis
+from gpis_tpu_torch.gp import derivative as gpd
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.surface import grid as grid_mod
 
 __all__ = ["ObjectModelSession"]
+
+
+def _joint_obs(ts, normals, points, cfg):
+    """Gradient observations of a joint fit: the cloud's unit normals on the
+    training set's surface rows (internal and external label points observe
+    values only: pad-noise gradients), and the gradient noise, ten times the
+    surface noise (port of gpis_tpu/api/session.py:41-59)."""
+    normals = np.asarray(normals, cfg.dtype)
+    if normals.shape != points.shape:
+        raise ValueError("normals must match the point cloud shape")
+    n_s, c = ts.n_surface, ts.x.shape[0]
+    unit = normals / np.linalg.norm(normals, axis=1, keepdims=True)
+    nrm_full = torch.zeros((c, 3), dtype=ts.x.dtype, device=ts.x.device)
+    nrm_full[:n_s] = torch.as_tensor(unit, dtype=ts.x.dtype, device=ts.x.device)
+    noise_g = torch.full((c,), cfg.pad_noise, dtype=ts.x.dtype, device=ts.x.device)
+    noise_g[:n_s] = cfg.noise_surface * 10.0
+    return nrm_full, noise_g
 
 
 def _not_ported(what: str, item: int, name: str):
@@ -54,9 +74,9 @@ class ObjectModelSession:
 
     def start(self, points, *, normals=None, params=None, out_of_core: bool = False,
               experts: int = 0):
-        """Downsample, normalize, label and fit an (N,3) world-frame cloud."""
-        if normals is not None:
-            _not_ported("normals= (joint value+gradient fits)", 11, "config 2")
+        """Downsample, normalize, label and fit an (N,3) world-frame cloud.
+        With `normals` (N,3), surface orientation becomes derivative
+        observations and the model is the joint system (`gp.derivative`)."""
         if experts:
             _not_ported("experts= (committee fits)", 13, "gp/experts.py")
         if out_of_core:
@@ -67,12 +87,24 @@ class ObjectModelSession:
             raise ValueError(f"expected a non-empty (N, 3) point cloud, got shape {points.shape}")
         cfg = self.config
         if cfg.voxel_leaf > 0:
-            points = voxel.voxel_downsample(points, cfg.voxel_leaf).astype(cfg.dtype)
+            if normals is not None:
+                points, normals = voxel.voxel_downsample_with_normals(points, normals,
+                                                                      cfg.voxel_leaf)
+                points = points.astype(cfg.dtype)
+            else:
+                points = voxel.voxel_downsample(points, cfg.voxel_leaf).astype(cfg.dtype)
         ts = gpis.build_training_set(points, cfg, device=self.device)
         self.training = ts
         self.frame = ts.frame
         params = params or kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
-        if cfg.touch_capacity == 0:
+        if normals is not None:
+            nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
+            self.model = gpd.fit_with_normals(
+                cfg.kernel, ts.x, ts.y, nrm_full, ts.noise, noise_g, params, block=cfg.block,
+                touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise)
+            if 4 * self.model.capacity >= 1024:
+                self.model = gpd.with_linv_joint(self.model)
+        elif cfg.touch_capacity == 0:
             self.model = gpr.fit_inference(cfg.kernel, ts.x, ts.y, ts.noise, params,
                                            block=cfg.block, pad_noise=cfg.pad_noise)
         else:

@@ -1,8 +1,8 @@
 """Carry a model fitted by the JAX package across to the port (reads the
-in-core value-model layout of gpis_tpu/utils/checkpoint.py:24-85).
+in-core value and joint layouts of gpis_tpu/utils/checkpoint.py:24-85).
 
 A `gpis_tpu` checkpoint is an `.npz` of numpy arrays plus a JSON `meta`
-entry; it is read here with numpy alone.  Joint, committee, sharded and
+entry; it is read here with numpy alone.  Committee, sharded and
 out-of-core checkpoints raise NotImplementedError until their models are
 ported.
 """
@@ -15,19 +15,35 @@ import numpy as np
 import torch
 
 from gpis_tpu_torch._build import resolve_device
+from gpis_tpu_torch.gp.derivative import DerivGPModel
 from gpis_tpu_torch.gp.model import GPModel
 
 __all__ = ["gp_model_from_arrays", "load_jax_checkpoint"]
 
 _FORMAT_VERSION = 1
-_UNPORTED_KINDS = ("joint", "experts", "sharded", "ooc")
+_UNPORTED_KINDS = ("experts", "sharded", "ooc")
 
 
-def gp_model_from_arrays(arrays, meta: dict, device="cuda") -> GPModel:
-    """The port's GPModel from a `gpis_tpu` GPModel's numpy arrays, under the
+def _joint_model(t, meta: dict, params: dict) -> DerivGPModel:
+    """A `gpis_tpu` DerivGPModel's arrays (x, y, normals, noise_f, noise_g,
+    alpha, chol, linv, touch_*) as the port's DerivGPModel."""
+    touch = {}
+    if meta.get("joint_touch"):
+        touch = dict(touch_x=t("touch_x"), touch_y=t("touch_y"), touch_noise=t("touch_noise"),
+                     n_touch=int(meta["n_touch"]))
+    return DerivGPModel(
+        x=t("x"), y=t("y"), normals=t("normals"), noise_f=t("noise_f"), noise_g=t("noise_g"),
+        params=params, chol=t("chol"), alpha=t("alpha"), kernel=meta["kernel"],
+        n0=int(meta["n0"]), linv=t("linv") if meta.get("has_linv") else None, **touch,
+    )
+
+
+def gp_model_from_arrays(arrays, meta: dict, device="cuda"):
+    """The port's model from a `gpis_tpu` model's numpy arrays, under the
     checkpoint's key names (x, y, noise, alpha, chol, linv,
-    param_lengthscale, param_signal_variance, n_touch) and metadata (kernel,
-    n0, pad_noise, linv_is_chol)."""
+    param_lengthscale, param_signal_variance, n_touch; a joint model's
+    normals, noise_f, noise_g and touch_*) and metadata (kernel, n0,
+    pad_noise, linv_is_chol, joint): a GPModel or a DerivGPModel."""
     for kind in _UNPORTED_KINDS:
         if meta.get(kind):
             raise NotImplementedError(f"{kind} checkpoints are not ported to gpis_tpu_torch yet")
@@ -38,6 +54,10 @@ def gp_model_from_arrays(arrays, meta: dict, device="cuda") -> GPModel:
     def t(key):
         return torch.as_tensor(np.asarray(arrays[key]), device=dev)
 
+    params = {"lengthscale": float(arrays["param_lengthscale"]),
+              "signal_variance": float(arrays["param_signal_variance"])}
+    if meta.get("joint"):
+        return _joint_model(t, meta, params)
     chol = t("chol")
     if meta.get("linv_is_chol"):
         linv = chol  # a fit_inference model: its chol field is W
@@ -46,16 +66,14 @@ def gp_model_from_arrays(arrays, meta: dict, device="cuda") -> GPModel:
     else:
         linv = None
     return GPModel(
-        x=t("x"), y=t("y"), noise=t("noise"),
-        params={"lengthscale": float(arrays["param_lengthscale"]),
-                "signal_variance": float(arrays["param_signal_variance"])},
+        x=t("x"), y=t("y"), noise=t("noise"), params=params,
         chol=chol, alpha=t("alpha"), n_touch=int(arrays["n_touch"]),
         kernel=meta["kernel"], n0=int(meta["n0"]),
         pad_noise=float(meta.get("pad_noise", 1e10)), linv=linv,
     )
 
 
-def load_jax_checkpoint(path: str, device="cuda") -> GPModel:
+def load_jax_checkpoint(path: str, device="cuda"):
     """Read a checkpoint written by `gpis_tpu.utils.checkpoint.save_model`."""
     with np.load(path, allow_pickle=False) as d:
         meta = json.loads(str(d["meta"]))

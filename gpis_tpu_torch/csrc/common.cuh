@@ -23,6 +23,8 @@ __device__ __forceinline__ float gexp(float v) { return expf(v); }
 __device__ __forceinline__ double gexp(double v) { return exp(v); }
 __device__ __forceinline__ float gsqrt(float v) { return sqrtf(v); }
 __device__ __forceinline__ double gsqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float gnan(float) { return nanf(""); }
+__device__ __forceinline__ double gnan(double) { return nan(""); }
 
 // sqrt clamped at 1e-30, as gpis_tpu/kernels/functions.py `_safe_sqrt`.
 template <typename T>
@@ -58,6 +60,49 @@ __device__ __forceinline__ T k_diag0(int kid, T ls, T sv) {
       return sv / ls;
     default:
       return sv * ls * ls * ls;
+  }
+}
+
+// dk/dr2 (functions.dk_dr2): smooth at r2 = 0 for rbf, IMQ and thin plate.
+template <typename T>
+__device__ __forceinline__ T dk_dr2(int kid, T r2, T ls, T sv) {
+  switch (kid) {
+    case RBF: {
+      const T inv2 = T(1) / (ls * ls);
+      return T(-0.5) * inv2 * sv * gexp(T(-0.5) * r2 * inv2);
+    }
+    case LAPLACE: {
+      const T r = safe_sqrt(r2);
+      return T(-0.5) * sv * gexp(-r / ls) / (ls * r);
+    }
+    case INVERSE_MULTIQUADRIC: {  // -0.5 sv (r2 + ls^2)^(-3/2)
+      const T s = r2 + ls * ls;
+      return T(-0.5) * sv / (s * gsqrt(s));
+    }
+    default:  // THIN_PLATE: 3 (r - R)
+      return sv * T(3) * (safe_sqrt(r2) - ls);
+  }
+}
+
+// d2k/dr2^2 (functions.d2k_dr2).  Thin plate's 1.5 sv / r is singular at
+// r = 0; the callers mask its product with (x-x')(x-x')^T there.  Laplace
+// has none: the wrappers refuse it for derivative observations, and a NaN
+// would show a call that slipped past them.
+template <typename T>
+__device__ __forceinline__ T d2k_dr2(int kid, T r2, T ls, T sv) {
+  switch (kid) {
+    case RBF: {
+      const T inv2 = T(1) / (ls * ls);
+      return T(0.25) * inv2 * inv2 * sv * gexp(T(-0.5) * r2 * inv2);
+    }
+    case LAPLACE:
+      return gnan(r2);
+    case INVERSE_MULTIQUADRIC: {  // 0.75 sv (r2 + ls^2)^(-5/2)
+      const T s = r2 + ls * ls;
+      return T(0.75) * sv / (s * s * gsqrt(s));
+    }
+    default:  // THIN_PLATE
+      return sv * T(1.5) / safe_sqrt(r2);
   }
 }
 

@@ -1,0 +1,32 @@
+"""The model-kind discriminator for every polymorphic verb (port of
+gpis_tpu/gp/kinds.py).
+
+Matched on class names, not attributes, so a model that grows a stray
+attribute cannot be mis-routed, and classifying a model imports nothing.
+Only the kinds the port has are listed; the others join as they are
+ported (ROADMAP.md §1).
+"""
+
+from __future__ import annotations
+
+__all__ = ["model_kind", "MODEL_KINDS"]
+
+# kind -> class names that map to it.
+MODEL_KINDS = {
+    "joint": ("DerivGPModel",),
+    "dense": ("GPModel",),
+}
+
+_BY_CLASS = {cls: kind for kind, classes in MODEL_KINDS.items() for cls in classes}
+
+
+def model_kind(model) -> str:
+    """"dense" or "joint" for a fitted model.  Anything else raises
+    TypeError: an unknown model fails at the dispatch point rather than
+    falling through to the dense path."""
+    for cls in type(model).__mro__:
+        kind = _BY_CLASS.get(cls.__name__)
+        if kind is not None:
+            return kind
+    raise TypeError(f"unknown model type {type(model).__name__!r}; register it in "
+                    "gpis_tpu_torch.gp.kinds.MODEL_KINDS")

@@ -7,7 +7,9 @@
   W = L^{-1} (Kernel C) -> alpha = W^T (W y).
 * ``with_linv`` -- attach W = L^{-1} (Kernel C) to a fitted model.
 * ``predict`` / ``predict_mean`` -- posterior mean and variance; a model
-  carrying W goes through the staged query (Kernels A and D).
+  carrying W goes through the dense query (Kernels A and D staged, or
+  Kernel F on the fly); a joint model is dispatched to ``gp.derivative``
+  through ``gp.kinds.model_kind``.
 
 Functions take tensors and work on the device the tensors are on.  The
 ladder reacts only to a NaN factor diagonal (what `cholesky` returns for a
@@ -20,6 +22,7 @@ import dataclasses
 
 import torch
 
+from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.gp.model import GPModel, align_capacity, round_up
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
@@ -129,14 +132,20 @@ def with_linv(model: GPModel, *, block: int = _LINV_BLOCK) -> GPModel:
     return dataclasses.replace(model, linv=blocked_linv(model.chol, b))
 
 
-def predict(model: GPModel, q: torch.Tensor):
+def predict(model, q: torch.Tensor):
     """Posterior (mean, variance) at queries q (M,3).
 
     mean = K* alpha;  var = k(0) - |W K*^T|^2 column-wise with W = L^{-1}.
-    A model carrying W runs the staged query (Kernel A then Kernel D); one
+    A model carrying W runs the dense query (`cuda_query.fused_query`:
+    Kernels A then D, or Kernel F when the staged kq would be too big); one
     carrying Kinv takes var = k(0) - sum(K* * (K* Kinv)); otherwise the
-    triangular solve against the factor.  The variance is not clamped (the
+    triangular solve against the factor.  A joint model (`DerivGPModel`)
+    goes to `gp.derivative.predict`.  The variance is not clamped (the
     conditionally-PD thin plate legitimately goes negative)."""
+    if model_kind(model) == "joint":
+        from gpis_tpu_torch.gp import derivative as gpd
+
+        return gpd.predict(model, q)
     q = q.contiguous()
     k0 = kf.k_diag0(model.kernel, model.params)
     if model.linv is not None:
@@ -153,6 +162,11 @@ def predict(model: GPModel, q: torch.Tensor):
     return mean, k0 - quad
 
 
-def predict_mean(model: GPModel, q: torch.Tensor) -> torch.Tensor:
-    """Posterior mean only."""
+def predict_mean(model, q: torch.Tensor) -> torch.Tensor:
+    """Posterior mean only; a joint model's cross-covariance mirrors alpha's
+    layout [4C value + gradient columns | T touch columns]."""
+    if model_kind(model) == "joint":
+        from gpis_tpu_torch.gp import derivative as gpd
+
+        return gpd.joint_cross_value(model, q.contiguous()) @ model.alpha
     return kg.cross_cov(model.kernel, q.contiguous(), model.x, model.params) @ model.alpha

@@ -1,20 +1,25 @@
-"""Kernel D, the staged variance quad and mean (csrc/query.cu), and the
-two-stage dense-grid query built on it (port of
-gpis_tpu/kernels/pallas_query.py:250-401).
+"""The dense-grid query kernels and the query built on them (port of
+gpis_tpu/kernels/pallas_query.py:250-437).
 
 * `stage_kq` -- stage A: kq = K(Q, X) into device memory, through Kernel A
   in cross mode (replaces `_stage_kq`, pallas_query.py:294).
-* `staged_quad(kq, w, alpha)` -- stage B, Kernel D (replaces
+* `staged_quad(kq, w, alpha)` -- stage B, Kernel D (csrc/query.cu; replaces
   `staged_query_from_kq`, pallas_query.py:319): mean = kq @ alpha and
   quad = colsum((W kq^T)^2); the caller takes var = k(0) - quad.
-* `fused_query` -- stage A then stage B.
+* `fused_quad(gen, name, q, cols, params, alpha, w)` -- Kernel F
+  (csrc/fused_query.cu): the same (mean, quad) with each kq tile generated
+  on chip from coordinates, so kq never reaches device memory.  Its value
+  generator replaces `fused_query_pallas` (pallas_query.py:404); its joint
+  generator, `fused_joint_query_pallas` (pallas_joint.py:367).
+* `fused_query` -- the value query: staged (A then D) or on the fly (F).
 
-The port always stages kq.  The TPU's `_want_staged` crossover was derived
-on the TPU and is not carried over; the on-the-fly kernel
-(`fused_query_pallas`), which never writes kq, is the next query port.
-Until then a query whose staging buffer would exceed `KQ_STAGE_MAX` bytes
-raises rather than quietly taking the plain path: callers chunk their
-queries (`surface.grid.evaluate_points_chunked` does).
+Routing.  A query takes the staged route unless its staged kq would exceed
+`KQ_STAGE_MAX` bytes; then it takes Kernel F, which needs O(M) memory.
+That is the second clause of the JAX package's `_want_staged`.  Its first
+clause priced kq regeneration against the TPU's matrix unit and is not
+carried over: on the H100 staging costs a fraction of a millisecond next to
+the quad kernel, so the staged route is kept wherever it fits (PERF.md
+records both routes' times at one shape).
 """
 
 from __future__ import annotations
@@ -22,9 +27,12 @@ from __future__ import annotations
 import torch
 
 from gpis_tpu_torch import _build
+from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.kernels.cuda_gram import KERNEL_IDS, pairwise_r2
 from gpis_tpu_torch.kernels.gram import cross_cov
 
-__all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "fused_query"]
+__all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "generated_kq",
+           "fused_quad", "fused_quad_reference", "want_staged", "fused_query"]
 
 # Largest staged kq, in bytes: 4 x the 512 MiB of one 8,192-query chunk at
 # C = 16,384 in float32, a quarter of the memory the one C x C W of a
@@ -32,6 +40,9 @@ __all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "
 KQ_STAGE_MAX = 2 << 30
 
 _TILE = 64  # csrc/common.cuh TILE
+_MAX_BLOCKS = 2**31 - 1
+# Column metadata width of each Kernel F generator (csrc/fused_query.cu).
+_GEN_STRIDE = {"value": 3, "joint": 7}
 
 
 # Stage A: kq = K(Q, X) (M, C), written once -- the cross-covariance itself.
@@ -44,6 +55,13 @@ def staged_quad_reference(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
     return kq @ alpha, torch.sum(v * v, dim=0)
 
 
+def _check_launch(what: str, m: int, c: int) -> int:
+    tiles = -(-c // _TILE)
+    if tiles * -(-m // _TILE) > _MAX_BLOCKS:
+        raise ValueError(f"{what}: {m} queries x capacity {c} exceed one launch")
+    return tiles
+
+
 def staged_quad(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor):
     """(mean (M,), quad (M,)) from a staged kq (M, C), W (C, C) LOWER
     triangular (the kernel skips its zero upper half) and alpha (C,)."""
@@ -54,9 +72,7 @@ def staged_quad(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor):
     if kq.device.type == "cpu":
         return staged_quad_reference(kq, w, alpha)
     _build.check_cuda_args("staged_quad", kq, w, alpha)
-    tiles = -(-c // _TILE)
-    if tiles * -(-m // _TILE) > 2**31 - 1:
-        raise ValueError(f"staged_quad: {m} queries x capacity {c} exceed one launch")
+    tiles = _check_launch("staged_quad", m, c)
     partial = torch.empty((tiles, m), dtype=kq.dtype, device=kq.device)
     mean = torch.empty((m,), dtype=kq.dtype, device=kq.device)
     quad = torch.empty((m,), dtype=kq.dtype, device=kq.device)
@@ -66,16 +82,63 @@ def staged_quad(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor):
     return mean, quad
 
 
+def generated_kq(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params):
+    """The (M, C) kq tile of Kernel F's generator, in plain PyTorch: k(r2)
+    against value columns x (C, 3), or f_c k(r2) - 2 dk(r2) (u_c . diff)
+    against packed joint columns (coords, dirs, flag) (J, 7)."""
+    if gen == "value":
+        return kf.k_r2(name, pairwise_r2(q, cols), params)
+    diff = q[:, None, :] - cols[None, :, :3]
+    r2 = torch.sum(diff * diff, dim=-1)
+    vd = torch.sum(diff * cols[None, :, 3:6], dim=-1)
+    return cols[None, :, 6] * kf.k_r2(name, r2, params) - 2.0 * kf.dk_dr2(name, r2, params) * vd
+
+
+def fused_quad_reference(gen: str, name: str, q, cols, params, alpha, w):
+    """Plain twin of Kernel F: form kq, then the plain product."""
+    return staged_quad_reference(generated_kq(gen, name, q, cols, params), w, alpha)
+
+
+def fused_quad(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
+               alpha: torch.Tensor, w: torch.Tensor):
+    """(mean (M,), quad (M,)) at queries q (M, 3) with kq generated on chip:
+    gen "value" takes columns x (C, 3), gen "joint" packed joint columns
+    (J, 7); W (C, C) lower-triangular, alpha (C,)."""
+    if gen not in _GEN_STRIDE:
+        raise ValueError(f"fused_quad: unknown generator {gen!r}")
+    m, c = q.shape[0], cols.shape[0]
+    if (q.ndim != 2 or q.shape[1] != 3 or cols.shape != (c, _GEN_STRIDE[gen])
+            or w.shape != (c, c) or alpha.shape != (c,)):
+        raise ValueError(f"fused_quad: q {tuple(q.shape)}, columns {tuple(cols.shape)}, "
+                         f"W {tuple(w.shape)}, alpha {tuple(alpha.shape)} do not agree")
+    if q.device.type == "cpu":
+        return fused_quad_reference(gen, name, q, cols, params, alpha, w)
+    if name not in KERNEL_IDS or (gen == "joint" and not kf.supports_derivatives(name)):
+        raise ValueError(f"fused_quad: no CUDA {gen} generator for covariance {name!r}")
+    _build.check_cuda_args("fused_quad", q, cols, w, alpha)
+    tiles = _check_launch("fused_quad", m, c)
+    partial = torch.empty((tiles, m), dtype=q.dtype, device=q.device)
+    mean = torch.empty((m,), dtype=q.dtype, device=q.device)
+    quad = torch.empty((m,), dtype=q.dtype, device=q.device)
+    _build.call("gpis_fused_quad", q, q.data_ptr(), m, cols.data_ptr(), c, int(gen == "joint"),
+                w.data_ptr(), alpha.data_ptr(), KERNEL_IDS[name], float(params["lengthscale"]),
+                float(params["signal_variance"]), partial.data_ptr(), mean.data_ptr(),
+                quad.data_ptr())
+    _build.LAUNCHES["fused_quad"] += 1
+    return mean, quad
+
+
+def want_staged(m: int, c: int, itemsize: int, staged: bool | None) -> bool:
+    """The route of an (M, C) query: `staged` when given, else staged while
+    the staged kq fits in KQ_STAGE_MAX bytes."""
+    return m * c * itemsize <= KQ_STAGE_MAX if staged is None else bool(staged)
+
+
 def fused_query(name: str, q: torch.Tensor, x: torch.Tensor, params, alpha: torch.Tensor,
-                w: torch.Tensor):
+                w: torch.Tensor, staged: bool | None = None):
     """(mean, quad) at queries q (M,3) against training points x (C,3),
-    W = L^{-1} (C,C) and alpha (C,): stage A, then stage B."""
-    nbytes = q.shape[0] * x.shape[0] * q.element_size()
-    if nbytes > KQ_STAGE_MAX:
-        raise ValueError(
-            f"fused_query: the staged kq would take {nbytes} bytes (> KQ_STAGE_MAX = "
-            f"{KQ_STAGE_MAX}); query in chunks -- the on-the-fly kernel that never "
-            "stages kq (fused_query_pallas) is the next query port"
-        )
-    kq = cross_cov(name, q, x, params)
-    return staged_quad(kq, w, alpha)
+    W = L^{-1} (C,C) and alpha (C,).  staged=None routes by the size of the
+    staged kq (module note); True or False forces a route."""
+    if want_staged(q.shape[0], x.shape[0], q.element_size(), staged):
+        return staged_quad(cross_cov(name, q, x, params), w, alpha)
+    return fused_quad("value", name, q.contiguous(), x.contiguous(), params, alpha, w)

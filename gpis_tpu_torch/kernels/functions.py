@@ -3,10 +3,13 @@ gpis_tpu/kernels/functions.py).
 
 The four built-in kernels -- rbf, laplace, inverse_multiquadric and the
 compactified thin plate `2r^3 - 3Rr^2 + R^3` -- as elementwise torch math on
-r2.  The CUDA tile kernels (csrc/common.cuh `k_r2`, `k_diag0`) compute the
-same expressions in the same order.  Hyperparameters are a plain dict
-{"lengthscale", "signal_variance"} of Python floats or 0-d tensors; for the
-thin plate the lengthscale is the scale R.
+r2.  The CUDA tile kernels (csrc/common.cuh `k_r2`, `k_diag0`, `dk_dr2`,
+`d2k_dr2`) compute the same expressions in the same order.  Hyperparameters
+are a plain dict {"lengthscale", "signal_variance"} of Python floats or 0-d
+tensors; for the thin plate the lengthscale is the scale R.
+
+Derivative (surface-normal) observations need dk/dr2 and d2k/dr2^2:
+grad_x k = 2 dk (x - x'), and d2k/dx dx'^T = -2 dk I - 4 d2k (x-x')(x-x')^T.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from typing import Any, Mapping
 
 import torch
 
-__all__ = ["KERNEL_NAMES", "kernel_params", "k_r2", "k_diag0"]
+__all__ = ["KERNEL_NAMES", "kernel_params", "k_r2", "k_diag0", "dk_dr2", "d2k_dr2",
+           "supports_derivatives"]
 
 KERNEL_NAMES = ("rbf", "thin_plate", "laplace", "inverse_multiquadric")
 
@@ -59,3 +63,43 @@ def k_diag0(name: str, params: Params):
     if name == "thin_plate":
         return sv * ls * ls * ls
     raise ValueError(f"unknown kernel {name!r}")
+
+
+def supports_derivatives(name: str) -> bool:
+    """Laplace is not differentiable at r = 0, so normal observations are
+    refused for it (as in the JAX package)."""
+    return name in ("rbf", "thin_plate", "inverse_multiquadric")
+
+
+def dk_dr2(name: str, r2: torch.Tensor, params: Params) -> torch.Tensor:
+    """dk/d(r2), elementwise; smooth at r2 = 0 for rbf, thin plate and IMQ."""
+    ls = params["lengthscale"]
+    sv = params["signal_variance"]
+    if name == "rbf":
+        inv2 = 1.0 / (ls * ls)
+        return -0.5 * inv2 * sv * torch.exp(-0.5 * r2 * inv2)
+    if name == "inverse_multiquadric":
+        return -0.5 * sv * (r2 + ls * ls) ** (-1.5)
+    if name == "thin_plate":
+        # dk/dr = 6r^2 - 6Rr, so dk/dr2 = 3(r - R): smooth at r = 0.
+        return sv * 3.0 * (_safe_sqrt(r2) - ls)
+    if name == "laplace":
+        r = _safe_sqrt(r2)
+        return -0.5 * sv * torch.exp(-r / ls) / (ls * r)
+    raise ValueError(f"unknown kernel {name!r}")
+
+
+def d2k_dr2(name: str, r2: torch.Tensor, params: Params) -> torch.Tensor:
+    """d2k/d(r2)^2, elementwise.  Thin plate's 1.5 sv / r is singular at
+    r = 0; it only ever multiplies (x-x')(x-x')^T, and the callers mask the
+    product there."""
+    ls = params["lengthscale"]
+    sv = params["signal_variance"]
+    if name == "rbf":
+        inv2 = 1.0 / (ls * ls)
+        return 0.25 * inv2 * inv2 * sv * torch.exp(-0.5 * r2 * inv2)
+    if name == "inverse_multiquadric":
+        return 0.75 * sv * (r2 + ls * ls) ** (-2.5)
+    if name == "thin_plate":
+        return sv * 1.5 / _safe_sqrt(r2)
+    raise ValueError(f"kernel {name!r} does not support second derivatives")

@@ -2,7 +2,9 @@
 
 Queries stream through the posterior in chunks of 8,192 -- a Python loop in
 place of the JAX package's `lax.map` -- so the staged kq of one chunk
-(chunk x C) is the only query-sized buffer alive.
+(chunk x C) is the only query-sized buffer alive.  A value model (`GPModel`)
+and a joint one (`DerivGPModel`) are served alike, through
+`regression.predict`.
 """
 
 from __future__ import annotations

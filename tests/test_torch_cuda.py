@@ -16,7 +16,7 @@ from gpis_tpu_torch import _build
 from gpis_tpu_torch.api.session import ObjectModelSession
 from gpis_tpu_torch.data.gpis import fibonacci_sphere
 from gpis_tpu_torch.gp import regression
-from gpis_tpu_torch.kernels import cuda_gram, cuda_query
+from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.linalg import cuda_chol
@@ -113,6 +113,65 @@ def test_cuda_untiled_fit_padded_then_linv_matches_cpu(cuda):
     # The BASELINE.md row-2 bar on mean and variance.
     np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-6)
     np.testing.assert_allclose(out[0][1], out[1][1], atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["rbf", "thin_plate", "inverse_multiquadric"])
+def test_cuda_joint_rows_matches_twin(cuda, name, dtype):
+    rng = np.random.default_rng(15)
+    x = rng.normal(size=(300, 3))
+    x[100:120] = x[:20]  # coincident points: the pinned k and masked d2k
+    tx = rng.normal(size=(64, 3))
+    params = kf.kernel_params(3.0 if name == "thin_plate" else 0.8, 1.1)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    meta = cuda_joint.joint_meta(t(x), t(tx))
+    noise = t(rng.uniform(1e-3, 1e-2, size=4 * 300 + 64))
+    qmeta = cuda_joint.value_meta(t(np.concatenate([x[:30], rng.normal(size=(500, 3))])))
+    # float64: only rounding order differs.  float32: values are O(10) at
+    # most, and the two sides round exp and r2 differently.
+    tol = 1e-10 if dtype == torch.float64 else 2e-5
+    for rows, noise_col in ((meta, noise), (qmeta, None)):
+        got = cuda_joint.joint_rows(name, rows, meta, params, noise_col=noise_col)
+        want = cuda_joint.joint_rows_reference(name, rows, meta, params, noise_col=noise_col)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("gen", ["value", "joint"])
+def test_cuda_fused_quad_matches_twin(cuda, gen):
+    rng = np.random.default_rng(16)
+    c, m = 256, 1000
+    x = torch.as_tensor(rng.normal(size=(c, 3)), device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    cols = x if gen == "value" else cuda_joint.pack_meta(cuda_joint.joint_meta(x))
+    n = cols.shape[0]
+    w = torch.tril(torch.as_tensor(rng.normal(size=(n, n)), device=cuda)).contiguous()
+    alpha = torch.as_tensor(rng.normal(size=n), device=cuda)
+    q = torch.as_tensor(rng.normal(size=(m, 3)), device=cuda)
+    _build.LAUNCHES.clear()
+    mean, quad = cuda_query.fused_quad(gen, "rbf", q, cols, params, alpha, w)
+    assert _build.LAUNCHES["fused_quad"] == 1
+    mean_r, quad_r = cuda_query.fused_quad_reference(gen, "rbf", q, cols, params, alpha, w)
+    # float64 on both sides: only the summation order differs.
+    torch.testing.assert_close(quad, quad_r, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(mean, mean_r, rtol=1e-10, atol=1e-10)
+
+
+def test_cuda_joint_session_matches_cpu_session(cuda, monkeypatch):
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      touch_capacity=128, dtype="float64")
+    pts = fibonacci_sphere(384) * 1.3 + np.array([0.2, 0.0, -0.5])
+    nrm = (pts - np.array([0.2, 0.0, -0.5])) / 1.3
+    sessions = [ObjectModelSession(cfg, device=d).start(pts, normals=nrm) for d in (cuda, "cpu")]
+    got, want = (s.evaluate_grid(16, 1.5) for s in sessions)
+    # The BASELINE.md row-2 bar on mean and variance.
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6)
+    # Over the staging cap: the on-the-fly joint route (Kernel F).
+    monkeypatch.setattr(cuda_query, "KQ_STAGE_MAX", 4096)
+    _build.LAUNCHES.clear()
+    got, want = (s.query(pts[:100]) for s in sessions)
+    assert _build.LAUNCHES["fused_quad"] == 1
+    np.testing.assert_allclose(got, want, atol=1e-6)
 
 
 def test_cuda_session_matches_cpu_session(cuda):

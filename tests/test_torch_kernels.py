@@ -12,12 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from gpis_tpu.api.session import ObjectModelSession as JaxSession
+from gpis_tpu.config import ModelConfig
 from gpis_tpu.kernels import functions as jkf
 from gpis_tpu.kernels import gram as jgram
 from gpis_tpu.kernels import pallas_gram as jpg
 from gpis_tpu.linalg import pallas_chol as jpc
 from gpis_tpu.kernels import pallas_query as jpq
 from gpis_tpu_torch import _build
+from gpis_tpu_torch.api.session import ObjectModelSession
+from gpis_tpu_torch.data.gpis import fibonacci_sphere
 from gpis_tpu_torch.kernels import cuda_gram, cuda_query
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
@@ -195,11 +199,65 @@ def test_fused_query_matches_fused_query_pallas_staged():
     assert np.all(np.abs(mean.numpy() - np.asarray(jmean)) <= 1e-6 * scale + 1e-12)
 
 
-def test_fused_query_refuses_oversized_staging(monkeypatch):
+@pytest.mark.parametrize("name", ["rbf", "thin_plate"])
+def test_fused_quad_twin_matches_fused_query_pallas_on_the_fly(name):
+    q, x, params, alpha, w = _query_problem(name, m=300)
+    mean, quad = cuda_query.fused_query(name, q, x, params, alpha, w, staged=False)
+    jmean, jquad = jpq.fused_query_pallas(name, jnp.asarray(q.numpy()), jnp.asarray(x.numpy()),
+                                          jkf.kernel_params(params["lengthscale"], 1.0),
+                                          jnp.asarray(alpha.numpy()), jnp.asarray(w.numpy()),
+                                          staged=False)
+    # float32-grade on the Pallas side, as in the staged test above.
+    np.testing.assert_allclose(quad.numpy(), np.asarray(jquad), rtol=1e-5, atol=1e-5)
+    scale = (kg.cross_cov(name, q, x, params).abs() @ alpha.abs()).numpy()
+    assert np.all(np.abs(mean.numpy() - np.asarray(jmean)) <= 1e-6 * scale + 1e-12)
+
+
+def _spy_routes(monkeypatch, module):
+    """Record which of staged_quad (staged route) and fused_quad (Kernel F)
+    `module` reaches."""
+    calls = []
+    for fn in ("staged_quad", "fused_quad"):
+        real = getattr(module, fn)
+        monkeypatch.setattr(module, fn,
+                            lambda *a, _real=real, _fn=fn: calls.append(_fn) or _real(*a))
+    return calls
+
+
+@pytest.mark.parametrize("over_cap,staged,route", [
+    (False, None, "staged_quad"), (True, None, "fused_quad"),
+    (True, True, "staged_quad"), (False, False, "fused_quad")])
+def test_fused_query_routes_by_staged_size(monkeypatch, over_cap, staged, route):
     q, x, params, alpha, w = _query_problem("rbf", c=128, m=64)
-    monkeypatch.setattr(cuda_query, "KQ_STAGE_MAX", 64 * 128 * 8 - 1)
-    with pytest.raises(ValueError, match="on-the-fly kernel"):
-        cuda_query.fused_query("rbf", q, x, params, alpha, w)
+    if over_cap:
+        monkeypatch.setattr(cuda_query, "KQ_STAGE_MAX", 64 * 128 * 8 - 1)
+    calls = _spy_routes(monkeypatch, cuda_query)
+    mean, quad = cuda_query.fused_query("rbf", q, x, params, alpha, w, staged=staged)
+    assert calls == [route]
+    want = cuda_query.staged_quad_reference(kg.cross_cov("rbf", q, x, params), w, alpha)
+    np.testing.assert_allclose(mean.numpy(), want[0].numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(quad.numpy(), want[1].numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_query_over_the_stage_cap_matches_jax(monkeypatch):
+    # A query whose staged kq would exceed KQ_STAGE_MAX: the JAX package
+    # answers it (its on-the-fly kernel), and so must the port.
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=64,
+                      touch_capacity=0, dtype="float64")
+    pts = fibonacci_sphere(400) * 1.3 + np.array([0.2, -0.4, 0.1])
+    qpts = np.random.default_rng(21).uniform(-1.5, 1.5, size=(300, 3))
+    sess = ObjectModelSession(cfg, device="cpu").start(pts)
+    monkeypatch.setattr(cuda_query, "KQ_STAGE_MAX", 4096)
+    np.testing.assert_allclose(sess.query(qpts), JaxSession(cfg).start(pts).query(qpts),
+                               atol=1e-6)
+    q, x, params, alpha, w = _query_problem("rbf", c=256, m=64)
+    mean, quad = cuda_query.fused_query("rbf", q, x, params, alpha, w)
+    kq = jgram.cross_cov("rbf", jnp.asarray(q.numpy()), jnp.asarray(x.numpy()),
+                         jkf.kernel_params(0.8, 1.0))
+    v = jnp.asarray(w.numpy()) @ kq.T
+    np.testing.assert_allclose(mean.numpy(), np.asarray(kq @ jnp.asarray(alpha.numpy())),
+                               atol=1e-6)
+    np.testing.assert_allclose(quad.numpy(), np.asarray(jnp.sum(v * v, axis=0)), atol=1e-6)
 
 
 def test_wrappers_validate_before_launch():
@@ -212,6 +270,12 @@ def test_wrappers_validate_before_launch():
         cuda_chol.panel_update(torch.zeros((8, 8)), 4, 8)
     with pytest.raises(ValueError):
         cuda_query.staged_quad(torch.zeros((4, 8)), torch.zeros((8, 8)), torch.zeros(7))
+    with pytest.raises(ValueError):
+        cuda_query.fused_quad("value", "rbf", torch.zeros((4, 3)), torch.zeros((8, 7)),
+                              kf.kernel_params(), torch.zeros(8), torch.zeros((8, 8)))
+    with pytest.raises(ValueError):
+        cuda_query.fused_quad("other", "rbf", torch.zeros((4, 3)), torch.zeros((8, 3)),
+                              kf.kernel_params(), torch.zeros(8), torch.zeros((8, 8)))
     with pytest.raises(ValueError, match="CUDA"):
         _build.check_cuda_args("test", x)
     with pytest.raises(TypeError):
@@ -221,7 +285,8 @@ def test_wrappers_validate_before_launch():
 def test_twins_launch_nothing_on_cpu():
     _build.LAUNCHES.clear()
     q, x, params, alpha, w = _query_problem("rbf", c=256, m=64)
-    cuda_query.fused_query("rbf", q, x, params, alpha, w)
+    for staged in (True, False):
+        cuda_query.fused_query("rbf", q, x, params, alpha, w, staged=staged)
     m = w.clone()
     cuda_chol.blocked_linv(m, 128, inplace=True)
     assert sum(_build.LAUNCHES.values()) == 0

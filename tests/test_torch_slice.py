@@ -135,9 +135,11 @@ def test_session_extract_surface_matches_jax_session():
 
 
 def test_session_verbs_not_yet_ported_raise():
-    sess = ObjectModelSession(ModelConfig(touch_capacity=0), device="cpu")
+    cfg = ModelConfig(touch_capacity=0, dtype="float64")
+    sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
-    for call in (lambda: sess.start(pts, normals=pts), lambda: sess.start(pts, experts=4),
+    joint = ObjectModelSession(cfg, device="cpu").start(pts, normals=pts)
+    for call in (lambda: joint.update(pts[:2]), lambda: sess.start(pts, experts=4),
                  lambda: sess.start(pts, out_of_core=True), lambda: sess.next_best_path(),
                  lambda: sess.update(pts[:2]), lambda: sess.save("x"),
                  lambda: sess.optimize_hyperparameters()):
@@ -182,6 +184,11 @@ def test_port_runs_without_importing_jax():
         "s = ObjectModelSession(cfg, device='cpu').start(fibonacci_sphere(300))\n"
         "v, f, var = s.extract_surface(resolution=16, extent=1.5)\n"
         "assert len(v) and np.isfinite(var).all()\n"
+        "pts = fibonacci_sphere(200)\n"
+        "j = ObjectModelSession(cfg, device='cpu').start(pts, normals=pts)\n"
+        "v, f, var = j.extract_surface(resolution=16, extent=1.5)\n"
+        "assert len(v) and np.isfinite(var).all()\n"
+        "assert np.isfinite(j.query(pts[:10])[1]).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
