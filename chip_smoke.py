@@ -29,6 +29,29 @@ Phases, one printed line or more each; any failure exits nonzero:
    surface RMSE < 0.02, min cos(normal, radial) > 0.99, no NaN, every
    kernel of the path launched by this run; a small float64 joint session
    on the card held to the CPU path at 1e-6.
+5. The out-of-core value slice: start(points, out_of_core=True) on phase
+   3's cloud (C = 16,384, panel 1,024), the 64^3 grid, extract_surface and
+   a 65,536-point query.  Gates: surface RMSE < 0.02, no NaN, the grid
+   within 1e-2 of phase 3's in-core grid, every kernel of the path
+   launched; a small float64 out-of-core session held to the CPU path at
+   1e-6.
+6. The out-of-core joint slice: the same on phase 4's cloud with normals
+   (J = 20,480, panel 1,024), against phase 4's grid.
+7. The host spill: ooc_fit on a 32,640-point sphere's training set
+   (C = 32,768, panel 4,096) in a tiered store held to a 1 GB device budget,
+   then a 65,536-point query.  Gates: spilled W panels, peak device memory
+   under the budget plus the fit's own reserve, and the answer within 1e-2
+   of an in-core fit_inference of the same set in float64 (in float32 the
+   in-core factor at this size needs the jitter ladder's first rung,
+   4 eps C k(0) ~ 1.6e-2, which moves the posterior by about as much as the
+   gate: the two float32 fits would solve different systems).
+
+Phase 2 also holds the out-of-core kernels (G, H, I, and A and F in band
+mode) to their twins at phase 7's shapes.  Every kernel's line carries its
+bound: the larger of its operations over the card's FP32 rate
+(67 TFLOP/s) and its bytes over its memory rate (3.35 TB/s), counted from
+the shapes and data of the timed call, and the time of the one PyTorch call
+that computes the same function, where there is one.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -48,6 +71,12 @@ COS_GATE = 0.99  # min cos(posterior normal, radial): BASELINE.md's config-2 gat
 QUAD_REL_TOL = 1e-4  # Kernels D and F: quad against the float64 twin, per query
 BIG_QUERY = 65536  # a 256 x 256 depth image: its staged kq exceeds the cap
 JOINT_SPHERE = (4992, 0.35, (0.2, -0.1, 0.05))  # bench/session_scenario.py --normals 4992
+OOC_GRID_GAP = 1e-2  # out-of-core grid against the in-core one: float32, two factor orders
+SPILL_N = 32640  # phase 7's sphere: with 127 external points and 1 internal, C = 32,768
+SPILL_PANEL = 4096
+SPILL_BUDGET = 1_000_000_000  # holds trimmed W panels 0-3 (0.81 GB); 4-7 spill
+FP32_FLOPS = 67e12  # the H100's FP32 rate outside the tensor cores (700 W)
+HBM_BYTES = 3.35e12  # its memory rate
 
 
 def fail(msg: str) -> None:
@@ -81,6 +110,14 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the FP32 rate and the bytes over the memory rate, and which binds."""
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def check(name: str, err: float, tol: float, ms: float | None = None,
@@ -119,7 +156,11 @@ def factor_and_query_kernels(torch, gen, kq, bw: int, results: dict | None) -> N
     plain = timed(lambda: cuda_chol.panel_update_reference(work, j0, bw), 10)
     check(f"panel_update C={c} j0={j0} B={bw}", err, 1e-4 * scale, ms, plain)
     if results is not None:
-        results["panel_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        lib = timed(lambda: torch.addmm(work[j0:, j0:j0 + bw], work[j0:, :j0],
+                                        work[j0:j0 + bw, :j0].T, alpha=-1), 10)
+        results["panel_update"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+            **bound(2 * (c - j0) * bw * j0, 4 * ((c - j0) * j0 + bw * j0 + 2 * (c - j0) * bw)))
     del work
 
     # C: row update, W lower-triangular with rows < j0 finished.
@@ -134,7 +175,10 @@ def factor_and_query_kernels(torch, gen, kq, bw: int, results: dict | None) -> N
     plain = timed(lambda: cuda_chol.row_update_reference(w, l_row, j0), 10)
     check(f"row_update C={c} j0={j0} B={bw}", err, 1e-4 * scale, ms, plain)
     if results is not None:
-        results["row_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+        # W is lower-triangular: the product needs j0^2 / 2 of its entries.
+        lib = timed(lambda: torch.matmul(l_row[:, :j0], w[:j0, :j0]), 10)
+        results["row_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                     **bound(bw * j0 * j0, 4 * (bw * j0 + j0 * j0 / 2 + bw * c)))
     del mat, l_row, w
 
     # D: staged quad + mean on a real kq chunk and a random lower W, against
@@ -155,8 +199,12 @@ def factor_and_query_kernels(torch, gen, kq, bw: int, results: dict | None) -> N
     check(f"staged_quad quad M={m} C={c}, per query", rel_quad, QUAD_REL_TOL, ms, plain,
           err_name="max_rel_err")
     if results is not None:
+        # Library call: the product W kq^T alone (the quad squares and sums it).
+        lib = timed(lambda: torch.matmul(w, kq.T), 3)
         results["staged_quad"] = dict(max_abs_err=max(err_mean, err_quad), ms=ms,
-                                      plain_ms=plain)
+                                      plain_ms=plain, library_ms=lib,
+                                      **bound(m * c * c + 4 * m * c,
+                                              4 * (m * c + c * c / 2 + c + 2 * m)))
 
 
 def quad_test_w(torch, c: int, gen):
@@ -187,7 +235,7 @@ def joint_columns(torch, dev):
     return cuda_joint.joint_meta(x, torch.zeros((1024, 3), device=dev))
 
 
-def joint_cov_kernel(torch, gen, q, results: dict) -> None:
+def joint_cov_kernel(torch, gen, q, results: dict) -> dict:
     """Kernel E against its twin: three covariances with coincident points
     in Gram mode (noise) and cross mode (none); then rbf at the joint
     slice's shapes, timed."""
@@ -232,7 +280,11 @@ def joint_cov_kernel(torch, gen, q, results: dict) -> None:
     ms_x = time_ms(torch, lambda: cuda_joint.joint_rows("rbf", qmeta, meta, p), 5)
     plain_x = time_ms(torch, lambda: cuda_joint.joint_rows_reference("rbf", qmeta, meta, p), 1)
     check(f"joint_cov rbf cross M={q.shape[0]} J={j}", err_x, tol_x, ms_x, plain_x)
-    results["joint_cov"] = dict(max_abs_err=max(worst, err, err_x), ms=ms, plain_ms=plain)
+    # About 45 operations and three exps an element of the Gram.
+    results["joint_cov"] = dict(max_abs_err=max(worst, err, err_x), ms=ms, plain_ms=plain,
+                                library_ms=None, **bound(48 * j * j, 4 * (j * j + 8 * j)))
+    m = q.shape[0]
+    return dict(ms=ms_x, plain_ms=plain_x, **bound(48 * m * j, 4 * (m * j + 8 * j + 7 * m)))
 
 
 def fused_quad_kernel(torch, gen, q, cols, kind: str) -> dict:
@@ -273,7 +325,159 @@ def fused_quad_kernel(torch, gen, q, cols, kind: str) -> dict:
           err_name="max_rel_err")
     say(f"  crossover {shape}: staged route (kq written, then D) {staged_ms:.4f} ms, "
         f"on the fly (F) {ms:.4f} ms")
-    return dict(max_abs_err=max(err_mean, err_quad), ms=ms, plain_ms=plain, staged_ms=staged_ms)
+    # The triangular product (m n^2), and kq generated once for the quad and
+    # once for the mean (about 12 operations an element for a value column,
+    # 30 for a joint one).
+    m = q.shape[0]
+    gen_ops = 2 * (12 if kind == "value" else 30) + 2
+    return dict(max_abs_err=max(err_mean, err_quad), ms=ms, plain_ms=plain, staged_ms=staged_ms,
+                **bound(m * n * n + gen_ops * m * n, 4 * (n * n / 2 + cols.numel() + n + 5 * m)))
+
+
+def band_test_w(torch, rows: int, row0: int, width: int, gen):
+    """A W row band at global rows [row0, row0 + rows), zero past each row's
+    own global index (W is lower-triangular), row i scaled by 1/sqrt(row0 +
+    i + 1) as in `quad_test_w`, so every live column tile carries a share of
+    each query's quad that a kernel skipping it would miss."""
+    w = torch.tril(torch.randn((rows, width), generator=gen, device=gen.device), diagonal=row0)
+    scale = torch.arange(row0 + 1, row0 + rows + 1, device=w.device, dtype=w.dtype).sqrt()
+    return w.div_(scale[:, None])
+
+
+def quad_band_kernel(torch, gen, q, cols, kind: str, rows: int, row0: int) -> dict:
+    """Kernel F's band mode against its twin run in float64, per query."""
+    from gpis_tpu_torch.kernels import cuda_query
+
+    p = {"lengthscale": 0.4, "signal_variance": 1.0}
+    n = cols.shape[0]
+    w = band_test_w(torch, rows, row0, n, gen)
+    quad = cuda_query.quad_band(kind, "rbf", q, cols, p, w, row0)
+    quad_r = cuda_query.quad_band_reference(kind, "rbf", q.double(), cols.double(), p, w.double(),
+                                            row0)
+    err = (quad.double() - quad_r).abs().max().item()
+    rel = quad_rel_err(torch, quad, quad_r)
+    del quad_r
+    ms = time_ms(torch, lambda: cuda_query.quad_band(kind, "rbf", q, cols, p, w, row0), 3)
+    plain = time_ms(torch, lambda: cuda_query.quad_band_reference(kind, "rbf", q, cols, p, w,
+                                                                  row0), 3)
+    shape = f"{kind} M={q.shape[0]} R={rows} {'C' if kind == 'value' else 'J'}={n} row0={row0}"
+    say(f"  quad_band {shape}: max_abs_err {err:.3e}")
+    check(f"quad_band {shape}, per query", rel, QUAD_REL_TOL, ms, plain, err_name="max_rel_err")
+    # The band's nonzeros (row row0 + i has row0 + i + 1), and kq generated
+    # once per (query, column): about 12 operations (value) or 30 (joint).
+    m = q.shape[0]
+    nnz = rows * row0 + rows * (rows + 1) // 2
+    gen_ops = 12 if kind == "value" else 30
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                **bound(2 * m * nnz + 2 * m * rows + gen_ops * m * (row0 + rows),
+                        4 * (nnz + cols.numel() + 4 * m)))
+
+
+def ooc_kernels(torch, gen, results: dict) -> None:
+    """The out-of-core kernels against their twins at phase 7's shapes
+    (panel 4,096, sweep 2, so a band of R = 8,192 rows, C = 32,768), and the
+    joint band quad at phase 6's (J = 20,480, panel 1,024)."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_gram, cuda_joint
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = gen.device
+    r, p, c = 2 * SPILL_PANEL, SPILL_PANEL, 32768
+    kmax = c - p
+    cur = torch.randn((r, c), generator=gen, device=dev) / kmax**0.5
+    lk = torch.randn((p, c), generator=gen, device=dev) / kmax**0.5
+
+    # G at k0 0 (a copy of S), 4,096 and 28,672 (the last k-step).  tol: 1e-4 x
+    # the magnitude sum |a||b| of the worst output, as for Kernel B.
+    worst = 0.0
+    for k0 in (0, p, kmax):
+        s = cur[:, k0:k0 + p]
+        got = cuda_chol.gemm_nt_masked(cur, lk, s, k0)
+        want = cuda_chol.gemm_nt_masked_reference(cur, lk, s, k0)
+        err = (got - want).abs().max().item()
+        scale = (cur[:, :k0].abs() @ lk[:, :k0].abs().T).max().item() if k0 else 0.0
+        del got, want
+        ms = time_ms(torch, lambda: cuda_chol.gemm_nt_masked(cur, lk, s, k0), 3)
+        plain = time_ms(torch, lambda: cuda_chol.gemm_nt_masked_reference(cur, lk, s, k0), 3)
+        check(f"gemm_nt_masked R={r} P={p} C={c} k0={k0}", err, 1e-4 * scale, ms, plain)
+        worst = max(worst, err)
+    lib = time_ms(torch, lambda: torch.addmm(s, cur[:, :k0], lk[:, :k0].T, alpha=-1), 3)
+    results["gemm_nt_masked"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
+                                     **bound(2 * r * p * k0, 4 * (r * k0 + p * k0 + 2 * r * p)))
+
+    # H at w 4,096 (k = 0) and 32,768 (the widest); A a strided column slice.
+    # tol: 1e-4 x the product's magnitude sum |a||b|, as for B and G, plus
+    # four float32 ulps of the accumulator the product lands on.
+    u0 = torch.randn((r, c), generator=gen, device=dev)
+    u0_ulps = 4 * torch.finfo(torch.float32).eps * u0.abs().max().item()
+    a = cur[:, kmax - p:kmax]
+    worst = 0.0
+    for w in (p, c):
+        got = cuda_chol.gemm_nn_acc_masked(u0.clone(), a, lk, w)
+        want = cuda_chol.gemm_nn_acc_masked_reference(u0.clone(), a, lk, w)
+        err = (got - want).abs().max().item()
+        scale = (a.abs() @ lk[:, :w].abs()).max().item()
+        untouched = torch.equal(got[:, w:], u0[:, w:])
+        del got, want
+        work = u0.clone()
+        ms = time_ms(torch, lambda: cuda_chol.gemm_nn_acc_masked(work, a, lk, w), 3)
+        plain = time_ms(torch, lambda: cuda_chol.gemm_nn_acc_masked_reference(work, a, lk, w), 3)
+        del work
+        check(f"gemm_nn_acc_masked R={r} K={p} C={c} w={w}", err, 1e-4 * scale + u0_ulps, ms,
+              plain)
+        if not untouched:
+            fail(f"gemm_nn_acc_masked wrote columns >= w={w}")
+        worst = max(worst, err)
+    lib = time_ms(torch, lambda: torch.addmm(u0[:, :w], a, lk[:, :w]), 3)
+    results["gemm_nn_acc_masked"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
+                                         **bound(2 * r * p * w, 4 * (r * p + p * w + 2 * r * w)))
+    del u0
+
+    # I: an (R, P) stripe into the (R, C) band at column 16,384; exact.
+    dst = torch.zeros((r, c), device=dev)
+    blk = torch.randn((r, p), generator=gen, device=dev)
+    c0 = c // 2
+    got = cuda_chol.stripe_write(dst.clone(), blk, c0)
+    err = (got - cuda_chol.stripe_write_reference(dst.clone(), blk, c0)).abs().max().item()
+    del got
+    ms = time_ms(torch, lambda: cuda_chol.stripe_write(dst, blk, c0), 10)
+    plain = time_ms(torch, lambda: cuda_chol.stripe_write_reference(dst, blk, c0), 10)
+    check(f"stripe_write ({r}, {p}) into ({r}, {c}) at {c0} (exact)", err, 0.0, ms, plain)
+    lib = time_ms(torch, lambda: dst[:, c0:c0 + p].copy_(blk), 10)
+    results["stripe_write"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                   **bound(0, 4 * 2 * r * p))
+    del dst, blk, cur, lk
+
+    # A in band mode: rows [16,384, 24,576) of the C = 32,768 Gram.
+    params = {"lengthscale": 0.4, "signal_variance": 1.0}
+    x = torch.as_tensor(fibonacci_sphere(c), dtype=torch.float32, device=dev)
+    noise = torch.full((r,), 1e-3, device=dev)
+    row0 = c // 2
+    band = x[row0:row0 + r]
+    got = cuda_gram.cov("rbf", band, x, params, noise=noise, sym=True, row0=row0)
+    want = cuda_gram.cov_reference("rbf", band, x, params, noise=noise, sym=True, row0=row0)
+    err = (got - want).abs().max().item()
+    diag_ok = torch.equal(got[:, row0:row0 + r].diagonal(), want[:, row0:row0 + r].diagonal())
+    del got, want
+    ms = time_ms(torch, lambda: cuda_gram.cov("rbf", band, x, params, noise=noise, sym=True,
+                                              row0=row0), 5)
+    plain = time_ms(torch, lambda: cuda_gram.cov_reference("rbf", band, x, params, noise=noise,
+                                                           sym=True, row0=row0), 3)
+    check(f"gram_band {r}x{c} at row0={row0}", err, 1e-5, ms, plain)
+    if not diag_ok:
+        fail("gram_band put its diagonal elsewhere than global row == column")
+    results["gram_band"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                                **bound(10 * r * c, 4 * (r * c + 3 * r + 3 * c + r)))
+
+    # F in band mode: phase 7's last W panel (value), phase 6's (joint).
+    q = (torch.rand((8192, 3), generator=gen, device=dev) * 3.0 - 1.5).contiguous()
+    value = quad_band_kernel(torch, gen, q, x, "value", p, c - p)
+    jcols = cuda_joint.pack_meta(cuda_joint.joint_meta(
+        torch.as_tensor(fibonacci_sphere(5120), dtype=torch.float32, device=dev)))
+    joint = quad_band_kernel(torch, gen, q, jcols, "joint", 1024, jcols.shape[0] - 1024)
+    results["quad_band"] = dict(value, max_abs_err=max(value["max_abs_err"],
+                                                       joint["max_abs_err"]))
+    say(json.dumps({"quad_band_joint": joint, "card": card_line()}))
 
 
 def phase2(torch, results: dict) -> None:
@@ -299,12 +503,16 @@ def phase2(torch, results: dict) -> None:
     plain = time_ms(torch, lambda: cuda_gram.cov_reference("rbf", x, x, params, noise=noise,
                                                            sym=True), 3)
     check(f"cov gram C={c}", err, 1e-5, ms, plain)
-    results["cov"] = dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    # About ten operations (and one exp) an element; one store an element.
+    results["cov"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                          **bound(10 * c * c, 4 * (c * c + 7 * c)))
     kq = kg.cross_cov("rbf", q, x, params)
     err_x = (kq - cuda_gram.cov_reference("rbf", q, x, params)).abs().max().item()
     ms_x = time_ms(torch, lambda: kg.cross_cov("rbf", q, x, params), 5)
     plain_x = time_ms(torch, lambda: cuda_gram.cov_reference("rbf", q, x, params), 3)
     check(f"cov cross M={m} C={c}", err_x, 1e-5, ms_x, plain_x)
+    instances = {"cov_cross": dict(ms=ms_x, plain_ms=plain_x,
+                                   **bound(10 * m * c, 4 * (m * c + 3 * m + 3 * c)))}
     for name, ls in (("rbf", 0.8), ("laplace", 0.8), ("inverse_multiquadric", 0.8),
                      ("thin_plate", 2.5)):
         p = {"lengthscale": ls, "signal_variance": 1.1}
@@ -344,7 +552,7 @@ def phase2(torch, results: dict) -> None:
     del x64, q64, k, l64, w64, kq64
 
     # E, then F with both generators at the slices' shapes.
-    joint_cov_kernel(torch, gen, q, results)
+    instances["joint_cov_cross"] = joint_cov_kernel(torch, gen, q, results)
     value = fused_quad_kernel(torch, gen, q, x, "value")
     joint = fused_quad_kernel(torch, gen, q, cuda_joint.pack_meta(joint_columns(torch, dev)),
                               "joint")
@@ -355,7 +563,13 @@ def phase2(torch, results: dict) -> None:
     # The kernels line carries the joint instantiation's time (this slice's
     # path) and the worse error of the two.
     results["fused_quad"] = dict(max_abs_err=max(value["max_abs_err"], joint["max_abs_err"]),
-                                 ms=joint["ms"], plain_ms=joint["plain_ms"])
+                                 ms=joint["ms"], plain_ms=joint["plain_ms"], library_ms=None,
+                                 bound_ms=joint["bound_ms"], bound_by=joint["bound_by"])
+    instances["fused_quad_value"] = {k: value[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                           "bound_by")}
+    say(json.dumps({"instances": instances, "card": card_line()}))
+    torch.cuda.empty_cache()
+    ooc_kernels(torch, gen, results)
     torch.cuda.empty_cache()
 
 
@@ -413,7 +627,7 @@ def phase3(torch, launches) -> dict:
     require_launches(counts, ("cov", "panel_update", "row_update", "staged_quad", "fused_quad"),
                      "value slice")
     agree_with_chunked(torch, sess, big, big_mean, big_var, "value")
-    return counts
+    return counts, (cfg, pts, mean, var)
 
 
 def big_query(torch, pts) -> np.ndarray:
@@ -539,6 +753,173 @@ def phase4(torch, launches) -> dict:
     require_launches(counts, ("joint_cov", "fused_quad", "staged_quad", "panel_update",
                               "row_update"), "joint slice")
     agree_with_chunked(torch, sess, big, big_mean, big_var, "joint")
+    return counts, (cfg, pts, normals, mean, var)
+
+
+OOC_KERNELS = ("gemm_nt_masked", "gemm_nn_acc_masked", "stripe_write", "quad_band")
+
+
+def small_ooc_parity(normals: bool) -> None:
+    """A small float64 out-of-core session on the card against the CPU path
+    (the port's plain twins) at 1e-6: value C = 1,024 (panel 256), or joint
+    J = 2,048 (panel 256)."""
+    from gpis_tpu_torch import ModelConfig, ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                        n_internal=1, block=128, dtype="float64")
+    pts = fibonacci_sphere(384 if normals else 896)
+    kw = {"normals": pts} if normals else {}
+    sessions = [ObjectModelSession(small, device=d).start(pts, out_of_core=True, **kw)
+                for d in ("cuda", "cpu")]
+    grids = [s.evaluate_grid(24, 1.5) for s in sessions]
+    err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
+    what = "joint J=2048" if normals else "value C=1024"
+    check(f"out-of-core {what} (panel {sessions[0].model.panel}) float64, 24^3 grid, "
+          "cuda vs cpu (mean and var)", err, 1e-6)
+
+
+def ooc_session_phase(torch, launches, incore, normals: bool) -> dict:
+    """The out-of-core slice through ObjectModelSession.start(out_of_core=True)
+    on an in-core phase's cloud, held to that phase's grid."""
+    from gpis_tpu_torch import ObjectModelSession
+
+    small_ooc_parity(normals)
+    if normals:
+        cfg, pts, nrm, in_mean, in_var = incore
+        kw = {"normals": nrm}
+    else:
+        cfg, pts, in_mean, in_var = incore
+        kw = {}
+    big = big_query(torch, pts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, out_of_core=True, **kw)
+    mean, var, _ = sess.evaluate_grid()
+    query_s = sess.stats["grid_s"]
+    verts, faces, vvar = sess.extract_surface(world_frame=False)
+    big_mean, big_var, big_s = timed_query(torch, sess, big)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    model = sess.model
+    what = "joint" if normals else "value"
+    say(f"  out-of-core {what}: factor size {model.alpha.shape[0]}, panel {model.panel}; "
+        f"launches in the run: {counts}")
+    if normals:  # phase 4's sphere: centre and radius in the normalized frame
+        n, radius, center = JOINT_SPHERE
+        c_n = sess.frame.to_normalized(torch.as_tensor(np.asarray(center, np.float32),
+                                                       device="cuda")).cpu().numpy()
+        rad = np.linalg.norm(verts - c_n, axis=1) - radius / float(sess.frame.scale)
+    else:
+        rad = np.linalg.norm(sess.frame.to_world(torch.as_tensor(verts, device="cuda"))
+                             .cpu().numpy(), axis=1) - 1.0
+    rmse = float(np.sqrt(np.mean(rad**2))) if len(verts) else float("nan")
+    gap_mean = float(np.abs(mean - in_mean).max())
+    gap_var = float(np.abs(var - in_var).max())
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all() and np.isfinite(vvar).all()
+                  and np.isfinite(big_mean).all() and np.isfinite(big_var).all())
+    fit_s = sess.stats["fit_s"]
+    ok = finite and rmse < RMSE_GATE and max(gap_mean, gap_var) < OOC_GRID_GAP
+    say(json.dumps({
+        "out_of_core": what, "value": fit_s + query_s, "fit_s": fit_s, "query_s": query_s,
+        "big_query_s": big_s, "n_big_query": BIG_QUERY, "surface_rmse": rmse,
+        "grid_gap_mean": gap_mean, "grid_gap_var": gap_var, "factor_size": model.alpha.shape[0],
+        "panel": model.panel, "n_query": 64**3, "ok": ok,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "n_verts": len(verts), "card": card_line(),
+    }))
+    if not finite:
+        fail(f"NaN or inf in the out-of-core {what} posterior")
+    if not rmse < RMSE_GATE:
+        fail(f"out-of-core {what} surface RMSE {rmse} >= {RMSE_GATE}")
+    check(f"out-of-core {what} 64^3 grid against the in-core grid: mean", gap_mean, OOC_GRID_GAP)
+    check(f"out-of-core {what} 64^3 grid against the in-core grid: var", gap_var, OOC_GRID_GAP)
+    require_launches(counts, ("joint_cov" if normals else "gram_band",) + OOC_KERNELS,
+                     f"out-of-core {what}")
+    return counts
+
+
+def phase7(torch, launches) -> dict:
+    """The host spill: ooc_fit straight on a training set, tiered store held
+    to SPILL_BUDGET bytes of device memory, then a 65,536-point query."""
+    from gpis_tpu_torch import ModelConfig
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.gp import regression
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.linalg import outofcore as ooc
+    from gpis_tpu_torch.surface import grid
+
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      n_internal=1, block=128, touch_capacity=0)
+    pts = fibonacci_sphere(SPILL_N).astype(np.float32)
+    ts = gpis.build_training_set(pts, cfg, device="cuda")
+    params = kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
+    q = ts.frame.to_normalized(torch.as_tensor(big_query(torch, pts), device="cuda"))
+    c = ts.x.shape[0]
+    reserve = int((3 + 4.5) * SPILL_PANEL * c * 4) + 500_000_000  # ooc_fit's sweep 2, TRSM 2
+    torch.cuda.synchronize()
+    ooc.TRAFFIC.clear()
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    t0 = time.perf_counter()
+    model = ooc.ooc_fit(cfg.kernel, ts.x, ts.y, ts.noise, params, panel=SPILL_PANEL,
+                        store="tiered", device_budget=SPILL_BUDGET, pad_noise=cfg.pad_noise)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mean, var = ooc.ooc_predict(model, q)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(launches)
+    traffic = dict(ooc.TRAFFIC)
+    spilled = model.wstore.spilled()
+    mean, var = mean.cpu().numpy(), var.cpu().numpy()
+    jitter = float(model.noise[0] - ts.noise[0])  # what the ladder added to the diagonal
+    del model
+    torch.cuda.empty_cache()
+    # The in-core float32 fit of the same set, for its jitter and its gap to
+    # float64 (printed, not gated: the gates hold the out-of-core fit).
+    ref32 = regression.fit_inference(cfg.kernel, ts.x, ts.y, ts.noise, params, block=cfg.block,
+                                     pad_noise=cfg.pad_noise)
+    jitter32 = float(ref32.noise[0] - ts.noise[0])
+    mean32, var32 = (t.cpu().numpy() for t in grid.evaluate_points_chunked(ref32, q))
+    del ref32
+    torch.cuda.empty_cache()
+    ref = regression.fit_inference(cfg.kernel, ts.x.double(), ts.y.double(), ts.noise.double(),
+                                   params, block=cfg.block, pad_noise=cfg.pad_noise)
+    ref_jitter = float(ref.noise[0] - ts.noise[0].double())
+    rmean, rvar = (t.cpu().numpy() for t in grid.evaluate_points_chunked(ref, q.double()))
+    del ref
+    torch.cuda.empty_cache()
+    gap_mean, gap_var = float(np.abs(mean - rmean).max()), float(np.abs(var - rvar).max())
+    gap32_mean = float(np.abs(mean32 - rmean).max())
+    gap32_var = float(np.abs(var32 - rvar).max())
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all())
+    say(f"  host spill: C {c}, panel {SPILL_PANEL}, W panels spilled {spilled}; "
+        f"launches {counts}")
+    say(json.dumps({
+        "out_of_core": "host_spill", "fit_s": t1 - t0, "big_query_s": t2 - t1,
+        "n_big_query": BIG_QUERY, "capacity": c, "panel": SPILL_PANEL,
+        "device_budget_bytes": SPILL_BUDGET, "w_panels_spilled": spilled,
+        "h2d_bytes": traffic.get("h2d_bytes", 0), "d2h_bytes": traffic.get("d2h_bytes", 0),
+        "max_memory_allocated_bytes": peak, "peak_bound_bytes": SPILL_BUDGET + reserve,
+        "gap_mean": gap_mean, "gap_var": gap_var, "jitter": jitter,
+        "reference_jitter_float64": ref_jitter, "incore_float32_jitter": jitter32,
+        "incore_float32_gap_mean": gap32_mean, "incore_float32_gap_var": gap32_var,
+        "card": card_line(),
+    }))
+    if not finite:
+        fail("NaN or inf in the host-spill posterior")
+    if not spilled:
+        fail("the 1 GB budget spilled no W panel")
+    check("host spill: peak device memory against budget + reserve", peak,
+          SPILL_BUDGET + reserve, err_name="bytes")
+    check("host spill: query against in-core float64 fit_inference: mean", gap_mean,
+          OOC_GRID_GAP)
+    check("host spill: query against in-core float64 fit_inference: var", gap_var, OOC_GRID_GAP)
+    require_launches(counts, ("gram_band", "panel_update") + OOC_KERNELS, "host spill")
     return counts
 
 
@@ -574,14 +955,34 @@ def main() -> int:
     results: dict = {}
     phase2(torch, results)
 
+    # Launches: each main-path run's counts, set to 0 just before it and
+    # read just after.
+    runs = []
     say("phase 3: the value slice through ObjectModelSession")
-    value_counts = phase3(torch, _build.LAUNCHES)
+    counts, incore_value = phase3(torch, _build.LAUNCHES)
+    runs.append(counts)
 
     say("phase 4: the joint (surface-normal) slice through ObjectModelSession")
-    joint_counts = phase4(torch, _build.LAUNCHES)
+    counts, incore_joint = phase4(torch, _build.LAUNCHES)
+    runs.append(counts)
+    torch.cuda.empty_cache()
+
+    say("phase 5: the out-of-core value slice through ObjectModelSession")
+    runs.append(ooc_session_phase(torch, _build.LAUNCHES, incore_value, normals=False))
+    torch.cuda.empty_cache()
+
+    say("phase 6: the out-of-core joint slice through ObjectModelSession")
+    runs.append(ooc_session_phase(torch, _build.LAUNCHES, incore_joint, normals=True))
+    torch.cuda.empty_cache()
+
+    say("phase 7: the out-of-core host spill")
+    runs.append(phase7(torch, _build.LAUNCHES))
 
     if "jax" in sys.modules:
         fail("jax was imported")
+    jax_pkg = [m for m in sys.modules if m == "gpis_tpu" or m.startswith("gpis_tpu.")]
+    if jax_pkg:
+        fail(f"the JAX package was imported: {jax_pkg}")
     sources = {
         "cov": ("gpis_tpu_torch/csrc/cov.cu", "gpis_tpu/kernels/pallas_gram.py:197"),
         "panel_update": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:180"),
@@ -591,11 +992,18 @@ def main() -> int:
         "fused_quad": ("gpis_tpu_torch/csrc/fused_query.cu",
                        "gpis_tpu/kernels/pallas_query.py:404, "
                        "gpis_tpu/kernels/pallas_joint.py:367"),
+        "gram_band": ("gpis_tpu_torch/csrc/cov.cu", "gpis_tpu/kernels/pallas_gram.py:173"),
+        "gemm_nt_masked": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:307"),
+        "gemm_nn_acc_masked": ("gpis_tpu_torch/csrc/chol.cu",
+                               "gpis_tpu/linalg/pallas_chol.py:380"),
+        "stripe_write": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:429"),
+        "quad_band": ("gpis_tpu_torch/csrc/fused_query.cu",
+                      "gpis_tpu/kernels/pallas_query.py:241, "
+                      "gpis_tpu/kernels/pallas_joint.py:500"),
     }
-    # Launches: the two slice runs' counts, each read right after its run.
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": value_counts.get(name, 0) + joint_counts.get(name, 0), **results[name]}
+         "launches": sum(run.get(name, 0) for run in runs), **results[name]}
         for name, (src, rep) in sources.items()
     ]
     say(f"total {time.perf_counter() - t_start:.1f} s; {card}")

@@ -18,7 +18,7 @@ full float32 below (TF32 off): the variance quad cancels heavily and TF32's
 
 import torch
 
-from gpis_tpu.config import ModelConfig
+from gpis_tpu_torch.config import ModelConfig
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -31,7 +31,8 @@ import time
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "library", "call", "check_cuda_args", "resolve_device"]
+__all__ = ["LAUNCHES", "build", "library", "call", "check_cuda_args", "check_cuda_rows",
+           "resolve_device", "not_ported"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -44,8 +45,8 @@ _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_d
 # C signatures of csrc/*.cu, one per dtype suffix (_f32, _f64).  A pointer or
 # the stream passed without c_void_p would be cut to 32 bits by ctypes.
 _SIGNATURES = {
-    # a, m, b, n, noise, sym, kernel_id, ls, sv, out, stream
-    "gpis_cov": [_P, _I64, _P, _I64, _P, _I32, _I32, _F64, _F64, _P, _P],
+    # a, m, b, n, noise, sym, row0, kernel_id, ls, sv, out, stream
+    "gpis_cov": [_P, _I64, _P, _I64, _P, _I32, _I64, _I32, _F64, _F64, _P, _P],
     # mat, n, j0, bw, stream
     "gpis_panel_update": [_P, _I64, _I64, _I64, _P],
     # lrow, w, n, j0, bw, out, stream
@@ -56,6 +57,15 @@ _SIGNATURES = {
     "gpis_joint_cov": [_P, _I64, _P, _I64, _P, _I64, _I32, _F64, _F64, _P, _P],
     # q, m, cols, c, joint, w, alpha, kernel_id, ls, sv, partial, mean, quad, stream
     "gpis_fused_quad": [_P, _I64, _P, _I64, _I32, _P, _P, _I32, _F64, _F64, _P, _P, _P, _P],
+    # q, m, cols, c, joint, w, ldw, rows, row0, kernel_id, ls, sv, partial, quad, stream
+    "gpis_quad_band": [_P, _I64, _P, _I64, _I32, _P, _I64, _I64, _I64, _I32, _F64, _F64, _P, _P,
+                       _P],
+    # a, lda, r, b, ldb, p, s, lds, out, ldo, k0, stream
+    "gpis_gemm_nt_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P],
+    # a, lda, r, b, ldb, k, u, ldu, w, stream
+    "gpis_gemm_nn_acc_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _P],
+    # dst, ldd, blk, ldb, r, w, c0, stream
+    "gpis_stripe_write": [_P, _I64, _P, _I64, _I64, _I64, _I64, _P],
 }
 
 _lib = None
@@ -71,6 +81,14 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' explicitly to run the plain PyTorch path"
         )
     return dev
+
+
+def not_ported(what: str, item: int, name: str):
+    """Raise for a part of the JAX package that the port does not have yet,
+    naming the ROADMAP.md §1 item that ports it."""
+    raise NotImplementedError(
+        f"{what} is not ported to gpis_tpu_torch yet (ROADMAP.md §1 item {item}: {name})"
+    )
 
 
 def _sources() -> list[str]:
@@ -173,9 +191,7 @@ def call(name: str, like: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name}{_SUFFIX[like.dtype]} launch failed: cudaError {err}")
 
 
-def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
-    """Wrapper-side validation before raw pointers reach a kernel: one CUDA
-    device, one dtype (float32, or float64), contiguous row-major storage."""
+def _check_device_dtype(what: str, tensors) -> None:
     dt = tensors[0].dtype
     if dt not in _SUFFIX:
         raise TypeError(f"{what}: dtype {dt} not supported (float32 or float64)")
@@ -185,5 +201,27 @@ def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{what}: mixed dtypes {dt} and {t.dtype}")
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{what}: all tensors must be on one CUDA device")
+
+
+def check_cuda_args(what: str, *tensors: torch.Tensor) -> None:
+    """Wrapper-side validation before raw pointers reach a kernel: one CUDA
+    device, one dtype (float32, or float64), contiguous row-major storage."""
+    _check_device_dtype(what, tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def check_cuda_rows(what: str, *mats: torch.Tensor) -> None:
+    """The same for kernels that take each (R, C) operand as a row-major view
+    with its own leading dimension `stride(0)`: elements of a row adjacent,
+    rows not overlapping.  Column slices of a wider matrix pass; a transposed
+    view does not."""
+    _check_device_dtype(what, mats)
+    for t in mats:
+        if t.ndim != 2:
+            raise ValueError(f"{what}: expected matrices, got shape {tuple(t.shape)}")
+        rows, cols = t.shape
+        if (cols > 1 and t.stride(1) != 1) or (rows > 1 and t.stride(0) < cols):
+            raise ValueError(f"{what}: operand of shape {tuple(t.shape)} and strides "
+                             f"{t.stride()} is not a row-major view")

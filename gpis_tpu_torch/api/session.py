@@ -1,13 +1,17 @@
 """ObjectModelSession, the user-facing orchestrator (port of
-gpis_tpu/api/session.py:62-318 for the in-core value and joint models).
+gpis_tpu/api/session.py:62-318 for the in-core value and joint models and
+the out-of-core ones).
 
 World frame in, world frame out: the session owns the normalization Frame.
-`start` fits: with `normals=` the joint value + gradient model
-(`gp.derivative.fit_with_normals`, then W once 4C >= 1024); otherwise a
-session with `touch_capacity == 0` takes the one-matrix-peak
-`fit_inference`, any other `fit` + `with_linv`.  `query`, `evaluate_grid`
-and `extract_surface` serve the fitted model.  The verbs not yet ported
-raise NotImplementedError naming the ROADMAP.md §1 item that ports them.
+`start` fits: with `out_of_core=True` the panel-streamed fit
+(`linalg.outofcore.ooc_fit`, or `ooc_fit_joint` with `normals=`), whose W
+panels are then pinned on the card as far as it has room; with `normals=`
+the joint value + gradient model (`gp.derivative.fit_with_normals`, then W
+once 4C >= 1024); otherwise a session with `touch_capacity == 0` takes the
+one-matrix-peak `fit_inference`, any other `fit` + `with_linv`.  `query`,
+`evaluate_grid` and `extract_surface` serve the fitted model.  The verbs
+not yet ported raise NotImplementedError naming the ROADMAP.md §1 item that
+ports them.
 """
 
 from __future__ import annotations
@@ -17,15 +21,15 @@ import time
 import numpy as np
 import torch
 
-from gpis_tpu.config import MeshConfig, ModelConfig
-from gpis_tpu.data import voxel
-from gpis_tpu.surface import marching
-from gpis_tpu_torch._build import resolve_device
-from gpis_tpu_torch.data import gpis
+from gpis_tpu_torch._build import not_ported, resolve_device
+from gpis_tpu_torch.config import MeshConfig, ModelConfig
+from gpis_tpu_torch.data import gpis, voxel
 from gpis_tpu_torch.gp import derivative as gpd
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.surface import grid as grid_mod
+from gpis_tpu_torch.surface import marching
 
 __all__ = ["ObjectModelSession"]
 
@@ -47,10 +51,10 @@ def _joint_obs(ts, normals, points, cfg):
     return nrm_full, noise_g
 
 
-def _not_ported(what: str, item: int, name: str):
-    raise NotImplementedError(
-        f"{what} is not ported to gpis_tpu_torch yet (ROADMAP.md §1 item {item}: {name})"
-    )
+def _ooc_panel(rows: int) -> int:
+    """The JAX session's out-of-core panel width for a factor of `rows` rows
+    (n for a value fit, 4n with normals)."""
+    return 4096 if rows > 20480 else (1024 if rows > 2048 else 256)
 
 
 class ObjectModelSession:
@@ -59,7 +63,7 @@ class ObjectModelSession:
     def __init__(self, config: ModelConfig | None = None, *, mesh: MeshConfig | None = None,
                  device="cuda"):
         if mesh is not None and mesh.n_devices > 1:
-            _not_ported("mesh= (sharded fits)", 14, "multi-GPU")
+            not_ported("mesh= (sharded fits)", 14, "multi-GPU")
         self.config = config or ModelConfig()
         self.device = resolve_device(device)
         self.dtype = getattr(torch, self.config.dtype)
@@ -76,11 +80,12 @@ class ObjectModelSession:
               experts: int = 0):
         """Downsample, normalize, label and fit an (N,3) world-frame cloud.
         With `normals` (N,3), surface orientation becomes derivative
-        observations and the model is the joint system (`gp.derivative`)."""
+        observations and the model is the joint system (`gp.derivative`).
+        `out_of_core=True` fits through the panel-streamed factorization
+        (`linalg.outofcore`), for clouds whose one-matrix factor does not
+        fit on the card."""
         if experts:
-            _not_ported("experts= (committee fits)", 13, "gp/experts.py")
-        if out_of_core:
-            _not_ported("out_of_core=", 15, "out-of-core")
+            not_ported("experts= (committee fits)", 13, "gp/experts.py")
         t0 = time.perf_counter()
         points = np.asarray(points, dtype=self.config.dtype)
         if points.ndim != 2 or points.shape[1] != 3 or len(points) == 0:
@@ -97,7 +102,20 @@ class ObjectModelSession:
         self.training = ts
         self.frame = ts.frame
         params = params or kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
-        if normals is not None:
+        if out_of_core:
+            n = ts.x.shape[0]
+            if normals is not None:
+                nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
+                self.model = ooc.ooc_fit_joint(
+                    cfg.kernel, ts.x, ts.y, nrm_full, ts.noise, noise_g, params,
+                    panel=_ooc_panel(4 * n), pad_noise=cfg.pad_noise)
+            else:
+                self.model = ooc.ooc_fit(cfg.kernel, ts.x, ts.y, ts.noise, params,
+                                         panel=_ooc_panel(n), pad_noise=cfg.pad_noise)
+            # Queries outnumber fits in a session: pin spilled W panels on
+            # the card the fit's working set has freed.
+            self.model.promote_for_serving()
+        elif normals is not None:
             nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
             self.model = gpd.fit_with_normals(
                 cfg.kernel, ts.x, ts.y, nrm_full, ts.noise, noise_g, params, block=cfg.block,
@@ -150,17 +168,17 @@ class ObjectModelSession:
 
     # Verbs of the JAX session that later ports bring over.
     def update(self, touch_points_world, *, targets=None):
-        _not_ported("update (tactile bordering updates)", 7, "session half of gp/regression.py")
+        not_ported("update (tactile bordering updates)", 7, "session half of gp/regression.py")
 
     def next_best_path(self, *, seed_world=None):
-        _not_ported("next_best_path", 8, "explore/atlas.py and explore/planner.py")
+        not_ported("next_best_path", 8, "explore/atlas.py and explore/planner.py")
 
     def optimize_hyperparameters(self, **kw):
-        _not_ported("optimize_hyperparameters", 10, "config 3")
+        not_ported("optimize_hyperparameters", 10, "config 3")
 
     def save(self, path: str):
-        _not_ported("save", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")
+        not_ported("save", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")
 
     @classmethod
     def load(cls, path: str, config: ModelConfig | None = None, **kw):
-        _not_ported("load", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")
+        not_ported("load", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")

@@ -1,10 +1,12 @@
 """Carry a model fitted by the JAX package across to the port (reads the
-in-core value and joint layouts of gpis_tpu/utils/checkpoint.py:24-85).
+in-core value and joint layouts of gpis_tpu/utils/checkpoint.py:24-85, and
+builds an out-of-core model from its arrays and W panels).
 
 A `gpis_tpu` checkpoint is an `.npz` of numpy arrays plus a JSON `meta`
 entry; it is read here with numpy alone.  Committee, sharded and
 out-of-core checkpoints raise NotImplementedError until their models are
-ported.
+ported; an out-of-core model in memory crosses over through
+`ooc_model_from_arrays`.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import torch
 from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.gp.derivative import DerivGPModel
 from gpis_tpu_torch.gp.model import GPModel
+from gpis_tpu_torch.linalg.outofcore import DevicePanelStore, OOCJointModel, OOCModel
 
-__all__ = ["gp_model_from_arrays", "load_jax_checkpoint"]
+__all__ = ["gp_model_from_arrays", "ooc_model_from_arrays", "load_jax_checkpoint"]
 
 _FORMAT_VERSION = 1
 _UNPORTED_KINDS = ("experts", "sharded", "ooc")
@@ -71,6 +74,30 @@ def gp_model_from_arrays(arrays, meta: dict, device="cuda"):
         kernel=meta["kernel"], n0=int(meta["n0"]),
         pad_noise=float(meta.get("pad_noise", 1e10)), linv=linv,
     )
+
+
+def ooc_model_from_arrays(arrays, panels, *, kernel: str, params, panel: int, n_real: int,
+                          device="cuda"):
+    """The port's OOCModel (or OOCJointModel, when `arrays` has "meta") from
+    a `gpis_tpu` out-of-core model: its arrays (x, y, noise, alpha; a joint
+    model's meta, normals, noise_g) and its W panels in order, trimmed as
+    stored, all numpy.  The panels go to a device store on `device`."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev)
+
+    wstore = DevicePanelStore(dev)
+    for j, w in enumerate(panels):
+        wstore.put(j, t(w))
+    common = dict(kernel=kernel, x=t(arrays["x"]), y=t(arrays["y"]), noise=t(arrays["noise"]),
+                  params={k: float(v) for k, v in params.items()}, alpha=t(arrays["alpha"]),
+                  wstore=wstore, panel=int(panel), n_real=int(n_real))
+    if "meta" in arrays:
+        return OOCJointModel(meta=t(arrays["meta"]), normals=t(arrays["normals"]),
+                             noise_g=t(arrays["noise_g"]), n0=int(np.shape(arrays["x"])[0]),
+                             **common)
+    return OOCModel(**common)
 
 
 def load_jax_checkpoint(path: str, device="cuda"):

@@ -1,5 +1,7 @@
 // Kernels B and C: the two products of the left-looking blocked Cholesky and
-// of the left-looking blocked TRSM W = L^{-1}.
+// of the left-looking blocked TRSM W = L^{-1}; and Kernels G, H and I, the
+// products and the stripe write of the out-of-core (panel-streamed) factor
+// and TRSM (gpis_tpu_torch/linalg/outofcore.py).
 //
 // B, panel update, replaces gpis_tpu/linalg/pallas_chol.py
 // `panel_update_pallas` (pallas_call at :180, body `_panel_kernel` :87):
@@ -17,18 +19,40 @@
 // W's own buffer (the in-place TRSM reads L's row panel j0 from it); the
 // output is a separate (bw, n) buffer.
 //
-// What bounds them on the H100: arithmetic.  At n = 16,384 each factor is
-// ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes of traffic per step, so both
-// sit far above the memory roofline; without tensor cores the bound is the
-// SIMT FP32 rate (67 TFLOP/s at 700 W).
+// G, masked NT product, replaces `gemm_nt_masked_pallas` (pallas_chol.py,
+// pallas_call at :307, body `_gemm_nt_kernel` :249):
+//     out[r, s] = S[r, s] - sum_{k < k0} A[r, k] * B[s, k]
+// with k0 a runtime value.  Every operand is a row-major view with its own
+// leading dimension, so the out-of-core k-step hands over its (R, C) row
+// band and a (R, P) stripe of it without copying either; out may be S.
+//
+// H, masked NN accumulate, replaces `gemm_nn_acc_masked_pallas` (pallas_call
+// at :380, body `_gemm_nn_masked_kernel` :315):
+//     U[r, c] += sum_{k < K} A[r, k] * B[k, c]      for columns c < w
+// in place, A a strided (R, K) view.  Only output tiles at columns < w are
+// launched: the rest are neither loaded nor written.  U and B may be rows
+// of one buffer (the TRSM finish reads rows < r0 and writes rows >= r0 of
+// it) as long as the rows of B that the k loop reads are not rows of U.
+//
+// I, stripe write, replaces `stripe_write_pallas` (pallas_call at :429, body
+// `_stripe_kernel` :389):  dst[:, c0 : c0 + W] = blk, in place.  On the TPU
+// it existed because XLA did not alias dynamic_update_slice; here it is a
+// plain coalesced copy: a warp writes 32 consecutive elements of one row.
+//
+// What bounds them on the H100: arithmetic for B, C, G and H; bytes for I.
+// At n = 16,384 each factor is ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes
+// of traffic per step, so the products sit far above the memory roofline;
+// without tensor cores the bound is the SIMT FP32 rate (67 TFLOP/s at
+// 700 W).  I moves 2 R W elements and computes nothing.
 // What the design does about it: a shared-memory tiled SGEMM (64 x 64
 // output tiles, k-slices of 16, 4 x 4 FMA register tiles a thread) whose k
-// loop stops at j0, so the dead k >= j0 half of every product is never
-// loaded or multiplied -- "port the skip, not the DMA trick" of the Pallas
-// index maps.  C also starts its k loop at the tile's first column, since
-// W[k, c] = 0 for k < c, and writes zeros, without reading anything, for
-// output tiles at columns >= j0.  Accumulation: plain FP32 (FP64) FMA, see
-// common.cuh; tensor cores (wgmma, 3xTF32) are later work.
+// loop stops at j0 (k0 for G), so the dead k >= j0 half of every product is
+// never loaded or multiplied -- "port the skip, not the DMA trick" of the
+// Pallas index maps.  C also starts its k loop at the tile's first column,
+// since W[k, c] = 0 for k < c, and writes zeros, without reading anything,
+// for output tiles at columns >= j0; H launches no tile at columns >= w.
+// Accumulation: plain FP32 (FP64) FMA, see common.cuh; tensor cores (wgmma,
+// 3xTF32) are later work.
 #include "common.cuh"
 
 namespace gpis {
@@ -92,6 +116,77 @@ row_update_kernel(const T* __restrict__ lrow, const T* __restrict__ w, int64_t n
 }
 
 template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_nt_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r, const T* __restrict__ b,
+                      int64_t ldb, int64_t p, const T* s, int64_t lds, T* out, int64_t ldo,
+                      int64_t k0) {
+  __shared__ TileSmem<T> sm;
+  const int64_t col_tiles = (p + TILE - 1) / TILE;
+  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
+  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
+  const int rows = (int)min64(TILE, r - row0);
+  const int cols = (int)min64(TILE, p - col0);
+  T acc[4][4] = {};
+  nt_product(sm, acc, a + row0 * lda, lda, rows, b + col0 * ldb, ldb, cols, 0, k0);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i;
+    if (rr >= rows) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      // S is read before out is written by the same thread: out may be S.
+      if (c < cols) {
+        const T v = s[(row0 + rr) * lds + col0 + c];
+        out[(row0 + rr) * ldo + col0 + c] = v - acc[i][jj];
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+gemm_nn_acc_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r,
+                          const T* __restrict__ b, int64_t ldb, int64_t kd, T* u, int64_t ldu,
+                          int64_t w) {
+  __shared__ TileSmem<T> sm;
+  const int64_t col_tiles = (w + TILE - 1) / TILE;
+  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
+  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
+  const int rows = (int)min64(TILE, r - row0);
+  const int cols = (int)min64(TILE, w - col0);
+  T acc[4][4] = {};
+  for (int64_t k0 = 0; k0 < kd; k0 += BK) {
+    load_rows_kmajor(sm.a, a + row0 * lda, lda, rows, k0, kd);
+    load_cols_kmajor(sm.b, b + col0, ldb, cols, k0, kd);
+    __syncthreads();
+    tile_fma(sm, acc);
+    __syncthreads();
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i;
+    if (rr >= rows) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < cols) u[(row0 + rr) * ldu + col0 + c] += acc[i][jj];
+    }
+  }
+}
+
+template <typename T>
+__global__ void stripe_write_kernel(T* __restrict__ dst, int64_t ldd, const T* __restrict__ blk,
+                                    int64_t ldb, int64_t r, int64_t w, int64_t c0) {
+  for (int64_t i = blockIdx.y; i < r; i += gridDim.y)
+    for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < w;
+         c += (int64_t)gridDim.x * blockDim.x)
+      dst[i * ldd + c0 + c] = blk[i * ldb + c];
+}
+
+template <typename T>
 static int launch_panel_update(T* mat, int64_t n, int64_t j0, int64_t bw, void* stream) {
   if (j0 <= 0 || bw <= 0 || j0 >= n) return 0;
   const unsigned int blocks = ceil_div(n - j0, TILE) * ceil_div(bw, TILE);
@@ -105,6 +200,38 @@ static int launch_row_update(const T* lrow, const T* w, int64_t n, int64_t j0, i
   if (n <= 0 || bw <= 0) return 0;
   const unsigned int blocks = ceil_div(bw, TILE) * ceil_div(n, TILE);
   row_update_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(lrow, w, n, j0, bw, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_gemm_nt_masked(const T* a, int64_t lda, int64_t r, const T* b, int64_t ldb,
+                                 int64_t p, const T* s, int64_t lds, T* out, int64_t ldo,
+                                 int64_t k0, void* stream) {
+  if (r <= 0 || p <= 0) return 0;
+  const unsigned int blocks = ceil_div(r, TILE) * ceil_div(p, TILE);
+  gemm_nt_masked_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
+      a, lda, r, b, ldb, p, s, lds, out, ldo, k0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_gemm_nn_acc_masked(const T* a, int64_t lda, int64_t r, const T* b,
+                                     int64_t ldb, int64_t kd, T* u, int64_t ldu, int64_t w,
+                                     void* stream) {
+  if (r <= 0 || w <= 0 || kd <= 0) return 0;
+  const unsigned int blocks = ceil_div(r, TILE) * ceil_div(w, TILE);
+  gemm_nn_acc_masked_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
+      a, lda, r, b, ldb, kd, u, ldu, w);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_stripe_write(T* dst, int64_t ldd, const T* blk, int64_t ldb, int64_t r,
+                               int64_t w, int64_t c0, void* stream) {
+  if (r <= 0 || w <= 0) return 0;
+  const dim3 grid(ceil_div(w, 256) < 64u ? ceil_div(w, 256) : 64u,
+                  r < 65535 ? (unsigned int)r : 65535u);
+  stripe_write_kernel<T><<<grid, 256, 0, (cudaStream_t)stream>>>(dst, ldd, blk, ldb, r, w, c0);
   return (int)cudaGetLastError();
 }
 
@@ -129,5 +256,24 @@ int gpis_row_update_f64(const double* lrow, const double* w, int64_t n, int64_t 
                         int64_t bw, double* out, void* stream) {
   return gpis::launch_row_update<double>(lrow, w, n, j0, bw, out, stream);
 }
+
+#define GPIS_OOC_ENTRY_POINTS(T, SUF)                                                        \
+  int gpis_gemm_nt_masked_##SUF(const T* a, int64_t lda, int64_t r, const T* b, int64_t ldb,   \
+                                int64_t p, const T* s, int64_t lds, T* out, int64_t ldo,       \
+                                int64_t k0, void* stream) {                                    \
+    return gpis::launch_gemm_nt_masked<T>(a, lda, r, b, ldb, p, s, lds, out, ldo, k0, stream); \
+  }                                                                                            \
+  int gpis_gemm_nn_acc_masked_##SUF(const T* a, int64_t lda, int64_t r, const T* b,            \
+                                    int64_t ldb, int64_t kd, T* u, int64_t ldu, int64_t w,     \
+                                    void* stream) {                                            \
+    return gpis::launch_gemm_nn_acc_masked<T>(a, lda, r, b, ldb, kd, u, ldu, w, stream);       \
+  }                                                                                            \
+  int gpis_stripe_write_##SUF(T* dst, int64_t ldd, const T* blk, int64_t ldb, int64_t r,       \
+                              int64_t w, int64_t c0, void* stream) {                           \
+    return gpis::launch_stripe_write<T>(dst, ldd, blk, ldb, r, w, c0, stream);                 \
+  }
+
+GPIS_OOC_ENTRY_POINTS(float, f32)
+GPIS_OOC_ENTRY_POINTS(double, f64)
 
 }  // extern "C"

@@ -1,10 +1,15 @@
 // Kernel F: the on-the-fly variance quad and mean, kq generated in-tile.
 //
-// Replaces two Pallas kernels with one body and two kq-tile generators:
+// Replaces four Pallas kernels with one body and two kq-tile generators:
 //   gpis_tpu/kernels/pallas_query.py  fused_query_pallas       (pallas_call at :404,
 //                                     body `_kernel` :110)         -- ValueGen
 //   gpis_tpu/kernels/pallas_joint.py  fused_joint_query_pallas (pallas_call at :367,
 //                                     body `_query_kernel` :258)   -- JointGen
+// and, in band mode (quad only, no mean),
+//   gpis_tpu/kernels/pallas_query.py  fused_quad_band_pallas   (pallas_call at :241,
+//                                     body `_band_quad_kernel` :162)  -- ValueGen
+//   gpis_tpu/kernels/pallas_joint.py  fused_joint_quad_band_pallas (pallas_call at
+//                                     :500, body `_joint_band_quad_kernel` :408) -- JointGen
 // Given queries q (m, 3), the c training columns' metadata, W = L^{-1}
 // (c, c) lower-triangular and alpha (c,):
 //     kq[q, k]  = k(r2)                               value model, column x_k
@@ -14,6 +19,13 @@
 // kq never reaches device memory, so a query of any size runs in O(m) extra
 // memory: the route for queries whose staged kq (Kernel A or E, then D)
 // would exceed the staging cap.
+//
+// Band mode: W is a row band, rows [row_base, row_base + R) of the factor's
+// W, stored with its own leading dimension (the out-of-core store keeps
+// trimmed panels).  Its row tile i ends at global row row_base + (i+1)*64,
+// so its live columns are k < row_base + (i+1)*64, not (i+1)*64: the bound
+// carries the band's offset.  The out-of-core query adds the band's
+// colsum(v^2) into each chunk's quad, panel by panel.
 //
 // The structure is Kernel D's (query.cu): one block owns a (64-row tile of
 // W, 64-query tile) pair, loops k over the tile's live columns only
@@ -63,23 +75,25 @@ struct JointGen {  // column metadata: coords (3), dirs (3), flag -- joint.cu's 
 template <typename T, class Gen>
 __global__ void __launch_bounds__(NTHREADS)
 fused_partial_kernel(const T* __restrict__ q, int64_t m, const T* __restrict__ cols, int64_t c,
-                     const T* __restrict__ w, int kid, T ls, T sv, T* __restrict__ partial) {
+                     const T* __restrict__ w, int64_t ldw, int64_t nrows, int64_t row_base,
+                     int kid, T ls, T sv, T* __restrict__ partial) {
   __shared__ TileSmem<T> sm;
   __shared__ T red[16][TILE];
   const int64_t q_tiles = (m + TILE - 1) / TILE;
   const int64_t it = blockIdx.x / q_tiles;
-  const int64_t row0 = it * TILE;                                // W row
+  const int64_t row0 = it * TILE;                                // W row in the band
   const int64_t q0 = (int64_t)(blockIdx.x % q_tiles) * TILE;    // query
-  const int rows = (int)min64(TILE, c - row0);
+  const int rows = (int)min64(TILE, nrows - row0);
   const int qs = (int)min64(TILE, m - q0);
   const int qi = threadIdx.x % TILE;  // this thread's generated query
   T qv[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) qv[d] = qi < qs ? q[(q0 + qi) * 3 + d] : T(0);
   T acc[4][4] = {};
-  const int64_t k_end = min64(row0 + TILE, c);
+  // W lower-triangular: the tile's last global row bounds its live columns.
+  const int64_t k_end = min64(row_base + row0 + rows, c);
   for (int64_t k0 = 0; k0 < k_end; k0 += BK) {
-    load_rows_kmajor(sm.a, w + row0 * c, c, rows, k0, k_end);
+    load_rows_kmajor(sm.a, w + row0 * ldw, ldw, rows, k0, k_end);
 #pragma unroll
     for (int kk = threadIdx.x / TILE; kk < BK; kk += NTHREADS / TILE) {
       const int64_t k = k0 + kk;
@@ -139,12 +153,36 @@ static int launch_fused(const T* q, int64_t m, const T* cols, int64_t c, const T
                         const T* alpha, int kid, T ls, T sv, T* partial, T* mean, T* quad,
                         cudaStream_t s) {
   fused_partial_kernel<T, Gen><<<ceil_div(c, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
-      q, m, cols, c, w, kid, ls, sv, partial);
+      q, m, cols, c, w, c, c, 0, kid, ls, sv, partial);
   fused_reduce_kernel<T><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, (c + TILE - 1) / TILE,
                                                           quad);
   fused_mean_kernel<T, Gen><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(
       q, m, cols, c, alpha, kid, ls, sv, mean);
   return (int)cudaGetLastError();
+}
+
+template <typename T, class Gen>
+static int launch_band(const T* q, int64_t m, const T* cols, int64_t c, const T* w, int64_t ldw,
+                       int64_t rows, int64_t row0, int kid, T ls, T sv, T* partial, T* quad,
+                       cudaStream_t s) {
+  fused_partial_kernel<T, Gen><<<ceil_div(rows, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
+      q, m, cols, c, w, ldw, rows, row0, kid, ls, sv, partial);
+  fused_reduce_kernel<T><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, (rows + TILE - 1) / TILE,
+                                                          quad);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_quad_band(const T* q, int64_t m, const T* cols, int64_t c, int joint,
+                            const T* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
+                            double ls, double sv, T* partial, T* quad, void* stream) {
+  if (m == 0 || rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (joint)
+    return launch_band<T, JointGen>(q, m, cols, c, w, ldw, rows, row0, kid, (T)ls, (T)sv,
+                                    partial, quad, s);
+  return launch_band<T, ValueGen>(q, m, cols, c, w, ldw, rows, row0, kid, (T)ls, (T)sv, partial,
+                                  quad, s);
 }
 
 template <typename T>
@@ -176,6 +214,20 @@ int gpis_fused_quad_f64(const double* q, int64_t m, const double* cols, int64_t 
                         double* partial, double* mean, double* quad, void* stream) {
   return gpis::launch_fused_quad<double>(q, m, cols, c, joint, w, alpha, kid, ls, sv, partial,
                                          mean, quad, stream);
+}
+
+int gpis_quad_band_f32(const float* q, int64_t m, const float* cols, int64_t c, int joint,
+                       const float* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
+                       double ls, double sv, float* partial, float* quad, void* stream) {
+  return gpis::launch_quad_band<float>(q, m, cols, c, joint, w, ldw, rows, row0, kid, ls, sv,
+                                       partial, quad, stream);
+}
+
+int gpis_quad_band_f64(const double* q, int64_t m, const double* cols, int64_t c, int joint,
+                       const double* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
+                       double ls, double sv, double* partial, double* quad, void* stream) {
+  return gpis::launch_quad_band<double>(q, m, cols, c, joint, w, ldw, rows, row0, kid, ls, sv,
+                                        partial, quad, stream);
 }
 
 }  // extern "C"

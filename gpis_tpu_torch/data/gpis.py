@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from gpis_tpu.config import ModelConfig
+from gpis_tpu_torch.config import ModelConfig
 from gpis_tpu_torch._build import resolve_device
 
 __all__ = ["Frame", "TrainingSet", "normalize_cloud", "build_training_set", "fibonacci_sphere"]

@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 
+from gpis_tpu_torch._build import not_ported
 from gpis_tpu_torch.gp.model import align_capacity, round_up
 from gpis_tpu_torch.gp.regression import _LINV_BLOCK, _MAX_JITTER_RETRIES, _float_params
 from gpis_tpu_torch.kernels import cuda_joint
@@ -171,7 +172,5 @@ def predict_gradient(model: DerivGPModel, q: torch.Tensor) -> torch.Tensor:
 
 
 def update_joint(model: DerivGPModel, new_x, new_y, new_noise) -> DerivGPModel:
-    raise NotImplementedError(
-        "update_joint (tactile bordering of a joint model) is not ported to gpis_tpu_torch "
-        "yet (ROADMAP.md §1 item 7: session half of gp/regression.py)"
-    )
+    not_ported("update_joint (tactile bordering of a joint model)", 7,
+               "session half of gp/regression.py")

@@ -9,7 +9,8 @@
 * ``predict`` / ``predict_mean`` -- posterior mean and variance; a model
   carrying W goes through the dense query (Kernels A and D staged, or
   Kernel F on the fly); a joint model is dispatched to ``gp.derivative``
-  through ``gp.kinds.model_kind``.
+  and an out-of-core one to ``linalg.outofcore`` through
+  ``gp.kinds.model_kind``.
 
 Functions take tensors and work on the device the tensors are on.  The
 ladder reacts only to a NaN factor diagonal (what `cholesky` returns for a
@@ -28,6 +29,7 @@ from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.kernels.cuda_query import fused_query
 from gpis_tpu_torch.linalg import cholesky as lin
+from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
 
 __all__ = ["fit", "fit_padded", "fit_inference", "with_linv", "predict", "predict_mean"]
@@ -140,9 +142,15 @@ def predict(model, q: torch.Tensor):
     Kernels A then D, or Kernel F when the staged kq would be too big); one
     carrying Kinv takes var = k(0) - sum(K* * (K* Kinv)); otherwise the
     triangular solve against the factor.  A joint model (`DerivGPModel`)
-    goes to `gp.derivative.predict`.  The variance is not clamped (the
-    conditionally-PD thin plate legitimately goes negative)."""
-    if model_kind(model) == "joint":
+    goes to `gp.derivative.predict`, an out-of-core one to
+    `outofcore.ooc_predict`, which streams each W panel once for all of q.
+    The variance is not clamped (the conditionally-PD thin plate
+    legitimately goes negative), except by the out-of-core query, which
+    clamps it to [0, k0] as the JAX package does."""
+    kind = model_kind(model)
+    if kind in ("ooc", "ooc_joint"):
+        return ooc.ooc_predict(model, q)
+    if kind == "joint":
         from gpis_tpu_torch.gp import derivative as gpd
 
         return gpd.predict(model, q)
@@ -165,7 +173,10 @@ def predict(model, q: torch.Tensor):
 def predict_mean(model, q: torch.Tensor) -> torch.Tensor:
     """Posterior mean only; a joint model's cross-covariance mirrors alpha's
     layout [4C value + gradient columns | T touch columns]."""
-    if model_kind(model) == "joint":
+    kind = model_kind(model)
+    if kind in ("ooc", "ooc_joint"):
+        return ooc.ooc_predict_mean(model, q)
+    if kind == "joint":
         from gpis_tpu_torch.gp import derivative as gpd
 
         return gpd.joint_cross_value(model, q.contiguous()) @ model.alpha

@@ -11,6 +11,12 @@ gpis_tpu/kernels/pallas_query.py:250-437).
   on chip from coordinates, so kq never reaches device memory.  Its value
   generator replaces `fused_query_pallas` (pallas_query.py:404); its joint
   generator, `fused_joint_query_pallas` (pallas_joint.py:367).
+* `quad_band(gen, name, q, cols, params, w_band, row0)` -- Kernel F in band
+  mode: colsum((W_band kq^T)^2) for a row band of W at global rows
+  [row0, row0 + R), no mean.  Its value generator replaces
+  `fused_quad_band_pallas` (pallas_query.py:241); its joint generator,
+  `fused_joint_quad_band_pallas` (pallas_joint.py:500).  The out-of-core
+  query (`linalg.outofcore.ooc_predict`) adds it up panel by panel.
 * `fused_query` -- the value query: staged (A then D) or on the fly (F).
 
 Routing.  A query takes the staged route unless its staged kq would exceed
@@ -32,7 +38,8 @@ from gpis_tpu_torch.kernels.cuda_gram import KERNEL_IDS, pairwise_r2
 from gpis_tpu_torch.kernels.gram import cross_cov
 
 __all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "generated_kq",
-           "fused_quad", "fused_quad_reference", "want_staged", "fused_query"]
+           "fused_quad", "fused_quad_reference", "quad_band", "quad_band_reference",
+           "want_staged", "fused_query"]
 
 # Largest staged kq, in bytes: 4 x the 512 MiB of one 8,192-query chunk at
 # C = 16,384 in float32, a quarter of the memory the one C x C W of a
@@ -126,6 +133,48 @@ def fused_quad(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
                 quad.data_ptr())
     _build.LAUNCHES["fused_quad"] += 1
     return mean, quad
+
+
+def quad_band_reference(gen: str, name: str, q, cols, params, w_band, row0: int):
+    """Plain twin of Kernel F's band mode: kq against the band's columns,
+    then the plain product (W's columns past the band's last row are zero)."""
+    del row0  # the zeros of W carry the offset here
+    kq = generated_kq(gen, name, q, cols[:w_band.shape[1]], params)
+    v = w_band @ kq.T
+    return torch.sum(v * v, dim=0)
+
+
+def quad_band(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
+              w_band: torch.Tensor, row0: int) -> torch.Tensor:
+    """quad (M,) = colsum((W_band kq^T)^2) for W_band (R, width), rows
+    [row0, row0 + R) of a lower-triangular W, stored trimmed to
+    width >= row0 + R columns (a row-major view); queries q (M, 3) and
+    columns cols (value (C, 3) or packed joint (J, 7)) as for `fused_quad`."""
+    if gen not in _GEN_STRIDE:
+        raise ValueError(f"quad_band: unknown generator {gen!r}")
+    m, c = q.shape[0], cols.shape[0]
+    r, width = w_band.shape
+    if (q.ndim != 2 or q.shape[1] != 3 or cols.shape != (c, _GEN_STRIDE[gen])
+            or not 0 <= row0 <= row0 + r <= width <= c):
+        raise ValueError(f"quad_band: q {tuple(q.shape)}, columns {tuple(cols.shape)}, "
+                         f"W band {tuple(w_band.shape)} at row {row0} do not agree")
+    if q.device.type == "cpu":
+        return quad_band_reference(gen, name, q, cols, params, w_band, row0)
+    if name not in KERNEL_IDS or (gen == "joint" and not kf.supports_derivatives(name)):
+        raise ValueError(f"quad_band: no CUDA {gen} generator for covariance {name!r}")
+    _build.check_cuda_args("quad_band", q, cols)
+    _build.check_cuda_rows("quad_band", w_band)
+    tiles = _check_launch("quad_band", m, r)
+    partial = torch.empty((tiles, m), dtype=q.dtype, device=q.device)
+    quad = torch.empty((m,), dtype=q.dtype, device=q.device)
+    if m == 0 or r == 0:
+        return quad.zero_()
+    _build.call("gpis_quad_band", q, q.data_ptr(), m, cols.data_ptr(), c, int(gen == "joint"),
+                w_band.data_ptr(), w_band.stride(0), r, int(row0), KERNEL_IDS[name],
+                float(params["lengthscale"]), float(params["signal_variance"]),
+                partial.data_ptr(), quad.data_ptr())
+    _build.LAUNCHES["quad_band"] += 1
+    return quad
 
 
 def want_staged(m: int, c: int, itemsize: int, staged: bool | None) -> bool:

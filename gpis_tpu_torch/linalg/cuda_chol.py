@@ -1,13 +1,23 @@
-"""Kernels B and C (csrc/chol.cu) and the left-looking blocked Cholesky and
-TRSM that loop them (port of gpis_tpu/linalg/pallas_chol.py:87-185, 502-687).
+"""Kernels B, C, G, H and I (csrc/chol.cu) and the left-looking blocked
+Cholesky and TRSM that loop B and C (port of
+gpis_tpu/linalg/pallas_chol.py:87-185, 249-435, 502-687).
 
 * `panel_update(m, j0, block)` -- Kernel B, replacing `panel_update_pallas`:
   m[j0:, j0:j0+B] -= m[j0:, :j0] @ m[j0:j0+B, :j0]^T, in place.
 * `row_update(w, l_row, j0)` -- Kernel C, replacing `row_update_pallas`:
   l_row[:, :j0] @ w[:j0, :], columns >= j0 zero.
+* `gemm_nt_masked(a, b, s, k0)` -- Kernel G, replacing
+  `gemm_nt_masked_pallas`: s - a[:, :k0] @ b[:, :k0]^T, k0 a runtime value.
+* `gemm_nn_acc_masked(u, a, b, w)` -- Kernel H, replacing
+  `gemm_nn_acc_masked_pallas`: u[:, :w] += a @ b[:, :w], in place.
+* `stripe_write(dst, blk, c0)` -- Kernel I, replacing `stripe_write_pallas`:
+  dst[:, c0:c0+W] = blk, in place.
 
-Both are bound by FP32 arithmetic on the card; csrc/chol.cu says how their
-loops skip the dead half of each product.  Around them, as in the JAX
+G, H and I serve the out-of-core factor and TRSM (`linalg.outofcore`) and
+take each operand as a row-major view with its own leading dimension, so a
+stripe or a column slice of a wider buffer is passed without a copy.  B, C,
+G and H are bound by FP32 arithmetic on the card, I by bytes; csrc/chol.cu
+says how their loops skip the dead part of each product.  Around them, as in the JAX
 package, the B x B potrf (`torch.linalg.cholesky_ex`) and the panel and row
 triangular solves (`torch.linalg.solve_triangular`) stay library calls.
 
@@ -22,6 +32,8 @@ import torch
 from gpis_tpu_torch import _build
 
 __all__ = ["panel_update", "panel_update_reference", "row_update", "row_update_reference",
+           "gemm_nt_masked", "gemm_nt_masked_reference", "gemm_nn_acc_masked",
+           "gemm_nn_acc_masked_reference", "stripe_write", "stripe_write_reference",
            "blocked_cholesky", "blocked_linv"]
 
 
@@ -81,6 +93,79 @@ def row_update(w: torch.Tensor, l_row: torch.Tensor, j0: int) -> torch.Tensor:
                 l_row.shape[0], out.data_ptr())
     _build.LAUNCHES["row_update"] += 1
     return out
+
+
+def gemm_nt_masked_reference(a, b, s, k0: int) -> torch.Tensor:
+    """Plain twin of Kernel G."""
+    return s - a[:, :k0] @ b[:, :k0].T
+
+
+def gemm_nt_masked(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor, k0: int) -> torch.Tensor:
+    """S - A[:, :k0] @ B[:, :k0]^T as a new (R, P) tensor, for a (R, >= k0),
+    b (P, >= k0) and s (R, P); each may be a strided row-major view (a
+    stripe of s may lie inside a itself)."""
+    r, p = s.shape
+    if a.shape[0] != r or b.shape[0] != p or not 0 <= k0 <= min(a.shape[1], b.shape[1]):
+        raise ValueError(f"gemm_nt_masked: a {tuple(a.shape)}, b {tuple(b.shape)}, "
+                         f"s {tuple(s.shape)}, k0={k0} do not agree")
+    if s.device.type == "cpu":
+        return gemm_nt_masked_reference(a, b, s, k0)
+    _build.check_cuda_rows("gemm_nt_masked", a, b, s)
+    out = torch.empty((r, p), dtype=s.dtype, device=s.device)
+    if r == 0 or p == 0:
+        return out
+    _build.call("gpis_gemm_nt_masked", s, a.data_ptr(), a.stride(0), r, b.data_ptr(), b.stride(0),
+                p, s.data_ptr(), s.stride(0), out.data_ptr(), p, int(k0))
+    _build.LAUNCHES["gemm_nt_masked"] += 1
+    return out
+
+
+def gemm_nn_acc_masked_reference(u, a, b, w: int) -> torch.Tensor:
+    """Plain twin of Kernel H (in place on u; returns u)."""
+    u[:, :w] += a @ b[:, :w]
+    return u
+
+
+def gemm_nn_acc_masked(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: int) -> torch.Tensor:
+    """U[:, :w] += A @ B[:, :w] in place (columns >= w untouched); returns u.
+    u (R, >= w), a (R, K), b (K, >= w), each a row-major view.  u and b may
+    be row ranges of one buffer, provided b's rows are not u's."""
+    r, k = a.shape
+    if u.shape[0] != r or b.shape[0] != k or not 0 <= w <= min(u.shape[1], b.shape[1]):
+        raise ValueError(f"gemm_nn_acc_masked: u {tuple(u.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}, w={w} do not agree")
+    if u.device.type == "cpu":
+        return gemm_nn_acc_masked_reference(u, a, b, w)
+    _build.check_cuda_rows("gemm_nn_acc_masked", u, a, b)
+    if r == 0 or k == 0 or w == 0:  # nothing to add, nothing launched
+        return u
+    _build.call("gpis_gemm_nn_acc_masked", u, a.data_ptr(), a.stride(0), r, b.data_ptr(),
+                b.stride(0), k, u.data_ptr(), u.stride(0), int(w))
+    _build.LAUNCHES["gemm_nn_acc_masked"] += 1
+    return u
+
+
+def stripe_write_reference(dst, blk, c0: int) -> torch.Tensor:
+    """Plain twin of Kernel I (in place on dst; returns dst)."""
+    dst[:, c0:c0 + blk.shape[1]] = blk
+    return dst
+
+
+def stripe_write(dst: torch.Tensor, blk: torch.Tensor, c0: int) -> torch.Tensor:
+    """dst[:, c0:c0+W] = blk in place for blk (R, W); returns dst."""
+    r, w = blk.shape
+    if dst.shape[0] != r or not 0 <= c0 <= dst.shape[1] - w:
+        raise ValueError(f"stripe_write: a ({r}, {w}) stripe at column {c0} does not fit "
+                         f"{tuple(dst.shape)}")
+    if dst.device.type == "cpu":
+        return stripe_write_reference(dst, blk, c0)
+    _build.check_cuda_rows("stripe_write", dst, blk)
+    if r == 0 or w == 0:
+        return dst
+    _build.call("gpis_stripe_write", dst, dst.data_ptr(), dst.stride(0), blk.data_ptr(),
+                blk.stride(0), r, w, int(c0))
+    _build.LAUNCHES["stripe_write"] += 1
+    return dst
 
 
 def _potrf(d: torch.Tensor):

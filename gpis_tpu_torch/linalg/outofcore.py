@@ -1,0 +1,854 @@
+"""Out-of-core GP fit and query on one card (port of gpis_tpu/linalg/outofcore.py).
+
+The single-device path for clouds whose one-matrix factor does not fit on the
+card: the Cholesky factor L and then W = L^{-1} live OUT OF CORE as trimmed
+row panels (panel j = rows [jB, (j+1)B) x columns [0, w_j), w_j >= (j+1)B,
+the only structurally nonzero part) in a panel store:
+
+* `DevicePanelStore` -- every panel in device memory (~0.56 C^2 floats
+  instead of C^2, and W_j takes L_j's place as the TRSM consumes L);
+* `HostPanelStore` -- every panel in pinned host RAM, streamed per use;
+* `TieredPanelStore` -- device memory up to a byte budget (`DeviceBudget`,
+  shared by the L and W stores of one fit), host RAM beyond it;
+  `promote` pins spilled panels back on the card for serving.
+
+Cholesky (`ooc_cholesky`) -- row-panel bordering.  A sweep of r row panels
+is one (rB, C) band `cur`, filled with the Gram rows (Kernel A band mode, or
+Kernel E for a joint factor):
+
+    for k < j:  S_k = cur[:, kB:(k+1)B] - cur[:, :kB] L_k[:, :kB]^T   (Kernel G)
+                cur[:, kB:(k+1)B] = S_k L_kk^{-T}                      (Kernel I)
+    S_jj = cur[:, jB:] - cur[:, :jB] cur[:, :jB]^T ;  L_jj = potrf(S_jj)
+
+with the forward substitution u = L^{-1} y taken inline from each band.
+alpha = L^{-T} u streams the L panels once backwards (`ooc_alpha_backward`).
+
+TRSM (`ooc_trsm`) -- left-looking W = L^{-1} by row panels:
+
+    U   = sum_{k<j} L_j[:, kB:(k+1)B] W_k       (Kernel H, output columns < (k+1)B)
+    W_j = L_jj^{-1} [-U | I]                     (Kernels I and H, triangular solves)
+
+Step j consumes L panel j, so W_j takes its place in the budget.
+
+Query (`ooc_predict`) -- mean = K(Q, X) alpha per chunk; the variance
+streams each W panel once in total (the panel loop is outermost) through
+Kernel F's band mode, adding ||W_j kq^T||^2 into every chunk's quad, then
+clamps to [0, k0] as the JAX package does.
+
+What differs from the JAX package, and why:
+* Operands are views with a leading dimension.  The JAX package padded
+  every panel to full width and sliced with `lax.dynamic_slice` so that one
+  compiled kernel served every panel; here each kernel takes its row-major
+  views as they are (a stripe of `cur`, a trimmed panel), so no (R, C)
+  copy and no zero padding appears on the card.
+* Host and device overlap through CUDA streams, not threads: a copy stream
+  prefetches the next panel (`_Prefetcher`) and a writer stream moves
+  spilled panels to pinned host RAM (`_AsyncWriter`).  Each transfer ends
+  in an event that the consuming stream waits on, and each buffer used on
+  a second stream is marked with `record_stream`, so the caching allocator
+  never hands out memory that a copy still reads or writes.
+* The tunnel machinery is not ported: the link accounting, the 16 MB h2d
+  slices and the CPU-device d2h staging.  `TRAFFIC` counts the bytes moved
+  each way, nothing more.
+
+Not in this slice (each raises NotImplementedError naming its ROADMAP.md
+§1 item): tactile updates (`ooc_update`, item 7), the marginal likelihood
+(item 10), and from item 15 the disk spill, the f16 W spill, the int16 L
+codec with `ooc_residual_check`, the process-split phases and `plan_sweeps`.
+
+Functions take tensors and work on the device the tensors are on; on the
+CPU every kernel call takes its plain twin.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from gpis_tpu_torch._build import not_ported
+from gpis_tpu_torch.gp.model import round_up
+from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
+from gpis_tpu_torch.kernels import derivative as kd
+from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.linalg import cuda_chol
+
+__all__ = ["TRAFFIC", "DeviceBudget", "HostPanelStore", "DevicePanelStore", "TieredPanelStore",
+           "ooc_cholesky", "ooc_alpha_backward", "ooc_trsm", "ooc_predict", "ooc_predict_mean",
+           "ooc_fit", "ooc_fit_joint", "OOCModel", "OOCJointModel", "ooc_update",
+           "ooc_residual_check", "ooc_factor_phase", "ooc_solve_phase", "plan_sweeps"]
+
+# Bytes moved between host RAM and the card by the panel stores, each way
+# ("h2d_bytes", "d2h_bytes").
+TRAFFIC: collections.Counter = collections.Counter()
+
+# A stored panel's width is its true width rounded up to a multiple of
+# WIDTH_QUANT panels (the JAX package's default, so both store the same shapes).
+WIDTH_QUANT = 2
+# Row panels per band in the factor (SWEEP) and per outer step of the TRSM.
+SWEEP = 2
+TRSM_SWEEP = 2
+# Retries of the NaN-escalation jitter ladder before a fit gives up.
+MAX_JITTER_RETRIES = 3
+
+
+# ------------------------------------------------------------ panel stores
+
+
+class DeviceBudget:
+    """Device-memory byte budget shared by the L and W tiered stores of one
+    fit: the TRSM frees L panels while W panels grow, so one pot keeps their
+    sum bounded."""
+
+    def __init__(self, limit_bytes: int):
+        self.limit = int(limit_bytes)
+        self._used = 0
+
+    def take(self, n: int) -> bool:
+        if self._used + n <= self.limit:
+            self._used += n
+            return True
+        return False
+
+    def give(self, n: int) -> None:
+        self._used -= n
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _compact_copy(arr: torch.Tensor) -> torch.Tensor:
+    """A compact copy: a stored panel must not keep its band alive."""
+    return arr.clone(memory_format=torch.contiguous_format)
+
+
+def _d2h(arr: torch.Tensor, stream):
+    """Host copy of a panel.  From a card, into pinned memory, enqueued on
+    `stream` after the work already on the current stream; returns (host,
+    event), the copy complete when the event is.  Without a stream the copy
+    is synchronous; on the CPU it is a plain copy.  Either way no event."""
+    if arr.device.type != "cuda":
+        return _compact_copy(arr), None
+    TRAFFIC["d2h_bytes"] += _nbytes(arr)
+    host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
+    if stream is None:
+        return host.copy_(arr), None
+    stream.wait_stream(torch.cuda.current_stream(arr.device))
+    with torch.cuda.stream(stream):
+        host.copy_(arr, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    arr.record_stream(stream)  # arr's memory stays out of reuse until the copy ends
+    return host, done
+
+
+class _PanelStore:
+    """Trimmed panels by index.  `ready_event(j)` is the event a host panel's
+    pending device-to-host copy completes at (None once known complete)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._p: dict[int, torch.Tensor] = {}
+        self._ready: dict[int, object] = {}
+
+    def _store(self, j: int, arr: torch.Tensor, stream) -> torch.Tensor:
+        raise NotImplementedError
+
+    def put(self, j: int, arr: torch.Tensor, stream=None) -> None:
+        self._p[j] = self._store(j, arr, stream)
+
+    def get(self, j: int) -> torch.Tensor:
+        return self._p[j]
+
+    def ready_event(self, j: int):
+        return self._ready.get(j)
+
+    def free(self, j: int) -> None:
+        self._p.pop(j, None)
+        self._ready.pop(j, None)
+
+    def clear(self) -> None:
+        for j in list(self._p):
+            self.free(j)
+
+    def __contains__(self, j) -> bool:
+        return j in self._p
+
+
+class HostPanelStore(_PanelStore):
+    """Every panel in (pinned) host RAM."""
+
+    def _store(self, j, arr, stream):
+        host, self._ready[j] = _d2h(arr, stream)
+        return host
+
+
+class DevicePanelStore(_PanelStore):
+    """Every panel in device memory."""
+
+    def _store(self, j, arr, stream):
+        return _compact_copy(arr)
+
+
+class TieredPanelStore(_PanelStore):
+    """Panels stay on the card while the shared budget lasts, then spill to
+    pinned host RAM (budget first: the earliest panels, which the
+    left-looking loops read most, stay resident)."""
+
+    def __init__(self, budget: DeviceBudget, device):
+        super().__init__(device)
+        self._budget = budget
+        self._meta: dict[int, tuple[bool, int]] = {}  # j -> (on the card, bytes)
+
+    def _store(self, j, arr, stream):
+        size = _nbytes(arr)
+        on_dev = self._budget.take(size)
+        self._meta[j] = (on_dev, size)
+        if on_dev:
+            return _compact_copy(arr)
+        host, self._ready[j] = _d2h(arr, stream)
+        return host
+
+    def free(self, j: int) -> None:
+        on_dev, size = self._meta.pop(j, (False, 0))
+        if on_dev:
+            self._budget.give(size)
+        super().free(j)
+
+    def spilled(self) -> list[int]:
+        """Indices of the panels held in host RAM."""
+        return sorted(j for j, (on_dev, _) in self._meta.items() if not on_dev)
+
+    def promote(self, limit_bonus: int = 0) -> int:
+        """Move spilled panels back onto the card (serving mode), in
+        ascending order, until the budget (raised by `limit_bonus`) refuses;
+        returns the bytes promoted.  After a fit its working set is gone, and
+        a session that queries again and again would otherwise stream every
+        spilled panel on every query."""
+        self._budget.limit += int(limit_bonus)
+        promoted = 0
+        for j in self.spilled():
+            size = self._meta[j][1]
+            if not self._budget.take(size):
+                break
+            done = self._ready.pop(j, None)
+            if done is not None:
+                done.synchronize()
+            self._p[j] = self._p[j].to(self.device)
+            if self.device.type == "cuda":
+                TRAFFIC["h2d_bytes"] += size
+            self._meta[j] = (True, size)
+            promoted += size
+        return promoted
+
+    @classmethod
+    def open_dir(cls, *args, **kwargs):
+        not_ported("TieredPanelStore.open_dir (the disk spill)", 15, "out-of-core")
+
+
+def _make_store(kind: str, budget: DeviceBudget, device):
+    if kind == "host":
+        return HostPanelStore(device)
+    if kind == "device":
+        return DevicePanelStore(device)
+    if kind == "tiered":
+        return TieredPanelStore(budget, device)
+    raise ValueError(f"unknown panel store kind {kind!r}")
+
+
+# ------------------------------------------------------- pipeline helpers
+
+
+def _fetch(store: _PanelStore, j: int, stream=None):
+    """Stored panel j on the store's device, at its trimmed width, and the
+    event its copy ends at (None when no copy was made, or the copy was
+    synchronous).  A host panel is copied on `stream` when one is given,
+    after its own device-to-host copy, if still pending, has ended."""
+    v = store.get(j)
+    dev = store.device
+    if v.device == dev:
+        return v, None
+    TRAFFIC["h2d_bytes"] += _nbytes(v)
+    pending = store.ready_event(j)
+    if stream is None:
+        if pending is not None:
+            pending.synchronize()
+        return v.to(dev), None
+    with torch.cuda.stream(stream):
+        if pending is not None:
+            stream.wait_event(pending)
+        out = v.to(dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return out, done
+
+
+class _Prefetcher:
+    """Panels of `order` in turn, each fetched one step ahead: the
+    host-to-device copy of the next panel runs on a copy stream while the
+    current stream computes on this one.  Before it starts the next copy it
+    waits for the work already queued on the previous panel, so at most two
+    fetched panels are alive."""
+
+    def __init__(self, store: _PanelStore, order):
+        self._store = store
+        self._order = list(order)
+        self._cuda = store.device.type == "cuda"
+        self._stream = torch.cuda.Stream(store.device) if self._cuda else None
+        self._i = 0
+        self._next = _fetch(store, self._order[0], self._stream) if self._order else None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._i >= len(self._order):
+            raise StopIteration
+        current = torch.cuda.current_stream(self._store.device) if self._cuda else None
+        if self._cuda and self._i:
+            current.synchronize()  # the previous panel's work is done: its buffer is free
+        arr, done = self._next
+        if done is not None:
+            current.wait_event(done)
+            arr.record_stream(current)
+        k = self._order[self._i]
+        self._i += 1
+        self._next = (_fetch(self._store, self._order[self._i], self._stream)
+                      if self._i < len(self._order) else None)
+        return k, arr
+
+
+class _AsyncWriter:
+    """Puts finished panels into a store.  A panel that spills to host RAM
+    is copied on a writer stream, so the copy overlaps the next band's
+    compute; one such copy is in flight at a time."""
+
+    def __init__(self, store: _PanelStore):
+        self._store = store
+        self._stream = torch.cuda.Stream(store.device) if store.device.type == "cuda" else None
+
+    def put(self, j: int, arr: torch.Tensor) -> None:
+        self.drain()
+        self._store.put(j, arr, self._stream)
+
+    def drain(self) -> None:
+        if self._stream is not None:
+            self._stream.synchronize()
+
+
+# ------------------------------------------------------------ device steps
+
+
+def _meta_triple(m: torch.Tensor):
+    """(J, 7) packed joint metadata -> (coords, dirs, flag) views."""
+    return m[:, :3], m[:, 3:6], m[:, 6]
+
+
+def _gram_band(name: str, cols: torch.Tensor, noise: torch.Tensor, params, row0: int,
+               rows: int) -> torch.Tensor:
+    """(rows, C) band of K(cols) + diag(noise) at global rows [row0, row0+rows).
+    cols with 7 columns is packed joint metadata: the band is joint
+    covariance rows (Kernel E), and the factor, TRSM and query above are
+    the same for both layouts.  Value columns (C, 3) take Kernel A's band
+    mode."""
+    band = cols[row0:row0 + rows]
+    if cols.shape[1] == 7:
+        noise_col = torch.zeros((cols.shape[0],), dtype=cols.dtype, device=cols.device)
+        noise_col[row0:row0 + rows] = noise[row0:row0 + rows]
+        return cuda_joint.joint_rows(name, _meta_triple(band), _meta_triple(cols), params,
+                                     noise_col=noise_col, row0=row0)
+    return cuda_gram.cov(name, band, cols, params, noise=noise[row0:row0 + rows], sym=True,
+                         row0=row0)
+
+
+def _potrf(a: torch.Tensor, block: int) -> torch.Tensor:
+    """Lower factor of a (R, R) block, in place; a NaN diagonal where it is
+    not positive definite (the signal `_diag_nan` reads)."""
+    if a.shape[0] % block == 0:
+        return cuda_chol.blocked_cholesky(a, block)
+    l, info = torch.linalg.cholesky_ex(a)
+    if int(info):
+        l.diagonal().fill_(float("nan"))
+    return l
+
+
+def _trsm_right_blocked(s: torch.Tensor, l: torch.Tensor, *, block: int) -> torch.Tensor:
+    """X with X L^T = S, L (P, P) lower-triangular, IN PLACE on s (R, P):
+    block-right-looking, Kernel G for the updates, a triangular solve on
+    each diagonal block (the JAX package's choice: an explicit inverse's
+    rounding is amplified by cond(L))."""
+    p = s.shape[1]
+    if p % block:
+        s.copy_(torch.linalg.solve_triangular(l.T, s, upper=True, left=False))
+        return s
+    for c0 in range(0, p, block):
+        sc = cuda_chol.gemm_nt_masked(s, l[c0:c0 + block], s[:, c0:c0 + block], c0)
+        s[:, c0:c0 + block] = torch.linalg.solve_triangular(
+            l[c0:c0 + block, c0:c0 + block].T, sc, upper=True, left=False)
+    return s
+
+
+def _chol_kstep(cur: torch.Tensor, lk: torch.Tensor, k0: int, *, block: int) -> None:
+    """One bordering step of the band against stored panel k (lk, trimmed):
+    cur[:, k0:k0+B] <- (cur[:, k0:k0+B] - cur[:, :k0] lk[:, :k0]^T) L_kk^{-T}."""
+    p = lk.shape[0]
+    s = cuda_chol.gemm_nt_masked(cur, lk, cur[:, k0:k0 + p], k0)
+    cuda_chol.stripe_write(cur, _trsm_right_blocked(s, lk[:, k0:k0 + p], block=block), k0)
+
+
+def _chol_diag(cur: torch.Tensor, j0: int, *, block: int) -> None:
+    """Finish the band: factor its (R, R) diagonal block in place."""
+    r = cur.shape[0]
+    s = cuda_chol.gemm_nt_masked(cur, cur, cur[:, j0:j0 + r], j0)
+    cuda_chol.stripe_write(cur, _potrf(s, block), j0)
+
+
+def _mask_cols(a: torch.Tensor, limit: int) -> None:
+    """Zero the columns at or beyond `limit`: stored panels are exact zeros
+    past their true width, which the substitutions and the TRSM rely on."""
+    a[:, limit:] = 0.0
+
+
+def _diag_nan(cur: torch.Tensor, j0: int) -> bool:
+    """NaN check of the just-factored diagonal block."""
+    r = cur.shape[0]
+    return bool(torch.isnan(cur[:, j0:j0 + r].diagonal()).any())
+
+
+def _fwd_sub_step(u: torch.Tensor, lj: torch.Tensor, y: torch.Tensor, j0: int) -> None:
+    """u[j0:j0+b] = L_jj^{-1} (y_j - L_j u), in place, for the b rows of lj
+    (trimmed): u[j0:] is still zero, so the whole row product needs no mask."""
+    b, w = lj.shape
+    yj = y[j0:j0 + b] - lj @ u[:w]
+    u[j0:j0 + b] = torch.linalg.solve_triangular(lj[:, j0:j0 + b], yj[:, None],
+                                                 upper=False)[:, 0]
+
+
+def _bwd_sub_step(alpha: torch.Tensor, acc: torch.Tensor, lj: torch.Tensor, u: torch.Tensor,
+                  j0: int) -> None:
+    """Descending pass of alpha = L^{-T} u, in place: solve alpha_j from the
+    accumulated tail contributions, then push panel j's columns onto acc
+    (its diagonal block's share lands on acc[j0:j0+b], never read again)."""
+    b, w = lj.shape
+    rhs = u[j0:j0 + b] - acc[j0:j0 + b]
+    aj = torch.linalg.solve_triangular(lj[:, j0:j0 + b].T, rhs[:, None], upper=True)[:, 0]
+    alpha[j0:j0 + b] = aj
+    acc[:w] += aj @ lj
+
+
+def _trsm_kstep(u: torch.Tensor, lj: torch.Tensor, wk: torch.Tensor, k0: int,
+                width: int) -> None:
+    """U += L_j[:, k0:k0+B] W_k over output columns < width (Kernel H)."""
+    p = wk.shape[0]
+    cuda_chol.gemm_nn_acc_masked(u, lj[:, k0:k0 + p], wk, width)
+
+
+def _trsm_finish(ljj: torch.Tensor, u: torch.Tensor, j0: int, *, block: int) -> None:
+    """W rows = L_dd^{-1} [-U | I | 0], IN PLACE on u (R, C): I at columns
+    [j0, j0+R), zeros beyond (u's columns >= j0 are zero by construction).
+    A left-blocked solve: block r contracts the solved rows above r0
+    (Kernel H, k running over rows < r0 only, so the launch never reads the
+    rows it writes) and then solves its diagonal block."""
+    rows = ljj.shape[0]
+    u.neg_()
+    cuda_chol.stripe_write(u, torch.eye(rows, dtype=u.dtype, device=u.device), j0)
+    width = j0 + rows
+    for r0 in range(0, rows, block):
+        xr = u[r0:r0 + block, :width]
+        cuda_chol.gemm_nn_acc_masked(xr, -ljj[r0:r0 + block, :r0], u[:r0], width)
+        xr.copy_(torch.linalg.solve_triangular(ljj[r0:r0 + block, r0:r0 + block], xr,
+                                               upper=False))
+
+
+def _store_width(j: int, panel: int, c: int) -> int:
+    """Trimmed width of stored panel j: its true width (j+1)B rounded up to
+    a multiple of WIDTH_QUANT panels, at most C."""
+    return min(((j + WIDTH_QUANT) // WIDTH_QUANT) * WIDTH_QUANT * panel, c)
+
+
+# ----------------------------------------------------------------- phases
+
+
+def ooc_cholesky(kernel: str, cols: torch.Tensor, noise: torch.Tensor, params, store, *,
+                 panel: int, block: int = 256, sweep: int = 1, y: torch.Tensor | None = None):
+    """Row-panel bordering Cholesky of K(cols) + diag(noise) into `store`
+    (trimmed panels, zero past their true width).  cols is (C, 3) points or
+    (J, 7) packed joint metadata.  Returns (ok, u): ok False if the factor
+    came back NaN (the caller escalates jitter); with y, u = L^{-1} y, taken
+    inline from each band while it is on the card.  `sweep` row panels form
+    one band, so each stored panel is fetched once a sweep."""
+    c = cols.shape[0]
+    if c % panel:
+        raise ValueError(f"capacity {c} must be a multiple of panel {panel}")
+    nb = c // panel
+    writer = _AsyncWriter(store)
+    u = None if y is None else torch.zeros_like(y)
+    j = 0
+    while j < nb:
+        r = min(max(int(sweep), 1), nb - j)
+        j0, rows = j * panel, r * panel
+        cur = _gram_band(kernel, cols, noise, params, j0, rows)
+        for k, lk in _Prefetcher(store, range(j)):
+            _chol_kstep(cur, lk, k * panel, block=block)
+        _chol_diag(cur, j0, block=block)
+        if _diag_nan(cur, j0):
+            writer.drain()
+            return False, None
+        _mask_cols(cur, j0 + rows)
+        if u is not None:
+            _fwd_sub_step(u, cur, y, j0)
+        for rr in range(r):
+            w = _store_width(j + rr, panel, c)
+            writer.put(j + rr, cur[rr * panel:(rr + 1) * panel, :w])
+        j += r
+    writer.drain()
+    return True, u
+
+
+def ooc_alpha_backward(lstore, u: torch.Tensor, *, panel: int) -> torch.Tensor:
+    """alpha = L^{-T} u by backward substitution: one descending pass over
+    the stored L panels (the forward half runs inline in ooc_cholesky)."""
+    nb = u.shape[0] // panel
+    alpha = torch.zeros_like(u)
+    acc = torch.zeros_like(u)
+    for j, lj in _Prefetcher(lstore, range(nb - 1, -1, -1)):
+        _bwd_sub_step(alpha, acc, lj, u, j * panel)
+    return alpha
+
+
+def ooc_trsm(lstore, wstore, *, capacity: int, panel: int, block: int = 256,
+             sweep: int = 1) -> None:
+    """W = L^{-1} by left-looking row panels into `wstore`, consuming the L
+    panels as it goes (L panel j is freed before W panel j is stored, so W_j
+    takes its budget).  `sweep` W row panels are solved per outer step, so
+    each earlier W panel is fetched once a sweep."""
+    if panel % block:
+        raise ValueError(f"panel ({panel}) must be a multiple of block ({block})")
+    c = capacity
+    nb = c // panel
+    dev = lstore.device
+    writer = _AsyncWriter(wstore)
+    j = 0
+    while j < nb:
+        r = min(max(int(sweep), 1), nb - j)
+        j0, rows = j * panel, r * panel
+        parts = [_fetch(lstore, j + rr)[0] for rr in range(r)]
+        if r == 1:
+            lj = parts[0]
+        else:  # the sweep's rows, padded to the widest panel of the group
+            lj = torch.zeros((rows, max(p.shape[1] for p in parts)), dtype=parts[0].dtype,
+                             device=dev)
+            for rr, part in enumerate(parts):
+                lj[rr * panel:(rr + 1) * panel, :part.shape[1]] = part
+        del parts
+        u = torch.zeros((rows, c), dtype=lj.dtype, device=dev)
+        for k, wk in _Prefetcher(wstore, range(j)):
+            _trsm_kstep(u, lj, wk, k * panel, (k + 1) * panel)
+        ljj = lj[:, j0:j0 + rows].clone()  # only the diagonal block survives
+        del lj
+        for rr in range(r):
+            lstore.free(j + rr)
+        _trsm_finish(ljj, u, j0, block=block)
+        del ljj
+        for rr in range(r):
+            w = _store_width(j + rr, panel, c)
+            writer.put(j + rr, u[rr * panel:(rr + 1) * panel, :w])
+        del u
+        j += r
+    writer.drain()
+
+
+def _factor_cols(model) -> torch.Tensor:
+    """The factor's columns: packed joint metadata for a joint model, the
+    coordinates for a value model."""
+    meta = getattr(model, "meta", None)
+    return model.x if meta is None else meta
+
+
+def _value_cross(name: str, q: torch.Tensor, cols: torch.Tensor, params) -> torch.Tensor:
+    """cov(f(q), factor columns) for value (C, 3) or packed joint (J, 7)
+    columns: Kernel A or Kernel E."""
+    if cols.shape[1] == 7:
+        return cuda_joint.joint_rows(name, cuda_joint.value_meta(q), _meta_triple(cols), params)
+    return cuda_gram.cov(name, q, cols, params)
+
+
+def _mean_chunk(name: str, q, cols, params, alpha) -> torch.Tensor:
+    return _value_cross(name, q, cols, params) @ alpha
+
+
+def _quad_band(name: str, q, cols, params, w_band, row0: int) -> torch.Tensor:
+    """One panel's share ||W_j kq^T||^2 of every query's quad (Kernel F band
+    mode, kq generated in-tile)."""
+    gen = "joint" if cols.shape[1] == 7 else "value"
+    return cuda_query.quad_band(gen, name, q, cols, params, w_band, row0)
+
+
+def _chunks(q: torch.Tensor, chunk: int):
+    return [q[i:i + chunk] for i in range(0, q.shape[0], chunk)]
+
+
+def ooc_predict_mean(model: "OOCModel", q: torch.Tensor, *, chunk: int = 8192) -> torch.Tensor:
+    """Posterior mean at q (M, 3), chunked: K(q, X) alpha, no panel read."""
+    q = q.to(model.dtype).contiguous()
+    cols = _factor_cols(model)
+    if q.shape[0] == 0:
+        return q.new_zeros((0,))
+    return torch.cat([_mean_chunk(model.kernel, ch, cols, model.params, model.alpha)
+                      for ch in _chunks(q, chunk)])
+
+
+def ooc_predict(model: "OOCModel", q: torch.Tensor, *, chunk: int = 8192):
+    """Posterior (mean, variance) at q (M, 3), chunked.  The W panels stream
+    once in total: the panel loop is outermost and every chunk's quad adds
+    the panel's share.  The variance is clamped to [0, k0], as in the JAX
+    package (W's rounding concentrates where the true variance is ~0)."""
+    q = q.to(model.dtype).contiguous()
+    mean = ooc_predict_mean(model, q, chunk=chunk)
+    if q.shape[0] == 0:
+        return mean, q.new_zeros((0,))
+    cols = _factor_cols(model)
+    chunks = _chunks(q, chunk)
+    quads = [torch.zeros((ch.shape[0],), dtype=model.dtype, device=q.device) for ch in chunks]
+    nb = cols.shape[0] // model.panel
+    for j, wj in _Prefetcher(model.wstore, range(nb)):
+        for quad, ch in zip(quads, chunks):
+            quad += _quad_band(model.kernel, ch, cols, model.params, wj, j * model.panel)
+    k0 = float(kf.k_diag0(model.kernel, model.params))
+    return mean, torch.clamp(k0 - torch.cat(quads), 0.0, k0)
+
+
+# ----------------------------------------------------------------- models
+
+
+@dataclasses.dataclass
+class OOCModel:
+    """Query handle of an out-of-core fit: the small state on the card, the
+    W = L^{-1} panels in `wstore`."""
+
+    kernel: str
+    x: torch.Tensor  # (C, 3)
+    y: torch.Tensor  # (C,)
+    noise: torch.Tensor  # (C,), with the jitter the factor needed
+    params: dict  # Python floats
+    alpha: torch.Tensor  # (C,)
+    wstore: object  # panel store of W's trimmed row panels
+    panel: int
+    n_real: int
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def predict(self, q, *, chunk: int = 8192):
+        return ooc_predict(self, q, chunk=chunk)
+
+    def update(self, new_x, new_y, new_noise, *, tail_capacity: int = 256):
+        return ooc_update(self, new_x, new_y, new_noise, tail_capacity=tail_capacity)
+
+    def log_marginal_likelihood(self) -> float:
+        not_ported("OOCModel.log_marginal_likelihood", 10, "config 3")
+
+    def promote_for_serving(self, *, reserve_bytes: int | None = None) -> int:
+        """Pin spilled W panels into the device memory the finished fit freed
+        and return the bytes promoted; `reserve_bytes` is kept free for the
+        query working set (default two full-width panels and 1 GB).  No-op
+        for a store without a spill tier."""
+        if not isinstance(self.wstore, TieredPanelStore):
+            return 0
+        if reserve_bytes is None:
+            # alpha's length is the factor size in both layouts (C, or J = 4C).
+            reserve_bytes = 2 * self.panel * _nbytes(self.alpha) + 1_000_000_000
+        budget = self.wstore._budget
+        bonus = max(0, _device_limit(self.device) - int(reserve_bytes) - budget.limit)
+        return self.wstore.promote(limit_bonus=bonus)
+
+
+@dataclasses.dataclass
+class OOCJointModel(OOCModel):
+    """Out-of-core joint (value + gradient) model: config 2 beyond one
+    matrix on the card.  The factor, TRSM and query are the value model's;
+    only the columns differ.  Fields as in the JAX package:
+
+        x (C, 3) core coordinates;  y (J,) joint targets [f | d1 | d2 | d3];
+        noise (C,) value noise;  meta (J, 7) packed factor-row metadata.
+    """
+
+    meta: torch.Tensor | None = None  # (J, 7)
+    normals: torch.Tensor | None = None  # (C, 3) unit normals (zero pad rows)
+    noise_g: torch.Tensor | None = None  # (C,) gradient noise
+    n0: int = 0  # core capacity C
+
+
+def ooc_update(model, new_x, new_y, new_noise, *, tail_capacity: int = 256):
+    not_ported("ooc_update (tactile updates of an out-of-core fit)", 7,
+                "session half of gp/regression.py")
+
+
+def ooc_residual_check(model, **kwargs):
+    not_ported("ooc_residual_check (the int16 L codec's guard)", 15, "out-of-core")
+
+
+def ooc_factor_phase(*args, **kwargs):
+    not_ported("ooc_factor_phase (the process-split fit)", 15, "out-of-core")
+
+
+def ooc_solve_phase(*args, **kwargs):
+    not_ported("ooc_solve_phase (the process-split fit)", 15, "out-of-core")
+
+
+def plan_sweeps(*args, **kwargs):
+    not_ported("plan_sweeps", 15, "out-of-core")
+
+
+# ------------------------------------------------------------------- fits
+
+
+def _device_limit(device, default: int = 15_500_000_000) -> int:
+    """Bytes this process's allocator can hold on the card: what is free
+    plus what it has cached.  `default` off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return default
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device)
+
+
+def _hbm_budget(panel: int, c: int, itemsize: int, device) -> int:
+    """Device bytes left to the tiered stores: the limit minus the row-band
+    working set -- the widest (sweep B, C) band of the factor or the TRSM's
+    (its band and U), two prefetched panels, the transients of a step -- and
+    0.5 GB (the JAX package's reserve)."""
+    sweep = max(SWEEP, TRSM_SWEEP + 1)
+    reserve = int((sweep + 4.5) * panel * c * itemsize) + 500_000_000
+    return max(_device_limit(device) - reserve, 0)
+
+
+def _padded(v, fill: float, shape, like: torch.Tensor) -> torch.Tensor:
+    out = torch.full(shape, fill, dtype=like.dtype, device=like.device)
+    n = like.shape[0]
+    out[:n] = torch.as_tensor(v, dtype=like.dtype, device=like.device).broadcast_to(
+        (n,) + tuple(shape[1:]))
+    return out
+
+
+def _pad_problem(kernel: str, x, y, noise, params, *, panel: int, pad_noise: float):
+    """Pad (x, y, noise) to a panel multiple with inert high-noise rows at
+    the origin; returns (xp, yp, noisep, params, c, n, jitter)."""
+    n = x.shape[0]
+    c = round_up(n, panel)
+    params = {k: float(v) for k, v in params.items()}
+    jitter = 4.0 * torch.finfo(x.dtype).eps * c * abs(float(kf.k_diag0(kernel, params)))
+    return (_padded(x, 0.0, (c, 3), x), _padded(y, 0.0, (c,), x),
+            _padded(noise, pad_noise, (c,), x), params, c, n, jitter)
+
+
+def _pad_joint_problem(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel: int,
+                       pad_noise: float):
+    """Pad a problem with normals so that J = 4C is a panel multiple (C to a
+    multiple of panel / 4) and pack its factor metadata.  Returns
+    (xp, yj, meta, nrm, nf, ng, params, c, n, jitter)."""
+    if not kf.supports_derivatives(kernel):
+        raise ValueError(f"kernel {kernel!r} does not support derivative observations")
+    if panel % 4:
+        raise ValueError(f"joint out-of-core needs panel % 4 == 0 (J = 4C must be a "
+                         f"panel multiple), got {panel}")
+    n = x.shape[0]
+    c = round_up(n, max(panel // 4, 1))
+    xp = _padded(x, 0.0, (c, 3), x)
+    yp = _padded(y, 0.0, (c,), x)
+    nrm = _padded(normals, 0.0, (c, 3), x)
+    nf = _padded(noise_f, pad_noise, (c,), x)
+    ng = _padded(noise_g, pad_noise, (c,), x)
+    params = {k: float(v) for k, v in params.items()}
+    meta = cuda_joint.pack_meta(cuda_joint.joint_meta(xp))
+    jitter = 4.0 * torch.finfo(x.dtype).eps * 4 * c * abs(float(kf.k_diag0(kernel, params)))
+    return xp, kd.joint_targets(yp, nrm), meta, nrm, nf, ng, params, c, n, jitter
+
+
+def _factor_with_jitter(kernel, cols, noise, params, budget, *, panel, block, store, y,
+                        jitter):
+    """The NaN-escalation jitter ladder around `ooc_cholesky`.  Returns
+    (store, u, extra), extra the jitter added to the factor's diagonal,
+    which the caller folds into its stored noises."""
+    extra = 0.0
+    for _ in range(MAX_JITTER_RETRIES + 1):
+        st = _make_store(store, budget, cols.device)
+        ok, u = ooc_cholesky(kernel, cols, noise + extra, params, st, panel=panel, block=block,
+                             sweep=SWEEP, y=y)
+        if ok:
+            return st, u, extra
+        st.clear()
+        del st
+        extra = max(extra * 10.0, jitter)
+    raise FloatingPointError(f"out-of-core Cholesky failed even with jitter {extra:.2e}")
+
+
+def _refuse_unported_spill(w_dtype, spill_dir, l_codec) -> None:
+    if w_dtype is not None:
+        not_ported("w_dtype (the f16 W spill)", 15, "out-of-core")
+    if spill_dir is not None:
+        not_ported("spill_dir (the disk spill)", 15, "out-of-core")
+    if l_codec is not None:
+        not_ported("l_codec (the int16 L codec)", 15, "out-of-core")
+
+
+def _fit_budget(device_budget, panel: int, j: int, x: torch.Tensor) -> DeviceBudget:
+    if device_budget is not None:
+        return DeviceBudget(device_budget)
+    return DeviceBudget(_hbm_budget(panel, j, x.element_size(), x.device))
+
+
+def ooc_fit(kernel: str, x, y, noise, params, *, panel: int, block: int = 256,
+            store: str = "tiered", pad_noise: float = 1e10, device_budget: int | None = None,
+            w_dtype=None, spill_dir: str | None = None, l_codec: str | None = None) -> OOCModel:
+    """Out-of-core GP fit in x's dtype on x's device: pad to a panel
+    multiple, factor with the NaN-escalation jitter ladder, alpha by
+    substitution against L, then the TRSM.  `store` = "tiered" (the card up
+    to `device_budget` bytes, by default all the card can spare, then host
+    RAM), "host" or "device"."""
+    _refuse_unported_spill(w_dtype, spill_dir, l_codec)
+    xp, yp, noisep, params, c, n, jitter = _pad_problem(kernel, x, y, noise, params,
+                                                        panel=panel, pad_noise=pad_noise)
+    budget = _fit_budget(device_budget, panel, c, xp)
+    st, u, extra = _factor_with_jitter(kernel, xp, noisep, params, budget, panel=panel,
+                                       block=block, store=store, y=yp, jitter=jitter)
+    alpha = ooc_alpha_backward(st, u, panel=panel)
+    wstore = _make_store(store, budget, xp.device)
+    ooc_trsm(st, wstore, capacity=c, panel=panel, block=block, sweep=TRSM_SWEEP)
+    return OOCModel(kernel=kernel, x=xp, y=yp, noise=noisep + extra, params=params, alpha=alpha,
+                    wstore=wstore, panel=panel, n_real=n)
+
+
+def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel: int,
+                  block: int = 256, store: str = "tiered", pad_noise: float = 1e10,
+                  device_budget: int | None = None, w_dtype=None, spill_dir: str | None = None,
+                  l_codec: str | None = None) -> OOCJointModel:
+    """Out-of-core joint (value + gradient) fit: J = 4C factor rows for C
+    padded points, in the dimension-major layout [f | d1 | d2 | d3]; the
+    same factor, TRSM and alpha as `ooc_fit`, on packed joint metadata."""
+    _refuse_unported_spill(w_dtype, spill_dir, l_codec)
+    (xp, yj, meta, nrm, nf, ng, params, c, n,
+     jitter) = _pad_joint_problem(kernel, x, y, normals, noise_f, noise_g, params, panel=panel,
+                                  pad_noise=pad_noise)
+    j_tot = 4 * c
+    budget = _fit_budget(device_budget, panel, j_tot, xp)
+    noisej = cuda_joint.joint_noise(c, nf, ng, None, xp)
+    st, u, extra = _factor_with_jitter(kernel, meta, noisej, params, budget, panel=panel,
+                                       block=block, store=store, y=yj, jitter=jitter)
+    alpha = ooc_alpha_backward(st, u, panel=panel)
+    wstore = _make_store(store, budget, xp.device)
+    ooc_trsm(st, wstore, capacity=j_tot, panel=panel, block=block, sweep=TRSM_SWEEP)
+    return OOCJointModel(kernel=kernel, x=xp, y=yj, noise=nf + extra, params=params,
+                         alpha=alpha, wstore=wstore, panel=panel, n_real=n, meta=meta,
+                         normals=nrm, noise_g=ng + extra, n0=c)

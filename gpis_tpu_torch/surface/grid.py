@@ -4,7 +4,9 @@ Queries stream through the posterior in chunks of 8,192 -- a Python loop in
 place of the JAX package's `lax.map` -- so the staged kq of one chunk
 (chunk x C) is the only query-sized buffer alive.  A value model (`GPModel`)
 and a joint one (`DerivGPModel`) are served alike, through
-`regression.predict`.
+`regression.predict`.  An out-of-core model takes all the points in one
+`regression.predict` call: its query chunks them itself and streams each W
+panel once for all chunks, where a call per chunk would stream W per chunk.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.gp import regression as gpr
+from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.gp.model import GPModel
 
 __all__ = ["CHUNK", "make_grid", "evaluate_points_chunked", "evaluate_grid"]
@@ -32,6 +35,8 @@ def evaluate_points_chunked(model: GPModel, q: torch.Tensor):
     """Posterior (mean, variance) at (M,3) points, CHUNK queries at a time."""
     if q.shape[0] == 0:
         return q.new_zeros((0,)), q.new_zeros((0,))
+    if model_kind(model) in ("ooc", "ooc_joint"):
+        return gpr.predict(model, q)
     means, variances = zip(*(gpr.predict(model, q[i:i + CHUNK])
                              for i in range(0, q.shape[0], CHUNK)))
     return torch.cat(means), torch.cat(variances)

@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Mutation check of chip_smoke.py's out-of-core kernel checks, on one card.
+
+    python3 scripts/torch_ooc_mutations.py
+
+For each mutation below it copies the repository to a temporary directory,
+breaks one kernel there, and runs `chip_smoke.ooc_kernels` (phase 2's checks
+of Kernels G, H, I and the band modes of A and F, at phase 7's shapes)
+against the broken build.  A mutation is caught when a check fails.  Prints
+one line per mutation with the failing check; exits nonzero if any mutation
+passed every check.  The repository itself is never modified.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (what, source file, text, broken text)
+MUTATIONS = [
+    ("F band mode with the in-core live-column bound (i+1)*64",
+     "gpis_tpu_torch/csrc/fused_query.cu",
+     "const int64_t k_end = min64(row_base + row0 + rows, c);",
+     "const int64_t k_end = min64(row0 + rows, c);"),
+    ("G skips its last k slice", "gpis_tpu_torch/csrc/chol.cu",
+     "ldb, cols, 0, k0);", "ldb, cols, 0, k0 - BK);"),
+    ("H skips its last k slice", "gpis_tpu_torch/csrc/chol.cu",
+     "for (int64_t k0 = 0; k0 < kd; k0 += BK) {", "for (int64_t k0 = 0; k0 < kd - BK; k0 += BK) {"),
+    ("I drops the stripe's last row", "gpis_tpu_torch/csrc/chol.cu",
+     "for (int64_t i = blockIdx.y; i < r; i += gridDim.y)",
+     "for (int64_t i = blockIdx.y; i < r - 1; i += gridDim.y)"),
+    ("A band mode puts k(0) + noise at the in-core diagonal", "gpis_tpu_torch/csrc/cov.cu",
+     "if (sym && row0 + i == j)", "if (sym && i == j)"),
+]
+
+RUN = ("import torch, chip_smoke as cs; "
+       "cs.ooc_kernels(torch, torch.Generator(device='cuda').manual_seed(0), {})")
+
+
+def main() -> int:
+    missed = 0
+    for what, rel, text, broken in MUTATIONS:
+        with tempfile.TemporaryDirectory() as tmp:
+            copy = os.path.join(tmp, "repo")
+            shutil.copytree(REPO, copy, ignore=shutil.ignore_patterns(
+                "_build", ".git", "__pycache__"))
+            path = os.path.join(copy, rel)
+            with open(path) as f:
+                src = f.read()
+            if src.count(text) != 1:
+                print(f"FAIL: mutation '{what}' does not apply to {rel}", flush=True)
+                return 1
+            with open(path, "w") as f:
+                f.write(src.replace(text, broken))
+            env = dict(os.environ, PYTHONPATH=copy)
+            proc = subprocess.run([sys.executable, "-c", RUN], cwd=copy, env=env,
+                                  capture_output=True, text=True, timeout=900)
+        failed = [ln.strip() for ln in proc.stdout.splitlines() if "FAILED" in ln]
+        caught = proc.returncode != 0 and bool(failed)
+        missed += not caught
+        detail = failed[0] if failed else (proc.stdout + proc.stderr).strip()[-300:]
+        print(f"{'caught' if caught else 'MISSED'}: {what}: {detail}", flush=True)
+    return 1 if missed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card.
 
 Every test here is marked `cuda` and skips without a card.  The file
-imports no jax (of the JAX package, only the numpy-only `gpis_tpu.config`),
-so it runs on a machine without jax:
+imports nothing of jax or of the JAX package, so it runs on a machine
+without them:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpis_tpu.config import ModelConfig
+from gpis_tpu_torch.config import ModelConfig
 from gpis_tpu_torch import _build
 from gpis_tpu_torch.api.session import ObjectModelSession
 from gpis_tpu_torch.data.gpis import fibonacci_sphere
@@ -20,6 +20,7 @@ from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.linalg import cuda_chol
+from gpis_tpu_torch.linalg import outofcore as ooc
 
 pytestmark = pytest.mark.cuda
 
@@ -180,6 +181,125 @@ def test_cuda_session_matches_cpu_session(cuda):
     pts = fibonacci_sphere(896) * 1.3 + np.array([0.2, 0.0, -0.5])
     got, want = (ObjectModelSession(cfg, device=d).start(pts).evaluate_grid(16, 1.5)
                  for d in (cuda, "cpu"))
+    # The BASELINE.md row-2 bar on mean and variance.
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_gram_band_matches_twin(cuda, dtype):
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.normal(size=(900, 3)), dtype=dtype, device=cuda)
+    noise = torch.as_tensor(rng.uniform(1e-3, 1e-2, size=300), dtype=dtype, device=cuda)
+    params = kf.kernel_params(0.8, 1.1)
+    _build.LAUNCHES.clear()
+    got = cuda_gram.cov("rbf", x[450:750], x, params, noise=noise, sym=True, row0=450)
+    assert _build.LAUNCHES["gram_band"] == 1 and _build.LAUNCHES["cov"] == 0
+    want = cuda_gram.cov_reference("rbf", x[450:750], x, params, noise=noise, sym=True, row0=450)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("k0", [0, 64, 300, 700])
+def test_cuda_gemm_nt_masked_matches_twin(cuda, k0):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cur = torch.randn((320, 1000), generator=gen, device=cuda, dtype=torch.float64)
+    lk = torch.randn((200, 800), generator=gen, device=cuda, dtype=torch.float64)
+    # The k-step's operands: the band itself, a trimmed panel, a stripe of the band.
+    got = cuda_chol.gemm_nt_masked(cur, lk, cur[:, 700:900], k0)
+    want = cuda_chol.gemm_nt_masked_reference(cur, lk, cur[:, 700:900], k0)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("w", [20, 64, 300, 640])
+def test_cuda_gemm_nn_acc_masked_matches_twin(cuda, w):
+    # w = 20 is below one 64-column tile.
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    lj = torch.randn((192, 1000), generator=gen, device=cuda, dtype=torch.float64)
+    wk = torch.randn((128, 640), generator=gen, device=cuda, dtype=torch.float64)
+    u = torch.randn((192, 900), generator=gen, device=cuda, dtype=torch.float64)
+    got = cuda_chol.gemm_nn_acc_masked(u.clone(), lj[:, 256:384], wk, w)
+    want = cuda_chol.gemm_nn_acc_masked_reference(u.clone(), lj[:, 256:384], wk, w)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    assert torch.equal(got[:, w:], u[:, w:])  # columns >= w untouched
+
+
+def test_cuda_trsm_finish_alias_case_matches_cpu(cuda):
+    """Kernel H reads rows < r0 of the buffer whose rows r0.. it writes."""
+    rng = np.random.default_rng(18)
+    rows, c, j0 = 256, 768, 256
+    g = rng.normal(size=(rows, rows))
+    ljj = np.linalg.cholesky(g @ g.T / rows + np.eye(rows))
+    u = np.zeros((rows, c))
+    u[:, :j0] = rng.normal(size=(rows, j0))
+    out = []
+    for dev in (cuda, "cpu"):
+        ut = torch.as_tensor(u, device=dev).clone()
+        ooc._trsm_finish(torch.as_tensor(ljj, device=dev), ut, j0, block=64)
+        out.append(ut.cpu())
+    torch.testing.assert_close(out[0], out[1], rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("c0", [0, 100, 700])
+def test_cuda_stripe_write_matches_twin(cuda, c0):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dst = torch.randn((300, 1000), generator=gen, device=cuda)
+    blk = torch.randn((300, 500), generator=gen, device=cuda)[:, 100:400]
+    got = cuda_chol.stripe_write(dst.clone(), blk, c0)
+    assert torch.equal(got, cuda_chol.stripe_write_reference(dst.clone(), blk, c0))
+
+
+@pytest.mark.parametrize("gen", ["value", "joint"])
+def test_cuda_quad_band_matches_twin(cuda, gen):
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.normal(size=(256, 3)), device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    cols = x if gen == "value" else cuda_joint.pack_meta(cuda_joint.joint_meta(x))
+    n = cols.shape[0]
+    w = torch.tril(torch.as_tensor(rng.normal(size=(n, n)), device=cuda))
+    q = torch.as_tensor(rng.normal(size=(1000, 3)), device=cuda)
+    for row0, r in ((0, 128), (n - 192, 192)):
+        band = w[row0:row0 + r, :row0 + r]  # trimmed to its true width, a strided view
+        got = cuda_query.quad_band(gen, "rbf", q, cols, params, band, row0)
+        want = cuda_query.quad_band_reference(gen, "rbf", q, cols, params, band, row0)
+        # float64 on both sides: only the summation order differs.
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("store", ["tiered", "host"])
+def test_cuda_ooc_tiered_spill_matches_cpu(cuda, store):
+    """A tiered store whose budget holds two panels, and a host store: the
+    host spill, the copy-stream prefetch and the writer stream, against the
+    CPU path."""
+    x = fibonacci_sphere(1000)
+    y = np.random.default_rng(20).normal(size=1000) * 0.2
+    q = np.random.default_rng(21).uniform(-1.2, 1.2, size=(3000, 3))
+    params = kf.kernel_params(0.6, 1.0)
+    out = []
+    for dev in (cuda, "cpu"):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        m = ooc.ooc_fit("rbf", t(x), t(y), 1e-3, params, panel=256, store=store,
+                        device_budget=2 * 256 * 1024 * 8)
+        assert store == "host" or m.wstore.spilled()
+        out.append([v.cpu().numpy() for v in ooc.ooc_predict(m, t(q), chunk=1024)])
+    np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-6)
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=1e-6)
+
+
+@pytest.mark.parametrize("normals", [False, True])
+def test_cuda_ooc_session_matches_cpu_session(cuda, normals):
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      dtype="float64")
+    pts = fibonacci_sphere(384 if normals else 896) * 1.3 + np.array([0.2, 0.0, -0.5])
+    kw = {"normals": (pts - np.array([0.2, 0.0, -0.5])) / 1.3} if normals else {}
+    _build.LAUNCHES.clear()
+    sess = ObjectModelSession(cfg, device=cuda).start(pts, out_of_core=True, **kw)
+    got = sess.evaluate_grid(16, 1.5)
+    for name in ("gemm_nt_masked", "gemm_nn_acc_masked", "stripe_write", "quad_band",
+                 "joint_cov" if normals else "gram_band"):
+        assert _build.LAUNCHES[name] > 0, name
+    want = ObjectModelSession(cfg, device="cpu").start(pts, out_of_core=True,
+                                                       **kw).evaluate_grid(16, 1.5)
     # The BASELINE.md row-2 bar on mean and variance.
     np.testing.assert_allclose(got[0], want[0], atol=1e-6)
     np.testing.assert_allclose(got[1], want[1], atol=1e-6)

@@ -139,8 +139,9 @@ def test_session_verbs_not_yet_ported_raise():
     sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
     joint = ObjectModelSession(cfg, device="cpu").start(pts, normals=pts)
+    ooc = ObjectModelSession(cfg, device="cpu").start(pts, out_of_core=True)
     for call in (lambda: joint.update(pts[:2]), lambda: sess.start(pts, experts=4),
-                 lambda: sess.start(pts, out_of_core=True), lambda: sess.next_best_path(),
+                 lambda: ooc.update(pts[:2]), lambda: sess.next_best_path(),
                  lambda: sess.update(pts[:2]), lambda: sess.save("x"),
                  lambda: sess.optimize_hyperparameters()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -189,7 +190,13 @@ def test_port_runs_without_importing_jax():
         "v, f, var = j.extract_surface(resolution=16, extent=1.5)\n"
         "assert len(v) and np.isfinite(var).all()\n"
         "assert np.isfinite(j.query(pts[:10])[1]).all()\n"
+        "for kw in ({}, {'normals': pts}):\n"
+        "    o = ObjectModelSession(cfg, device='cpu').start(pts, out_of_core=True, **kw)\n"
+        "    v, f, var = o.extract_surface(resolution=16, extent=1.5)\n"
+        "    assert len(v) and np.isfinite(var).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "jax_pkg = [m for m in sys.modules if m == 'gpis_tpu' or m.startswith('gpis_tpu.')]\n"
+        "assert not jax_pkg, f'the JAX package was imported: {jax_pkg}'\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
