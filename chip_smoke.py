@@ -46,8 +46,24 @@ Phases, one printed line or more each; any failure exits nonzero:
    4 eps C k(0) ~ 1.6e-2, which moves the posterior by about as much as the
    gate: the two float32 fits would solve different systems).
 
+8. The `panel_solve="inv"` option: phase 3's value session with the module
+   default set to "inv" (Kernels J and K in the factor and the TRSM).
+   Gates: surface RMSE < 0.02, the 64^3 grid within 1e-2 of phase 3's, J
+   and K launched; then, on phase 3's Gram, ||L L^T - A|| and ||W L - I||
+   (max entry) of the inv route each at most 8 x the substitution route's
+   + 2e-4 (tests/test_tpu_smoke.py's gate), and fit_inference timed in
+   turns on both routes.
+9. The row-sharded pipeline on a one-rank NCCL group: fit_sharded on phase
+   3's training set (C = 16,384, block 256), W again through Kernel L
+   (sharded_linv(use_kernel=True)) held to the fit's plain W and put in the
+   model, then the 64^3 grid, the surface and a 65,536-point query.  Gates:
+   surface RMSE < 0.02, the grid within 1e-2 of phase 3's, no NaN, Kernels
+   A band, G, L, A and F band launched; then sharded_linv timed in turns
+   with and without Kernel L.
+
 Phase 2 also holds the out-of-core kernels (G, H, I, and A and F in band
-mode) to their twins at phase 7's shapes.  Every kernel's line carries its
+mode) to their twins at phase 7's shapes, J and K at the in-core factor's
+(C = 16,384, B = 256) and L at the sharded TRSM's.  Every kernel's line carries its
 bound: the larger of its operations over the card's FP32 rate
 (67 TFLOP/s) and its bytes over its memory rate (3.35 TB/s), counted from
 the shapes and data of the timed call, and the time of the one PyTorch call
@@ -75,6 +91,7 @@ OOC_GRID_GAP = 1e-2  # out-of-core grid against the in-core one: float32, two fa
 SPILL_N = 32640  # phase 7's sphere: with 127 external points and 1 internal, C = 32,768
 SPILL_PANEL = 4096
 SPILL_BUDGET = 1_000_000_000  # holds trimmed W panels 0-3 (0.81 GB); 4-7 spill
+SHARDED_W_GAP = 1e-3  # W through Kernel L against the plain W, relative to max|W|
 FP32_FLOPS = 67e12  # the H100's FP32 rate outside the tensor cores (700 W)
 HBM_BYTES = 3.35e12  # its memory rate
 
@@ -480,6 +497,83 @@ def ooc_kernels(torch, gen, results: dict) -> None:
     say(json.dumps({"quad_band_joint": joint, "card": card_line()}))
 
 
+def lower_inv(torch, gen, b: int):
+    """A B x B V = Ljj^{-1} as the inv option forms it: the inverse of the
+    Cholesky factor of a well-conditioned SPD block."""
+    g = torch.randn((b, b), generator=gen, device=gen.device)
+    ld = torch.linalg.cholesky(g @ g.T / b + torch.eye(b, device=gen.device))
+    eye = torch.eye(b, device=gen.device)
+    return torch.linalg.solve_triangular(ld, eye, upper=False).contiguous()
+
+
+def inv_and_trail_kernels(torch, gen, results: dict) -> None:
+    """J and K at the in-core factor's shapes (C = 16,384, B = 256), each at
+    its largest call: J's panel below the first diagonal block (R = 16,128,
+    a strided view of the C x C matrix), K's last row solve (N = 16,384);
+    L at the sharded TRSM's (P = 1: R = C = 16,384, B = 256, j0 = 8,192).
+    tol: 1e-4 x the magnitude sum |a||b| of the worst output, as for B, and
+    for L (in place, as H) plus 4 float32 ulps of max|S|."""
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = gen.device
+    c, b = 16384, 256
+    v = lower_inv(torch, gen, b)
+    a = torch.randn((c, c), generator=gen, device=dev)
+    acc = a[b:, :b]  # the panel of j0 = 0: rows j1.., columns [0, B), leading dimension C
+    r = acc.shape[0]
+    got = cuda_chol.panel_scale(acc, v)
+    err = (got - cuda_chol.panel_scale_reference(acc, v)).abs().max().item()
+    scale = (acc.abs() @ v.abs().T).max().item()
+    del got
+    ms = time_ms(torch, lambda: cuda_chol.panel_scale(acc, v), 20)
+    plain = time_ms(torch, lambda: cuda_chol.panel_scale_reference(acc, v), 20)
+    check(f"panel_scale R={r} B={b} (a strided view, ld {c})", err, 1e-4 * scale, ms, plain)
+    lib = time_ms(torch, lambda: torch.matmul(acc, v.T), 20)
+    # V is lower-triangular: out[:, c] sums c + 1 products.
+    results["panel_scale"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                  **bound(r * b * (b + 1), 4 * (2 * r * b + b * (b + 1) / 2)))
+    del a, acc
+
+    rhs = torch.randn((b, c), generator=gen, device=dev)
+    got = cuda_chol.row_scale(v, rhs)
+    err = (got - cuda_chol.row_scale_reference(v, rhs)).abs().max().item()
+    scale = (v.abs() @ rhs.abs()).max().item()
+    del got
+    ms = time_ms(torch, lambda: cuda_chol.row_scale(v, rhs), 20)
+    plain = time_ms(torch, lambda: cuda_chol.row_scale_reference(v, rhs), 20)
+    check(f"row_scale B={b} N={c}", err, 1e-4 * scale, ms, plain)
+    lib = time_ms(torch, lambda: torch.matmul(v, rhs), 20)
+    results["row_scale"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                **bound(c * b * (b + 1), 4 * (2 * b * c + b * (b + 1) / 2)))
+    del rhs
+
+    j0, row0 = c // 2, 0
+    s0 = torch.randn((c, c), generator=gen, device=dev)
+    l_band = torch.randn((c, c), generator=gen, device=dev) / b**0.5
+    l_col = l_band[:, j0:j0 + b]  # column panel j of the band, leading dimension C
+    wj = torch.randn((b, c), generator=gen, device=dev)
+    wj[:, j0 + b:] = 0.0  # a lower-triangular W row panel
+    got = cuda_chol.band_trail(s0.clone(), l_col, wj, j0, row0)
+    want = cuda_chol.band_trail_reference(s0.clone(), l_col, wj, j0, row0)
+    err = (got - want).abs().max().item()
+    r_b, w = j0 + b - row0, j0 + b  # the live rows and columns
+    untouched = torch.equal(got[:r_b], s0[:r_b]) and torch.equal(got[:, w:], s0[:, w:])
+    del got, want
+    scale = (l_col[r_b:].abs() @ wj[:, :w].abs()).max().item()
+    tol = 1e-4 * scale + 4 * torch.finfo(torch.float32).eps * s0.abs().max().item()
+    work = s0.clone()
+    ms = time_ms(torch, lambda: cuda_chol.band_trail(work, l_col, wj, j0, row0), 10)
+    plain = time_ms(torch, lambda: cuda_chol.band_trail_reference(work, l_col, wj, j0, row0), 10)
+    check(f"band_trail R={c} C={c} B={b} j0={j0} row0={row0}", err, tol, ms, plain)
+    if not untouched:
+        fail("band_trail wrote outside its live rows and columns")
+    lib = time_ms(torch, lambda: torch.addmm(s0[r_b:, :w], l_col[r_b:], wj[:, :w], alpha=-1), 10)
+    rows = c - r_b
+    results["band_trail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                 **bound(2 * rows * b * w, 4 * (2 * rows * w + rows * b + b * w)))
+    del s0, l_band, l_col, wj, work
+
+
 def phase2(torch, results: dict) -> None:
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
@@ -571,6 +665,8 @@ def phase2(torch, results: dict) -> None:
     torch.cuda.empty_cache()
     ooc_kernels(torch, gen, results)
     torch.cuda.empty_cache()
+    inv_and_trail_kernels(torch, gen, results)
+    torch.cuda.empty_cache()
 
 
 def phase3(torch, launches) -> dict:
@@ -606,8 +702,7 @@ def phase3(torch, launches) -> dict:
     say(f"  capacity {sess.model.capacity}, query at centre/surface/outside: "
         f"mean {mean_q.tolist()} var {var_q.tolist()}")
     say(f"  launches in the value slice run: {counts}")
-    rmse = float(np.sqrt(np.mean((np.linalg.norm(verts, axis=1) - 1.0) ** 2))) \
-        if len(verts) else float("nan")
+    rmse = surface_rmse(verts)
     finite = bool(np.isfinite(mean).all() and np.isfinite(var).all()
                   and np.isfinite(mean_q).all() and np.isfinite(vvar).all()
                   and np.isfinite(big_mean).all() and np.isfinite(big_var).all())
@@ -627,7 +722,7 @@ def phase3(torch, launches) -> dict:
     require_launches(counts, ("cov", "panel_update", "row_update", "staged_quad", "fused_quad"),
                      "value slice")
     agree_with_chunked(torch, sess, big, big_mean, big_var, "value")
-    return counts, (cfg, pts, mean, var)
+    return counts, (cfg, pts, mean, var), fit_s
 
 
 def big_query(torch, pts) -> np.ndarray:
@@ -923,6 +1018,205 @@ def phase7(torch, launches) -> dict:
     return counts
 
 
+def surface_rmse(verts_world: np.ndarray) -> float:
+    """RMSE of the surface's distance from the unit sphere (world frame)."""
+    if not len(verts_world):
+        return float("nan")
+    return float(np.sqrt(np.mean((np.linalg.norm(verts_world, axis=1) - 1.0) ** 2)))
+
+
+def grid_gap_checks(what: str, mean, var, in_mean, in_var) -> tuple[float, float]:
+    gap_mean = float(np.abs(mean - in_mean).max())
+    gap_var = float(np.abs(var - in_var).max())
+    check(f"{what} 64^3 grid against phase 3's: mean", gap_mean, OOC_GRID_GAP)
+    check(f"{what} 64^3 grid against phase 3's: var", gap_var, OOC_GRID_GAP)
+    return gap_mean, gap_var
+
+
+def factor_residuals(torch, a, panel_solve: str) -> tuple[float, float]:
+    """max|L L^T - A| and max|W L - I| of the in-core factor and TRSM on
+    Gram a through one panel_solve route."""
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    l = cuda_chol.blocked_cholesky(a.clone(), 256, panel_solve=panel_solve)
+    res_l = (l @ l.T - a).abs().max().item()
+    w = cuda_chol.blocked_linv(l, 256, panel_solve=panel_solve)
+    wl = w @ l
+    del w
+    wl.diagonal().sub_(1.0)
+    res_w = wl.abs().max().item()
+    del l, wl
+    torch.cuda.empty_cache()
+    return res_l, res_w
+
+
+def phase_inv(torch, launches, incore, fit_s_default) -> dict:
+    """Phase 3's value session with `panel_solve="inv"` (the module default
+    set for the run, as GPIS_PANEL_SOLVE=inv sets it at import)."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.gp import regression
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.kernels import gram as kg
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    cfg, pts, in_mean, in_var = incore
+    default = cuda_chol.PANEL_SOLVE
+    torch.cuda.synchronize()
+    launches.clear()
+    cuda_chol.PANEL_SOLVE = "inv"
+    try:
+        sess = ObjectModelSession(cfg, device="cuda").start(pts)
+        mean, var, _ = sess.evaluate_grid()
+        verts, faces, vvar = sess.extract_surface()
+        torch.cuda.synchronize()
+    finally:
+        cuda_chol.PANEL_SOLVE = default
+    counts = dict(launches)
+    fit_s, query_s = sess.stats["fit_s"], sess.stats["grid_s"]
+    say(f"  inv route: capacity {sess.model.capacity}; launches {counts}")
+    rmse = surface_rmse(verts)
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all() and np.isfinite(vvar).all())
+    if not finite:
+        fail("NaN or inf in the inv route's posterior")
+    if not rmse < RMSE_GATE:
+        fail(f"inv route surface RMSE {rmse} >= {RMSE_GATE}")
+    gap_mean, gap_var = grid_gap_checks("inv route", mean, var, in_mean, in_var)
+    require_launches(counts, ("cov", "panel_update", "row_update", "panel_scale", "row_scale",
+                              "staged_quad"), "inv route")
+
+    # Residuals on phase 3's Gram (the noise the session's ladder settled on).
+    ts = sess.training
+    params = kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
+    noise = sess.model.noise
+    del sess
+    torch.cuda.empty_cache()
+    a = kg.gram(cfg.kernel, ts.x, params, noise=noise)
+    res = {ps: factor_residuals(torch, a, ps) for ps in ("xla", "inv")}
+    del a
+    torch.cuda.empty_cache()
+    say(f"  residuals on phase 3's Gram: {res}")
+    for i, what in enumerate(("|L L^T - A|", "|W L - I|")):
+        check(f"inv route {what} against 8 x the substitution route's + 2e-4", res["inv"][i],
+              8.0 * res["xla"][i] + 2e-4)
+
+    # fit_inference on the training set, both routes in turns.
+    fits = []
+    for ps in ("xla", "inv", "inv", "xla"):
+        cuda_chol.PANEL_SOLVE = ps
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = regression.fit_inference(cfg.kernel, ts.x, ts.y, ts.noise, params,
+                                             block=cfg.block, pad_noise=cfg.pad_noise)
+            torch.cuda.synchronize()
+            fits.append((ps, time.perf_counter() - t0))
+            del model
+        finally:
+            cuda_chol.PANEL_SOLVE = default
+    say(json.dumps({
+        "panel_solve": "inv", "fit_s": fit_s, "fit_s_phase3_xla": fit_s_default,
+        "query_s": query_s, "surface_rmse": rmse, "grid_gap_mean": gap_mean,
+        "grid_gap_var": gap_var, "residual_llt_xla": res["xla"][0],
+        "residual_llt_inv": res["inv"][0], "residual_wl_xla": res["xla"][1],
+        "residual_wl_inv": res["inv"][1],
+        "fit_inference_s_in_turns": [[ps, s] for ps, s in fits], "card": card_line(),
+    }))
+    return counts
+
+
+def phase_sharded(torch, launches, incore) -> dict:
+    """The row-sharded pipeline on a one-rank NCCL group at phase 3's
+    training set: the JAX package's `bench/run_tpu.py --stages sharded1`."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.gp import regression
+    from gpis_tpu_torch.gp.sharded_model import fit_sharded
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.linalg import sharded
+    from gpis_tpu_torch.surface import grid, marching
+
+    cfg, pts, in_mean, in_var = incore
+    store = tempfile.mkdtemp(prefix="gpis_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            rank=0, world_size=1)
+    try:
+        # NCCL builds its communicator at the first collective: once a
+        # process, so it is timed apart from the fit.
+        t_init = time.perf_counter()
+        dist.all_reduce(torch.zeros((1,), device="cuda"))
+        torch.cuda.synchronize()
+        nccl_init_s = time.perf_counter() - t_init
+        ts = gpis.build_training_set(pts, cfg, device="cuda")
+        params = kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
+        big = ts.frame.to_normalized(torch.as_tensor(big_query(torch, pts), device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.clear()
+        t0 = time.perf_counter()
+        model = fit_sharded(cfg.kernel, ts.x, ts.y, ts.noise, params, n_devices=1, block=256,
+                            touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w_l = sharded.sharded_linv(model.l, model.mesh, block=256, use_kernel=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        w_gap = ((w_l - model.w).abs().max() / model.w.abs().max()).item()
+        model.w = w_l
+        mean, var, axis = (t.cpu().numpy() for t in grid.evaluate_grid(model, 64, 1.5))
+        t3 = time.perf_counter()
+        verts, faces = marching.marching_tetrahedra(mean, axis)
+        verts_n = torch.as_tensor(verts.astype(np.float32), device="cuda")
+        vvar = grid.evaluate_points_chunked(model, verts_n)[1].cpu().numpy()
+        verts_w = ts.frame.to_world(verts_n).cpu().numpy()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        big_mean, big_var = (t.cpu().numpy() for t in regression.predict(model, big))
+        t5 = time.perf_counter()
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()
+        say(f"  sharded P=1: capacity {model.capacity}, backend {model.mesh.backend}; "
+            f"launches {counts}")
+        # The trailing update with and without Kernel L, in turns (not counted).
+        trsm = []
+        for use_kernel in (False, True, True, False):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            w = sharded.sharded_linv(model.l, model.mesh, block=256, use_kernel=use_kernel)
+            torch.cuda.synchronize()
+            trsm.append(("kernel_L" if use_kernel else "addmm", time.perf_counter() - t_a))
+            del w
+        capacity = model.capacity
+        del model, w_l
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rmse = surface_rmse(verts_w)
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all() and np.isfinite(vvar).all()
+                  and np.isfinite(big_mean).all() and np.isfinite(big_var).all())
+    say(json.dumps({
+        "sharded": "P=1 nccl", "nccl_init_s": nccl_init_s, "fit_s": t1 - t0,
+        "linv_kernel_L_s": t2 - t1,
+        "query_s": t3 - t2, "surface_s": t4 - t3, "big_query_s": t5 - t4,
+        "n_big_query": BIG_QUERY, "surface_rmse": rmse, "capacity": capacity,
+        "w_gap_rel": w_gap, "max_memory_allocated_bytes": peak,
+        "sharded_linv_s_in_turns": [[k, s] for k, s in trsm], "card": card_line(),
+    }))
+    if not finite:
+        fail("NaN or inf in the sharded posterior")
+    if not rmse < RMSE_GATE:
+        fail(f"sharded surface RMSE {rmse} >= {RMSE_GATE}")
+    check("sharded W through Kernel L against the plain W (relative to max|W|)", w_gap,
+          SHARDED_W_GAP)
+    grid_gap_checks("sharded P=1", mean, var, in_mean, in_var)
+    require_launches(counts, ("gram_band", "gemm_nt_masked", "band_trail", "cov", "quad_band"),
+                     "sharded P=1")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -959,7 +1253,7 @@ def main() -> int:
     # read just after.
     runs = []
     say("phase 3: the value slice through ObjectModelSession")
-    counts, incore_value = phase3(torch, _build.LAUNCHES)
+    counts, incore_value, fit_s_value = phase3(torch, _build.LAUNCHES)
     runs.append(counts)
 
     say("phase 4: the joint (surface-normal) slice through ObjectModelSession")
@@ -977,6 +1271,14 @@ def main() -> int:
 
     say("phase 7: the out-of-core host spill")
     runs.append(phase7(torch, _build.LAUNCHES))
+    torch.cuda.empty_cache()
+
+    say('phase 8: the panel_solve="inv" option through ObjectModelSession')
+    runs.append(phase_inv(torch, _build.LAUNCHES, incore_value, fit_s_value))
+    torch.cuda.empty_cache()
+
+    say("phase 9: the row-sharded pipeline on a one-rank NCCL group")
+    runs.append(phase_sharded(torch, _build.LAUNCHES, incore_value))
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1000,6 +1302,9 @@ def main() -> int:
         "quad_band": ("gpis_tpu_torch/csrc/fused_query.cu",
                       "gpis_tpu/kernels/pallas_query.py:241, "
                       "gpis_tpu/kernels/pallas_joint.py:500"),
+        "panel_scale": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:461"),
+        "row_scale": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:488"),
+        "band_trail": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:241"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -66,6 +66,12 @@ _SIGNATURES = {
     "gpis_gemm_nn_acc_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _P],
     # dst, ldd, blk, ldb, r, w, c0, stream
     "gpis_stripe_write": [_P, _I64, _P, _I64, _I64, _I64, _I64, _P],
+    # acc, lda, r, v, ldv, b, out, ldo, stream
+    "gpis_panel_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
+    # v, ldv, b, rhs, ldr, n, out, ldo, stream
+    "gpis_row_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
+    # s, lds, r, c, lcol, ldl, wj, ldw, bw, j0, row0, stream
+    "gpis_band_trail": [_P, _I64, _I64, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P],
 }
 
 _lib = None

@@ -1,6 +1,6 @@
 """ObjectModelSession, the user-facing orchestrator (port of
-gpis_tpu/api/session.py:62-318 for the in-core value and joint models and
-the out-of-core ones).
+gpis_tpu/api/session.py:62-318 for the in-core value and joint models, the
+out-of-core ones and the row-sharded value model).
 
 World frame in, world frame out: the session owns the normalization Frame.
 `start` fits: with `out_of_core=True` the panel-streamed fit
@@ -8,10 +8,14 @@ World frame in, world frame out: the session owns the normalization Frame.
 panels are then pinned on the card as far as it has room; with `normals=`
 the joint value + gradient model (`gp.derivative.fit_with_normals`, then W
 once 4C >= 1024); otherwise a session with `touch_capacity == 0` takes the
-one-matrix-peak `fit_inference`, any other `fit` + `with_linv`.  `query`,
-`evaluate_grid` and `extract_surface` serve the fitted model.  The verbs
-not yet ported raise NotImplementedError naming the ROADMAP.md §1 item that
-ports them.
+one-matrix-peak `fit_inference`, any other `fit` + `with_linv`.  With
+`mesh=MeshConfig(n_devices=P)`, P > 1, the session is one rank of a
+row mesh (`parallel.mesh`): every rank constructs it and calls each verb
+with the same arguments, and `start` fits the row-sharded value model
+(`gp.sharded_model.fit_sharded`) on rank 0's cloud, which it broadcasts.
+`query`, `evaluate_grid` and `extract_surface` serve the fitted model.  The
+verbs not yet ported raise NotImplementedError naming the ROADMAP.md §1
+item that ports them.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from gpis_tpu_torch.config import MeshConfig, ModelConfig
 from gpis_tpu_torch.data import gpis, voxel
 from gpis_tpu_torch.gp import derivative as gpd
 from gpis_tpu_torch.gp import regression as gpr
+from gpis_tpu_torch.gp import sharded_model as gsm
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.linalg import outofcore as ooc
+from gpis_tpu_torch.parallel.mesh import make_row_mesh
 from gpis_tpu_torch.surface import grid as grid_mod
 from gpis_tpu_torch.surface import marching
 
@@ -57,15 +63,33 @@ def _ooc_panel(rows: int) -> int:
     return 4096 if rows > 20480 else (1024 if rows > 2048 else 256)
 
 
+def _broadcast_cloud(points: np.ndarray, mesh) -> np.ndarray:
+    """Rank 0's cloud on every rank: its length, then its points."""
+    n = torch.tensor([len(points)], dtype=torch.int64, device=mesh.device)
+    torch.distributed.broadcast(n, src=0)
+    if mesh.rank == 0:
+        buf = torch.as_tensor(np.ascontiguousarray(points), device=mesh.device)
+    else:
+        buf = torch.empty((int(n.item()), 3), dtype=getattr(torch, str(points.dtype)),
+                          device=mesh.device)
+    torch.distributed.broadcast(buf, src=0)
+    return buf.cpu().numpy()
+
+
 class ObjectModelSession:
-    """Fit / query loop over one object model on one device."""
+    """Fit / query loop over one object model on one device, or on one rank
+    of a row mesh."""
 
     def __init__(self, config: ModelConfig | None = None, *, mesh: MeshConfig | None = None,
                  device="cuda"):
-        if mesh is not None and mesh.n_devices > 1:
-            not_ported("mesh= (sharded fits)", 14, "multi-GPU")
         self.config = config or ModelConfig()
-        self.device = resolve_device(device)
+        self.mesh_config = mesh
+        self.mesh = None
+        if mesh is not None and mesh.n_devices > 1:
+            self.mesh = make_row_mesh(mesh.n_devices, device=device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
         self.dtype = getattr(torch, self.config.dtype)
         self.model = None
         self.frame = None
@@ -83,13 +107,20 @@ class ObjectModelSession:
         observations and the model is the joint system (`gp.derivative`).
         `out_of_core=True` fits through the panel-streamed factorization
         (`linalg.outofcore`), for clouds whose one-matrix factor does not
-        fit on the card."""
+        fit on the card.  On a mesh every rank fits rank 0's cloud."""
         if experts:
             not_ported("experts= (committee fits)", 13, "gp/experts.py")
         t0 = time.perf_counter()
         points = np.asarray(points, dtype=self.config.dtype)
         if points.ndim != 2 or points.shape[1] != 3 or len(points) == 0:
             raise ValueError(f"expected a non-empty (N, 3) point cloud, got shape {points.shape}")
+        if self.mesh is not None:
+            if out_of_core:
+                raise ValueError("out_of_core is the single-card beyond-memory path; "
+                                 "use the sharded pipeline (config 5) on a mesh")
+            if normals is not None:
+                not_ported("normals= on a mesh (sharded joint fits)", 14, "gp/sharded_joint.py")
+            points = _broadcast_cloud(points, self.mesh)
         cfg = self.config
         if cfg.voxel_leaf > 0:
             if normals is not None:
@@ -122,6 +153,10 @@ class ObjectModelSession:
                 touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise)
             if 4 * self.model.capacity >= 1024:
                 self.model = gpd.with_linv_joint(self.model)
+        elif self.mesh is not None:
+            self.model = gsm.fit_sharded(
+                cfg.kernel, ts.x, ts.y, ts.noise, params, self.mesh, block=self.mesh_config.block,
+                touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise)
         elif cfg.touch_capacity == 0:
             self.model = gpr.fit_inference(cfg.kernel, ts.x, ts.y, ts.noise, params,
                                            block=cfg.block, pad_noise=cfg.pad_noise)

@@ -1,12 +1,13 @@
 """Carry a model fitted by the JAX package across to the port (reads the
 in-core value and joint layouts of gpis_tpu/utils/checkpoint.py:24-85, and
-builds an out-of-core model from its arrays and W panels).
+builds an out-of-core model from its arrays and W panels, and a rank's
+sharded model from the whole arrays).
 
 A `gpis_tpu` checkpoint is an `.npz` of numpy arrays plus a JSON `meta`
 entry; it is read here with numpy alone.  Committee, sharded and
 out-of-core checkpoints raise NotImplementedError until their models are
 ported; an out-of-core model in memory crosses over through
-`ooc_model_from_arrays`.
+`ooc_model_from_arrays`, a sharded one through `sharded_model_from_arrays`.
 """
 
 from __future__ import annotations
@@ -19,9 +20,11 @@ import torch
 from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.gp.derivative import DerivGPModel
 from gpis_tpu_torch.gp.model import GPModel
+from gpis_tpu_torch.gp.sharded_model import ShardedGPModel
 from gpis_tpu_torch.linalg.outofcore import DevicePanelStore, OOCJointModel, OOCModel
 
-__all__ = ["gp_model_from_arrays", "ooc_model_from_arrays", "load_jax_checkpoint"]
+__all__ = ["gp_model_from_arrays", "ooc_model_from_arrays", "sharded_model_from_arrays",
+           "load_jax_checkpoint"]
 
 _FORMAT_VERSION = 1
 _UNPORTED_KINDS = ("experts", "sharded", "ooc")
@@ -98,6 +101,25 @@ def ooc_model_from_arrays(arrays, panels, *, kernel: str, params, panel: int, n_
                              noise_g=t(arrays["noise_g"]), n0=int(np.shape(arrays["x"])[0]),
                              **common)
     return OOCModel(**common)
+
+
+def sharded_model_from_arrays(arrays, mesh, *, kernel: str, params, block: int, n_real: int,
+                              n_touch: int = 0) -> ShardedGPModel:
+    """This rank's ShardedGPModel on `mesh` from a `gpis_tpu` sharded
+    model's whole arrays as numpy: x, y, noise, alpha, and the (C, C) l and
+    w, of which the rank keeps its row band."""
+    row0, rows = mesh.band(np.shape(arrays["l"])[0])
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=mesh.device)
+
+    return ShardedGPModel(
+        kernel=kernel, x=t(arrays["x"]), y=t(arrays["y"]), noise=t(arrays["noise"]),
+        params={k: float(v) for k, v in params.items()},
+        l=t(np.asarray(arrays["l"])[row0:row0 + rows]),
+        w=t(np.asarray(arrays["w"])[row0:row0 + rows]), alpha=t(arrays["alpha"]), mesh=mesh,
+        block=int(block), n0=int(np.shape(arrays["x"])[0]), n_touch=int(n_touch),
+        n_real=int(n_real))
 
 
 def load_jax_checkpoint(path: str, device="cuda"):

@@ -1,7 +1,10 @@
 // Kernels B and C: the two products of the left-looking blocked Cholesky and
-// of the left-looking blocked TRSM W = L^{-1}; and Kernels G, H and I, the
+// of the left-looking blocked TRSM W = L^{-1}; Kernels G, H and I, the
 // products and the stripe write of the out-of-core (panel-streamed) factor
-// and TRSM (gpis_tpu_torch/linalg/outofcore.py).
+// and TRSM (gpis_tpu_torch/linalg/outofcore.py); Kernels J and K, the panel
+// and row solves of the factor and TRSM's `panel_solve="inv"` option; and
+// Kernel L, the trailing update of the row-sharded right-looking TRSM
+// (gpis_tpu_torch/linalg/sharded.py).
 //
 // B, panel update, replaces gpis_tpu/linalg/pallas_chol.py
 // `panel_update_pallas` (pallas_call at :180, body `_panel_kernel` :87):
@@ -39,11 +42,42 @@
 // it existed because XLA did not alias dynamic_update_slice; here it is a
 // plain coalesced copy: a warp writes 32 consecutive elements of one row.
 //
-// What bounds them on the H100: arithmetic for B, C, G and H; bytes for I.
+// J, panel scale, replaces `panel_scale_pallas` (pallas_call at :461, body
+// `_panel_scale_kernel` :446), the Cholesky panel solve of the
+// `panel_solve="inv"` option:
+//     out[r, c] = sum_{k <= c} acc[r, k] * V[c, k]      (acc V^T, V = Ljj^{-1})
+// acc a strided (R, B) view (the panel below the diagonal block, leading
+// dimension n), out a separate (R, B) buffer.  V is lower-triangular, so a
+// 64-column output tile stops its k loop at its last column.
+//
+// K, row scale, replaces `row_scale_pallas` (pallas_call at :488, body
+// `_row_scale_kernel` :475), the TRSM row solve of the same option:
+//     out[r, c] = sum_{k <= r} V[r, k] * rhs[k, c]      (V rhs)
+// rhs a strided (B, N) view, out a separate (B, N) buffer; a 64-row output
+// tile stops its k loop at its last row.
+//
+// L, band trailing update, replaces `band_trail_update_pallas` (pallas_call
+// at :241, body `_trail_kernel` :188), the right-looking sharded TRSM step
+// (gpis_tpu_torch/linalg/sharded.py `sharded_linv`):
+//     S[r, c] -= sum_{k < B} Lcol[r, k] * Wj[k, c]
+// in place on a rank's (R, C) band of S at global rows [row0, row0 + R), for
+// rows whose global index is >= j0 + B and columns c < j0 + B.  Wj, the
+// broadcast W row panel j, is zero at columns >= j0 + B (W is
+// lower-triangular), and Lcol is masked to zero above row j0 + B: the
+// launcher trims both ranges, so no tile is launched outside them.  The
+// Pallas kernel copied those tiles through, which is why it lost to XLA on
+// the TPU (gpis_tpu/linalg/sharded.py:317-322).  L is H's product with the
+// sign flipped, on that row-trimmed view.
+//
+// What bounds them on the H100: arithmetic for B, C, G, H, J, K and L; bytes
+// for I.
 // At n = 16,384 each factor is ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes
 // of traffic per step, so the products sit far above the memory roofline;
 // without tensor cores the bound is the SIMT FP32 rate (67 TFLOP/s at
-// 700 W).  I moves 2 R W elements and computes nothing.
+// 700 W).  I moves 2 R W elements and computes nothing.  J and K are one
+// (R, B) x (B, B) product each (~1 GFLOP at R = 16,128, B = 256): launched
+// 63 and 64 times a factor, so their launches and the host loop around
+// them, not their arithmetic, are expected to set their share of fit_s.
 // What the design does about it: a shared-memory tiled SGEMM (64 x 64
 // output tiles, k-slices of 16, 4 x 4 FMA register tiles a thread) whose k
 // loop stops at j0 (k0 for G), so the dead k >= j0 half of every product is
@@ -51,6 +85,8 @@
 // Pallas index maps.  C also starts its k loop at the tile's first column,
 // since W[k, c] = 0 for k < c, and writes zeros, without reading anything,
 // for output tiles at columns >= j0; H launches no tile at columns >= w.
+// J and K stop their k loops at the tile's last column (row) of the
+// triangle; L launches tiles only in the live rows and columns.
 // Accumulation: plain FP32 (FP64) FMA, see common.cuh; tensor cores (wgmma,
 // 3xTF32) are later work.
 #include "common.cuh"
@@ -145,7 +181,7 @@ gemm_nt_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r, const T* 
   }
 }
 
-template <typename T>
+template <typename T, bool SUB>
 __global__ void __launch_bounds__(NTHREADS)
 gemm_nn_acc_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r,
                           const T* __restrict__ b, int64_t ldb, int64_t kd, T* u, int64_t ldu,
@@ -172,7 +208,67 @@ gemm_nn_acc_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r,
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = tx + 16 * jj;
-      if (c < cols) u[(row0 + rr) * ldu + col0 + c] += acc[i][jj];
+      if (c < cols) u[(row0 + rr) * ldu + col0 + c] += SUB ? -acc[i][jj] : acc[i][jj];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+panel_scale_kernel(const T* __restrict__ acc_in, int64_t lda, int64_t r, const T* __restrict__ v,
+                   int64_t ldv, int64_t b, T* __restrict__ out, int64_t ldo) {
+  __shared__ TileSmem<T> sm;
+  const int64_t col_tiles = (b + TILE - 1) / TILE;
+  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
+  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
+  const int rows = (int)min64(TILE, r - row0);
+  const int cols = (int)min64(TILE, b - col0);
+  T acc[4][4] = {};
+  // V[c, k] = 0 for k > c: the tile's columns end at col0 + cols - 1.
+  nt_product(sm, acc, acc_in + row0 * lda, lda, rows, v + col0 * ldv, ldv, cols, 0,
+             col0 + cols);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i;
+    if (rr >= rows) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < cols) out[(row0 + rr) * ldo + col0 + c] = acc[i][jj];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+row_scale_kernel(const T* __restrict__ v, int64_t ldv, int64_t b, const T* __restrict__ rhs,
+                 int64_t ldr, int64_t n, T* __restrict__ out, int64_t ldo) {
+  __shared__ TileSmem<T> sm;
+  const int64_t col_tiles = (n + TILE - 1) / TILE;
+  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
+  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
+  const int rows = (int)min64(TILE, b - row0);
+  const int cols = (int)min64(TILE, n - col0);
+  T acc[4][4] = {};
+  // V[r, k] = 0 for k > r: the tile's rows end at row0 + rows - 1.
+  const int64_t k_end = row0 + rows;
+  for (int64_t k0 = 0; k0 < k_end; k0 += BK) {
+    load_rows_kmajor(sm.a, v + row0 * ldv, ldv, rows, k0, k_end);
+    load_cols_kmajor(sm.b, rhs + col0, ldr, cols, k0, k_end);
+    __syncthreads();
+    tile_fma(sm, acc);
+    __syncthreads();
+  }
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i;
+    if (rr >= rows) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      if (c < cols) out[(row0 + rr) * ldo + col0 + c] = acc[i][jj];
     }
   }
 }
@@ -220,8 +316,43 @@ static int launch_gemm_nn_acc_masked(const T* a, int64_t lda, int64_t r, const T
                                      void* stream) {
   if (r <= 0 || w <= 0 || kd <= 0) return 0;
   const unsigned int blocks = ceil_div(r, TILE) * ceil_div(w, TILE);
-  gemm_nn_acc_masked_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
+  gemm_nn_acc_masked_kernel<T, false><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
       a, lda, r, b, ldb, kd, u, ldu, w);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_panel_scale(const T* acc, int64_t lda, int64_t r, const T* v, int64_t ldv,
+                              int64_t b, T* out, int64_t ldo, void* stream) {
+  if (r <= 0 || b <= 0) return 0;
+  const unsigned int blocks = ceil_div(r, TILE) * ceil_div(b, TILE);
+  panel_scale_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(acc, lda, r, v, ldv, b,
+                                                                       out, ldo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_row_scale(const T* v, int64_t ldv, int64_t b, const T* rhs, int64_t ldr,
+                            int64_t n, T* out, int64_t ldo, void* stream) {
+  if (b <= 0 || n <= 0) return 0;
+  const unsigned int blocks = ceil_div(b, TILE) * ceil_div(n, TILE);
+  row_scale_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(v, ldv, b, rhs, ldr, n, out,
+                                                                     ldo);
+  return (int)cudaGetLastError();
+}
+
+// L: the live rows of the band start at global row j0 + bw (local row
+// j0 + bw - row0), the live columns end at j0 + bw.
+template <typename T>
+static int launch_band_trail(T* s, int64_t lds, int64_t r, int64_t c, const T* lcol,
+                             int64_t ldl, const T* wj, int64_t ldw, int64_t bw, int64_t j0,
+                             int64_t row0, void* stream) {
+  const int64_t r_start = j0 + bw - row0 < 0 ? 0 : j0 + bw - row0;
+  const int64_t w = j0 + bw < c ? j0 + bw : c;
+  if (r_start >= r || w <= 0 || bw <= 0) return 0;
+  const unsigned int blocks = ceil_div(r - r_start, TILE) * ceil_div(w, TILE);
+  gemm_nn_acc_masked_kernel<T, true><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
+      lcol + r_start * ldl, ldl, r - r_start, wj, ldw, bw, s + r_start * lds, lds, w);
   return (int)cudaGetLastError();
 }
 
@@ -275,5 +406,23 @@ int gpis_row_update_f64(const double* lrow, const double* w, int64_t n, int64_t 
 
 GPIS_OOC_ENTRY_POINTS(float, f32)
 GPIS_OOC_ENTRY_POINTS(double, f64)
+
+#define GPIS_INV_ENTRY_POINTS(T, SUF)                                                          \
+  int gpis_panel_scale_##SUF(const T* acc, int64_t lda, int64_t r, const T* v, int64_t ldv,    \
+                             int64_t b, T* out, int64_t ldo, void* stream) {                   \
+    return gpis::launch_panel_scale<T>(acc, lda, r, v, ldv, b, out, ldo, stream);              \
+  }                                                                                            \
+  int gpis_row_scale_##SUF(const T* v, int64_t ldv, int64_t b, const T* rhs, int64_t ldr,      \
+                           int64_t n, T* out, int64_t ldo, void* stream) {                     \
+    return gpis::launch_row_scale<T>(v, ldv, b, rhs, ldr, n, out, ldo, stream);                \
+  }                                                                                            \
+  int gpis_band_trail_##SUF(T* s, int64_t lds, int64_t r, int64_t c, const T* lcol,            \
+                            int64_t ldl, const T* wj, int64_t ldw, int64_t bw, int64_t j0,     \
+                            int64_t row0, void* stream) {                                      \
+    return gpis::launch_band_trail<T>(s, lds, r, c, lcol, ldl, wj, ldw, bw, j0, row0, stream); \
+  }
+
+GPIS_INV_ENTRY_POINTS(float, f32)
+GPIS_INV_ENTRY_POINTS(double, f64)
 
 }  // extern "C"

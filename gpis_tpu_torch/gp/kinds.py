@@ -15,6 +15,7 @@ __all__ = ["model_kind", "MODEL_KINDS"]
 MODEL_KINDS = {
     "ooc": ("OOCModel",),
     "ooc_joint": ("OOCJointModel",),
+    "sharded": ("ShardedGPModel",),
     "joint": ("DerivGPModel",),
     "dense": ("GPModel",),
 }
@@ -23,7 +24,7 @@ _BY_CLASS = {cls: kind for kind, classes in MODEL_KINDS.items() for cls in class
 
 
 def model_kind(model) -> str:
-    """"dense", "joint", "ooc" or "ooc_joint" for a fitted model.  Anything else raises
+    """"dense", "joint", "sharded", "ooc" or "ooc_joint" for a fitted model.  Anything else raises
     TypeError: an unknown model fails at the dispatch point rather than
     falling through to the dense path."""
     for cls in type(model).__mro__:

@@ -8,9 +8,9 @@
 * ``with_linv`` -- attach W = L^{-1} (Kernel C) to a fitted model.
 * ``predict`` / ``predict_mean`` -- posterior mean and variance; a model
   carrying W goes through the dense query (Kernels A and D staged, or
-  Kernel F on the fly); a joint model is dispatched to ``gp.derivative``
-  and an out-of-core one to ``linalg.outofcore`` through
-  ``gp.kinds.model_kind``.
+  Kernel F on the fly); a joint model is dispatched to ``gp.derivative``,
+  an out-of-core one to ``linalg.outofcore`` and a sharded one to its own
+  ``predict`` through ``gp.kinds.model_kind``.
 
 Functions take tensors and work on the device the tensors are on.  The
 ladder reacts only to a NaN factor diagonal (what `cholesky` returns for a
@@ -143,13 +143,17 @@ def predict(model, q: torch.Tensor):
     carrying Kinv takes var = k(0) - sum(K* * (K* Kinv)); otherwise the
     triangular solve against the factor.  A joint model (`DerivGPModel`)
     goes to `gp.derivative.predict`, an out-of-core one to
-    `outofcore.ooc_predict`, which streams each W panel once for all of q.
+    `outofcore.ooc_predict`, which streams each W panel once for all of q,
+    and a sharded one (`gp.sharded_model`) to its `predict`, which every
+    rank calls with the same q.
     The variance is not clamped (the conditionally-PD thin plate
     legitimately goes negative), except by the out-of-core query, which
     clamps it to [0, k0] as the JAX package does."""
     kind = model_kind(model)
     if kind in ("ooc", "ooc_joint"):
         return ooc.ooc_predict(model, q)
+    if kind == "sharded":
+        return model.predict(q)
     if kind == "joint":
         from gpis_tpu_torch.gp import derivative as gpd
 

@@ -1,6 +1,6 @@
-"""Kernels B, C, G, H and I (csrc/chol.cu) and the left-looking blocked
-Cholesky and TRSM that loop B and C (port of
-gpis_tpu/linalg/pallas_chol.py:87-185, 249-435, 502-687).
+"""Kernels B, C, G, H, I, J, K and L (csrc/chol.cu) and the left-looking
+blocked Cholesky and TRSM that loop B and C, and J and K under
+`panel_solve="inv"` (port of gpis_tpu/linalg/pallas_chol.py:55-57, 87-687).
 
 * `panel_update(m, j0, block)` -- Kernel B, replacing `panel_update_pallas`:
   m[j0:, j0:j0+B] -= m[j0:, :j0] @ m[j0:j0+B, :j0]^T, in place.
@@ -12,20 +12,37 @@ gpis_tpu/linalg/pallas_chol.py:87-185, 249-435, 502-687).
   `gemm_nn_acc_masked_pallas`: u[:, :w] += a @ b[:, :w], in place.
 * `stripe_write(dst, blk, c0)` -- Kernel I, replacing `stripe_write_pallas`:
   dst[:, c0:c0+W] = blk, in place.
+* `panel_scale(acc, v)` -- Kernel J, replacing `panel_scale_pallas`:
+  acc @ v^T for v = Ljj^{-1} lower-triangular.
+* `row_scale(v, rhs)` -- Kernel K, replacing `row_scale_pallas`: v @ rhs.
+* `band_trail(s, l_col, wj, j0, row0)` -- Kernel L, replacing
+  `band_trail_update_pallas`: S -= (l_col masked to global rows >= j0+B) @
+  wj, in place on a rank's row band (`linalg.sharded.sharded_linv`).
 
 G, H and I serve the out-of-core factor and TRSM (`linalg.outofcore`) and
 take each operand as a row-major view with its own leading dimension, so a
-stripe or a column slice of a wider buffer is passed without a copy.  B, C,
-G and H are bound by FP32 arithmetic on the card, I by bytes; csrc/chol.cu
-says how their loops skip the dead part of each product.  Around them, as in the JAX
-package, the B x B potrf (`torch.linalg.cholesky_ex`) and the panel and row
-triangular solves (`torch.linalg.solve_triangular`) stay library calls.
+stripe or a column slice of a wider buffer is passed without a copy; J, K
+and L take their views the same way.  All but I are bound by FP32
+arithmetic on the card, I by bytes; csrc/chol.cu says how their loops skip
+the dead part of each product.  Around them, as in the JAX package, the
+B x B potrf (`torch.linalg.cholesky_ex`), the panel and row triangular
+solves (`torch.linalg.solve_triangular`) and, under `panel_solve="inv"`,
+the B x B inverse V = Ljj^{-1} stay library calls.
+
+`panel_solve` picks the factor's and TRSM's diagonal-block solve: "xla"
+(the default, the JAX package's name for it) solves each (R, B) panel and
+(B, N) row by substitution; "inv" forms V = Ljj^{-1} once (B x B) and
+multiplies by it through J and K.  `PANEL_SOLVE` reads GPIS_PANEL_SOLVE
+once, at import, as `pallas_chol._PANEL_SOLVE` does; a call's
+`panel_solve=None` takes it.
 
 Each wrapper takes a CPU tensor to its plain twin (`*_reference`) and a CUDA
 tensor to its kernel, and raises on anything the kernel does not take.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -34,7 +51,11 @@ from gpis_tpu_torch import _build
 __all__ = ["panel_update", "panel_update_reference", "row_update", "row_update_reference",
            "gemm_nt_masked", "gemm_nt_masked_reference", "gemm_nn_acc_masked",
            "gemm_nn_acc_masked_reference", "stripe_write", "stripe_write_reference",
-           "blocked_cholesky", "blocked_linv"]
+           "panel_scale", "panel_scale_reference", "row_scale", "row_scale_reference",
+           "band_trail", "band_trail_reference", "PANEL_SOLVE", "blocked_cholesky",
+           "blocked_linv"]
+
+PANEL_SOLVE = os.environ.get("GPIS_PANEL_SOLVE", "xla").lower()
 
 
 def _check_square(what: str, m: torch.Tensor) -> int:
@@ -168,21 +189,126 @@ def stripe_write(dst: torch.Tensor, blk: torch.Tensor, c0: int) -> torch.Tensor:
     return dst
 
 
+def panel_scale_reference(acc, v) -> torch.Tensor:
+    """Plain twin of Kernel J."""
+    return acc @ v.T
+
+
+def panel_scale(acc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """acc @ v^T as a new (R, B) tensor, for acc (R, B) a row-major view and
+    v (B, B) LOWER-triangular (the kernel skips its zero upper half)."""
+    r, b = acc.shape
+    if v.shape != (b, b):
+        raise ValueError(f"panel_scale: acc {tuple(acc.shape)} and v {tuple(v.shape)} do not agree")
+    if acc.device.type == "cpu":
+        return panel_scale_reference(acc, v)
+    _build.check_cuda_rows("panel_scale", acc, v)
+    out = torch.empty((r, b), dtype=acc.dtype, device=acc.device)
+    if r == 0 or b == 0:
+        return out
+    _build.call("gpis_panel_scale", acc, acc.data_ptr(), acc.stride(0), r, v.data_ptr(),
+                v.stride(0), b, out.data_ptr(), b)
+    _build.LAUNCHES["panel_scale"] += 1
+    return out
+
+
+def row_scale_reference(v, rhs) -> torch.Tensor:
+    """Plain twin of Kernel K."""
+    return v @ rhs
+
+
+def row_scale(v: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """v @ rhs as a new (B, N) tensor, for v (B, B) LOWER-triangular and
+    rhs (B, N) a row-major view."""
+    b, n = rhs.shape
+    if v.shape != (b, b):
+        raise ValueError(f"row_scale: v {tuple(v.shape)} and rhs {tuple(rhs.shape)} do not agree")
+    if rhs.device.type == "cpu":
+        return row_scale_reference(v, rhs)
+    _build.check_cuda_rows("row_scale", v, rhs)
+    out = torch.empty((b, n), dtype=rhs.dtype, device=rhs.device)
+    if b == 0 or n == 0:
+        return out
+    _build.call("gpis_row_scale", rhs, v.data_ptr(), v.stride(0), b, rhs.data_ptr(),
+                rhs.stride(0), n, out.data_ptr(), n)
+    _build.LAUNCHES["row_scale"] += 1
+    return out
+
+
+def _trail_ranges(r: int, c: int, block: int, j0: int, row0: int) -> tuple[int, int]:
+    """Kernel L's live region: local rows from the first whose global index
+    is >= j0 + block, columns below j0 + block."""
+    return min(max(j0 + block - row0, 0), r), min(j0 + block, c)
+
+
+def band_trail_reference(s, l_col, wj, j0: int, row0: int) -> torch.Tensor:
+    """Plain twin of Kernel L (in place on s; returns s): the masked product
+    on the live rows and columns, as one library call."""
+    r, c = s.shape
+    r_b, w = _trail_ranges(r, c, wj.shape[0], j0, row0)
+    if r_b < r:
+        s[r_b:, :w].addmm_(l_col[r_b:], wj[:, :w], alpha=-1)
+    return s
+
+
+def band_trail(s: torch.Tensor, l_col: torch.Tensor, wj: torch.Tensor, j0: int,
+               row0: int) -> torch.Tensor:
+    """S -= (l_col masked to global rows >= j0 + B) @ wj in place; returns s.
+    s (R, C) is a row band of S at global rows [row0, row0 + R), l_col
+    (R, B) the band's column panel j of L, wj (B, C) the W row panel j,
+    zero at columns >= j0 + B (the update leaves those columns alone).
+    Each is a row-major view."""
+    r, c = s.shape
+    b = l_col.shape[1]
+    if l_col.shape[0] != r or wj.shape != (b, c) or j0 < 0 or row0 < 0:
+        raise ValueError(f"band_trail: s {tuple(s.shape)}, l_col {tuple(l_col.shape)}, "
+                         f"wj {tuple(wj.shape)}, j0={j0}, row0={row0} do not agree")
+    if s.device.type == "cpu":
+        return band_trail_reference(s, l_col, wj, j0, row0)
+    _build.check_cuda_rows("band_trail", s, l_col, wj)
+    r_b, w = _trail_ranges(r, c, b, j0, row0)
+    if r_b >= r or w <= 0 or b == 0:  # no live row: nothing launched
+        return s
+    _build.call("gpis_band_trail", s, s.data_ptr(), s.stride(0), r, c, l_col.data_ptr(),
+                l_col.stride(0), wj.data_ptr(), wj.stride(0), b, int(j0), int(row0))
+    _build.LAUNCHES["band_trail"] += 1
+    return s
+
+
+def _panel_solve(panel_solve: str | None) -> str:
+    ps = PANEL_SOLVE if panel_solve is None else panel_solve
+    if ps not in ("xla", "inv"):
+        raise ValueError(f"panel_solve must be 'xla' or 'inv', got {ps!r}")
+    return ps
+
+
+def _tri_small_inv(ld: torch.Tensor) -> torch.Tensor:
+    """Ljj^{-1} of the (B, B) diagonal block by substitution against I (the
+    JAX package's `_tri_small_inv`); lower-triangular, row-major (the
+    library returns it column-major on CUDA, which J and K do not take)."""
+    eye = torch.eye(ld.shape[0], dtype=ld.dtype, device=ld.device)
+    return torch.linalg.solve_triangular(ld, eye, upper=False).contiguous()
+
+
 def _potrf(d: torch.Tensor):
     """Lower factor of a B x B block and whether it is positive definite."""
     ld, info = torch.linalg.cholesky_ex(d)
     return ld, int(info) == 0
 
 
-def blocked_cholesky(a: torch.Tensor, block: int = 256) -> torch.Tensor:
+def blocked_cholesky(a: torch.Tensor, block: int = 256, *,
+                     panel_solve: str | None = None) -> torch.Tensor:
     """Left-looking blocked Cholesky, IN PLACE: a is overwritten by its lower
     factor L (strict upper triangle zero) and returned -- peak memory is the
     one matrix.  A non-positive-definite panel leaves a NaN diagonal, the
     signal the jitter ladder checks (`jnp.linalg.cholesky` returns NaN where
-    `torch.linalg.cholesky` would raise)."""
+    `torch.linalg.cholesky` would raise).  panel_solve (module note): the
+    panel below each diagonal block by substitution, or ("inv") as one
+    product with Ljj^{-1} through Kernel J."""
     n = _check_square("blocked_cholesky", a)
     if n % block:
         raise ValueError(f"matrix size {n} must be a multiple of block {block}")
+    inv = _panel_solve(panel_solve) == "inv"
     for j0 in range(0, n, block):
         j1 = j0 + block
         panel_update(a, j0, block)
@@ -190,7 +316,9 @@ def blocked_cholesky(a: torch.Tensor, block: int = 256) -> torch.Tensor:
         if not ok:
             a.diagonal().fill_(float("nan"))
             return a
-        if j1 < n:
+        if j1 < n and inv:
+            a[j1:, j0:j1] = panel_scale(a[j1:, j0:j1], _tri_small_inv(ld))
+        elif j1 < n:
             # X ld^T = A_below  ->  X = A_below ld^{-T}
             a[j1:, j0:j1] = torch.linalg.solve_triangular(ld.T, a[j1:, j0:j1], upper=True,
                                                           left=False)
@@ -199,18 +327,21 @@ def blocked_cholesky(a: torch.Tensor, block: int = 256) -> torch.Tensor:
     return a
 
 
-def blocked_linv(l: torch.Tensor, block: int = 256, *, inplace: bool = False) -> torch.Tensor:
+def blocked_linv(l: torch.Tensor, block: int = 256, *, inplace: bool = False,
+                 panel_solve: str | None = None) -> torch.Tensor:
     """W = L^{-1} by the left-looking blocked TRSM
 
         for block row j:  W[j, :] = Ljj^{-1} (I[j, :] - L[j, :j0] W[:j0, :])
 
-    whose row update is Kernel C.  W comes out lower-triangular.
-    inplace=True overwrites L with W row band by row band (step j reads L's
-    row panel j and the finished W rows < j0 from the same buffer), so peak
-    memory is one matrix; the caller loses L."""
+    whose row update is Kernel C, and whose Ljj^{-1} is applied by
+    substitution or ("inv") as one product through Kernel K.  W comes out
+    lower-triangular.  inplace=True overwrites L with W row band by row band
+    (step j reads L's row panel j and the finished W rows < j0 from the
+    same buffer), so peak memory is one matrix; the caller loses L."""
     n = _check_square("blocked_linv", l)
     if n % block:
         raise ValueError(f"matrix size {n} must be a multiple of block {block}")
+    inv = _panel_solve(panel_solve) == "inv"
     w = l if inplace else torch.zeros_like(l)
     for j0 in range(0, n, block):
         j1 = j0 + block
@@ -218,7 +349,10 @@ def blocked_linv(l: torch.Tensor, block: int = 256, *, inplace: bool = False) ->
         upd = row_update(w, l_row, j0)
         rhs = -upd[:, :j1]
         rhs[:, j0:j1] += torch.eye(block, dtype=l.dtype, device=l.device)
-        wj = torch.linalg.solve_triangular(l_row[:, j0:j1], rhs, upper=False)
+        if inv:
+            wj = row_scale(_tri_small_inv(l_row[:, j0:j1]), rhs)
+        else:
+            wj = torch.linalg.solve_triangular(l_row[:, j0:j1], rhs, upper=False)
         w[j0:j1, :j1] = wj
         w[j0:j1, j1:] = 0.0
     return w

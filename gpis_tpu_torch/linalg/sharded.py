@@ -1,0 +1,288 @@
+"""Row-band-sharded Gram, blocked Cholesky, solves, W = L^{-1} and query
+over a torch.distributed row mesh (port of gpis_tpu/linalg/sharded.py,
+BASELINE config 5).
+
+Layout as in the JAX package: capacity C = P * rows_per; rank p owns the
+contiguous row band [p C / P, (p + 1) C / P) of the Gram, of its factor L
+and of W; the owner of block row j is rank j B // (C / P).  Each function
+takes and returns this rank's band (a (C / P, C) tensor), and replicated
+vectors whole.  Every rank runs the same loop and calls the same
+collectives in the same order with the same shapes; an owner-only step
+(its rows of a block, its diagonal solve) is followed by a broadcast that
+every other rank receives.  The JAX package's collectives map to
+torch.distributed: `_bcast_from` (a psum of a masked value) is
+`dist.broadcast(src=owner)`, `psum` is `all_reduce`, and the query ring's
+`ppermute` is `dist.batch_isend_irecv` to the next rank.
+
+The kernels: the band Gram is Kernel A's band mode; the factor's panel
+update is Kernel G (`gemm_nt_masked`) on the rows of the band at or below
+the panel -- G computes S - A[:, :k0] B[:, :k0]^T on strided views, which is
+the band's update against the broadcast block row, where Kernel B reads
+its row panel from its own square buffer and so cannot take a band whose
+panel row lives on another rank; the right-looking TRSM's trailing update
+is Kernel L (`band_trail`) when asked for, else its plain masked product;
+the query is Kernel A for the mean and Kernel F's band mode for each ring
+hop's quad.  The B x B potrf and the triangular solves stay library calls,
+as the JAX package leaves them to XLA.
+
+Not ported: `sharded_update_tail` (the tactile update, ROADMAP.md §1
+item 7).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from gpis_tpu_torch.kernels import cuda_gram, cuda_query
+from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.kernels import gram as kg
+from gpis_tpu_torch.linalg import cuda_chol
+from gpis_tpu_torch.parallel.mesh import RowMesh
+
+__all__ = ["sharded_gram", "sharded_cholesky", "sharded_solve_lower_vec",
+           "sharded_solve_lower_t_vec", "sharded_cho_solve_vec", "sharded_linv",
+           "sharded_linv_ll", "sharded_alpha_from_linv", "sharded_predict_linv",
+           "any_nan_diagonal"]
+
+
+def _bcast_from(t: torch.Tensor, owner: int) -> torch.Tensor:
+    """Broadcast the owner's t to every rank, in place (t is contiguous)."""
+    dist.broadcast(t, src=owner)
+    return t
+
+
+def _psum(t: torch.Tensor) -> torch.Tensor:
+    dist.all_reduce(t)
+    return t
+
+
+def _block_layout(c: int, mesh: RowMesh, block: int) -> tuple[int, int]:
+    row0, rows_per = mesh.band(c)
+    if rows_per % block or c % block:
+        raise ValueError(f"capacity {c} must tile into {mesh.size} ranks x {block} blocks")
+    return row0, rows_per
+
+
+def _clip(v: int, hi: int) -> int:
+    return min(max(v, 0), hi)
+
+
+def sharded_gram(name: str, x: torch.Tensor, params, noise, mesh: RowMesh) -> torch.Tensor:
+    """This rank's (C / P, C) band of K(X, X) + diag(noise), from the
+    replicated coordinates: Kernel A in band mode, no communication."""
+    c = x.shape[0]
+    row0, rows_per = mesh.band(c)
+    noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device).broadcast_to((c,))
+    band = slice(row0, row0 + rows_per)
+    return cuda_gram.cov(name, x[band].contiguous(), x.contiguous(), params,
+                         noise=noise[band].contiguous(), sym=True, row0=row0)
+
+
+def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
+                     use_kernels: bool = False) -> torch.Tensor:
+    """Lower Cholesky factor of the row-band-sharded SPD matrix whose band
+    is a_loc, IN PLACE (left-looking, as in the JAX package):
+
+        for block column j (owner o):
+          o broadcasts its finished block row j (columns < j0)
+          every rank: panel rows >= j0 -= L[rows, :j0] @ row_j^T   (G)
+          o broadcasts the diagonal block S; every rank factors Ljj = chol(S)
+          every rank: rows >= j0 + B of the panel = panel @ Ljj^{-T}
+
+    use_kernels runs the panel update through Kernel G, else a plain
+    product.  A block that is not positive definite leaves the diagonal NaN
+    on every rank (every rank factors the same broadcast S, so all stop at
+    the same block and no collective is left unmatched)."""
+    rows_per, c = a_loc.shape
+    row0, _ = _block_layout(c, mesh, block)
+    if rows_per * mesh.size != c:
+        raise ValueError(f"band {tuple(a_loc.shape)} is not 1/{mesh.size} of a square matrix")
+    dt, dev = a_loc.dtype, a_loc.device
+    for j0 in range(0, c, block):
+        j1 = j0 + block
+        owner, lrow = divmod(j0, rows_per)
+        mine = owner == mesh.rank
+        r_s = _clip(j0 - row0, rows_per)  # first local row at global row >= j0
+        if j0:
+            row_j = (a_loc[lrow:lrow + block, :j0].contiguous() if mine
+                     else torch.empty((block, j0), dtype=dt, device=dev))
+            _bcast_from(row_j, owner)
+            if r_s < rows_per:
+                panel = a_loc[r_s:, j0:j1]
+                if use_kernels:
+                    panel.copy_(cuda_chol.gemm_nt_masked(a_loc[r_s:], row_j, panel, j0))
+                else:
+                    panel.sub_(a_loc[r_s:, :j0] @ row_j.T)
+        s = (a_loc[lrow:lrow + block, j0:j1].contiguous() if mine
+             else torch.empty((block, block), dtype=dt, device=dev))
+        _bcast_from(s, owner)
+        ljj, info = torch.linalg.cholesky_ex(s)
+        if int(info):
+            a_loc[:, row0:row0 + rows_per].diagonal().fill_(float("nan"))
+            return a_loc
+        r_b = _clip(j1 - row0, rows_per)  # first local row at global row >= j1
+        if r_b < rows_per:
+            a_loc[r_b:, j0:j1] = torch.linalg.solve_triangular(ljj.T, a_loc[r_b:, j0:j1],
+                                                               upper=True, left=False)
+        if mine:
+            a_loc[lrow:lrow + block, j0:j1] = ljj
+        a_loc[:r_s, j0:j1] = 0.0  # the strict upper triangle
+    return a_loc
+
+
+def any_nan_diagonal(l_loc: torch.Tensor, mesh: RowMesh) -> bool:
+    """Whether the sharded factor's diagonal holds a NaN anywhere, agreed
+    across ranks (the jitter ladder's test)."""
+    row0, rows_per = mesh.band(l_loc.shape[1])
+    flag = torch.isnan(l_loc[:, row0:row0 + rows_per].diagonal()).any().to(l_loc.dtype)
+    return bool(_psum(flag.reshape(1)).item() > 0)
+
+
+def sharded_solve_lower_vec(l_loc: torch.Tensor, b: torch.Tensor, mesh: RowMesh, *,
+                            block: int = 256) -> torch.Tensor:
+    """y with L y = b, L row-band-sharded, b and y replicated.  Block by
+    block: the owner substitutes its block, then broadcasts it."""
+    rows_per, c = l_loc.shape
+    _block_layout(c, mesh, block)
+    y = torch.zeros((c,), dtype=l_loc.dtype, device=l_loc.device)
+    for j0 in range(0, c, block):
+        j1 = j0 + block
+        owner, lrow = divmod(j0, rows_per)
+        if owner == mesh.rank:
+            row_block = l_loc[lrow:lrow + block]
+            rhs = b[j0:j1] - row_block[:, :j0] @ y[:j0]
+            yj = torch.linalg.solve_triangular(row_block[:, j0:j1], rhs[:, None],
+                                               upper=False)[:, 0].contiguous()
+        else:
+            yj = torch.empty((block,), dtype=y.dtype, device=y.device)
+        y[j0:j1] = _bcast_from(yj, owner)
+    return y
+
+
+def sharded_solve_lower_t_vec(l_loc: torch.Tensor, b: torch.Tensor, mesh: RowMesh, *,
+                              block: int = 256) -> torch.Tensor:
+    """y with L^T y = b (L row-band-sharded, b replicated).  Step j, last
+    block first: each rank sums its rows below the block of column panel j
+    against y, an all-reduce adds the ranks, the owner substitutes."""
+    rows_per, c = l_loc.shape
+    row0, _ = _block_layout(c, mesh, block)
+    y = torch.zeros((c,), dtype=l_loc.dtype, device=l_loc.device)
+    for j0 in reversed(range(0, c, block)):
+        j1 = j0 + block
+        owner, lrow = divmod(j0, rows_per)
+        r_b = _clip(j1 - row0, rows_per)
+        contrib = _psum(l_loc[r_b:, j0:j1].T @ y[row0 + r_b:row0 + rows_per])
+        if owner == mesh.rank:
+            ljj = l_loc[lrow:lrow + block, j0:j1]
+            yj = torch.linalg.solve_triangular(ljj.T, (b[j0:j1] - contrib)[:, None],
+                                               upper=True)[:, 0].contiguous()
+        else:
+            yj = torch.empty((block,), dtype=y.dtype, device=y.device)
+        y[j0:j1] = _bcast_from(yj, owner)
+    return y
+
+
+def sharded_cho_solve_vec(l_loc: torch.Tensor, b: torch.Tensor, mesh: RowMesh, *,
+                          block: int = 256) -> torch.Tensor:
+    y = sharded_solve_lower_vec(l_loc, b, mesh, block=block)
+    return sharded_solve_lower_t_vec(l_loc, y, mesh, block=block)
+
+
+def sharded_linv(l_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
+                 use_kernel: bool = False) -> torch.Tensor:
+    """This rank's band of W = L^{-1}, by the right-looking distributed TRSM:
+
+        S_loc := I[rows_loc, :]
+        for block row j:  owner solves W_j = Ljj^{-1} S[j, :]; broadcast W_j
+                          every rank: S_loc -= L_loc[:, j] W_j  (rows below j)
+
+    The trailing update is Kernel L with use_kernel, else its plain masked
+    product (the JAX package's default, `use_pallas=False`)."""
+    rows_per, c = l_loc.shape
+    row0, _ = _block_layout(c, mesh, block)
+    dt, dev = l_loc.dtype, l_loc.device
+    s = torch.zeros((rows_per, c), dtype=dt, device=dev)
+    s[:, row0:row0 + rows_per].diagonal().fill_(1.0)
+    trail = cuda_chol.band_trail if use_kernel else cuda_chol.band_trail_reference
+    for j0 in range(0, c, block):
+        j1 = j0 + block
+        owner, lrow = divmod(j0, rows_per)
+        mine = owner == mesh.rank
+        wj = (torch.linalg.solve_triangular(l_loc[lrow:lrow + block, j0:j1],
+                                            s[lrow:lrow + block], upper=False).contiguous()
+              if mine else torch.empty((block, c), dtype=dt, device=dev))
+        _bcast_from(wj, owner)
+        trail(s, l_loc[:, j0:j1], wj, j0, row0)
+        if mine:
+            s[lrow:lrow + block] = wj
+    return s
+
+
+def sharded_linv_ll(l_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256) -> torch.Tensor:
+    """This rank's band of W = L^{-1}, by the LEFT-looking distributed TRSM:
+
+        for block row j (owner o):
+          o broadcasts L's row panel j                  (columns < j0 + B)
+          every rank: partial = Lrow[:, my rows < j0] @ W[my rows < j0, :]
+          all-reduce -> upd; o writes W_j = Ljj^{-1} (I_j - upd)"""
+    rows_per, c = l_loc.shape
+    row0, _ = _block_layout(c, mesh, block)
+    dt, dev = l_loc.dtype, l_loc.device
+    w = torch.zeros((rows_per, c), dtype=dt, device=dev)
+    for j0 in range(0, c, block):
+        j1 = j0 + block
+        owner, lrow = divmod(j0, rows_per)
+        mine = owner == mesh.rank
+        l_row = (l_loc[lrow:lrow + block, :j1].contiguous() if mine
+                 else torch.empty((block, j1), dtype=dt, device=dev))
+        _bcast_from(l_row, owner)
+        k_hi = _clip(j0 - row0, rows_per)  # my band's finished rows
+        upd = _psum(l_row[:, row0:row0 + k_hi] @ w[:k_hi])
+        if mine:
+            rhs = -upd
+            rhs[:, j0:j1] += torch.eye(block, dtype=dt, device=dev)
+            w[lrow:lrow + block] = torch.linalg.solve_triangular(l_row[:, j0:j1], rhs,
+                                                                 upper=False)
+    return w
+
+
+def sharded_alpha_from_linv(w_loc: torch.Tensor, y: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
+    """alpha = K^{-1} y = W^T (W y), W row-sharded, y and alpha replicated."""
+    return _psum(w_loc.T @ (w_loc @ y))
+
+
+def _ring_shift(q: torch.Tensor, quad: torch.Tensor, mesh: RowMesh):
+    """Send (q, quad) to the next rank and receive the previous rank's."""
+    out = torch.cat([q, quad[:, None]], dim=1)
+    got = torch.empty_like(out)
+    ops = [dist.P2POp(dist.isend, out, (mesh.rank + 1) % mesh.size),
+           dist.P2POp(dist.irecv, got, (mesh.rank - 1) % mesh.size)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return got[:, :3].contiguous(), got[:, 3].contiguous()
+
+
+def sharded_predict_linv(name: str, q: torch.Tensor, x: torch.Tensor, params,
+                         alpha: torch.Tensor, w_loc: torch.Tensor, mesh: RowMesh):
+    """Posterior (mean, variance) at this rank's shard of the replicated
+    queries q (M, 3), M a multiple of P: rows [r M / P, (r + 1) M / P).  The
+    mean is kq @ alpha (kq through Kernel A); the variance's ||W kq^T||^2
+    pairs every W band with every query shard, so the shards ride a ring
+    and each hop adds this band's partial quad (Kernel F's band mode, kq
+    generated on chip against the band's live columns).  After P hops every
+    shard is home with all P bands' share."""
+    m = q.shape[0]
+    if m % mesh.size:
+        raise ValueError(f"query count {m} not divisible by mesh size {mesh.size}")
+    per = m // mesh.size
+    q_loc = q[mesh.rank * per:(mesh.rank + 1) * per].contiguous()
+    row0 = mesh.band(x.shape[0])[0]
+    mean = kg.cross_cov(name, q_loc, x, params) @ alpha
+    quad = torch.zeros((per,), dtype=q.dtype, device=q.device)
+    qv = q_loc
+    for _ in range(mesh.size):
+        quad = quad + cuda_query.quad_band("value", name, qv, x, params, w_loc, row0)
+        if mesh.size > 1:
+            qv, quad = _ring_shift(qv, quad, mesh)
+    return mean, float(kf.k_diag0(name, params)) - quad

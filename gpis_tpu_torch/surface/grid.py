@@ -4,7 +4,8 @@ Queries stream through the posterior in chunks of 8,192 -- a Python loop in
 place of the JAX package's `lax.map` -- so the staged kq of one chunk
 (chunk x C) is the only query-sized buffer alive.  A value model (`GPModel`)
 and a joint one (`DerivGPModel`) are served alike, through
-`regression.predict`.  An out-of-core model takes all the points in one
+`regression.predict`; so is a sharded one (`ShardedGPModel`), whose every
+rank walks the same chunks.  An out-of-core model takes all the points in one
 `regression.predict` call: its query chunks them itself and streams each W
 panel once for all chunks, where a call per chunk would stream W per chunk.
 """

@@ -303,3 +303,94 @@ def test_cuda_ooc_session_matches_cpu_session(cuda, normals):
     # The BASELINE.md row-2 bar on mean and variance.
     np.testing.assert_allclose(got[0], want[0], atol=1e-6)
     np.testing.assert_allclose(got[1], want[1], atol=1e-6)
+
+
+def _lower_inv(gen, b, dtype):
+    g = torch.randn((b, b), generator=gen, device=gen.device, dtype=dtype)
+    ld = torch.linalg.cholesky(g @ g.T / b + torch.eye(b, dtype=dtype, device=gen.device))
+    eye = torch.eye(b, dtype=dtype, device=gen.device)
+    return torch.linalg.solve_triangular(ld, eye, upper=False).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_panel_scale_matches_twin(cuda, dtype):
+    # acc is the strided panel below a diagonal block, as in blocked_cholesky;
+    # B = 200 is not a multiple of the 64 tile.
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    a = torch.randn((900, 900), generator=gen, device=cuda, dtype=dtype)
+    v = _lower_inv(gen, 200, dtype)
+    _build.LAUNCHES.clear()
+    got = cuda_chol.panel_scale(a[300:, 100:300], v)
+    assert _build.LAUNCHES["panel_scale"] == 1
+    want = cuda_chol.panel_scale_reference(a[300:, 100:300], v)
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_row_scale_matches_twin(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    v = _lower_inv(gen, 192, dtype)
+    rhs = torch.randn((192, 1200), generator=gen, device=cuda, dtype=dtype)[:, 100:1100]
+    _build.LAUNCHES.clear()
+    got = cuda_chol.row_scale(v, rhs)
+    assert _build.LAUNCHES["row_scale"] == 1
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(got, cuda_chol.row_scale_reference(v, rhs), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("row0, j0", [(0, 0), (0, 256), (512, 0), (256, 512), (0, 960)])
+def test_cuda_band_trail_matches_twin(cuda, row0, j0):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    r, c, b = 512, 1024, 64
+    s = torch.randn((r, c), generator=gen, device=cuda, dtype=torch.float64)
+    l = torch.randn((r, c), generator=gen, device=cuda, dtype=torch.float64)
+    wj = torch.randn((b, c), generator=gen, device=cuda, dtype=torch.float64)
+    wj[:, j0 + b:] = 0.0
+    got = cuda_chol.band_trail(s.clone(), l[:, j0:j0 + b], wj, j0, row0)
+    want = cuda_chol.band_trail_reference(s.clone(), l[:, j0:j0 + b], wj, j0, row0)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+
+
+def test_cuda_blocked_inv_factor_and_inverse(cuda):
+    a = torch.as_tensor(_spd(np.random.default_rng(22), 768), device=cuda)
+    _build.LAUNCHES.clear()
+    l = cuda_chol.blocked_cholesky(a.clone(), 256, panel_solve="inv")
+    w = cuda_chol.blocked_linv(l.clone(), 256, inplace=True, panel_solve="inv")
+    assert _build.LAUNCHES["panel_scale"] == 2 and _build.LAUNCHES["row_scale"] == 3
+    torch.testing.assert_close(l @ l.T, a, rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(w @ l, torch.eye(768, dtype=a.dtype, device=cuda),
+                               rtol=1e-10, atol=1e-10)
+
+
+def test_cuda_one_rank_fit_sharded_matches_fit_inference(cuda, tmp_path):
+    """A one-rank NCCL group at C = 4,096: fit_sharded (Kernels A band, G,
+    then A and F band in the query) against the single-card fit_inference."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from gpis_tpu_torch.gp import sharded_model
+    from gpis_tpu_torch.linalg import sharded
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        x = torch.as_tensor(fibonacci_sphere(4000), device=cuda)
+        y = torch.as_tensor(np.random.default_rng(23).normal(size=4000) * 0.2, device=cuda)
+        q = torch.as_tensor(np.random.default_rng(24).uniform(-1.3, 1.3, (3001, 3)), device=cuda)
+        params = kf.kernel_params(0.5, 1.0)
+        _build.LAUNCHES.clear()
+        model = sharded_model.fit_sharded("rbf", x, y, 1e-3, params, n_devices=1, block=256)
+        mean, var = regression.predict(model, q)
+        for name in ("gram_band", "gemm_nt_masked", "cov", "quad_band"):
+            assert _build.LAUNCHES[name] > 0, name
+        ref = regression.fit_inference("rbf", x, y, 1e-3, params, block=256)
+        mean_r, var_r = regression.predict(ref, q)
+        # float64: the two factorizations differ in summation order only.
+        torch.testing.assert_close(mean, mean_r, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(var, var_r, rtol=1e-6, atol=1e-6)
+        w_k = sharded.sharded_linv(model.l, model.mesh, block=256, use_kernel=True)
+        torch.testing.assert_close(w_k, model.w, rtol=1e-10, atol=1e-10)
+    finally:
+        dist.destroy_process_group()
