@@ -61,19 +61,24 @@ Phases, one printed line or more each; any failure exits nonzero:
    A band, G, L, A and F band launched; then sharded_linv timed in turns
    with and without Kernel L.
 
-Phase 2 also holds the out-of-core kernels (G, I, and A and F in band
-mode) to their twins at phase 7's shapes, J and K at the in-core factor's
-(C = 16,384, B = 256) and L at the sharded TRSM's.  C and H, in float32 one
-split-TF32 tensor-core kernel, are held to their twins run in float64 at
-2e-6 x sum|a||b| of the worst output (H plus 4 ulps of max|U|), and to a
-bias gate on nonnegative operands, |mean (out - twin) / sum|a||b|| <= 2e-8;
-C is timed across j0 and H at phase 7's k-step and finish shapes, and the
-in-core TRSM at C = 16,384 against the library's triangular solve.  Every
-kernel's line carries its bound: the larger of its operations over the
-card's FP32 rate (67 TFLOP/s; for C and H the split-TF32 rate, 494.7 / 4
-TFLOP/s) and its bytes over its memory rate (3.35 TB/s), counted from the
-shapes and data of the timed call, and the time of the one PyTorch call
-that computes the same function, where there is one.
+Phase 2 also holds the out-of-core kernels (I, and A and F in band mode)
+to their twins at phase 7's shapes, J and K at the in-core factor's
+(C = 16,384, B = 256) and L at the sharded TRSM's.  B, C, G and H, in
+float32 one split-TF32 tensor-core kernel (C and H its NN layout, B and G
+its NT layout), are held to their twins run in float64 at 2e-6 x sum|a||b|
+of the worst output (B, G and H plus 4 ulps of max|S| or max|U|), and to a
+bias gate on nonnegative operands, |mean (out - twin) / sum|a||b|| <= 2e-8,
+for B and G with a = b (sums of squares on the diagonal); B and G also in
+float64 (the SIMT tile).  C's and H's bits are held by one sha256 to
+those recorded before B and G joined their tile.  C and B are timed
+across j0, H at phase 7's k-step and finish shapes, G at its k-step and
+diagonal-block shapes, and the in-core TRSM at C = 16,384 against the
+library's triangular solve.  Every kernel's line carries its bound: the
+larger of its operations over the card's FP32 rate (67 TFLOP/s; for B, C,
+G and H the split-TF32 rate, 494.7 / 4 TFLOP/s) and its bytes over its
+memory rate (3.35 TB/s), counted from the shapes and data of the timed
+call, and the time of the one PyTorch call that computes the same
+function, where there is one.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -104,6 +109,12 @@ TF32_FLOPS = 494.7e12  # its dense TF32 tensor-core rate
 SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: Kernels C and H in float32
 TC_TOL = 2e-6  # C and H against the float64 twin: x sum|a||b| of the worst output
 TC_BIAS = 2e-8  # |mean (out - f64 twin) / sum|a||b|| on nonnegative operands
+F32_EPS = 2.0**-23
+# sha256 of float32 C and H at fixed inputs (`tc_nn_digest`), recorded on an
+# H100 with 132 multiprocessors (the split-K plan depends on the count) before
+# B and G joined the tile: the NN path's bits, held through the NT layout.
+TC_NN_SHA256 = "80f361d50b98a21f53c802b2af88c8539f44861abac322890bda8cc4a7b3fd30"
+TC_NN_SHA256_SMS = 132
 
 
 def fail(msg: str) -> None:
@@ -158,41 +169,16 @@ def check(name: str, err: float, tol: float, ms: float | None = None,
         fail(f"{name} disagrees with its plain twin")
 
 
-def factor_and_query_kernels(torch, gen, kq, bw: int, results: dict | None) -> None:
-    """Kernels B and D against their twins at capacity C = kq.shape[1];
-    timed, and recorded in `results`, when `results` is given."""
+def query_kernel(torch, gen, kq, results: dict | None) -> None:
+    """Kernel D against its twin at capacity C = kq.shape[1]; timed, and
+    recorded in `results`, when `results` is given."""
     from gpis_tpu_torch.kernels import cuda_query
-    from gpis_tpu_torch.linalg import cuda_chol
 
     dev = kq.device
     m, c = kq.shape
 
     def timed(fn, reps):
         return None if results is None else time_ms(torch, fn, reps)
-
-    # B: panel update at the middle of the factorization.  Inputs scaled
-    # so the products are O(1); tol = 1e-4 x the magnitude sum |a||b| of
-    # the worst output (FP32 accumulation over j0 terms, two sum orders).
-    j0 = c // 2
-    mat = torch.randn((c, c), generator=gen, device=dev) / j0**0.5
-    got = cuda_chol.panel_update(mat.clone(), j0, bw)
-    want = cuda_chol.panel_update_reference(mat.clone(), j0, bw)
-    err = (got - want).abs().max().item()  # whole matrix: outside the panel both are `mat`
-    scale = (mat[j0:, :j0].abs() @ mat[j0:j0 + bw, :j0].abs().T).max().item()
-    del got, want
-    work = mat.clone()
-    ms = timed(lambda: cuda_chol.panel_update(work, j0, bw), 10)
-    plain = timed(lambda: cuda_chol.panel_update_reference(work, j0, bw), 10)
-    check(f"panel_update C={c} j0={j0} B={bw}", err, 1e-4 * scale, ms, plain)
-    if results is not None:
-        lib = timed(lambda: torch.addmm(work[j0:, j0:j0 + bw], work[j0:, :j0],
-                                        work[j0:j0 + bw, :j0].T, alpha=-1), 10)
-        results["panel_update"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-            **bound(2 * (c - j0) * bw * j0, 4 * ((c - j0) * j0 + bw * j0 + 2 * (c - j0) * bw)))
-    del work
-
-    del mat
 
     # D: staged quad + mean on a real kq chunk and a random lower W, against
     # the plain twin run in float64 on the same values.
@@ -387,37 +373,16 @@ def quad_band_kernel(torch, gen, q, cols, kind: str, rows: int, row0: int) -> di
 
 
 def ooc_kernels(torch, gen, results: dict) -> None:
-    """The out-of-core kernels G and I, and A and F in band mode, against
-    their twins at phase 7's shapes (panel 4,096, sweep 2, so a band of
-    R = 8,192 rows, C = 32,768), and the joint band quad at phase 6's
-    (J = 20,480, panel 1,024).  H is held in `nn_kernel_checks`."""
+    """The out-of-core kernel I, and A and F in band mode, against their
+    twins at phase 7's shapes (panel 4,096, sweep 2, so a band of R = 8,192
+    rows, C = 32,768), and the joint band quad at phase 6's (J = 20,480,
+    panel 1,024).  G is held in `nt_kernel_checks`, H in `nn_kernel_checks`."""
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_gram, cuda_joint
     from gpis_tpu_torch.linalg import cuda_chol
 
     dev = gen.device
     r, p, c = 2 * SPILL_PANEL, SPILL_PANEL, 32768
-    kmax = c - p
-    cur = torch.randn((r, c), generator=gen, device=dev) / kmax**0.5
-    lk = torch.randn((p, c), generator=gen, device=dev) / kmax**0.5
-
-    # G at k0 0 (a copy of S), 4,096 and 28,672 (the last k-step).  tol: 1e-4 x
-    # the magnitude sum |a||b| of the worst output, as for Kernel B.
-    worst = 0.0
-    for k0 in (0, p, kmax):
-        s = cur[:, k0:k0 + p]
-        got = cuda_chol.gemm_nt_masked(cur, lk, s, k0)
-        want = cuda_chol.gemm_nt_masked_reference(cur, lk, s, k0)
-        err = (got - want).abs().max().item()
-        scale = (cur[:, :k0].abs() @ lk[:, :k0].abs().T).max().item() if k0 else 0.0
-        del got, want
-        ms = time_ms(torch, lambda: cuda_chol.gemm_nt_masked(cur, lk, s, k0), 3)
-        plain = time_ms(torch, lambda: cuda_chol.gemm_nt_masked_reference(cur, lk, s, k0), 3)
-        check(f"gemm_nt_masked R={r} P={p} C={c} k0={k0}", err, 1e-4 * scale, ms, plain)
-        worst = max(worst, err)
-    lib = time_ms(torch, lambda: torch.addmm(s, cur[:, :k0], lk[:, :k0].T, alpha=-1), 3)
-    results["gemm_nt_masked"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
-                                     **bound(2 * r * p * k0, 4 * (r * k0 + p * k0 + 2 * r * p)))
 
     # I: an (R, P) stripe into the (R, C) band at column 16,384; exact.
     dst = torch.zeros((r, c), device=dev)
@@ -432,7 +397,7 @@ def ooc_kernels(torch, gen, results: dict) -> None:
     lib = time_ms(torch, lambda: dst[:, c0:c0 + p].copy_(blk), 10)
     results["stripe_write"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                                    **bound(0, 4 * 2 * r * p))
-    del dst, blk, cur, lk
+    del dst, blk
 
     # A in band mode: rows [16,384, 24,576) of the C = 32,768 Gram.
     params = {"lengthscale": 0.4, "signal_variance": 1.0}
@@ -657,6 +622,230 @@ def nn_kernel_times(torch, gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def fixed_matrix(torch, rows: int, cols: int, seed: int, dev):
+    """A float32 matrix that is the same on every machine and library
+    version: 24-bit fractions of a multiplicative hash of the element index
+    (exact in float32), in [-0.5, 0.5)."""
+    i = torch.arange(rows * cols, dtype=torch.int64, device=dev)
+    v = (i * 2654435761 + seed * 40503) % (1 << 24)
+    return (v.to(torch.float32) / (1 << 24) - 0.5).reshape(rows, cols)
+
+
+def tc_nn_digest(torch) -> str:
+    """sha256 over float32 C at j0 700, 8,192 and 16,128 (C = 16,384,
+    B = 256) and H at the k-step (R 8,192, K 4,096, w 4,096) and the finish
+    (256 rows, k 4,096, w 8,192, a split tile), on `fixed_matrix` inputs."""
+    import hashlib
+
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = torch.device("cuda")
+    h = hashlib.sha256()
+    w = fixed_matrix(torch, 16384, 16384, 1, dev).tril_()
+    l_row = fixed_matrix(torch, 256, 16384, 2, dev)
+    for j0 in (700, 8192, 16128):
+        h.update(cuda_chol.row_update(w, l_row, j0).cpu().numpy().tobytes())
+    del w, l_row
+    a = fixed_matrix(torch, 8192, 4096, 3, dev)
+    b = fixed_matrix(torch, 4096, 4096, 4, dev)
+    u = fixed_matrix(torch, 8192, 4096, 5, dev)
+    h.update(cuda_chol.gemm_nn_acc_masked(u, a, b, 4096).cpu().numpy().tobytes())
+    a = fixed_matrix(torch, 256, 4096, 6, dev)
+    buf = fixed_matrix(torch, 8192, 8192, 7, dev)
+    cuda_chol.gemm_nn_acc_masked(buf[4096:4352], a, buf[:4096], 8192)
+    h.update(buf[4096:4352].cpu().numpy().tobytes())
+    del a, b, u, buf
+    torch.cuda.empty_cache()
+    return h.hexdigest()
+
+
+def tc_nn_bits(torch) -> None:
+    """C and H must come out of the NT layout's addition bit for bit: their
+    digest against the recorded one (TC_NN_SHA256), on a card of
+    TC_NN_SHA256_SMS multiprocessors; on another count the plan differs and
+    only the digest is printed."""
+    digest = tc_nn_digest(torch)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if n_sm != TC_NN_SHA256_SMS:
+        say(f"  C/H sha256 {digest}: not compared ({n_sm} multiprocessors, the reference "
+            f"was taken at {TC_NN_SHA256_SMS})")
+        return
+    same = digest == TC_NN_SHA256
+    say(f"  C/H sha256 {digest} {'ok' if same else 'FAILED'} (recorded: {TC_NN_SHA256})")
+    if not same:
+        fail("float32 C or H no longer gives its recorded bits")
+
+
+def nt_kernel_checks(torch, gen, results: dict) -> None:
+    """Kernels B and G in float32 (the split-TF32 tensor-core body, NT
+    layout) against their twins run in float64: tol TC_TOL x sum|a||b| of
+    the worst output plus 4 float32 ulps of max|S| (the values the product
+    is subtracted from); and the bias gate, |mean (out - twin) / sum|a||b||
+    <= TC_BIAS on nonnegative operands with a = b -- B on a panel of one
+    matrix, G at `_chol_diag`'s shape with a = b = the band -- whose
+    diagonal outputs are sums of squares (S = 0 there, so out = -product).
+    B in place at the in-core factor's shapes (C = 16,384, B = 256, j0 256,
+    8,192 and 16,128); G at phase 7's k-step (R 8,192, P 4,096, k0 0, 4,096
+    and 28,672; at k0 0 out is S, bit for bit), its right-looking TRSM (256
+    columns of the k-step's output over k = c0 3,840) and its diagonal
+    block (a = b = the band, k0 24,576).  Then B and G in float64, the SIMT
+    tile, against their twins at 1e-12 x sum|a||b|."""
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = gen.device
+    c, bw = 16384, 256
+    worst_b = 0.0
+    mat = torch.randn((c, c), generator=gen, device=dev) / (c // 2) ** 0.5
+    for j0 in (256, c // 2, c - bw):
+        a, b, s = mat[j0:, :j0], mat[j0:j0 + bw, :j0], mat[j0:, j0:j0 + bw]
+        got = cuda_chol.panel_update(mat.clone(), j0, bw)
+        want = s.double() - a.double() @ b.double().T
+        err, tol = tc_err(got[j0:, j0:j0 + bw], want, a, b.T)
+        ulps = 4 * F32_EPS * s.abs().max().item()
+        untouched = (torch.equal(got[:j0], mat[:j0]) and torch.equal(got[j0:, :j0], a)
+                     and torch.equal(got[j0:, j0 + bw:], mat[j0:, j0 + bw:]))
+        rerun = torch.equal(cuda_chol.panel_update(mat.clone(), j0, bw), got)
+        del got, want
+        check(f"panel_update C={c} j0={j0} B={bw} f32 vs f64 twin "
+              f"(tol {TC_TOL} x sum|a||b| + 4 ulp max|S|)", err, tol + ulps)
+        if not untouched:
+            fail(f"panel_update wrote outside rows >= {j0}, columns [{j0}, {j0 + bw})")
+        if not rerun:
+            fail(f"panel_update j0={j0}: a rerun gave other bits")
+        worst_b = max(worst_b, err)
+    del a, b, s
+    # The bias gate, a = b: rows [j0, j0 + B) of the panel's product are
+    # M[j0:j0+B, :j0] times itself transposed.
+    j0 = c // 2
+    mat.uniform_(0.0, 1.0, generator=gen)
+    mat[:, j0:j0 + bw] = 0.0
+    prod = mat[j0:, :j0].double() @ mat[j0:j0 + bw, :j0].double().T
+    acc = -cuda_chol.panel_update(mat, j0, bw)[j0:, j0:j0 + bw]
+    bias = tc_bias(acc, prod)
+    diag = ((acc[:bw].double() - prod[:bw]) / prod[:bw]).diagonal().mean().item()
+    check(f"panel_update bias on nonnegative operands, a = b rows, j0={j0} "
+          f"(sums of squares on the diagonal: {diag:.3e})", abs(bias), TC_BIAS,
+          err_name="|mean rel err|")
+    results["panel_update"] = dict(max_abs_err=worst_b)
+    del mat, prod, acc
+    torch.cuda.empty_cache()
+
+    r, p, wide = 2 * SPILL_PANEL, SPILL_PANEL, 32768
+    kmax = wide - p
+    cur = torch.randn((r, wide), generator=gen, device=dev) / kmax**0.5
+    lk = torch.randn((p, wide), generator=gen, device=dev) / kmax**0.5
+    worst_g = 0.0
+
+    def held(what, a, b, s, k0):
+        nonlocal worst_g
+        got = cuda_chol.gemm_nt_masked(a, b, s, k0)
+        want = s.double() - a[:, :k0].double() @ b[:, :k0].double().T
+        err, tol = tc_err(got, want, a[:, :k0], b[:, :k0].T)
+        ulps = 4 * F32_EPS * s.abs().max().item()
+        check(f"gemm_nt_masked {what} k0={k0} f32 vs f64 twin "
+              f"(tol {TC_TOL} x sum|a||b| + 4 ulp max|S|)", err, tol + ulps)
+        if not torch.equal(cuda_chol.gemm_nt_masked(a, b, s, k0), got):
+            fail(f"gemm_nt_masked {what} k0={k0}: a rerun gave other bits")
+        worst_g = max(worst_g, err)
+        return got
+
+    for k0 in (0, p, kmax):
+        got = held(f"k-step R={r} P={p} C={wide}", cur, lk, cur[:, k0:k0 + p], k0)
+        if k0 == 0 and not torch.equal(got, cur[:, :p]):
+            fail("gemm_nt_masked at k0=0 is not a copy of S")
+    # The right-looking TRSM on the last k-step's output: 128 tiles, split.
+    c0, blk = 3840, 256
+    held(f"TRSM R={r} P={blk}", got, lk[c0:c0 + blk, kmax:], got[:, c0:c0 + blk], c0)
+    del got
+    j0 = wide - r
+    held(f"diagonal block R={r} (a = b)", cur, cur, cur[:, j0:j0 + r], j0)
+    # The bias gate at the diagonal block, a = b = the band, S = 0.
+    cur.uniform_(0.0, 1.0, generator=gen)
+    cur[:, j0:] = 0.0
+    acc = -cuda_chol.gemm_nt_masked(cur, cur, cur[:, j0:], j0)
+    prod = cur[:, :j0].double() @ cur[:, :j0].double().T
+    bias = tc_bias(acc, prod)
+    diag = ((acc.double() - prod) / prod).diagonal().mean().item()
+    check(f"gemm_nt_masked bias on nonnegative operands, a = b, R={r} k0={j0} "
+          f"(sums of squares on the diagonal: {diag:.3e})", abs(bias), TC_BIAS,
+          err_name="|mean rel err|")
+    results["gemm_nt_masked"] = dict(max_abs_err=worst_g)
+    del cur, lk, acc, prod
+    torch.cuda.empty_cache()
+
+    # float64, the SIMT tile: B in place, G with a ragged k0.
+    n, j0 = 4096, 2048
+    m64 = torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64) / j0**0.5
+    got = cuda_chol.panel_update(m64.clone(), j0, bw)
+    want = cuda_chol.panel_update_reference(m64.clone(), j0, bw)
+    scale = (m64[j0:, :j0].abs() @ m64[j0:j0 + bw, :j0].abs().T).max().item()
+    check(f"panel_update float64 C={n} j0={j0} (tol 1e-12 x sum|a||b|)",
+          (got - want).abs().max().item(), 1e-12 * scale)
+    a64, b64 = m64[:2048], m64[2048:3072]
+    k0 = 3000
+    s64 = m64[:2048, k0:k0 + 1024]
+    got = cuda_chol.gemm_nt_masked(a64, b64, s64, k0)
+    want = cuda_chol.gemm_nt_masked_reference(a64, b64, s64, k0)
+    scale = (a64[:, :k0].abs() @ b64[:, :k0].abs().T).max().item()
+    check(f"gemm_nt_masked float64 R={a64.shape[0]} P={b64.shape[0]} k0={k0} "
+          "(tol 1e-12 x sum|a||b|)",
+          (got - want).abs().max().item(), 1e-12 * scale)
+    del m64, got, want
+    torch.cuda.empty_cache()
+
+
+def nt_kernel_times(torch, gen, results: dict) -> None:
+    """Kernels B and G timed beside their float32 twins and `addmm`, with
+    the bound at the split-TF32 rate: B across j0 at C = 16,384, B = 256
+    (the kernels line takes j0 8,192); G at phase 7's k-step (k0 4,096 and
+    28,672; the line takes 28,672) and diagonal block (a = b, k0 24,576)."""
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = gen.device
+    c, bw = 16384, 256
+    work = torch.randn((c, c), generator=gen, device=dev) / (c // 2) ** 0.5
+    per_j0 = {}
+    for j0 in (256, 4096, 8192, 12288, 16128):
+        ms = time_ms(torch, lambda: cuda_chol.panel_update(work, j0, bw), 10)
+        plain = time_ms(torch, lambda: cuda_chol.panel_update_reference(work, j0, bw), 10)
+        lib = time_ms(torch, lambda: torch.addmm(work[j0:, j0:j0 + bw], work[j0:, :j0],
+                                                 work[j0:j0 + bw, :j0].T, alpha=-1), 10)
+        rows = c - j0
+        per_j0[j0] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          **bound(2 * rows * bw * j0, 4 * (rows * j0 + bw * j0 + 2 * rows * bw),
+                                  SPLIT_TF32_FLOPS))
+        say(f"  panel_update C={c} B={bw} j0={j0}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"addmm {lib:.4f} ms  bound {per_j0[j0]['bound_ms']:.4f} ms")
+    results["panel_update"].update(per_j0[8192])
+    del work
+    torch.cuda.empty_cache()
+
+    r, p, wide = 2 * SPILL_PANEL, SPILL_PANEL, 32768
+    kmax = wide - p
+    cur = torch.randn((r, wide), generator=gen, device=dev) / kmax**0.5
+    lk = torch.randn((p, wide), generator=gen, device=dev) / kmax**0.5
+    shapes = {}
+    j0 = wide - r
+    for name, b, k0, cols in ((f"kstep_R{r}_P{p}_k0{p}", lk, p, p),
+                              (f"kstep_R{r}_P{p}_k0{kmax}", lk, kmax, p),
+                              (f"diag_R{r}_k0{j0}_a_is_b", cur, j0, r)):
+        s = cur[:, j0:j0 + cols] if b is cur else cur[:, k0:k0 + cols]
+        ms = time_ms(torch, lambda: cuda_chol.gemm_nt_masked(cur, b, s, k0), 3)
+        plain = time_ms(torch, lambda: cuda_chol.gemm_nt_masked_reference(cur, b, s, k0), 3)
+        lib = time_ms(torch, lambda: torch.addmm(s, cur[:, :k0], b[:, :k0].T, alpha=-1), 3)
+        reads = r * k0 + (0 if b is cur else cols * k0)  # a = b is one input
+        shapes[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                            **bound(2 * r * cols * k0, 4 * (reads + 2 * r * cols),
+                                    SPLIT_TF32_FLOPS))
+        say(f"  gemm_nt_masked {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"addmm {lib:.4f} ms  bound {shapes[name]['bound_ms']:.4f} ms")
+    results["gemm_nt_masked"].update(shapes[f"kstep_R{r}_P{p}_k0{kmax}"])
+    say(json.dumps({"panel_update_by_j0": per_j0, "gemm_nt_masked_shapes": shapes,
+                    "card": card_line()}))
+    del cur, lk
+    torch.cuda.empty_cache()
+
+
 def lower_inv(torch, gen, b: int):
     """A B x B V = Ljj^{-1} as the inv option forms it: the inverse of the
     Cholesky factor of a well-conditioned SPD block."""
@@ -741,7 +930,7 @@ def phase2(torch, results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    c, m, bw = 16384, 8192, 256
+    c, m = 16384, 8192
     params = {"lengthscale": 0.4, "signal_variance": 1.0}
     x = torch.as_tensor(fibonacci_sphere(c), dtype=torch.float32, device=dev)
     q = (torch.rand((m, 3), generator=gen, device=dev) * 3.0 - 1.5).contiguous()
@@ -776,10 +965,10 @@ def phase2(torch, results: dict) -> None:
         check(f"cov {name} 1024x4096 (tol 1e-5 x max|k|)", err_k,
               1e-5 * max(1.0, want.abs().max().item()))
 
-    # B, C and D at the blocked factorization's smallest capacity (4,096),
-    # then timed at the slice's 16,384; D on a real 8,192-query kq chunk.
-    factor_and_query_kernels(torch, gen, kq[:, :4096].contiguous(), bw, None)
-    factor_and_query_kernels(torch, gen, kq, bw, results)
+    # D at the blocked factorization's smallest capacity (4,096), then
+    # timed at the slice's 16,384, on a real 8,192-query kq chunk.
+    query_kernel(torch, gen, kq[:, :4096].contiguous(), None)
+    query_kernel(torch, gen, kq, results)
     del kq
 
     # D in the regime of the `_QSPLIT` note (C = 1024, noise 1e-3, where a
@@ -828,6 +1017,9 @@ def phase2(torch, results: dict) -> None:
     torch.cuda.empty_cache()
     nn_kernel_checks(torch, gen, results)
     nn_kernel_times(torch, gen, results)
+    tc_nn_bits(torch)
+    nt_kernel_checks(torch, gen, results)
+    nt_kernel_times(torch, gen, results)
     inv_and_trail_kernels(torch, gen, results)
     torch.cuda.empty_cache()
 
@@ -1450,7 +1642,7 @@ def main() -> int:
         fail(f"the JAX package was imported: {jax_pkg}")
     sources = {
         "cov": ("gpis_tpu_torch/csrc/cov.cu", "gpis_tpu/kernels/pallas_gram.py:197"),
-        "panel_update": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:180"),
+        "panel_update": ("gpis_tpu_torch/csrc/tc_nn.cuh", "gpis_tpu/linalg/pallas_chol.py:180"),
         "row_update": ("gpis_tpu_torch/csrc/tc_nn.cuh", "gpis_tpu/linalg/pallas_chol.py:569"),
         "staged_quad": ("gpis_tpu_torch/csrc/query.cu", "gpis_tpu/kernels/pallas_query.py:319"),
         "joint_cov": ("gpis_tpu_torch/csrc/joint.cu", "gpis_tpu/kernels/pallas_joint.py:215"),
@@ -1458,7 +1650,7 @@ def main() -> int:
                        "gpis_tpu/kernels/pallas_query.py:404, "
                        "gpis_tpu/kernels/pallas_joint.py:367"),
         "gram_band": ("gpis_tpu_torch/csrc/cov.cu", "gpis_tpu/kernels/pallas_gram.py:173"),
-        "gemm_nt_masked": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:307"),
+        "gemm_nt_masked": ("gpis_tpu_torch/csrc/tc_nn.cuh", "gpis_tpu/linalg/pallas_chol.py:307"),
         "gemm_nn_acc_masked": ("gpis_tpu_torch/csrc/tc_nn.cuh",
                                "gpis_tpu/linalg/pallas_chol.py:380"),
         "stripe_write": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:429"),

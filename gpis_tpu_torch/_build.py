@@ -47,10 +47,11 @@ _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_d
 _SIGNATURES = {
     # a, m, b, n, noise, sym, row0, kernel_id, ls, sv, out, stream
     "gpis_cov": [_P, _I64, _P, _I64, _P, _I32, _I64, _I32, _F64, _F64, _P, _P],
-    # mat, n, j0, bw, stream
-    "gpis_panel_update": [_P, _I64, _I64, _I64, _P],
-    # lrow, w, n, j0, bw, out, units, n_units, tiles, n_tiles, ws, stream (the plan
-    # and workspace of the float32 tensor-core body; the float64 one ignores them)
+    # mat, n, j0, bw, units, n_units, tiles, n_tiles, ws, stream (the plan and
+    # workspace of the float32 tensor-core body, here and below; the float64
+    # SIMT body ignores them)
+    "gpis_panel_update": [_P, _I64, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
+    # lrow, w, n, j0, bw, out, units, n_units, tiles, n_tiles, ws, stream
     "gpis_row_update": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _P],
     # kq, m, w, alpha, c, partial, mean, quad, stream
     "gpis_staged_quad": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
@@ -61,8 +62,9 @@ _SIGNATURES = {
     # q, m, cols, c, joint, w, ldw, rows, row0, kernel_id, ls, sv, partial, quad, stream
     "gpis_quad_band": [_P, _I64, _P, _I64, _I32, _P, _I64, _I64, _I64, _I32, _F64, _F64, _P, _P,
                        _P],
-    # a, lda, r, b, ldb, p, s, lds, out, ldo, k0, stream
-    "gpis_gemm_nt_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P],
+    # a, lda, r, b, ldb, p, s, lds, out, ldo, k0, units, n_units, tiles, n_tiles, ws, stream
+    "gpis_gemm_nt_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P, _I64,
+                            _P, _I64, _P, _P],
     # a, lda, r, b, ldb, k, u, ldu, w, units, n_units, tiles, n_tiles, ws, stream
     "gpis_gemm_nn_acc_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P,
                                 _I64, _P, _P],

@@ -80,8 +80,10 @@ class ObjectModelSession:
     """Fit / query loop over one object model on one device, or on one rank
     of a row mesh."""
 
-    def __init__(self, config: ModelConfig | None = None, *, mesh: MeshConfig | None = None,
-                 device="cuda"):
+    def __init__(self, config: ModelConfig | None = None, explore=None,
+                 mesh: MeshConfig | None = None, *, device="cuda"):
+        if explore is not None:
+            not_ported("explore= (ExploreConfig)", 8, "explore/atlas.py and explore/planner.py")
         self.config = config or ModelConfig()
         self.mesh_config = mesh
         self.mesh = None

@@ -69,16 +69,18 @@
 // the TPU (gpis_tpu/linalg/sharded.py:317-322).  L is H's product with the
 // sign flipped, on that row-trimmed view.
 //
-// In float32, C and H run on the tensor cores (tc_nn.cuh: split-TF32 wgmma,
-// TMA, a fixed-order split-K reduce); the SIMT bodies below serve their
-// float64 instantiations, and H's body serves Kernel L in both types.
+// In float32, B, C, G and H run on the tensor cores (tc_nn.cuh: split-TF32
+// wgmma, TMA, a fixed-order split-K reduce; B and G as its NT layout, B as G
+// in place); the SIMT bodies below serve their float64 instantiations, and
+// H's body serves Kernel L in both types.
 //
 // What bounds them on the H100: arithmetic for B, C, G, H, J, K and L; bytes
 // for I.
 // At n = 16,384 each factor is ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes
 // of traffic per step, so the products sit far above the memory roofline;
-// without tensor cores the bound is the SIMT FP32 rate (67 TFLOP/s at
-// 700 W).  I moves 2 R W elements and computes nothing.  J and K are one
+// for the SIMT bodies (J, K, L, and float64) the bound is the SIMT FP32 rate
+// (67 TFLOP/s at 700 W), for float32 B, C, G and H the split-TF32 rate
+// (494.7 / 4 TFLOP/s, tc_nn.cuh).  I moves 2 R W elements and computes nothing.  J and K are one
 // (R, B) x (B, B) product each (~1 GFLOP at R = 16,128, B = 256): launched
 // 63 and 64 times a factor, so their launches and the host loop around
 // them, not their arithmetic, are expected to set their share of fit_s.
@@ -374,11 +376,22 @@ static int launch_stripe_write(T* dst, int64_t ldd, const T* blk, int64_t ldb, i
 
 extern "C" {
 
-int gpis_panel_update_f32(float* mat, int64_t n, int64_t j0, int64_t bw, void* stream) {
-  return gpis::launch_panel_update<float>(mat, n, j0, bw, stream);
+// B in float32: G in place on the tensor cores, over the plan (`_tc_plan`):
+// A = M[j0:, :j0], B = M[j0:j0+bw, :j0], S = out = M[j0:, j0:j0+bw].
+int gpis_panel_update_f32(float* mat, int64_t n, int64_t j0, int64_t bw, const void* units,
+                          int64_t n_units, const void* tiles, int64_t n_tiles, float* ws,
+                          void* stream) {
+  if (j0 <= 0 || bw <= 0 || j0 >= n) return 0;
+  float* rows = mat + j0 * n;
+  return gpis::tc::launch<gpis::tc::NT, gpis::tc::SUB_FROM>(
+      rows, n, rows, n, j0, bw, rows + j0, n, rows + j0, n, n - j0, bw,
+      static_cast<const gpis::tc::Unit*>(units), n_units,
+      static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
 }
 
-int gpis_panel_update_f64(double* mat, int64_t n, int64_t j0, int64_t bw, void* stream) {
+// B in float64 keeps the SIMT tile; it takes no plan.
+int gpis_panel_update_f64(double* mat, int64_t n, int64_t j0, int64_t bw, const void*, int64_t,
+                          const void*, int64_t, double*, void* stream) {
   return gpis::launch_panel_update<double>(mat, n, j0, bw, stream);
 }
 
@@ -390,9 +403,9 @@ int gpis_row_update_f32(const float* lrow, const float* w, int64_t n, int64_t j0
                         float* out, const void* units, int64_t n_units, const void* tiles,
                         int64_t n_tiles, float* ws, void* stream) {
   if (n <= 0 || bw <= 0) return 0;
-  return gpis::tc::launch<gpis::tc::STORE>(
-      lrow, n, w, n, j0, j0, out, n, bw, n, static_cast<const gpis::tc::Unit*>(units), n_units,
-      static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
+  return gpis::tc::launch<gpis::tc::NN, gpis::tc::STORE>(
+      lrow, n, w, n, j0, j0, nullptr, 0, out, n, bw, n, static_cast<const gpis::tc::Unit*>(units),
+      n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
 }
 
 // C in float64 keeps the SIMT tile; it takes no plan.
@@ -408,9 +421,9 @@ int gpis_gemm_nn_acc_masked_f32(const float* a, int64_t lda, int64_t r, const fl
                                 const void* units, int64_t n_units, const void* tiles,
                                 int64_t n_tiles, float* ws, void* stream) {
   if (r <= 0 || w <= 0 || kd <= 0) return 0;
-  return gpis::tc::launch<gpis::tc::ADD>(
-      a, lda, b, ldb, kd, w, u, ldu, r, w, static_cast<const gpis::tc::Unit*>(units), n_units,
-      static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
+  return gpis::tc::launch<gpis::tc::NN, gpis::tc::ADD>(
+      a, lda, b, ldb, kd, w, nullptr, 0, u, ldu, r, w, static_cast<const gpis::tc::Unit*>(units),
+      n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
 }
 
 // H in float64 keeps the SIMT tile; it takes no plan.
@@ -421,19 +434,35 @@ int gpis_gemm_nn_acc_masked_f64(const double* a, int64_t lda, int64_t r, const d
   return gpis::launch_gemm_nn_acc_masked<double>(a, lda, r, b, ldb, kd, u, ldu, w, stream);
 }
 
-#define GPIS_OOC_ENTRY_POINTS(T, SUF)                                                        \
-  int gpis_gemm_nt_masked_##SUF(const T* a, int64_t lda, int64_t r, const T* b, int64_t ldb,   \
-                                int64_t p, const T* s, int64_t lds, T* out, int64_t ldo,       \
-                                int64_t k0, void* stream) {                                    \
-    return gpis::launch_gemm_nt_masked<T>(a, lda, r, b, ldb, p, s, lds, out, ldo, k0, stream); \
-  }                                                                                            \
+// G in float32: out = s - a[:, :k0] b[:, :k0]^T on the tensor cores over the
+// plan; at k0 = 0 the plan has no unit and its finish tiles copy s.
+int gpis_gemm_nt_masked_f32(const float* a, int64_t lda, int64_t r, const float* b, int64_t ldb,
+                            int64_t p, const float* s, int64_t lds, float* out, int64_t ldo,
+                            int64_t k0, const void* units, int64_t n_units, const void* tiles,
+                            int64_t n_tiles, float* ws, void* stream) {
+  if (r <= 0 || p <= 0) return 0;
+  return gpis::tc::launch<gpis::tc::NT, gpis::tc::SUB_FROM>(
+      a, lda, b, ldb, k0, p, s, lds, out, ldo, r, p, static_cast<const gpis::tc::Unit*>(units),
+      n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws,
+      (cudaStream_t)stream);
+}
+
+// G in float64 keeps the SIMT tile; it takes no plan.
+int gpis_gemm_nt_masked_f64(const double* a, int64_t lda, int64_t r, const double* b,
+                            int64_t ldb, int64_t p, const double* s, int64_t lds, double* out,
+                            int64_t ldo, int64_t k0, const void*, int64_t, const void*, int64_t,
+                            double*, void* stream) {
+  return gpis::launch_gemm_nt_masked<double>(a, lda, r, b, ldb, p, s, lds, out, ldo, k0, stream);
+}
+
+#define GPIS_STRIPE_ENTRY_POINTS(T, SUF)                                                        \
   int gpis_stripe_write_##SUF(T* dst, int64_t ldd, const T* blk, int64_t ldb, int64_t r,       \
                               int64_t w, int64_t c0, void* stream) {                           \
     return gpis::launch_stripe_write<T>(dst, ldd, blk, ldb, r, w, c0, stream);                 \
   }
 
-GPIS_OOC_ENTRY_POINTS(float, f32)
-GPIS_OOC_ENTRY_POINTS(double, f64)
+GPIS_STRIPE_ENTRY_POINTS(float, f32)
+GPIS_STRIPE_ENTRY_POINTS(double, f64)
 
 #define GPIS_INV_ENTRY_POINTS(T, SUF)                                                          \
   int gpis_panel_scale_##SUF(const T* acc, int64_t lda, int64_t r, const T* v, int64_t ldv,    \

@@ -1,11 +1,15 @@
-// The float32 NN product of Kernels C and H on the tensor cores (sm_90a):
+// The float32 products of Kernels B, C, G and H on the tensor cores (sm_90a):
 //
-//     out[m, n] (=, or +=) sum_{k in [kb, ke)} A[m, k] * B[k, n]
+//     NN: out[m, n] (=, or +=) sum_{k in [kb, ke)} A[m, k] * B[k, n]
+//     NT: out[m, n] = S[m, n] - sum_{k in [kb, ke)} A[m, k] * B[n, k]
 //
-// with A row-major and k-contiguous, B row-major and n-contiguous ("NN").
-// C (row_update) is the in-core TRSM's row update, out = L_row[:, :j0] W[:j0]
-// over W's live triangle; H (gemm_nn_acc_masked) the out-of-core TRSM's
-// U[:, :w] += A B.  Both replace their FP32 SIMT bodies in float32; the
+// with A row-major and k-contiguous; in NN B is row-major and n-contiguous,
+// in NT row-major and k-contiguous like A.  C (row_update) is the in-core
+// TRSM's row update, out = L_row[:, :j0] W[:j0] over W's live triangle; H
+// (gemm_nn_acc_masked) the out-of-core TRSM's U[:, :w] += A B.  G
+// (gemm_nt_masked) is the out-of-core factor's S - A[:, :k0] B[:, :k0]^T,
+// and B (panel_update) the in-core factor's panel update, G in place on the
+// one n x n matrix.  All four replace their FP32 SIMT bodies in float32; the
 // float64 instantiations and Kernel L keep the SIMT tile of common.cuh.
 //
 // Precision: FP32-grade products from TF32 wgmma ("split TF32").
@@ -21,6 +25,16 @@
 //     error is symmetric about the exact sum when the truncated fraction is
 //     uniform, and only then added to the running FP32 sum (round to
 //     nearest).
+//   * NT (B and G) sums the rounded steps of each 2,048-deep k segment in
+//     registers and then subtracts the segment's sum from its output (or
+//     adds it to its partial slot) in FP32.  The Cholesky's diagonal blocks
+//     are sums of squares up to k = C deep, where one running FP32 sum of
+//     K / 8 same-sign steps drifts by ~sqrt(K / 8) of its ulps: 2.9e-6 of
+//     sum|a||b| at k 24,576, past the 2e-6 gate, where 2,048-deep segments
+//     keep to ~0.2e-6 (sqrt(256) ulps a segment, sqrt(12) segments).  A
+//     segment's flush reads and writes the 128 x 128 tile once, its loads
+//     issued in groups.  NN (C and H) keeps its single running sum, bit for
+//     bit.
 //
 // What bounds it: four TF32 passes, 494.7 TFLOP/s / 4 = 124 TFLOP/s of
 // useful work on an H100 at 700 W; the operands are read once per 128 x 128
@@ -34,18 +48,34 @@
 //     consumers' registers).  The tensor maps' k extent is the live k range's
 //     end, so TMA zero-fills the ragged k, row and column edges.
 //   * TF32 wgmma reads shared-memory operands only k-major.  A is k-major
-//     already; B is n-major, so the pass that splits a raw chunk into hi and
-//     lo writes B's halves transposed: the transpose costs nothing beyond the
-//     split.  Split tiles use the no-swizzle core-matrix layout (8 rows x 16
-//     bytes), 8-row groups 1,040 bytes apart so that the transposing stores
-//     of a quarter warp fall on distinct banks.
+//     already, and so is B in NT: its chunk loads as one 128 x 32 box, as
+//     A's, and splits as A's.  In NN B is n-major, so the pass that splits a
+//     raw chunk into hi and lo writes B's halves transposed: the transpose
+//     costs nothing beyond the split.  Split tiles use the no-swizzle
+//     core-matrix layout (8 rows x 16 bytes), 8-row groups 1,040 bytes apart
+//     so that the transposing stores of a quarter warp fall on distinct banks.
 //   * The split of chunk c + 1 runs while chunk c's first step is on the
 //     tensor cores; two split buffers alternate.
 //   * A CTA writes its tile directly when it owns the tile's whole k range,
 //     else to an f32 partial in a workspace; `tc_nn_finish_kernel` sums a
 //     tile's partials in a fixed order (no atomics: the same bits every run)
 //     and applies the epilogue.  The plan (units and finish tiles) is made in
-//     Python (gpis_tpu_torch/linalg/cuda_chol.py `_nn_plan`).
+//     Python (gpis_tpu_torch/linalg/cuda_chol.py `_tc_plan`).
+//
+// Aliasing.  The units only read A and B (through TMA, never past the live
+// k range's end, which the tensor maps' extent holds them to) and write
+// their own output tile or workspace slot; S is read, and out written, by
+// the same thread of the same epilogue, and the finish kernel runs after
+// the units on the same stream.  So out may be S, and out may lie in the
+// buffer A and B are views of, as long as out's columns are not among the
+// columns < ke that A and B are read at:
+//   * B (panel_update) is in place: A = M[j0:, :j0], B = M[j0:j0+bw, :j0],
+//     S = out = M[j0:, j0:j0+bw]: reads at columns < j0, writes at [j0, j0+bw).
+//   * The out-of-core diagonal block (`_chol_diag`) passes A = B = the band
+//     and S its columns >= j0, with k0 = j0; out is a new tensor.
+//   * The right-looking TRSM (`_trsm_right_blocked`) passes A = S's own
+//     buffer at columns < c0 and S its columns [c0, c0 + block); out is new.
+// No unit reads what another unit, or the finish kernel, writes.
 #pragma once
 
 #include <cuda.h>
@@ -58,22 +88,26 @@ namespace tc {
 constexpr int BM = 128, BN = 128, BK = 32;  // output tile, k chunk
 constexpr int THREADS = 256;                 // two warpgroups
 constexpr int STEP_K = 8;                    // k depth of one fresh step tile
+constexpr int SEG_CHUNKS = 64;               // NT: k chunks (2,048 deep) a running sum takes
 constexpr int GROUP_BYTES = 1040;            // 8 rows x 32 k x 4 B, +16 against bank conflicts
 constexpr int SPLIT_BYTES = 16 * GROUP_BYTES;  // 128 rows
 constexpr int RAW_A_BYTES = BM * BK * 4;       // 16 KB
-constexpr int RAW_B_BYTES = BK * BN * 4;       // 16 KB, four 32 x 32 boxes
+constexpr int RAW_B_BYTES = BK * BN * 4;       // 16 KB: NN four 32 x 32 boxes, NT one 128 x 32
 constexpr int RAW_BYTES = RAW_A_BYTES + RAW_B_BYTES;
 constexpr int SMEM_BYTES = 1024 + 2 * RAW_BYTES + 2 * 4 * SPLIT_BYTES + 64;
 
-// Epilogues: C stores, H adds into U's old values.
-enum Epilogue { STORE = 0, ADD = 1 };
+// B's layout: NN (k rows, n-contiguous) or NT (n rows, k-contiguous).
+enum Layout { NN = 0, NT = 1 };
+// Epilogues: C stores, H adds into U's old values, B and G subtract from S.
+enum Epilogue { STORE = 0, ADD = 1, SUB_FROM = 2 };
 
 // One CTA's work: output tile (m0, n0), k range [kb, ke), and the partial
 // slot it writes (-1: it owns the tile's whole range and writes the output).
 struct Unit {
   int m0, n0, kb, ke, slot;
 };
-// A tile whose units wrote partials [slot0, slot0 + cnt); cnt 0 writes zeros.
+// A tile whose units wrote partials [slot0, slot0 + cnt).  cnt 0 (no live k)
+// sums to 0: STORE writes zeros, SUB_FROM copies S.
 struct FinishTile {
   int m0, n0, slot0, cnt;
 };
@@ -190,20 +224,16 @@ __device__ __forceinline__ int split_off(int row, int k4) {
 }
 
 struct Smem {
-  char* raw[2];    // TMA ring: A box (128 x 32), then four B boxes (32 x 32)
+  char* raw[2];    // TMA ring: A box (128 x 32), then B's (NN four 32 x 32, NT one 128 x 32)
   char* split[2];  // A hi, A lo, B hi, B lo (k-major, split_off layout)
   uint64_t* full;  // one mbarrier per raw stage
 };
 
-// Split raw chunk `raw` into hi and lo tiles at `dst`: A's 128 x 32 box as
-// is, B's 32 x 128 transposed to k-major.  Raw boxes are 128-byte swizzled:
-// 16-byte chunk c of box row r lies at chunk c ^ (r & 7).
-__device__ __forceinline__ void split_chunk(const char* raw, char* dst) {
+// Split a k-contiguous 128 x 32 box (A's; B's in NT) into hi and lo tiles.
+// Raw boxes are 128-byte swizzled: 16-byte chunk c of box row r lies at
+// chunk c ^ (r & 7).
+__device__ __forceinline__ void split_rows(const char* raw, char* hi, char* lo) {
   const int t = threadIdx.x;
-  char* a_hi = dst;
-  char* a_lo = dst + SPLIT_BYTES;
-  char* b_hi = dst + 2 * SPLIT_BYTES;
-  char* b_lo = dst + 3 * SPLIT_BYTES;
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
     const int idx = it * THREADS + t;
@@ -216,12 +246,18 @@ __device__ __forceinline__ void split_chunk(const char* raw, char* dst) {
     split(v.y, h.y, l.y);
     split(v.z, h.z, l.z);
     split(v.w, h.w, l.w);
-    *reinterpret_cast<float4*>(a_hi + split_off(row, k4)) = h;
-    *reinterpret_cast<float4*>(a_lo + split_off(row, k4)) = l;
+    *reinterpret_cast<float4*>(hi + split_off(row, k4)) = h;
+    *reinterpret_cast<float4*>(lo + split_off(row, k4)) = l;
   }
-  // B: thread t owns the 4 x 4 block at n = 4 (t % 32) + j, k = 4 (t / 32) + i.
+}
+
+// Split NN's B chunk, four 32 x 32 boxes (32 k x 128 n), into hi and lo
+// tiles transposed to k-major.
+__device__ __forceinline__ void split_cols(const char* raw, char* hi, char* lo) {
+  // Thread t owns the 4 x 4 block at n = 4 (t % 32) + j, k = 4 (t / 32) + i.
+  const int t = threadIdx.x;
   const int n4 = t & 31, k4 = t >> 5;
-  const char* box = raw + RAW_A_BYTES + (n4 >> 3) * (BK * 128);
+  const char* box = raw + (n4 >> 3) * (BK * 128);
   float v[4][4];  // [i: k][j: n]
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -241,18 +277,34 @@ __device__ __forceinline__ void split_chunk(const char* raw, char* dst) {
     split(v[2][j], h.z, l.z);
     split(v[3][j], h.w, l.w);
     const int n = 4 * n4 + j;
-    *reinterpret_cast<float4*>(b_hi + split_off(n, k4)) = h;
-    *reinterpret_cast<float4*>(b_lo + split_off(n, k4)) = l;
+    *reinterpret_cast<float4*>(hi + split_off(n, k4)) = h;
+    *reinterpret_cast<float4*>(lo + split_off(n, k4)) = l;
   }
 }
 
+// Split raw chunk `raw` into A hi, A lo, B hi and B lo tiles at `dst`.
+template <int LAYOUT>
+__device__ __forceinline__ void split_chunk(const char* raw, char* dst) {
+  split_rows(raw, dst, dst + SPLIT_BYTES);
+  if constexpr (LAYOUT == NT)
+    split_rows(raw + RAW_A_BYTES, dst + 2 * SPLIT_BYTES, dst + 3 * SPLIT_BYTES);
+  else
+    split_cols(raw + RAW_A_BYTES, dst + 2 * SPLIT_BYTES, dst + 3 * SPLIT_BYTES);
+}
+
+template <int LAYOUT>
 __device__ __forceinline__ void issue_chunk(const Smem& s, int stage, const CUtensorMap* ta,
                                             const CUtensorMap* tb, int m0, int n0, int k) {
   mbar_expect_tx(&s.full[stage], RAW_BYTES);
   tma_load_2d(s.raw[stage], ta, &s.full[stage], k, m0);
+  if constexpr (LAYOUT == NT) {
+    tma_load_2d(s.raw[stage] + RAW_A_BYTES, tb, &s.full[stage], k, n0);
+  } else {
 #pragma unroll
-  for (int j = 0; j < BN / 32; ++j)
-    tma_load_2d(s.raw[stage] + RAW_A_BYTES + j * BK * 128, tb, &s.full[stage], n0 + 32 * j, k);
+    for (int j = 0; j < BN / 32; ++j)
+      tma_load_2d(s.raw[stage] + RAW_A_BYTES + j * BK * 128, tb, &s.full[stage], n0 + 32 * j,
+                  k);
+  }
 }
 
 // Output rows and columns of accumulator register i of thread `lane` in warp
@@ -264,22 +316,91 @@ __device__ __forceinline__ int acc_col(int lane, int i) {
   return (i >> 2) * 8 + (lane & 3) * 2 + (i & 1);
 }
 
+// The epilogue of out (m x n, ldo) at (row, col) and the product's v, in
+// two halves: `old_value` reads what v combines with (nothing for STORE,
+// out's old value for ADD, S (lds) for SUB_FROM), `combine` makes the value
+// to store.  S is read before out is written, so out may be S; and since
+// it may, the compiler keeps a thread's loads and stores in program order,
+// so `flush` issues a group of loads before the group's stores.
 template <int EPI>
-__device__ __forceinline__ void epilogue(float* out, int64_t ldo, int64_t m, int64_t n,
-                                         int64_t row, int64_t col, float v) {
-  if (row >= m || col >= n) return;
-  float* p = out + row * ldo + col;
-  if (EPI == STORE)
-    *p = v;
-  else
-    *p += v;
+__device__ __forceinline__ float old_value(const float* out, int64_t ldo, const float* s,
+                                           int64_t lds, int64_t row, int64_t col) {
+  if (EPI == STORE) return 0.0f;
+  if (EPI == ADD) return out[row * ldo + col];
+  return s[row * lds + col];
 }
 
 template <int EPI>
+__device__ __forceinline__ float combine(float old, float v) {
+  if (EPI == STORE) return v;
+  if (EPI == ADD) return old + v;
+  return old - v;  // SUB_FROM
+}
+
+template <int EPI>
+__device__ __forceinline__ void epilogue(float* out, int64_t ldo, const float* s, int64_t lds,
+                                         int64_t m, int64_t n, int64_t row, int64_t col,
+                                         float v) {
+  if (row >= m || col >= n) return;
+  out[row * ldo + col] = combine<EPI>(old_value<EPI>(out, ldo, s, lds, row, col), v);
+}
+
+// Hands a unit's running sum to where it goes: a split tile's partial slot,
+// or (owning the tile's whole k range) the output.  The unit's first flush
+// stores the slot, or reads S; a later one (NT's segments) adds to the slot,
+// or subtracts from out itself.
+template <int EPI>
+__device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, bool first,
+                                      float* ws, const float* s, int64_t lds, float* out,
+                                      int64_t ldo, int64_t m, int64_t n, int wg, int warp,
+                                      int lane) {
+  if (u.slot >= 0) {  // a partial of a split tile: the finish kernel sums it
+    float2* p = reinterpret_cast<float2*>(ws + (int64_t)u.slot * BM * BN);
+#pragma unroll
+    for (int g = 0; g < 64; g += 8) {
+      float2 old[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = g + 2 * j;
+        const int row = 64 * wg + acc_row(warp, lane, i), col = acc_col(lane, i);
+        old[j] = first ? make_float2(0.0f, 0.0f) : p[(row * BN + col) / 2];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = g + 2 * j;
+        const int row = 64 * wg + acc_row(warp, lane, i), col = acc_col(lane, i);
+        p[(row * BN + col) / 2] =
+            first ? make_float2(acc[i], acc[i + 1])
+                  : make_float2(old[j].x + acc[i], old[j].y + acc[i + 1]);
+      }
+    }
+    return;
+  }
+  const float* src = first ? s : out;
+  const int64_t ld_src = first ? lds : ldo;
+#pragma unroll
+  for (int g = 0; g < 64; g += 8) {
+    float old[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t row = u.m0 + 64 * wg + acc_row(warp, lane, g + j);
+      const int64_t col = u.n0 + acc_col(lane, g + j);
+      old[j] = row < m && col < n ? old_value<EPI>(out, ldo, src, ld_src, row, col) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int64_t row = u.m0 + 64 * wg + acc_row(warp, lane, g + j);
+      const int64_t col = u.n0 + acc_col(lane, g + j);
+      if (row < m && col < n) out[row * ldo + col] = combine<EPI>(old[j], acc[g + j]);
+    }
+  }
+}
+
+template <int LAYOUT, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
-tc_nn_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-             const Unit* __restrict__ units, float* out, int64_t ldo, int64_t m, int64_t n,
-             float* __restrict__ ws) {
+tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+          const Unit* __restrict__ units, const float* s_in, int64_t lds, float* out,
+          int64_t ldo, int64_t m, int64_t n, float* __restrict__ ws) {
   extern __shared__ char smem_raw[];
   char* base = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~uintptr_t(1023));  // 128-byte swizzle: 1 KB aligned
@@ -300,14 +421,14 @@ tc_nn_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
   }
   __syncthreads();
   if (t == 0) {
-    issue_chunk(s, 0, &ta, &tb, u.m0, u.n0, u.kb);
-    if (nch > 1) issue_chunk(s, 1, &ta, &tb, u.m0, u.n0, u.kb + BK);
+    issue_chunk<LAYOUT>(s, 0, &ta, &tb, u.m0, u.n0, u.kb);
+    if (nch > 1) issue_chunk<LAYOUT>(s, 1, &ta, &tb, u.m0, u.n0, u.kb + BK);
   }
   mbar_wait(&s.full[0], 0);
-  split_chunk(s.raw[0], s.split[0]);
+  split_chunk<LAYOUT>(s.raw[0], s.split[0]);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  if (t == 0 && nch > 2) issue_chunk(s, 0, &ta, &tb, u.m0, u.n0, u.kb + 2 * BK);
+  if (t == 0 && nch > 2) issue_chunk<LAYOUT>(s, 0, &ta, &tb, u.m0, u.n0, u.kb + 2 * BK);
 
   const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
   float acc[64], step[64];
@@ -345,44 +466,36 @@ tc_nn_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
       wgmma_commit();
       if (st == 0 && c + 1 < nch) {  // split the next chunk while this step runs
         mbar_wait(&s.full[(c + 1) & 1], ((c + 1) >> 1) & 1);
-        split_chunk(s.raw[(c + 1) & 1], s.split[(c + 1) & 1]);
+        split_chunk<LAYOUT>(s.raw[(c + 1) & 1], s.split[(c + 1) & 1]);
       }
       wgmma_wait();
       fence_operand(step);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += round23(step[i]);
     }
+    if (LAYOUT == NT && (c + 1) % SEG_CHUNKS == 0 && c + 1 < nch) {
+      flush<EPI>(acc, u, c + 1 == SEG_CHUNKS, ws, s_in, lds, out, ldo, m, n, wg, warp, lane);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    }
     if (c + 1 < nch) {
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncthreads();
       if (t == 0 && c + 3 < nch)
-        issue_chunk(s, (c + 1) & 1, &ta, &tb, u.m0, u.n0, u.kb + (c + 3) * BK);
+        issue_chunk<LAYOUT>(s, (c + 1) & 1, &ta, &tb, u.m0, u.n0, u.kb + (c + 3) * BK);
     }
   }
 
-  if (u.slot >= 0) {  // a partial of a split tile: the finish kernel sums it
-    float* p = ws + (int64_t)u.slot * BM * BN;
-#pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int row = 64 * wg + acc_row(warp, lane, i), col = acc_col(lane, i);
-      *reinterpret_cast<float2*>(p + row * BN + col) = make_float2(acc[i], acc[i + 1]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int64_t row = u.m0 + 64 * wg + acc_row(warp, lane, i);
-    const int64_t col = u.n0 + acc_col(lane, i);
-    epilogue<EPI>(out, ldo, m, n, row, col, acc[i]);
-  }
+  flush<EPI>(acc, u, LAYOUT == NN || nch <= SEG_CHUNKS, ws, s_in, lds, out, ldo, m, n, wg,
+             warp, lane);
 }
 
 // One tile's partials summed in slot order, then the epilogue; blockIdx.y
 // picks 8 of its 128 rows.
 template <int EPI>
 __global__ void __launch_bounds__(THREADS)
-tc_nn_finish_kernel(const FinishTile* __restrict__ tiles, const float* __restrict__ ws,
-                    float* out, int64_t ldo, int64_t m, int64_t n) {
+tc_finish_kernel(const FinishTile* __restrict__ tiles, const float* __restrict__ ws,
+                 const float* s, int64_t lds, float* out, int64_t ldo, int64_t m, int64_t n) {
   const FinishTile f = tiles[blockIdx.x];
   const int e = blockIdx.y * 8 * BN + threadIdx.x * 4;  // 4 elements a thread
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -394,10 +507,10 @@ tc_nn_finish_kernel(const FinishTile* __restrict__ tiles, const float* __restric
     sum.w += v.w;
   }
   const int64_t row = f.m0 + e / BN, col = f.n0 + e % BN;
-  epilogue<EPI>(out, ldo, m, n, row, col, sum.x);
-  epilogue<EPI>(out, ldo, m, n, row, col + 1, sum.y);
-  epilogue<EPI>(out, ldo, m, n, row, col + 2, sum.z);
-  epilogue<EPI>(out, ldo, m, n, row, col + 3, sum.w);
+  epilogue<EPI>(out, ldo, s, lds, m, n, row, col, sum.x);
+  epilogue<EPI>(out, ldo, s, lds, m, n, row, col + 1, sum.y);
+  epilogue<EPI>(out, ldo, s, lds, m, n, row, col + 2, sum.z);
+  epilogue<EPI>(out, ldo, s, lds, m, n, row, col + 3, sum.w);
 }
 
 // ------------------------------------------------------------------ host
@@ -447,28 +560,34 @@ inline int make_map(CUtensorMap* map, const float* p, int64_t rows, int64_t cols
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// out (m x n, ldo) (=, +=) A (m x k_end, lda) B (k_end x n_live, ldb) over
-// the planned units, then the finish tiles.  Returns a cudaError_t.
-template <int EPI>
+// out (m x n, ldo) (=, +=) A (m x k_end, lda) B, or (SUB_FROM) S (lds) - A B,
+// over the planned units, then the finish tiles.  B is (k_end x n_live) in
+// NN, (n_live x k_end) in NT, leading dimension ldb; n_live is B's extent
+// along n, past which TMA reads zeros.  With no unit (NT at k_end 0) no
+// tensor map is made.  Returns a cudaError_t.
+template <int LAYOUT, int EPI>
 int launch(const float* a, int64_t lda, const float* b, int64_t ldb, int64_t k_end,
-           int64_t n_live, float* out, int64_t ldo, int64_t m, int64_t n, const Unit* units,
-           int64_t n_units, const FinishTile* tiles, int64_t n_tiles, float* ws,
-           cudaStream_t stream) {
-  CUtensorMap ta, tb;
-  int err = make_map(&ta, a, m, k_end, lda, BM);
-  if (!err) err = make_map(&tb, b, k_end, n_live, ldb, BK);
-  if (err) return err;
+           int64_t n_live, const float* s, int64_t lds, float* out, int64_t ldo, int64_t m,
+           int64_t n, const Unit* units, int64_t n_units, const FinishTile* tiles,
+           int64_t n_tiles, float* ws, cudaStream_t stream) {
+  int err = 0;
   if (n_units > 0) {
-    cudaFuncSetAttribute(tc_nn_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    CUtensorMap ta, tb;
+    err = make_map(&ta, a, m, k_end, lda, BM);
+    if (!err)
+      err = LAYOUT == NT ? make_map(&tb, b, n_live, k_end, ldb, BM)
+                         : make_map(&tb, b, k_end, n_live, ldb, BK);
+    if (err) return err;
+    cudaFuncSetAttribute(tc_kernel<LAYOUT, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          SMEM_BYTES);
-    tc_nn_kernel<EPI><<<(unsigned int)n_units, THREADS, SMEM_BYTES, stream>>>(
-        ta, tb, units, out, ldo, m, n, ws);
+    tc_kernel<LAYOUT, EPI><<<(unsigned int)n_units, THREADS, SMEM_BYTES, stream>>>(
+        ta, tb, units, s, lds, out, ldo, m, n, ws);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (n_tiles > 0) {
-    tc_nn_finish_kernel<EPI><<<dim3((unsigned int)n_tiles, BM / 8), THREADS, 0, stream>>>(
-        tiles, ws, out, ldo, m, n);
+    tc_finish_kernel<EPI><<<dim3((unsigned int)n_tiles, BM / 8), THREADS, 0, stream>>>(
+        tiles, ws, s, lds, out, ldo, m, n);
     err = (int)cudaGetLastError();
   }
   return err;

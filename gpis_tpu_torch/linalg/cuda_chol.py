@@ -26,14 +26,15 @@ and L take their views the same way.  All but I are bound by arithmetic on
 the card, I by bytes; csrc/chol.cu says how their loops skip the dead part
 of each product.
 
-In float32, C and H are one split-TF32 tensor-core kernel
-(csrc/tc_nn.cuh): TMA reads their operands, so each float32 view it reads
-must start on 16 bytes with a leading dimension of a multiple of 4 floats
-(`_check_tma`; a view that is not raises ValueError -- there is no staging
-copy), and `_nn_plan` cuts the work into 128 x 128 output tiles, each over
-its live k range, split into equal-depth units when the tiles alone would
-not fill two waves of the card; a second kernel sums a split tile's
-partials in a fixed order.  In float64 they keep the SIMT tile.  Around
+In float32, B, C, G and H are one split-TF32 tensor-core kernel
+(csrc/tc_nn.cuh; C and H its NN layout, G its NT layout, B G in place):
+TMA reads their operands, so each float32 view it reads must start on 16
+bytes with a leading dimension of a multiple of 4 floats (`_check_tma`; a
+view that is not raises ValueError -- there is no staging copy), and
+`_tc_plan` cuts the work into 128 x 128 output tiles, each over its live k
+range, split into equal-depth units when the tiles alone would not fill two
+waves of the card; a second kernel sums a split tile's partials in a fixed
+order.  In float64 they keep the SIMT tile.  Around
 them, as in the JAX package, the B x B potrf (`torch.linalg.cholesky_ex`),
 the panel and row triangular solves (`torch.linalg.solve_triangular`) and,
 under `panel_solve="inv"`, the B x B inverse V = Ljj^{-1} stay library
@@ -81,10 +82,11 @@ TC_CHUNK = 32  # its k chunk (tc_nn.cuh BK)
 TC_DEPTH = 256  # split units are a multiple of this deep
 
 
-def _nn_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: int = 0,
+def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: int = 0,
              n_sm: int = 132):
-    """The tensor-core NN product's work over output rows [0, rows), columns
-    [0, cols) and k < k_hi, as (units, finish, n_slots):
+    """The tensor-core product's work over output rows [0, rows), columns
+    [0, cols) and k < k_hi, as (units, finish, n_slots); the same for both
+    layouts of B (NN: C and H; NT: B and G, which take no triangle or width):
 
     * units: (m0, n0, kb, ke, slot), one CTA each: the 128 x 128 tile at
       (m0, n0) over k in [kb, ke).  A tile's k range starts at 0, or with
@@ -92,8 +94,9 @@ def _nn_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
       column n0.  slot -1: the unit owns its tile's whole range and writes
       the output; else it writes partial `slot`.
     * finish: (m0, n0, slot0, cnt): a split tile's partials [slot0, slot0 +
-      cnt), summed in that order; and, for `width` > cols, the tiles at
-      columns [round_up(cols, 128), width) with cnt 0, which write zeros.
+      cnt), summed in that order; with cnt 0, a tile with no live k (NT at
+      k_hi 0, whose epilogue then copies S) and, for `width` > cols, the
+      tiles at columns [round_up(cols, 128), width), which write zeros.
     * n_slots: the partials' count, the workspace's (n_slots, 128, 128).
 
     Tiles are split when there are fewer than two waves of them (n_sm CTAs a
@@ -102,6 +105,7 @@ def _nn_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
     t = TC_TILE
     tiles = [(m0, n0, n0 if triangle else 0) for m0 in range(0, rows, t)
              for n0 in range(0, cols, t)]
+    empty = [(m0, n0, 0, 0) for m0, n0, lo in tiles if lo >= k_hi]
     tiles = [(m0, n0, lo) for m0, n0, lo in tiles if lo < k_hi]
     step = 0
     if len(tiles) < 2 * n_sm:
@@ -118,18 +122,19 @@ def _nn_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
             units.append((m0, n0, kb, ke, slot + i))
         finish.append((m0, n0, slot, len(bounds)))
         slot += len(bounds)
+    finish.extend(empty)
     for n0 in range(t * math.ceil(cols / t), width, t):
         finish.extend((m0, n0, 0, 0) for m0 in range(0, rows, t))
     return units, finish, slot
 
 
 @functools.lru_cache(maxsize=1024)
-def _nn_plan_on(device: torch.device, rows: int, cols: int, k_hi: int, triangle: bool,
+def _tc_plan_on(device: torch.device, rows: int, cols: int, k_hi: int, triangle: bool,
                 width: int):
-    """`_nn_plan` for the card `device`, as int32 tensors on it (cached: the
-    TRSM loops ask for the same plans fit after fit)."""
+    """`_tc_plan` for the card `device`, as int32 tensors on it (cached: the
+    factor and TRSM loops ask for the same plans fit after fit)."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    units, finish, n_slots = _nn_plan(rows, cols, k_hi, triangle=triangle, width=width,
+    units, finish, n_slots = _tc_plan(rows, cols, k_hi, triangle=triangle, width=width,
                                       n_sm=n_sm)
 
     def on_card(rows_, ncol):
@@ -142,9 +147,9 @@ def _nn_plan_on(device: torch.device, rows: int, cols: int, k_hi: int, triangle:
 def _check_tma(what: str, *mats: torch.Tensor) -> None:
     """The float32 tensor-core body reads its operands through TMA: each
     view must start on a 16-byte boundary and step rows by a multiple of 16
-    bytes.  Every view of the TRSMs qualifies (widths, panels and blocks are
-    multiples of 4 columns); a view that does not raises, as there is no
-    staging copy."""
+    bytes.  Every view of the factors and TRSMs qualifies (widths, panels
+    and blocks are multiples of 4 columns); a view that does not raises, as
+    there is no staging copy."""
     for t in mats:
         if t.data_ptr() % 16 or (t.shape[0] > 1 and t.stride(0) % 4):
             raise ValueError(f"{what}: a float32 view at byte offset {t.data_ptr() % 16} mod 16 "
@@ -152,15 +157,16 @@ def _check_tma(what: str, *mats: torch.Tensor) -> None:
                              "(16-byte aligned start and rows)")
 
 
-def _nn_launch_args(what: str, a: torch.Tensor, b: torch.Tensor, rows: int, cols: int,
+def _tc_launch_args(what: str, a: torch.Tensor, b: torch.Tensor, rows: int, cols: int,
                     k_hi: int, *, triangle: bool = False, width: int = 0):
-    """The plan and workspace arguments of C's and H's entry points: for
-    float32, after `_check_tma` on the operands the kernel reads (a, b); for
-    float64 (the SIMT tile) null.  Returns (args, keep-alive tensors)."""
+    """The plan and workspace arguments of B's, C's, G's and H's entry
+    points: for float32, after `_check_tma` on the operands the kernel reads
+    (a, b); for float64 (the SIMT tile) null.  Returns (args, keep-alive
+    tensors)."""
     if a.dtype != torch.float32:
         return (None, 0, None, 0, None), ()
     _check_tma(what, a, b)
-    units, finish, n_slots = _nn_plan_on(a.device, rows, cols, k_hi, triangle, width)
+    units, finish, n_slots = _tc_plan_on(a.device, rows, cols, k_hi, triangle, width)
     ws = torch.empty((n_slots, TC_TILE, TC_TILE), dtype=a.dtype, device=a.device)
     return ((units.data_ptr(), units.shape[0], finish.data_ptr(), finish.shape[0],
              ws.data_ptr()), (ws,))
@@ -184,7 +190,11 @@ def panel_update(m: torch.Tensor, j0: int, block: int) -> torch.Tensor:
     _build.check_cuda_args("panel_update", m)
     if j0 == 0:  # no finished columns: nothing to subtract, nothing launched
         return m
-    _build.call("gpis_panel_update", m, m.data_ptr(), n, j0, block)
+    # In float32, G in place: a = m[j0:, :j0], b = m[j0:j0+B, :j0], S = out =
+    # m[j0:, j0:j0+B]; it reads columns < j0 and writes [j0, j0+B).
+    plan, _keep = _tc_launch_args("panel_update", m[j0:, :j0], m[j0:j0 + block, :j0], n - j0,
+                                  block, j0)
+    _build.call("gpis_panel_update", m, m.data_ptr(), n, j0, block, *plan)
     _build.LAUNCHES["panel_update"] += 1
     return m
 
@@ -213,7 +223,7 @@ def row_update(w: torch.Tensor, l_row: torch.Tensor, j0: int) -> torch.Tensor:
         return torch.zeros_like(l_row)
     bw = l_row.shape[0]
     out = torch.empty_like(l_row)
-    plan, _keep = _nn_launch_args("row_update", l_row, w, bw, j0, j0, triangle=True, width=n)
+    plan, _keep = _tc_launch_args("row_update", l_row, w, bw, j0, j0, triangle=True, width=n)
     _build.call("gpis_row_update", w, l_row.data_ptr(), w.data_ptr(), n, j0, bw,
                 out.data_ptr(), *plan)
     _build.LAUNCHES["row_update"] += 1
@@ -239,8 +249,9 @@ def gemm_nt_masked(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor, k0: int) -
     out = torch.empty((r, p), dtype=s.dtype, device=s.device)
     if r == 0 or p == 0:
         return out
+    plan, _keep = _tc_launch_args("gemm_nt_masked", a, b, r, p, int(k0))
     _build.call("gpis_gemm_nt_masked", s, a.data_ptr(), a.stride(0), r, b.data_ptr(), b.stride(0),
-                p, s.data_ptr(), s.stride(0), out.data_ptr(), p, int(k0))
+                p, s.data_ptr(), s.stride(0), out.data_ptr(), p, int(k0), *plan)
     _build.LAUNCHES["gemm_nt_masked"] += 1
     return out
 
@@ -264,7 +275,7 @@ def gemm_nn_acc_masked(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: int
     _build.check_cuda_rows("gemm_nn_acc_masked", u, a, b)
     if r == 0 or k == 0 or w == 0:  # nothing to add, nothing launched
         return u
-    plan, _keep = _nn_launch_args("gemm_nn_acc_masked", a, b, r, int(w), k)
+    plan, _keep = _tc_launch_args("gemm_nn_acc_masked", a, b, r, int(w), k)
     _build.call("gpis_gemm_nn_acc_masked", u, a.data_ptr(), a.stride(0), r, b.data_ptr(),
                 b.stride(0), k, u.data_ptr(), u.stride(0), int(w), *plan)
     _build.LAUNCHES["gemm_nn_acc_masked"] += 1

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Mutation check of chip_smoke.py's kernel checks for the out-of-core, the
-tensor-core NN and the inv / sharded kernels, on one card.
+tensor-core (NN and NT) and the inv / sharded kernels, on one card.
 
     python3 scripts/torch_ooc_mutations.py
 
 For each mutation below it copies the repository to a temporary directory,
 breaks one kernel (or its plan) there, and runs the phase-2 check that
-covers it against the broken build: `chip_smoke.ooc_kernels` (Kernels G, I
-and the band modes of A and F, at phase 7's shapes),
+covers it against the broken build: `chip_smoke.ooc_kernels` (Kernel I and
+the band modes of A and F, at phase 7's shapes),
 `chip_smoke.nn_kernel_checks` (float32 C and H, the split-TF32 tensor-core
-kernel, with its bias gate) or `chip_smoke.inv_and_trail_kernels` (Kernels
+kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
+(float32 B and G, its NT layout, with the bias gate at a = b; and B and G
+in float64, the SIMT tile) or `chip_smoke.inv_and_trail_kernels` (Kernels
 J, K and L at the in-core factor's and the sharded TRSM's shapes).
 A mutation is caught when a check fails.  Prints
 one line per mutation with the failing check; exits nonzero if any mutation
@@ -26,7 +28,8 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-OOC, NN, INV = "ooc_kernels", "nn_kernel_checks", "inv_and_trail_kernels"
+OOC, NN, NT, INV = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
+                    "inv_and_trail_kernels")
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
 MUTATIONS = [
@@ -34,8 +37,8 @@ MUTATIONS = [
      "gpis_tpu_torch/csrc/fused_query.cu",
      "const int64_t k_end = min64(row_base + row0 + rows, c);",
      "const int64_t k_end = min64(row0 + rows, c);"),
-    ("G skips its last k slice", OOC, "gpis_tpu_torch/csrc/chol.cu",
-     "ldb, cols, 0, k0);", "ldb, cols, 0, k0 - BK);"),
+    ("G skips its last k slice (the SIMT NT body: G in float64)", NT,
+     "gpis_tpu_torch/csrc/chol.cu", "ldb, cols, 0, k0);", "ldb, cols, 0, k0 - BK);"),
     ("L skips its last k slice (the SIMT NN body: L, and H in float64)", INV,
      "gpis_tpu_torch/csrc/chol.cu",
      "for (int64_t k0 = 0; k0 < kd; k0 += BK) {", "for (int64_t k0 = 0; k0 < kd - BK; k0 += BK) {"),
@@ -53,6 +56,28 @@ MUTATIONS = [
      "const int k = 4 * k4 + i;", "const int k = (4 * k4 + i + 1) % BK;"),
     ("C/H reduce skips a tile's last partial", NN, "gpis_tpu_torch/csrc/tc_nn.cuh",
      "for (int i = 0; i < f.cnt; ++i) {", "for (int i = 0; i < f.cnt - 1; ++i) {"),
+    ("B/G split B's operand through the NN transpose", NT, "gpis_tpu_torch/csrc/tc_nn.cuh",
+     "split_rows(raw + RAW_A_BYTES,", "split_cols(raw + RAW_A_BYTES,"),
+    ("B/G's SUB_FROM epilogue adds the product", NT, "gpis_tpu_torch/csrc/tc_nn.cuh",
+     "return old - v;  // SUB_FROM", "return old + v;  // SUB_FROM"),
+    ("finish tiles with cnt 0 write zeros instead of S (G at k0 0)", NT,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "const FinishTile f = tiles[blockIdx.x];\n",
+     "const FinishTile f = tiles[blockIdx.x];\n"
+     "  if (f.cnt == 0) {\n"
+     "    const int e0 = blockIdx.y * 8 * BN + threadIdx.x * 4;\n"
+     "    for (int j = 0; j < 4; ++j)\n"
+     "      epilogue<STORE>(out, ldo, s, lds, m, n, f.m0 + e0 / BN, f.n0 + e0 % BN + j, 0.f);\n"
+     "    return;\n"
+     "  }\n"),
+    ("the NT plan ends each split tile one chunk short", NT,
+     "gpis_tpu_torch/linalg/cuda_chol.py",
+     "ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi",
+     "ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi - TC_CHUNK"),
+    ("B/G sum all their steps in one running sum (no 2,048-deep segments)", NT,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "constexpr int SEG_CHUNKS = 64;",
+     "constexpr int SEG_CHUNKS = 1 << 20;"),
+    ("B/G as 1xTF32 (lo halves zero)", NT, "gpis_tpu_torch/csrc/tc_nn.cuh",
+     "lo = __uint_as_float(rna_tf32(x - hi));", "lo = 0.0f;"),
     ("I drops the stripe's last row", OOC, "gpis_tpu_torch/csrc/chol.cu",
      "for (int64_t i = blockIdx.y; i < r; i += gridDim.y)",
      "for (int64_t i = blockIdx.y; i < r - 1; i += gridDim.y)"),

@@ -487,3 +487,83 @@ def test_cuda_tc_blocked_linv_float32(cuda):
     assert _build.LAUNCHES["row_update"] == 3
     res = (w.double() @ l.double() - torch.eye(1024, dtype=torch.float64, device=cuda))
     assert res.abs().max().item() < 1e-5
+
+
+# B and G in float32: the NT layout of the same tensor-core kernel, held to
+# the twin run in float64 at 2e-6 x sum|a||b| plus 4 float32 ulps of max|S|
+# (the values the product is subtracted from).
+
+
+@pytest.mark.parametrize("n, j0, bw", [(1024, 256, 256), (2048, 700, 200), (8704, 8192, 256),
+                                       (16384, 8192, 256)])
+def test_cuda_tc_panel_update_matches_f64_twin_in_place(cuda, n, j0, bw):
+    # (2048, 700, 200): a ragged k range and ragged columns; (8704, 8192):
+    # 4 row tiles, split-K; (16384, 8192): 128 tiles, split-K.
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    m = torch.randn((n, n), generator=gen, device=cuda) / j0**0.5
+    a, b, s = m[j0:, :j0], m[j0:j0 + bw, :j0], m[j0:, j0:j0 + bw]
+    _build.LAUNCHES.clear()
+    got = cuda_chol.panel_update(m.clone(), j0, bw)
+    assert _build.LAUNCHES["panel_update"] == 1
+    want = s.double() - a.double() @ b.double().T
+    err = (got[j0:, j0:j0 + bw].double() - want).abs().max().item()
+    tol = _tc_tol(a, b.T) + 4 * torch.finfo(torch.float32).eps * s.abs().max().item()
+    assert err <= tol, err
+    assert torch.equal(got[:j0], m[:j0]) and torch.equal(got[j0:, :j0], a)
+    assert torch.equal(got[j0:, j0 + bw:], m[j0:, j0 + bw:])
+    assert torch.equal(cuda_chol.panel_update(m.clone(), j0, bw), got)  # bit-identical rerun
+
+
+@pytest.mark.parametrize("r, p, k0, lead", [(320, 200, 0, 1000), (320, 200, 300, 1000),
+                                            (320, 200, 700, 1000), (2048, 2304, 1024, 4096),
+                                            (200, 384, 896, 1280)])
+def test_cuda_tc_gemm_nt_masked_matches_f64_twin(cuda, r, p, k0, lead):
+    # The k-step's operands: the band, a trimmed panel, a stripe of the band
+    # as S.  k0 0: no unit, out is a copy of S; (2048, 2304): 288 tiles, no
+    # split; the rest split-K, ragged rows, columns or k.
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    cur = torch.randn((r, lead), generator=gen, device=cuda) / max(k0, 1) ** 0.5
+    lk = torch.randn((p, lead), generator=gen, device=cuda) / max(k0, 1) ** 0.5
+    s = cur[:, lead - p:]
+    _build.LAUNCHES.clear()
+    got = cuda_chol.gemm_nt_masked(cur, lk, s, k0)
+    assert _build.LAUNCHES["gemm_nt_masked"] == 1
+    if k0 == 0:
+        assert torch.equal(got, s)
+    want = s.double() - cur[:, :k0].double() @ lk[:, :k0].double().T
+    err = (got.double() - want).abs().max().item()
+    ulps = 4 * torch.finfo(torch.float32).eps * s.abs().max().item()
+    tol = _tc_tol(cur[:, :k0], lk[:, :k0].T) + ulps
+    assert err <= tol, err
+    assert torch.equal(cuda_chol.gemm_nt_masked(cur, lk, s, k0), got)
+
+
+def test_cuda_tc_nt_bias_with_a_is_b(cuda):
+    """Nonnegative operands, a = b, S = 0: B on a panel of one matrix and G
+    at the out-of-core diagonal block's shape (a = b = the band); the mean
+    relative error within chip_smoke's bias gate, 2e-8."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    n, j0, bw = 4096, 2048, 256
+    m = torch.rand((n, n), generator=gen, device=cuda)
+    m[:, j0:j0 + bw] = 0.0
+    prod = m[j0:, :j0].double() @ m[j0:j0 + bw, :j0].double().T
+    acc = -cuda_chol.panel_update(m, j0, bw)[j0:, j0:j0 + bw]
+    assert abs(((acc.double() - prod) / prod).mean().item()) <= 2e-8
+    r, k0 = 2048, 4096
+    cur = torch.rand((r, k0 + r), generator=gen, device=cuda)
+    cur[:, k0:] = 0.0
+    acc = -cuda_chol.gemm_nt_masked(cur, cur, cur[:, k0:], k0)
+    prod = cur[:, :k0].double() @ cur[:, :k0].double().T
+    assert abs(((acc.double() - prod) / prod).mean().item()) <= 2e-8
+
+
+def test_cuda_tc_nt_refuses_a_view_tma_cannot_address(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    cur = torch.randn((256, 520), generator=gen, device=cuda)
+    lk = torch.randn((256, 512), generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_chol.gemm_nt_masked(cur[:, 1:257], lk, cur[:, 260:516], 256)  # one column off
+    # B's matrix with rows of 1,026 floats: not a multiple of 16 bytes.
+    m = torch.randn((1026, 1026), generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_chol.panel_update(m, 512, 256)

@@ -61,6 +61,33 @@ def test_session_verbs_added_as_stubs_name_their_item(verb, item):
         getattr(sess, verb)(*args)
 
 
+def test_session_constructor_takes_the_jax_positional_order():
+    # The JAX caller's ObjectModelSession(cfg, None, mesh): explore second,
+    # mesh third; a one-device mesh fits on the one device, as in JAX.
+    from gpis_tpu.config import MeshConfig as JaxMeshConfig
+
+    from gpis_tpu_torch.config import MeshConfig, ModelConfig
+
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=64,
+                      touch_capacity=0, dtype="float64")
+    pts = np.random.default_rng(12).normal(size=(300, 3))
+    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True) * 1.3 + 0.2
+    sess = ObjectModelSession(cfg, None, MeshConfig(n_devices=1), device="cpu").start(pts)
+    jsess = JaxSession(cfg, None, JaxMeshConfig(n_devices=1)).start(pts)
+    assert sess.mesh is None and sess.mesh_config.n_devices == 1
+    q = np.random.default_rng(13).uniform(-2.0, 2.0, size=(64, 3))
+    np.testing.assert_allclose(sess.query(q), jsess.query(q), atol=1e-6)
+
+
+def test_session_explore_config_names_its_item():
+    from gpis_tpu_torch.config import ExploreConfig
+
+    for make in (lambda: ObjectModelSession(None, ExploreConfig(), device="cpu"),
+                 lambda: ObjectModelSession(explore=ExploreConfig(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8:"):
+            make()
+
+
 @pytest.fixture(scope="module")
 def models():
     x, y, noise = _problem()

@@ -1,19 +1,24 @@
-"""The arithmetic and the work plan of float32 Kernels C and H, the
-split-TF32 tensor-core NN product (gpis_tpu_torch/csrc/tc_nn.cuh), on the
-CPU: no card is needed.
+"""The arithmetic and the work plan of float32 Kernels B, C, G and H, the
+split-TF32 tensor-core product (gpis_tpu_torch/csrc/tc_nn.cuh: C and H its
+NN layout, G its NT layout, B G in place), on the CPU: no card is needed.
 
 * A float64 plain-PyTorch model of the kernel's arithmetic -- the rna split
   of each operand into TF32 hi and lo, the four products of each 8-deep
   step added to a fresh tile and truncated to float32 (the tensor core's
   accumulator), the step rounded to the nearest 23-bit value and added to
-  the float32 sum -- put in
-  C's and H's place in the in-core TRSM (`blocked_linv`) and in the
-  out-of-core TRSM on a tiered store, in the `_QSPLIT` regime of
-  chip_smoke.py (C = 1,024, noise 1e-3), and held to a float64 oracle.
-* `_nn_plan` covers C's live triangle and H's k range exactly once, on
-  k-chunk bounds, and a product taken unit by unit along the plan, with the
-  partials summed in slot order, equals the plain twin in float64.
-* `_check_tma`, the rule the wrappers apply before TMA reads a view.
+  the float32 sum -- put in C's and H's place in the in-core TRSM
+  (`blocked_linv`) and the out-of-core TRSM on a tiered store, and in B's
+  and G's place in the factors as well, in the `_QSPLIT` regime of
+  chip_smoke.py (C = 1,024, noise 1e-3), and held to a float64 oracle.  The
+  NT layout changes only how B's operand reaches shared memory, not the
+  arithmetic: the model takes B and G as `tc_product(a, b.T)`.
+* `_tc_plan` covers C's live triangle, H's k range, B's panel across j0
+  and every shape G is called at exactly once, on k-chunk bounds, and a
+  product taken unit by unit along the plan, with the partials summed in
+  slot order, equals the plain twin in float64 (for NT at k0 = 0, and in
+  place, too).
+* `_check_tma`, the rule the wrappers apply before TMA reads a view, on
+  every view the factors and TRSMs hand to the kernel.
 """
 
 import numpy as np
@@ -26,6 +31,7 @@ from gpis_tpu_torch.linalg import cuda_chol
 from gpis_tpu_torch.linalg import outofcore as ooc
 
 TILE, CHUNK, STEP = cuda_chol.TC_TILE, cuda_chol.TC_CHUNK, 8
+SEGMENT = 64 * CHUNK  # tc_nn.cuh SEG_CHUNKS x BK: the k depth of an NT running sum
 
 
 # ---------------------------------------------------------------- the model
@@ -80,6 +86,19 @@ def tc_product(a: torch.Tensor, b: torch.Tensor, *, products: int = 4,
     return acc
 
 
+def tc_nt_product(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor, *,
+                  segment: int = SEGMENT, **kw) -> torch.Tensor:
+    """float32 s - a (M, K) @ b (K, N) as the NT kernel computes it: the
+    steps of `tc_product`, summed in float32 over each `segment` of k, each
+    segment's sum then subtracted from the output in float32 (the first
+    from s).  segment 0: one running sum over all of k, as NN takes it."""
+    out = s.float().clone()
+    step = segment or a.shape[1]
+    for k in range(0, a.shape[1], step):
+        out = out - tc_product(a[:, k:k + step], b[k:k + step], **kw)
+    return out
+
+
 def _model_routes(**kw):
     """C's and H's wrappers computing through `tc_product` (on the CPU)."""
 
@@ -94,6 +113,22 @@ def _model_routes(**kw):
         return u
 
     return row_update, gemm_nn_acc_masked
+
+
+def _model_nt_routes(**kw):
+    """B's and G's wrappers computing through `tc_nt_product` (on the CPU):
+    the NT layout changes how b reaches the tensor cores, not the
+    arithmetic, so b's transpose goes through the same model."""
+
+    def panel_update(m, j0, block):
+        m[j0:, j0:j0 + block] = tc_nt_product(m[j0:, :j0], m[j0:j0 + block, :j0].T,
+                                              m[j0:, j0:j0 + block], **kw)
+        return m
+
+    def gemm_nt_masked(a, b, s, k0):
+        return tc_nt_product(a[:, :k0], b[:, :k0].T, s, **kw)
+
+    return panel_update, gemm_nt_masked
 
 
 # ------------------------------------------- (a) the model in the QSPLIT regime
@@ -194,14 +229,103 @@ def test_tc_model_bias_needs_the_step_rounding():
     assert truncated < -2e-8
 
 
+@pytest.mark.parametrize("path", ["incore", "ooc"])
+def test_tc_model_factor_variance_in_the_qsplit_regime(monkeypatch, path):
+    """B and G (the factors' NT products) through the model, with C and H:
+    the posterior variance within 2e-3 of the float64 oracle and within 4x
+    the float32 twins' own error + 1e-6, at the float32 twins' jitter rung.
+    In core, the factor is the blocked one (`blocked_cholesky`, Kernel B's
+    loop), which the card takes from n = 4,096 up."""
+    from gpis_tpu_torch.linalg import cholesky as lin
+
+    if path == "incore":
+        monkeypatch.setattr(lin, "cholesky", lambda a: cuda_chol.blocked_cholesky(a, 256))
+    x, y, q = _qsplit_problem()
+    torch.exp(torch.zeros(64))  # a process's first float32 exp can be ~1e-4 off on the CPU
+    var_twin, noise = _fit_var(path, x, y, q)
+    oracle = _oracle_var(x, noise, q)
+    err_twin = np.abs(var_twin - oracle).max()
+    counts = {"B": 0, "C": 0, "G": 0, "H": 0}
+
+    def counted(key, f):
+        def call(*args):
+            counts[key] += 1
+            return f(*args)
+        return call
+
+    (c_model, h_model), (b_model, g_model) = _model_routes(), _model_nt_routes()
+    for name, key, f in (("panel_update", "B", b_model), ("row_update", "C", c_model),
+                         ("gemm_nt_masked", "G", g_model),
+                         ("gemm_nn_acc_masked", "H", h_model)):
+        monkeypatch.setattr(cuda_chol, name, counted(key, f))
+    var, noise_m = _fit_var(path, x, y, q)
+    assert counts["B" if path == "incore" else "G"] > 0, counts
+    assert torch.equal(noise_m, noise)  # the same rung of the jitter ladder
+    err = np.abs(var - oracle).max()
+    print(f"\n{path}: max |var - f64 oracle|: f32 twins {err_twin:.3e}, B/C/G/H model {err:.3e}"
+          f" ({counts})")
+    assert err <= 2e-3
+    assert err <= 4.0 * err_twin + 1e-6, (err, err_twin)
+
+
+def test_tc_model_sum_of_squares_bias_needs_the_step_rounding():
+    """a = b, nonnegative: every output of a a^T is a sum of nonnegative
+    products and its diagonal a sum of squares, the Cholesky's diagonal
+    blocks' case (B on a panel of one matrix, G at `_chol_diag`).  The
+    truncated steps read low there; the step rounding keeps |bias| under
+    chip_smoke's 2e-8.  The product's 128 x 128 diagonal blocks of a 4,096-
+    row a at k 512: 4,096 sums of squares, so that float32's own rounding
+    noise in the mean (~3e-9) sits well under the gate."""
+    gen = torch.Generator().manual_seed(4)
+    a = torch.rand((4096, 512), generator=gen)
+    blocks = [a[i:i + TILE] for i in range(0, a.shape[0], TILE)]
+    want = torch.stack([x.double() @ x.double().T for x in blocks])
+
+    def bias(got, diag=False):
+        rel = (got.double() - want) / want
+        return (rel.diagonal(dim1=1, dim2=2) if diag else rel).mean().item()
+
+    zero = torch.zeros((TILE, TILE))
+    rounded = -torch.stack([tc_nt_product(x, x.T, zero) for x in blocks])
+    truncated = -torch.stack([tc_nt_product(x, x.T, zero, round_steps=False) for x in blocks])
+    biases = {"rounded": bias(rounded), "rounded diagonal": bias(rounded, True),
+              "truncated": bias(truncated), "truncated diagonal": bias(truncated, True)}
+    print("\nmean relative error: " + ", ".join(f"{k} {v:.3e}" for k, v in biases.items()))
+    assert abs(biases["rounded"]) <= 2e-8 and abs(biases["rounded diagonal"]) <= 2e-8
+    assert biases["truncated"] < -2e-8 and biases["truncated diagonal"] < -2e-8
+
+
+def test_tc_model_deep_sums_of_squares_need_the_segments():
+    """The out-of-core diagonal block's sums of squares at k 24,576 (phase
+    7's last band): one running float32 sum of the 3,072 rounded steps
+    drifts by ~sqrt(3,072) of its ulps, past chip_smoke's 2e-6 x sum|a||b|
+    on some diagonal outputs; summed in 2,048-deep segments, NT's
+    arithmetic, it stays far inside."""
+    gen = torch.Generator().manual_seed(5)
+    k = 24576
+    a = torch.randn((TILE, k), generator=gen) / 28672**0.5
+    want = -(a.double() @ a.double().T)
+    tol = 2e-6 * (a.double().abs() @ a.double().abs().T).diagonal()
+    zero = torch.zeros((TILE, TILE))
+    errs = {}
+    for name, segment in (("segments", SEGMENT), ("one running sum", 0)):
+        got = tc_nt_product(a, a.T, zero, segment=segment)
+        errs[name] = ((got.double() - want).diagonal().abs() / tol).max().item()
+    print("\nworst diagonal error / (2e-6 x sum|a||b|): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in errs.items()))
+    assert errs["segments"] <= 0.25
+    assert errs["one running sum"] > 2 * errs["segments"]
+
+
 # ---------------------------------------------------------- (b) the plan
 
 
 def _check_plan(rows, cols, k_hi, *, triangle=False, width=0, n_sm=132):
     """Every live 128 x 128 tile's k range [lo, k_hi) covered exactly once,
     in units on k-chunk bounds; split tiles' slots contiguous, in k order,
-    and named by one finish entry each; zero tiles on [round_up(cols), width)."""
-    units, finish, n_slots = cuda_chol._nn_plan(rows, cols, k_hi, triangle=triangle,
+    and named by one finish entry each; cnt-0 finish tiles on the tiles with
+    no live k and on [round_up(cols), width)."""
+    units, finish, n_slots = cuda_chol._tc_plan(rows, cols, k_hi, triangle=triangle,
                                                 width=width, n_sm=n_sm)
     per_tile = {}
     for m0, n0, kb, ke, slot in units:
@@ -229,8 +353,9 @@ def _check_plan(rows, cols, k_hi, *, triangle=False, width=0, n_sm=132):
         list(range(n_slots))
     zeros = sorted((m0, n0) for m0, n0, _, cnt in finish if cnt == 0)
     first = TILE * -(-cols // TILE)
-    assert zeros == sorted((m0, n0) for m0 in range(0, rows, TILE)
-                           for n0 in range(first, width, TILE))
+    empty = {(m0, n0) for m0 in range(0, rows, TILE) for n0 in range(0, cols, TILE)} - live
+    assert zeros == sorted(empty | {(m0, n0) for m0 in range(0, rows, TILE)
+                                    for n0 in range(first, width, TILE)})
     return units, finish, n_slots
 
 
@@ -265,27 +390,41 @@ def test_nn_plan_covers_the_trsm_kstep_once(r, k, w):
 # ------------------------------------- (c) the plan's fixed-order split twin
 
 
+def _box(x, r0, c0, nrows, ncols):
+    """x[r0:r0+nrows, c0:c0+ncols] as TMA loads it: zeros past x's edges."""
+    out = torch.zeros((nrows, ncols), dtype=x.dtype)
+    blk = x[r0:r0 + nrows, c0:c0 + ncols]
+    out[:blk.shape[0], :blk.shape[1]] = blk
+    return out
+
+
 def _planned_product(a, b, out, rows, cols, k_hi, *, triangle=False, width=0, add=False,
-                     n_sm=132):
-    """out (=, or +=) a[:, :k_hi] @ b[:k_hi, :cols] taken as the two kernels
-    take it: unit by unit along `_nn_plan`, B read as zero at columns
-    >= cols (the tensor map's extent), split tiles' partials summed in slot
-    order, zero tiles stored; outputs clipped to (rows, out's columns)."""
-    units, finish, n_slots = cuda_chol._nn_plan(rows, cols, k_hi, triangle=triangle,
+                     nt=False, s=None, n_sm=132):
+    """out (=, or +=) a[:, :k_hi] @ b[:k_hi, :cols] -- or with nt, out =
+    s - a[:, :k_hi] @ b[:cols, :k_hi]^T -- taken as the two kernels take
+    it: unit by unit along `_tc_plan`, each unit reading a and b as they
+    stand when it runs (a and b cut to k < k_hi and B to its `cols` rows
+    or columns, zeros past them, as the tensor maps' extents), split
+    tiles' partials summed in slot order, cnt-0 tiles finished with a zero
+    sum; outputs clipped to (rows, out's columns).  s may be out itself."""
+    units, finish, n_slots = cuda_chol._tc_plan(rows, cols, k_hi, triangle=triangle,
                                                 width=width, n_sm=n_sm)
-    bz = torch.zeros((k_hi, cols + TILE), dtype=b.dtype)
-    bz[:, :cols] = b[:k_hi, :cols]
-    az = torch.zeros((rows + TILE, k_hi), dtype=a.dtype)
-    az[:rows] = a[:rows, :k_hi]
+    a_live = a[:rows, :k_hi]
+    b_live = b[:cols, :k_hi] if nt else b[:k_hi, :cols]
     ws = torch.full((n_slots, TILE, TILE), float("nan"), dtype=a.dtype)
 
     def epilogue(m0, n0, tile):
         dst = out[m0:m0 + TILE, n0:n0 + TILE]
-        dst.copy_(dst + tile[:dst.shape[0], :dst.shape[1]] if add
-                  else tile[:dst.shape[0], :dst.shape[1]])
+        t = tile[:dst.shape[0], :dst.shape[1]]
+        if nt:
+            dst.copy_(s[m0:m0 + TILE, n0:n0 + TILE] - t)
+        else:
+            dst.copy_(dst + t if add else t)
 
     for m0, n0, kb, ke, slot in units:
-        tile = az[m0:m0 + TILE, kb:ke] @ bz[kb:ke, n0:n0 + TILE]
+        bt = (_box(b_live, n0, kb, TILE, ke - kb).T if nt
+              else _box(b_live, kb, n0, ke - kb, TILE))
+        tile = _box(a_live, m0, kb, TILE, ke - kb) @ bt
         if slot < 0:
             epilogue(m0, n0, tile)
         else:
@@ -322,6 +461,74 @@ def test_planned_gemm_nn_acc_masked_equals_the_twin_in_float64(r, k, w, width):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("j0, bw", [(256, 256), (700, 200), (1024, 256), (1792, 256)])
+def test_planned_panel_update_in_place_equals_the_twin_in_float64(j0, bw):
+    # B: G in place on the one matrix, S = out = m[j0:, j0:j0+bw]; the units
+    # read m as it stands, so a write at columns < j0 would show.
+    rng = np.random.default_rng(j0 + bw)
+    n = 2048
+    m = torch.as_tensor(rng.normal(size=(n, n))) / j0**0.5  # products O(1), as in chip_smoke
+    want = cuda_chol.panel_update_reference(m.clone(), j0, bw)
+    got = m.clone()
+    panel = got[j0:, j0:j0 + bw]
+    _planned_product(got[j0:, :j0], got[j0:j0 + bw, :j0], panel, n - j0, bw, j0, nt=True,
+                     s=panel)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("r, p, k0, lead", [(320, 200, 0, 1000), (320, 200, 300, 1000),
+                                            (2048, 256, 1536, 2048), (200, 384, 896, 1024)])
+def test_planned_gemm_nt_masked_equals_the_twin_in_float64(r, p, k0, lead):
+    # G's k-step operands: the band, a trimmed panel, a stripe of the band as
+    # S; k0 0: no unit, the finish tiles copy S.
+    rng = np.random.default_rng(r + p + k0)
+    cur = torch.as_tensor(rng.normal(size=(r, lead)))
+    lk = torch.as_tensor(rng.normal(size=(p, lead)))
+    s = cur[:, lead - p:]
+    out = torch.full((r, p), float("nan"), dtype=torch.float64)
+    got = _planned_product(cur, lk, out, r, p, k0, nt=True, s=s)
+    want = cuda_chol.gemm_nt_masked_reference(cur, lk, s, k0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    if k0 == 0:
+        assert torch.equal(got, s)
+
+
+def test_planned_gemm_nt_masked_at_chol_diag_equals_the_twin_in_float64():
+    # `_chol_diag`: a = b = the band, S its columns [j0, j0 + R).
+    rng = np.random.default_rng(31)
+    r, j0 = 512, 1536
+    cur = torch.as_tensor(rng.normal(size=(r, j0 + r))) / j0**0.5
+    s = cur[:, j0:]
+    out = torch.full((r, r), float("nan"), dtype=torch.float64)
+    got = _planned_product(cur, cur, out, r, r, j0, nt=True, s=s)
+    torch.testing.assert_close(got, cuda_chol.gemm_nt_masked_reference(cur, cur, s, j0),
+                               rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("j0", [256, 4096, 8192, 12288, 16128])
+def test_tc_plan_covers_the_panel_update_once(j0):
+    # B in the in-core factor at C = 16,384, B = 256: rows n - j0, k < j0.
+    n, bw = 16384, 256
+    units, finish, n_slots = _check_plan(n - j0, bw, j0)
+    assert sum(ke - kb for _, _, kb, ke, _ in units) == -(-(n - j0) // TILE) * 2 * j0
+    if j0 == 8192:  # 128 tiles, under one wave: split into 2,048-deep units
+        assert n_slots == 512 and max(ke - kb for _, _, kb, ke, _ in units) == 2048
+
+
+@pytest.mark.parametrize("rows, cols, k0", [
+    (8192, 4096, 0), (8192, 4096, 4096), (8192, 4096, 28672),  # `_chol_kstep`, phase 7
+    (8192, 256, 0), (8192, 256, 256), (8192, 256, 3840),      # `_trsm_right_blocked`
+    (8192, 8192, 24576), (1024, 1024, 19456), (256, 256, 768),  # `_chol_diag`
+    (16128, 256, 256), (8192, 256, 8192), (256, 256, 16128)])   # `sharded_cholesky`, P = 1
+def test_tc_plan_covers_every_gemm_nt_masked_shape_once(rows, cols, k0):
+    units, finish, n_slots = _check_plan(rows, cols, k0)
+    tiles = -(-rows // TILE) * -(-cols // TILE)
+    if k0 == 0:  # no unit: every tile's finish copies S
+        assert not units and len(finish) == tiles and n_slots == 0
+    elif tiles >= 2 * 132:
+        assert n_slots == 0 and len(units) == tiles
+
+
 # ------------------------------------------------------ (d) the alignment rule
 
 
@@ -336,6 +543,56 @@ def test_check_tma_accepts_every_main_path_view():
         cuda_chol._check_tma("gemm_nn_acc_masked", cur[:, k0:k0 + panel], u[:panel])
     for r0 in range(256, 2 * panel, 256):  # _trsm_finish: -Ljj's rows, U's solved rows
         cuda_chol._check_tma("gemm_nn_acc_masked", -cur[r0:r0 + 256, :r0], u[:r0])
+
+
+def test_check_tma_accepts_every_factor_view_of_b_and_g(monkeypatch, tmp_path):
+    """Every (a, b) view that the in-core factor (B), the out-of-core k-step,
+    right-looking TRSM and diagonal block (G) and the sharded factor (G)
+    hand to the float32 kernel starts on 16 bytes with a leading dimension
+    of a multiple of 4 floats: the factors run here in float32 through the
+    twins, with `_check_tma` applied to each call's operands."""
+    import torch.distributed as dist
+
+    from gpis_tpu_torch.linalg import sharded as sh
+    from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+    seen = {"panel_update": 0, "gemm_nt_masked": 0}
+    panel_twin, gemm_twin = cuda_chol.panel_update_reference, cuda_chol.gemm_nt_masked_reference
+
+    def panel_update(m, j0, block):
+        if j0:
+            cuda_chol._check_tma("panel_update", m[j0:, :j0], m[j0:j0 + block, :j0])
+            seen["panel_update"] += 1
+        return panel_twin(m, j0, block)
+
+    def gemm_nt_masked(a, b, s, k0):
+        assert a.dtype == torch.float32
+        cuda_chol._check_tma("gemm_nt_masked", a, b)
+        seen["gemm_nt_masked"] += 1
+        return gemm_twin(a, b, s, k0)
+
+    from gpis_tpu_torch.linalg import cholesky as lin
+
+    monkeypatch.setattr(cuda_chol, "panel_update", panel_update)
+    monkeypatch.setattr(cuda_chol, "gemm_nt_masked", gemm_nt_masked)
+    monkeypatch.setattr(lin, "cholesky", lambda a: cuda_chol.blocked_cholesky(a, 256))
+    x, y, _ = _qsplit_problem()
+    noise = torch.full((N_QS,), 1e-3)
+    regression.fit_inference("rbf", x, y, noise, PARAMS)
+    assert seen["panel_update"] > 0
+    ooc.ooc_fit("rbf", x, y, noise, kf.kernel_params(0.8, 1.0), panel=256, block=128,
+                store="tiered", device_budget=2 * 256 * N_QS * 4)
+    n_ooc = seen["gemm_nt_masked"]
+    assert n_ooc > 0
+    g = torch.as_tensor(np.random.default_rng(32).normal(size=(512, 512)), dtype=torch.float32)
+    a = g @ g.T / 512 + torch.eye(512)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        sh.sharded_cholesky(a, make_row_mesh(1, device="cpu"), block=128, use_kernels=True)
+    finally:
+        dist.destroy_process_group()
+    assert seen["gemm_nt_masked"] > n_ooc
 
 
 @pytest.mark.parametrize("view", ["column", "leading_dimension"])
