@@ -62,20 +62,21 @@ Phases, one printed line or more each; any failure exits nonzero:
    with and without Kernel L.
 
 Phase 2 also holds the out-of-core kernels (I, and A and F in band mode)
-to their twins at phase 7's shapes, J and K at the in-core factor's
-(C = 16,384, B = 256) and L at the sharded TRSM's.  B, C, G and H, in
-float32 one split-TF32 tensor-core kernel (C and H its NN layout, B and G
-its NT layout), are held to their twins run in float64 at 2e-6 x sum|a||b|
-of the worst output (B, G and H plus 4 ulps of max|S| or max|U|), and to a
-bias gate on nonnegative operands, |mean (out - twin) / sum|a||b|| <= 2e-8,
-for B and G with a = b (sums of squares on the diagonal); B and G also in
-float64 (the SIMT tile).  C's and H's bits are held by one sha256 to
-those recorded before B and G joined their tile.  C and B are timed
-across j0, H at phase 7's k-step and finish shapes, G at its k-step and
-diagonal-block shapes, and the in-core TRSM at C = 16,384 against the
-library's triangular solve.  Every kernel's line carries its bound: the
-larger of its operations over the card's FP32 rate (67 TFLOP/s; for B, C,
-G and H the split-TF32 rate, 494.7 / 4 TFLOP/s) and its bytes over its
+to their twins at phase 7's shapes and L at the sharded TRSM's.  B, C, G,
+H, J and K, in float32 one split-TF32 tensor-core kernel (C, H and K its
+NN layout, B, G and J its NT layout), are held to their twins run in
+float64 at 2e-6 x sum|a||b| of the worst output (B, G and H plus 4 ulps of
+max|S| or max|U|), and to a bias gate on nonnegative operands, |mean (out
+- twin) / sum|a||b|| <= 2e-8, for B and G with a = b (sums of squares on
+the diagonal); B, G, J and K also in float64 (the SIMT tile).  C's and
+H's bits are held by one sha256 to those recorded before B and G joined
+their tile.  C and B are timed across j0, H at phase 7's k-step and finish
+shapes, G at its k-step and diagonal-block shapes, J and K at the first, a
+middle and the last step of the in-core factor and TRSM (C = 16,384,
+B = 256), and the in-core TRSM at C = 16,384 against the library's
+triangular solve.  Every kernel's line carries its bound: the larger of
+its operations over the card's FP32 rate (67 TFLOP/s; for B, C, G, H, J
+and K the split-TF32 rate, 494.7 / 4 TFLOP/s) and its bytes over its
 memory rate (3.35 TB/s), counted from the shapes and data of the timed
 call, and the time of the one PyTorch call that computes the same
 function, where there is one.
@@ -106,8 +107,8 @@ SHARDED_W_GAP = 1e-3  # W through Kernel L against the plain W, relative to max|
 FP32_FLOPS = 67e12  # the H100's FP32 rate outside the tensor cores (700 W)
 HBM_BYTES = 3.35e12  # its memory rate
 TF32_FLOPS = 494.7e12  # its dense TF32 tensor-core rate
-SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: Kernels C and H in float32
-TC_TOL = 2e-6  # C and H against the float64 twin: x sum|a||b| of the worst output
+SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: float32 B, C, G, H, J, K
+TC_TOL = 2e-6  # those against the float64 twin: x sum|a||b| of the worst output
 TC_BIAS = 2e-8  # |mean (out - f64 twin) / sum|a||b|| on nonnegative operands
 F32_EPS = 2.0**-23
 # sha256 of float32 C and H at fixed inputs (`tc_nn_digest`), recorded on an
@@ -148,6 +149,38 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call of the card's own time (CUDA events, after
+    a warm-up), the calls queued behind a 3 ms spin kernel so that the host
+    has enqueued them all before the card reaches the first: a call whose
+    host time (`host_us`) exceeds its kernel's is timed by the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(6_000_000)  # ~3 ms at the H100's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, reps: int = 200) -> float:
+    """Mean microseconds of host time per call of fn, enqueue only: the
+    calls are queued back to back and the clock stops before the card is
+    waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def bound(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> dict:
@@ -855,47 +888,145 @@ def lower_inv(torch, gen, b: int):
     return torch.linalg.solve_triangular(ld, eye, upper=False).contiguous()
 
 
-def inv_and_trail_kernels(torch, gen, results: dict) -> None:
-    """J and K at the in-core factor's shapes (C = 16,384, B = 256), each at
-    its largest call: J's panel below the first diagonal block (R = 16,128,
-    a strided view of the C x C matrix), K's last row solve (N = 16,384);
-    L at the sharded TRSM's (P = 1: R = C = 16,384, B = 256, j0 = 8,192).
-    tol: 1e-4 x the magnitude sum |a||b| of the worst output, as for B, and
-    for L (in place, as H) plus 4 float32 ulps of max|S|."""
+# J's panels (R = C - j1 rows below the diagonal block at j0) and K's row
+# solves (N = j1 columns) of the in-core factor at C = 16,384, B = 256: the
+# first, a middle and the last step of each loop.
+INV_J_ROWS = (16128, 8064, 256)
+INV_K_COLS = (16384, 8448, 256)
+
+
+def poisoned_empty(torch, shape, dev):
+    """Let the caching allocator's next block of `shape` hold NaN, so that a
+    kernel that reads its fresh output before writing it shows NaN."""
+    torch.full(shape, float("nan"), device=dev)
+
+
+def inv_kernel_checks(torch, gen, results: dict) -> None:
+    """Kernels J and K in float32 (the split-TF32 tensor-core tile: J its NT
+    layout, K its NN layout, both STORE, each tile over its own triangular k
+    range) against their twins run in float64, at the in-core factor's
+    shapes (C = 16,384, B = 256; INV_J_ROWS, INV_K_COLS): tol TC_TOL x
+    sum|a||b| of the worst output; the output's memory poisoned with NaN
+    first (STORE reads none of it), reruns bit-identical; and the bias gate,
+    |mean (out - twin) / sum|a||b|| <= TC_BIAS on nonnegative operands (a
+    nonnegative lower-triangular V) at the deepest step of each.  Then J and
+    K in float64, the SIMT tile, against their twins at 1e-12 x
+    sum|a||b|."""
     from gpis_tpu_torch.linalg import cuda_chol
 
     dev = gen.device
     c, b = 16384, 256
     v = lower_inv(torch, gen, b)
     a = torch.randn((c, c), generator=gen, device=dev)
-    acc = a[b:, :b]  # the panel of j0 = 0: rows j1.., columns [0, B), leading dimension C
-    r = acc.shape[0]
-    got = cuda_chol.panel_scale(acc, v)
-    err = (got - cuda_chol.panel_scale_reference(acc, v)).abs().max().item()
-    scale = (acc.abs() @ v.abs().T).max().item()
-    del got
-    ms = time_ms(torch, lambda: cuda_chol.panel_scale(acc, v), 20)
-    plain = time_ms(torch, lambda: cuda_chol.panel_scale_reference(acc, v), 20)
-    check(f"panel_scale R={r} B={b} (a strided view, ld {c})", err, 1e-4 * scale, ms, plain)
-    lib = time_ms(torch, lambda: torch.matmul(acc, v.T), 20)
-    # V is lower-triangular: out[:, c] sums c + 1 products.
-    results["panel_scale"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                                  **bound(r * b * (b + 1), 4 * (2 * r * b + b * (b + 1) / 2)))
-    del a, acc
+    worst_j = 0.0
+    for r in INV_J_ROWS:
+        j0 = c - r - b
+        acc = a[j0 + b:, j0:j0 + b]  # the panel below block j0, leading dimension C
+        poisoned_empty(torch, (r, b), dev)
+        got = cuda_chol.panel_scale(acc, v)
+        err, tol = tc_err(got, acc.double() @ v.double().T, acc, v.T)
+        check(f"panel_scale R={r} B={b} j0={j0} (a strided view, ld {c}) f32 vs f64 twin "
+              f"(tol {TC_TOL} x sum|a||b|)", err, tol)
+        if not torch.equal(cuda_chol.panel_scale(acc, v), got):
+            fail(f"panel_scale R={r}: a rerun gave other bits")
+        worst_j = max(worst_j, err)
+    worst_k = 0.0
+    for n in INV_K_COLS:
+        rhs = torch.randn((b, n), generator=gen, device=dev)  # K's rhs is a fresh (B, j1)
+        poisoned_empty(torch, (b, n), dev)
+        got = cuda_chol.row_scale(v, rhs)
+        err, tol = tc_err(got, v.double() @ rhs.double(), v, rhs)
+        check(f"row_scale B={b} N={n} f32 vs f64 twin (tol {TC_TOL} x sum|a||b|)", err, tol)
+        if not torch.equal(cuda_chol.row_scale(v, rhs), got):
+            fail(f"row_scale N={n}: a rerun gave other bits")
+        worst_k = max(worst_k, err)
+    # The bias gates: every output a sum of nonnegative products.
+    vpos = torch.rand((b, b), generator=gen, device=dev).tril_()
+    a.uniform_(0.0, 1.0, generator=gen)
+    acc = a[b:, :b]
+    bias = tc_bias(cuda_chol.panel_scale(acc, vpos), acc.double() @ vpos.double().T)
+    check(f"panel_scale bias on nonnegative operands, R={c - b}", abs(bias), TC_BIAS,
+          err_name="|mean rel err|")
+    rhs = a[:b]
+    bias = tc_bias(cuda_chol.row_scale(vpos, rhs), vpos.double() @ rhs.double())
+    check(f"row_scale bias on nonnegative operands, N={c}", abs(bias), TC_BIAS,
+          err_name="|mean rel err|")
+    results["panel_scale"] = dict(max_abs_err=worst_j)
+    results["row_scale"] = dict(max_abs_err=worst_k)
+    del a, acc, rhs, got, vpos
 
-    rhs = torch.randn((b, c), generator=gen, device=dev)
-    got = cuda_chol.row_scale(v, rhs)
-    err = (got - cuda_chol.row_scale_reference(v, rhs)).abs().max().item()
-    scale = (v.abs() @ rhs.abs()).max().item()
-    del got
-    ms = time_ms(torch, lambda: cuda_chol.row_scale(v, rhs), 20)
-    plain = time_ms(torch, lambda: cuda_chol.row_scale_reference(v, rhs), 20)
-    check(f"row_scale B={b} N={c}", err, 1e-4 * scale, ms, plain)
-    lib = time_ms(torch, lambda: torch.matmul(v, rhs), 20)
-    results["row_scale"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                                **bound(c * b * (b + 1), 4 * (2 * b * c + b * (b + 1) / 2)))
-    del rhs
+    # float64, the SIMT tile, at a ragged shape.
+    v64 = lower_inv(torch, gen, b).double()
+    a64 = torch.randn((4096, 4096), generator=gen, device=dev, dtype=torch.float64)
+    acc64, rhs64 = a64[700:, 300:300 + b], a64[:b, 100:3100]
+    for what, got, want, scale in (
+            (f"panel_scale float64 R={acc64.shape[0]}", cuda_chol.panel_scale(acc64, v64),
+             acc64 @ v64.T, acc64.abs() @ v64.abs().T),
+            (f"row_scale float64 N={rhs64.shape[1]}", cuda_chol.row_scale(v64, rhs64),
+             v64 @ rhs64, v64.abs() @ rhs64.abs())):
+        check(f"{what} B={b} (tol 1e-12 x sum|a||b|)", (got - want).abs().max().item(),
+              1e-12 * scale.max().item())
+    del a64, acc64, rhs64, v64
+    torch.cuda.empty_cache()
 
+
+def inv_kernel_times(torch, gen, results: dict) -> None:
+    """Kernels J and K timed beside their float32 twins and `matmul`, with
+    the bound at the split-TF32 rate, at INV_J_ROWS and INV_K_COLS (the
+    kernels line takes R 16,128 and N 16,384): the card's time
+    (`device_ms`: at R or N 256 the host's enqueue takes longer than the
+    kernel), and the host's time per call beside `matmul`'s (`host_us`).  V is lower-triangular: an output of
+    column c (J) or row r (K) sums c + 1 (r + 1) products, and V's live half
+    is read."""
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    dev = gen.device
+    c, b = 16384, 256
+    v = lower_inv(torch, gen, b)
+    a = torch.randn((c, c), generator=gen, device=dev)
+    times = {}
+    for r in INV_J_ROWS:
+        j0 = c - r - b
+        acc = a[j0 + b:, j0:j0 + b]
+        ms = device_ms(torch, lambda: cuda_chol.panel_scale(acc, v), 20)
+        plain = device_ms(torch, lambda: cuda_chol.panel_scale_reference(acc, v), 20)
+        lib = device_ms(torch, lambda: torch.matmul(acc, v.T), 20)
+        times[f"panel_scale_R{r}"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib,
+            host_us=host_us(torch, lambda: cuda_chol.panel_scale(acc, v)),
+            library_host_us=host_us(torch, lambda: torch.matmul(acc, v.T)),
+            **bound(r * b * (b + 1), 4 * (2 * r * b + b * (b + 1) / 2), SPLIT_TF32_FLOPS))
+    del a
+    for n in INV_K_COLS:
+        rhs = torch.randn((b, n), generator=gen, device=dev)
+        ms = device_ms(torch, lambda: cuda_chol.row_scale(v, rhs), 20)
+        plain = device_ms(torch, lambda: cuda_chol.row_scale_reference(v, rhs), 20)
+        lib = device_ms(torch, lambda: torch.matmul(v, rhs), 20)
+        times[f"row_scale_N{n}"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib,
+            host_us=host_us(torch, lambda: cuda_chol.row_scale(v, rhs)),
+            library_host_us=host_us(torch, lambda: torch.matmul(v, rhs)),
+            **bound(n * b * (b + 1), 4 * (2 * b * n + b * (b + 1) / 2), SPLIT_TF32_FLOPS))
+    for name, t in times.items():
+        say(f"  {name}: kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+            f"matmul {t['library_ms']:.4f} ms  bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"host {t['host_us']:.1f} us a call (matmul {t['library_host_us']:.1f})")
+    results["panel_scale"].update(times[f"panel_scale_R{INV_J_ROWS[0]}"])
+    results["row_scale"].update(times[f"row_scale_N{INV_K_COLS[0]}"])
+    say(json.dumps({"inv_kernel_times": times, "card": card_line()}))
+    torch.cuda.empty_cache()
+
+
+def inv_and_trail_kernels(torch, gen, results: dict) -> None:
+    """J and K (`inv_kernel_checks`), then L at the sharded TRSM's shapes
+    (P = 1: R = C = 16,384, B = 256, j0 = 8,192): tol 1e-4 x the magnitude
+    sum |a||b| of the worst output plus 4 float32 ulps of max|S| (in place,
+    as H)."""
+    from gpis_tpu_torch.linalg import cuda_chol
+
+    inv_kernel_checks(torch, gen, results)
+    dev = gen.device
+    c, b = 16384, 256
     j0, row0 = c // 2, 0
     s0 = torch.randn((c, c), generator=gen, device=dev)
     l_band = torch.randn((c, c), generator=gen, device=dev) / b**0.5
@@ -1021,6 +1152,7 @@ def phase2(torch, results: dict) -> None:
     nt_kernel_checks(torch, gen, results)
     nt_kernel_times(torch, gen, results)
     inv_and_trail_kernels(torch, gen, results)
+    inv_kernel_times(torch, gen, results)
     torch.cuda.empty_cache()
 
 
@@ -1657,8 +1789,8 @@ def main() -> int:
         "quad_band": ("gpis_tpu_torch/csrc/fused_query.cu",
                       "gpis_tpu/kernels/pallas_query.py:241, "
                       "gpis_tpu/kernels/pallas_joint.py:500"),
-        "panel_scale": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:461"),
-        "row_scale": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:488"),
+        "panel_scale": ("gpis_tpu_torch/csrc/tc_nn.cuh", "gpis_tpu/linalg/pallas_chol.py:461"),
+        "row_scale": ("gpis_tpu_torch/csrc/tc_nn.cuh", "gpis_tpu/linalg/pallas_chol.py:488"),
         "band_trail": ("gpis_tpu_torch/csrc/chol.cu", "gpis_tpu/linalg/pallas_chol.py:241"),
     }
     kernels = [

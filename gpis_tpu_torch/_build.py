@@ -70,10 +70,10 @@ _SIGNATURES = {
                                 _I64, _P, _P],
     # dst, ldd, blk, ldb, r, w, c0, stream
     "gpis_stripe_write": [_P, _I64, _P, _I64, _I64, _I64, _I64, _P],
-    # acc, lda, r, v, ldv, b, out, ldo, stream
-    "gpis_panel_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
-    # v, ldv, b, rhs, ldr, n, out, ldo, stream
-    "gpis_row_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
+    # acc, lda, r, v, ldv, b, out, ldo, units, n_units, tiles, n_tiles, ws, stream
+    "gpis_panel_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P],
+    # v, ldv, b, rhs, ldr, n, out, ldo, units, n_units, tiles, n_tiles, ws, stream
+    "gpis_row_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P],
     # s, lds, r, c, lcol, ldl, wj, ldw, bw, j0, row0, stream
     "gpis_band_trail": [_P, _I64, _I64, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P],
 }

@@ -47,14 +47,22 @@
 // `panel_solve="inv"` option:
 //     out[r, c] = sum_{k <= c} acc[r, k] * V[c, k]      (acc V^T, V = Ljj^{-1})
 // acc a strided (R, B) view (the panel below the diagonal block, leading
-// dimension n), out a separate (R, B) buffer.  V is lower-triangular, so a
-// 64-column output tile stops its k loop at its last column.
+// dimension n), out a separate (R, B) buffer.  V is lower-triangular, so an
+// output tile stops its k loop at its last column.
 //
 // K, row scale, replaces `row_scale_pallas` (pallas_call at :488, body
 // `_row_scale_kernel` :475), the TRSM row solve of the same option:
 //     out[r, c] = sum_{k <= r} V[r, k] * rhs[k, c]      (V rhs)
-// rhs a strided (B, N) view, out a separate (B, N) buffer; a 64-row output
-// tile stops its k loop at its last row.
+// rhs a strided (B, N) view, out a separate (B, N) buffer; an output tile
+// stops its k loop at its last row.
+//
+// The Pallas kernels were one bf16x3 `_dot3` pass each over a constant V
+// block.  Here, in float32, J is the tensor-core tile's NT layout and K its
+// NN layout, both with the STORE epilogue (tc_nn.cuh), each 128 x 128 tile
+// over its own k range [0, min(tile's last column (J) or row (K) + 1, B)):
+// the plan's per-tile upper bound (`_tc_plan` upper), at most B = 256 deep,
+// so never split; in float64 they keep the SIMT tile below (64 x 64 tiles,
+// the same bound).
 //
 // L, band trailing update, replaces `band_trail_update_pallas` (pallas_call
 // at :241, body `_trail_kernel` :188), the right-looking sharded TRSM step
@@ -69,22 +77,24 @@
 // the TPU (gpis_tpu/linalg/sharded.py:317-322).  L is H's product with the
 // sign flipped, on that row-trimmed view.
 //
-// In float32, B, C, G and H run on the tensor cores (tc_nn.cuh: split-TF32
-// wgmma, TMA, a fixed-order split-K reduce; B and G as its NT layout, B as G
-// in place); the SIMT bodies below serve their float64 instantiations, and
-// H's body serves Kernel L in both types.
+// In float32, B, C, G, H, J and K run on the tensor cores (tc_nn.cuh:
+// split-TF32 wgmma, TMA, a fixed-order split-K reduce; B, G and J as its NT
+// layout, B as G in place); the SIMT bodies below serve their float64
+// instantiations, and H's body serves Kernel L in both types.
 //
-// What bounds them on the H100: arithmetic for B, C, G, H, J, K and L; bytes
-// for I.
+// What bounds them on the H100: arithmetic for B, C, G, H and L; bytes for
+// I, and for float32 J and K.
 // At n = 16,384 each factor is ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes
 // of traffic per step, so the products sit far above the memory roofline;
-// for the SIMT bodies (J, K, L, and float64) the bound is the SIMT FP32 rate
-// (67 TFLOP/s at 700 W), for float32 B, C, G and H the split-TF32 rate
-// (494.7 / 4 TFLOP/s, tc_nn.cuh).  I moves 2 R W elements and computes nothing.  J and K are one
-// (R, B) x (B, B) product each (~1 GFLOP at R = 16,128, B = 256): launched
-// 63 and 64 times a factor, so their launches and the host loop around
-// them, not their arithmetic, are expected to set their share of fit_s.
-// What the design does about it: a shared-memory tiled SGEMM (64 x 64
+// for the SIMT bodies (L, and float64) the bound is the SIMT FP32 rate
+// (67 TFLOP/s at 700 W), for float32 B, C, G, H, J and K the split-TF32 rate
+// (494.7 / 4 TFLOP/s, tc_nn.cuh).  I moves 2 R W elements and computes
+// nothing.  J and K are one (R, B) x (B, B) product each (~1 GFLOP at
+// R = 16,128, B = 256, 33 MB moved): at the split-TF32 rate their bytes
+// bound them (~10 us), and launched 63 and 64 times a factor behind the
+// factor step's host sync, their launches and the host loop around them
+// set much of their share of fit_s (PERF.md section 5).
+// What the SIMT design does about it: a shared-memory tiled SGEMM (64 x 64
 // output tiles, k-slices of 16, 4 x 4 FMA register tiles a thread) whose k
 // loop stops at j0 (k0 for G), so the dead k >= j0 half of every product is
 // never loaded or multiplied -- "port the skip, not the DMA trick" of the
@@ -464,15 +474,46 @@ int gpis_gemm_nt_masked_f64(const double* a, int64_t lda, int64_t r, const doubl
 GPIS_STRIPE_ENTRY_POINTS(float, f32)
 GPIS_STRIPE_ENTRY_POINTS(double, f64)
 
+// J in float32: out (r x b) = acc V^T on the tensor cores, NT layout (V is
+// B's operand, k-contiguous like acc), over the plan (`_tc_plan` upper
+// "cols": each 128-column tile stops at k = its last column + 1, V being
+// lower-triangular).  STORE reads nothing of out, which is a fresh buffer.
+int gpis_panel_scale_f32(const float* acc, int64_t lda, int64_t r, const float* v, int64_t ldv,
+                         int64_t b, float* out, int64_t ldo, const void* units, int64_t n_units,
+                         const void* tiles, int64_t n_tiles, float* ws, void* stream) {
+  if (r <= 0 || b <= 0) return 0;
+  return gpis::tc::launch<gpis::tc::NT, gpis::tc::STORE>(
+      acc, lda, v, ldv, b, b, nullptr, 0, out, ldo, r, b, static_cast<const gpis::tc::Unit*>(units),
+      n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
+}
+
+// J in float64 keeps the SIMT tile; it takes no plan.
+int gpis_panel_scale_f64(const double* acc, int64_t lda, int64_t r, const double* v, int64_t ldv,
+                         int64_t b, double* out, int64_t ldo, const void*, int64_t, const void*,
+                         int64_t, double*, void* stream) {
+  return gpis::launch_panel_scale<double>(acc, lda, r, v, ldv, b, out, ldo, stream);
+}
+
+// K in float32: out (b x n) = V rhs on the tensor cores, NN layout, over the
+// plan (`_tc_plan` upper "rows": each 128-row tile stops at k = its last
+// row + 1).  STORE, as C.
+int gpis_row_scale_f32(const float* v, int64_t ldv, int64_t b, const float* rhs, int64_t ldr,
+                       int64_t n, float* out, int64_t ldo, const void* units, int64_t n_units,
+                       const void* tiles, int64_t n_tiles, float* ws, void* stream) {
+  if (b <= 0 || n <= 0) return 0;
+  return gpis::tc::launch<gpis::tc::NN, gpis::tc::STORE>(
+      v, ldv, rhs, ldr, b, n, nullptr, 0, out, ldo, b, n, static_cast<const gpis::tc::Unit*>(units),
+      n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
+}
+
+// K in float64 keeps the SIMT tile; it takes no plan.
+int gpis_row_scale_f64(const double* v, int64_t ldv, int64_t b, const double* rhs, int64_t ldr,
+                       int64_t n, double* out, int64_t ldo, const void*, int64_t, const void*,
+                       int64_t, double*, void* stream) {
+  return gpis::launch_row_scale<double>(v, ldv, b, rhs, ldr, n, out, ldo, stream);
+}
+
 #define GPIS_INV_ENTRY_POINTS(T, SUF)                                                          \
-  int gpis_panel_scale_##SUF(const T* acc, int64_t lda, int64_t r, const T* v, int64_t ldv,    \
-                             int64_t b, T* out, int64_t ldo, void* stream) {                   \
-    return gpis::launch_panel_scale<T>(acc, lda, r, v, ldv, b, out, ldo, stream);              \
-  }                                                                                            \
-  int gpis_row_scale_##SUF(const T* v, int64_t ldv, int64_t b, const T* rhs, int64_t ldr,      \
-                           int64_t n, T* out, int64_t ldo, void* stream) {                     \
-    return gpis::launch_row_scale<T>(v, ldv, b, rhs, ldr, n, out, ldo, stream);                \
-  }                                                                                            \
   int gpis_band_trail_##SUF(T* s, int64_t lds, int64_t r, int64_t c, const T* lcol,            \
                             int64_t ldl, const T* wj, int64_t ldw, int64_t bw, int64_t j0,     \
                             int64_t row0, void* stream) {                                      \

@@ -1,7 +1,9 @@
-// The float32 products of Kernels B, C, G and H on the tensor cores (sm_90a):
+// The float32 products of Kernels B, C, G, H, J and K on the tensor cores
+// (sm_90a):
 //
 //     NN: out[m, n] (=, or +=) sum_{k in [kb, ke)} A[m, k] * B[k, n]
-//     NT: out[m, n] = S[m, n] - sum_{k in [kb, ke)} A[m, k] * B[n, k]
+//     NT: out[m, n] = S[m, n] - sum_{k in [kb, ke)} A[m, k] * B[n, k],
+//         or (STORE) the sum alone
 //
 // with A row-major and k-contiguous; in NN B is row-major and n-contiguous,
 // in NT row-major and k-contiguous like A.  C (row_update) is the in-core
@@ -9,8 +11,13 @@
 // (gemm_nn_acc_masked) the out-of-core TRSM's U[:, :w] += A B.  G
 // (gemm_nt_masked) is the out-of-core factor's S - A[:, :k0] B[:, :k0]^T,
 // and B (panel_update) the in-core factor's panel update, G in place on the
-// one n x n matrix.  All four replace their FP32 SIMT bodies in float32; the
-// float64 instantiations and Kernel L keep the SIMT tile of common.cuh.
+// one n x n matrix.  J (panel_scale) and K (row_scale) are the inv option's
+// panel and row solves, one product each with V = Ljj^{-1} (B x B,
+// lower-triangular): J = acc V^T, NT with STORE, each 128-column tile over
+// k up to its last column; K = V rhs, NN with STORE, each 128-row tile over
+// k up to its last row (the plan's per-tile k range).  All six replace their
+// FP32 SIMT bodies in float32; the float64 instantiations and Kernel L keep
+// the SIMT tile of common.cuh.
 //
 // Precision: FP32-grade products from TF32 wgmma ("split TF32").
 //   * Each operand is split as x = hi + lo, hi = rna_tf32(x),
@@ -75,6 +82,9 @@
 //     and S its columns >= j0, with k0 = j0; out is a new tensor.
 //   * The right-looking TRSM (`_trsm_right_blocked`) passes A = S's own
 //     buffer at columns < c0 and S its columns [c0, c0 + block); out is new.
+//   * J reads the factor's panel below the diagonal block and writes a new
+//     buffer: in place it could not be, since its tile at columns [0, 128)
+//     writes what its tile at [128, 256) reads.  K writes a new buffer too.
 // No unit reads what another unit, or the finish kernel, writes.
 #pragma once
 
@@ -98,7 +108,8 @@ constexpr int SMEM_BYTES = 1024 + 2 * RAW_BYTES + 2 * 4 * SPLIT_BYTES + 64;
 
 // B's layout: NN (k rows, n-contiguous) or NT (n rows, k-contiguous).
 enum Layout { NN = 0, NT = 1 };
-// Epilogues: C stores, H adds into U's old values, B and G subtract from S.
+// Epilogues: C, J and K store, H adds into U's old values, B and G subtract
+// from S.
 enum Epilogue { STORE = 0, ADD = 1, SUB_FROM = 2 };
 
 // One CTA's work: output tile (m0, n0), k range [kb, ke), and the partial
@@ -347,8 +358,9 @@ __device__ __forceinline__ void epilogue(float* out, int64_t ldo, const float* s
 
 // Hands a unit's running sum to where it goes: a split tile's partial slot,
 // or (owning the tile's whole k range) the output.  The unit's first flush
-// stores the slot, or reads S; a later one (NT's segments) adds to the slot,
-// or subtracts from out itself.
+// stores the slot, or combines with old_value (STORE reads nothing); a later
+// one (NT's segments) adds to the slot, or takes out itself as the old value:
+// subtracts from it (SUB_FROM) or adds to it (STORE, ADD).
 template <int EPI>
 __device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, bool first,
                                       float* ws, const float* s, int64_t lds, float* out,
@@ -378,6 +390,7 @@ __device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, boo
   }
   const float* src = first ? s : out;
   const int64_t ld_src = first ? lds : ldo;
+  const bool add = EPI == STORE && !first;  // a later segment of a STORE
 #pragma unroll
   for (int g = 0; g < 64; g += 8) {
     float old[8];
@@ -385,13 +398,16 @@ __device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, boo
     for (int j = 0; j < 8; ++j) {
       const int64_t row = u.m0 + 64 * wg + acc_row(warp, lane, g + j);
       const int64_t col = u.n0 + acc_col(lane, g + j);
-      old[j] = row < m && col < n ? old_value<EPI>(out, ldo, src, ld_src, row, col) : 0.0f;
+      old[j] = row >= m || col >= n ? 0.0f
+               : add              ? out[row * ldo + col]
+                                  : old_value<EPI>(out, ldo, src, ld_src, row, col);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int64_t row = u.m0 + 64 * wg + acc_row(warp, lane, g + j);
       const int64_t col = u.n0 + acc_col(lane, g + j);
-      if (row < m && col < n) out[row * ldo + col] = combine<EPI>(old[j], acc[g + j]);
+      if (row < m && col < n)
+        out[row * ldo + col] = add ? old[j] + acc[g + j] : combine<EPI>(old[j], acc[g + j]);
     }
   }
 }

@@ -26,13 +26,15 @@ and L take their views the same way.  All but I are bound by arithmetic on
 the card, I by bytes; csrc/chol.cu says how their loops skip the dead part
 of each product.
 
-In float32, B, C, G and H are one split-TF32 tensor-core kernel
-(csrc/tc_nn.cuh; C and H its NN layout, G its NT layout, B G in place):
+In float32, B, C, G, H, J and K are one split-TF32 tensor-core kernel
+(csrc/tc_nn.cuh; C, H and K its NN layout, G and J its NT layout, B G in
+place):
 TMA reads their operands, so each float32 view it reads must start on 16
 bytes with a leading dimension of a multiple of 4 floats (`_check_tma`; a
 view that is not raises ValueError -- there is no staging copy), and
 `_tc_plan` cuts the work into 128 x 128 output tiles, each over its live k
-range, split into equal-depth units when the tiles alone would not fill two
+range (for J and K, up to the tile's last column or row of the triangular
+V), split into equal-depth units when the tiles alone would not fill two
 waves of the card; a second kernel sums a split tile's partials in a fixed
 order.  In float64 they keep the SIMT tile.  Around
 them, as in the JAX package, the B x B potrf (`torch.linalg.cholesky_ex`),
@@ -83,16 +85,20 @@ TC_DEPTH = 256  # split units are a multiple of this deep
 
 
 def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: int = 0,
-             n_sm: int = 132):
+             upper: str | None = None, n_sm: int = 132):
     """The tensor-core product's work over output rows [0, rows), columns
     [0, cols) and k < k_hi, as (units, finish, n_slots); the same for both
-    layouts of B (NN: C and H; NT: B and G, which take no triangle or width):
+    layouts of B (NN: C, H and K; NT: B, G and J, which take no triangle or
+    width):
 
     * units: (m0, n0, kb, ke, slot), one CTA each: the 128 x 128 tile at
       (m0, n0) over k in [kb, ke).  A tile's k range starts at 0, or with
       `triangle` (W lower-triangular, so W[k, c] = 0 for k < c) at its first
-      column n0.  slot -1: the unit owns its tile's whole range and writes
-      the output; else it writes partial `slot`.
+      column n0.  It ends at k_hi, or with `upper` (V = Ljj^{-1}
+      lower-triangular) after the tile's last column ("cols", J: V[c, k] = 0
+      for k > c) or last row ("rows", K: V[r, k] = 0 for k > r), at
+      min(n0 or m0 + 128, k_hi).  slot -1: the unit owns its tile's whole
+      range and writes the output; else it writes partial `slot`.
     * finish: (m0, n0, slot0, cnt): a split tile's partials [slot0, slot0 +
       cnt), summed in that order; with cnt 0, a tile with no live k (NT at
       k_hi 0, whose epilogue then copies S) and, for `width` > cols, the
@@ -101,41 +107,55 @@ def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
 
     Tiles are split when there are fewer than two waves of them (n_sm CTAs a
     wave, one a streaming multiprocessor); the units are then TC_DEPTH-
-    multiples deep, about four to a multiprocessor, on k-chunk bounds."""
+    multiples deep, about four to a multiprocessor, on k-chunk bounds.  So a
+    tile at most TC_DEPTH deep is never cut: J's and K's, whose k range is
+    one B = 256 block, are one unit each, and their plans have no partials
+    and no finish tiles.  With `upper` the units come deepest first."""
     t = TC_TILE
-    tiles = [(m0, n0, n0 if triangle else 0) for m0 in range(0, rows, t)
+    if upper not in (None, "cols", "rows"):
+        raise ValueError(f"_tc_plan: upper must be None, 'cols' or 'rows', got {upper!r}")
+
+    def end(m0, n0):
+        return k_hi if upper is None else min((n0 if upper == "cols" else m0) + t, k_hi)
+
+    tiles = [(m0, n0, n0 if triangle else 0, end(m0, n0)) for m0 in range(0, rows, t)
              for n0 in range(0, cols, t)]
-    empty = [(m0, n0, 0, 0) for m0, n0, lo in tiles if lo >= k_hi]
-    tiles = [(m0, n0, lo) for m0, n0, lo in tiles if lo < k_hi]
+    empty = [(m0, n0, 0, 0) for m0, n0, lo, hi in tiles if lo >= hi]
+    tiles = [(m0, n0, lo, hi) for m0, n0, lo, hi in tiles if lo < hi]
     step = 0
     if len(tiles) < 2 * n_sm:
-        depth = sum(k_hi - lo for _, _, lo in tiles)
+        depth = sum(hi - lo for _, _, lo, hi in tiles)
         step = max(TC_DEPTH, TC_DEPTH * math.ceil(depth / (4 * n_sm * TC_DEPTH)))
     units, finish, slot = [], [], 0
-    for m0, n0, lo in tiles:
-        bounds = list(range(lo, k_hi, step)) if step else [lo]
+    for m0, n0, lo, hi in tiles:
+        bounds = list(range(lo, hi, step)) if step else [lo]
         if len(bounds) == 1:
-            units.append((m0, n0, lo, k_hi, -1))
+            units.append((m0, n0, lo, hi, -1))
             continue
         for i, kb in enumerate(bounds):
-            ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi
+            ke = bounds[i + 1] if i + 1 < len(bounds) else hi
             units.append((m0, n0, kb, ke, slot + i))
         finish.append((m0, n0, slot, len(bounds)))
         slot += len(bounds)
     finish.extend(empty)
     for n0 in range(t * math.ceil(cols / t), width, t):
         finish.extend((m0, n0, 0, 0) for m0 in range(0, rows, t))
+    if upper is not None:
+        # Deepest units first (the card starts CTAs in index order): J's and
+        # K's tiles are 128 or 256 deep, and past one wave the shallow ones
+        # then fill in behind the deep ones rather than the other way round.
+        units.sort(key=lambda u: u[2] - u[3])
     return units, finish, slot
 
 
 @functools.lru_cache(maxsize=1024)
 def _tc_plan_on(device: torch.device, rows: int, cols: int, k_hi: int, triangle: bool,
-                width: int):
+                width: int, upper: str | None):
     """`_tc_plan` for the card `device`, as int32 tensors on it (cached: the
     factor and TRSM loops ask for the same plans fit after fit)."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     units, finish, n_slots = _tc_plan(rows, cols, k_hi, triangle=triangle, width=width,
-                                      n_sm=n_sm)
+                                      upper=upper, n_sm=n_sm)
 
     def on_card(rows_, ncol):
         host = torch.tensor(rows_, dtype=torch.int32).reshape(-1, ncol).pin_memory()
@@ -158,15 +178,18 @@ def _check_tma(what: str, *mats: torch.Tensor) -> None:
 
 
 def _tc_launch_args(what: str, a: torch.Tensor, b: torch.Tensor, rows: int, cols: int,
-                    k_hi: int, *, triangle: bool = False, width: int = 0):
-    """The plan and workspace arguments of B's, C's, G's and H's entry
-    points: for float32, after `_check_tma` on the operands the kernel reads
-    (a, b); for float64 (the SIMT tile) null.  Returns (args, keep-alive
-    tensors)."""
+                    k_hi: int, *, triangle: bool = False, width: int = 0,
+                    upper: str | None = None):
+    """The plan and workspace arguments of B's, C's, G's, H's, J's and K's
+    entry points: for float32, after `_check_tma` on the operands the kernel
+    reads (a, b); for float64 (the SIMT tile) null.  A plan with no partials
+    takes no workspace.  Returns (args, keep-alive tensors)."""
     if a.dtype != torch.float32:
         return (None, 0, None, 0, None), ()
     _check_tma(what, a, b)
-    units, finish, n_slots = _tc_plan_on(a.device, rows, cols, k_hi, triangle, width)
+    units, finish, n_slots = _tc_plan_on(a.device, rows, cols, k_hi, triangle, width, upper)
+    if not n_slots:
+        return (units.data_ptr(), units.shape[0], finish.data_ptr(), finish.shape[0], None), ()
     ws = torch.empty((n_slots, TC_TILE, TC_TILE), dtype=a.dtype, device=a.device)
     return ((units.data_ptr(), units.shape[0], finish.data_ptr(), finish.shape[0],
              ws.data_ptr()), (ws,))
@@ -312,7 +335,9 @@ def panel_scale_reference(acc, v) -> torch.Tensor:
 
 def panel_scale(acc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """acc @ v^T as a new (R, B) tensor, for acc (R, B) a row-major view and
-    v (B, B) LOWER-triangular (the kernel skips its zero upper half)."""
+    v (B, B) LOWER-triangular (the kernel skips its zero upper half).  In
+    float32 the tensor-core tile's NT layout, each 128-column tile over
+    k < its last column + 1 (`_tc_plan` upper "cols")."""
     r, b = acc.shape
     if v.shape != (b, b):
         raise ValueError(f"panel_scale: acc {tuple(acc.shape)} and v {tuple(v.shape)} do not agree")
@@ -322,8 +347,9 @@ def panel_scale(acc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r, b), dtype=acc.dtype, device=acc.device)
     if r == 0 or b == 0:
         return out
+    plan, _keep = _tc_launch_args("panel_scale", acc, v, r, b, b, upper="cols")
     _build.call("gpis_panel_scale", acc, acc.data_ptr(), acc.stride(0), r, v.data_ptr(),
-                v.stride(0), b, out.data_ptr(), b)
+                v.stride(0), b, out.data_ptr(), b, *plan)
     _build.LAUNCHES["panel_scale"] += 1
     return out
 
@@ -335,7 +361,9 @@ def row_scale_reference(v, rhs) -> torch.Tensor:
 
 def row_scale(v: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """v @ rhs as a new (B, N) tensor, for v (B, B) LOWER-triangular and
-    rhs (B, N) a row-major view."""
+    rhs (B, N) a row-major view.  In float32 the tensor-core tile's NN
+    layout, each 128-row tile over k < its last row + 1 (`_tc_plan` upper
+    "rows")."""
     b, n = rhs.shape
     if v.shape != (b, b):
         raise ValueError(f"row_scale: v {tuple(v.shape)} and rhs {tuple(rhs.shape)} do not agree")
@@ -345,8 +373,9 @@ def row_scale(v: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, n), dtype=rhs.dtype, device=rhs.device)
     if b == 0 or n == 0:
         return out
+    plan, _keep = _tc_launch_args("row_scale", v, rhs, b, n, b, upper="rows")
     _build.call("gpis_row_scale", rhs, v.data_ptr(), v.stride(0), b, rhs.data_ptr(),
-                rhs.stride(0), n, out.data_ptr(), n)
+                rhs.stride(0), n, out.data_ptr(), n, *plan)
     _build.LAUNCHES["row_scale"] += 1
     return out
 

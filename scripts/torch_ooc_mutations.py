@@ -11,8 +11,10 @@ the band modes of A and F, at phase 7's shapes),
 `chip_smoke.nn_kernel_checks` (float32 C and H, the split-TF32 tensor-core
 kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
 (float32 B and G, its NT layout, with the bias gate at a = b; and B and G
-in float64, the SIMT tile) or `chip_smoke.inv_and_trail_kernels` (Kernels
-J, K and L at the in-core factor's and the sharded TRSM's shapes).
+in float64, the SIMT tile) or `chip_smoke.inv_and_trail_kernels` (float32
+J and K, the tile's NT and NN layouts with STORE, with their bias gate, and
+J and K in float64, the SIMT tile, at the in-core factor's shapes; L at the
+sharded TRSM's).
 A mutation is caught when a check fails.  Prints
 one line per mutation with the failing check; exits nonzero if any mutation
 passed every check.  The repository itself is never modified.
@@ -50,8 +52,8 @@ MUTATIONS = [
      "acc[i] += round23(step[i]);", "acc[i] += step[i];"),
     ("C's plan ends each split tile's triangle one chunk short", NN,
      "gpis_tpu_torch/linalg/cuda_chol.py",
-     "ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi",
-     "ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi - TC_CHUNK"),
+     "ke = bounds[i + 1] if i + 1 < len(bounds) else hi",
+     "ke = bounds[i + 1] if i + 1 < len(bounds) else hi - TC_CHUNK"),
     ("C/H transpose B one k row off", NN, "gpis_tpu_torch/csrc/tc_nn.cuh",
      "const int k = 4 * k4 + i;", "const int k = (4 * k4 + i + 1) % BK;"),
     ("C/H reduce skips a tile's last partial", NN, "gpis_tpu_torch/csrc/tc_nn.cuh",
@@ -71,8 +73,8 @@ MUTATIONS = [
      "  }\n"),
     ("the NT plan ends each split tile one chunk short", NT,
      "gpis_tpu_torch/linalg/cuda_chol.py",
-     "ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi",
-     "ke = bounds[i + 1] if i + 1 < len(bounds) else k_hi - TC_CHUNK"),
+     "ke = bounds[i + 1] if i + 1 < len(bounds) else hi",
+     "ke = bounds[i + 1] if i + 1 < len(bounds) else hi - TC_CHUNK"),
     ("B/G sum all their steps in one running sum (no 2,048-deep segments)", NT,
      "gpis_tpu_torch/csrc/tc_nn.cuh", "constexpr int SEG_CHUNKS = 64;",
      "constexpr int SEG_CHUNKS = 1 << 20;"),
@@ -83,12 +85,29 @@ MUTATIONS = [
      "for (int64_t i = blockIdx.y; i < r - 1; i += gridDim.y)"),
     ("A band mode puts k(0) + noise at the in-core diagonal", OOC, "gpis_tpu_torch/csrc/cov.cu",
      "if (sym && row0 + i == j)", "if (sym && i == j)"),
-    ("J stops its k loop one slice short of the tile's last column", INV,
-     "gpis_tpu_torch/csrc/chol.cu", "ldv, cols, 0,\n             col0 + cols);",
+    ("J stops its k loop one slice short of the tile's last column (the SIMT body: J in "
+     "float64)", INV, "gpis_tpu_torch/csrc/chol.cu", "ldv, cols, 0,\n             col0 + cols);",
      "ldv, cols, 0,\n             col0 + cols - BK);"),
-    ("K stops its k loop one slice short of the tile's last row", INV,
-     "gpis_tpu_torch/csrc/chol.cu", "const int64_t k_end = row0 + rows;",
+    ("K stops its k loop one slice short of the tile's last row (the SIMT body: K in float64)",
+     INV, "gpis_tpu_torch/csrc/chol.cu", "const int64_t k_end = row0 + rows;",
      "const int64_t k_end = row0 + rows - BK;"),
+    ("J/K's plan ends each tile's triangle one chunk short of its last column / row", INV,
+     "gpis_tpu_torch/linalg/cuda_chol.py", "else m0) + t, k_hi)",
+     "else m0) + t - TC_CHUNK, k_hi)"),
+    ("J adds into its output (ADD in place of STORE)", INV, "gpis_tpu_torch/csrc/chol.cu",
+     "gpis::tc::launch<gpis::tc::NT, gpis::tc::STORE>(\n      acc,",
+     "gpis::tc::launch<gpis::tc::NT, gpis::tc::ADD>(\n      acc,"),
+    ("K adds into its output (ADD in place of STORE)", INV, "gpis_tpu_torch/csrc/chol.cu",
+     "gpis::tc::launch<gpis::tc::NN, gpis::tc::STORE>(\n      v,",
+     "gpis::tc::launch<gpis::tc::NN, gpis::tc::ADD>(\n      v,"),
+    ("J drops V's lo half (acc hi x V lo: V is J's B operand)", INV,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "wgmma_tf32(step, desc(a_hi + off), desc(b_lo + off), 1);",
+     ""),
+    ("K drops V's lo half (V lo x rhs hi: V is K's A operand)", INV,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "wgmma_tf32(step, desc(a_lo + off), desc(b_hi + off), 1);",
+     ""),
+    ("J/K add each truncated step unrounded", INV, "gpis_tpu_torch/csrc/tc_nn.cuh",
+     "acc[i] += round23(step[i]);", "acc[i] += step[i];"),
     ("L skips its first tile of live rows", INV, "gpis_tpu_torch/csrc/chol.cu",
      "? 0 : j0 + bw - row0;", "? 0 : j0 + bw - row0 + TILE;"),
     ("L drops the panel's own B columns", INV, "gpis_tpu_torch/csrc/chol.cu",

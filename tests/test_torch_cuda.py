@@ -567,3 +567,70 @@ def test_cuda_tc_nt_refuses_a_view_tma_cannot_address(cuda):
     m = torch.randn((1026, 1026), generator=gen, device=cuda)
     with pytest.raises(ValueError, match="TMA"):
         cuda_chol.panel_update(m, 512, 256)
+
+
+# J and K in float32: the tile's NT (J) and NN (K) layouts with the STORE
+# epilogue, each tile over k up to its last column (J) or row (K) of the
+# lower-triangular V; held to the twin run in float64 at 2e-6 x sum|a||b|.
+
+
+@pytest.mark.parametrize("n, j0, b", [(4096, 0, 256), (4096, 3584, 256), (1200, 200, 200),
+                                      (16384, 0, 256)])
+def test_cuda_tc_panel_scale_matches_f64_twin(cuda, n, j0, b):
+    # j0 0: the factor's first, deepest step (R = n - b); 3584: its last
+    # (R = 256); B 200: ragged columns and k; (16384, 0): R 16,128, 252 units.
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    a = torch.randn((n, n), generator=gen, device=cuda)
+    v = _lower_inv(gen, b, torch.float32)
+    acc = a[j0 + b:, j0:j0 + b]  # the strided panel below block j0
+    torch.full((n - j0 - b, b), float("nan"), device=cuda)  # STORE must read none of out
+    _build.LAUNCHES.clear()
+    got = cuda_chol.panel_scale(acc, v)
+    assert _build.LAUNCHES["panel_scale"] == 1
+    err = (got.double() - acc.double() @ v.double().T).abs().max().item()
+    assert err <= _tc_tol(acc, v.T), err
+    assert torch.equal(cuda_chol.panel_scale(acc, v), got)  # bit-identical rerun
+
+
+@pytest.mark.parametrize("b, n", [(256, 4096), (256, 256), (192, 1000), (256, 16384)])
+def test_cuda_tc_row_scale_matches_f64_twin(cuda, b, n):
+    # N 4,096: the TRSM's last step at C = 4,096; 256: its first; B 192:
+    # ragged rows and k; N 16,384: 256 units.
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    v = _lower_inv(gen, b, torch.float32)
+    rhs = torch.randn((b, n), generator=gen, device=cuda)
+    torch.full((b, n), float("nan"), device=cuda)
+    _build.LAUNCHES.clear()
+    got = cuda_chol.row_scale(v, rhs)
+    assert _build.LAUNCHES["row_scale"] == 1
+    err = (got.double() - v.double() @ rhs.double()).abs().max().item()
+    assert err <= _tc_tol(v, rhs), err
+    assert torch.equal(cuda_chol.row_scale(v, rhs), got)
+
+
+def test_cuda_tc_inv_bias_on_nonnegative_operands(cuda):
+    """A nonnegative lower-triangular V and nonnegative panels: J's and K's
+    mean relative error within chip_smoke's bias gate, 2e-8."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    v = torch.rand((256, 256), generator=gen, device=cuda).tril_()
+    acc = torch.rand((4096, 256), generator=gen, device=cuda)
+    prod = acc.double() @ v.double().T
+    got = cuda_chol.panel_scale(acc, v)
+    assert abs(((got.double() - prod) / prod).mean().item()) <= 2e-8
+    rhs = torch.rand((256, 4096), generator=gen, device=cuda)
+    prod = v.double() @ rhs.double()
+    got = cuda_chol.row_scale(v, rhs)
+    assert abs(((got.double() - prod) / prod).mean().item()) <= 2e-8
+
+
+def test_cuda_tc_blocked_inv_route_float32(cuda):
+    """The in-core factor and TRSM under panel_solve="inv" with J and K on
+    the tile: L L^T = A and W L = I to float32's conditioning."""
+    a = torch.as_tensor(_spd(np.random.default_rng(26), 1024), dtype=torch.float32, device=cuda)
+    _build.LAUNCHES.clear()
+    l = cuda_chol.blocked_cholesky(a.clone(), 256, panel_solve="inv")
+    w = cuda_chol.blocked_linv(l.clone(), 256, inplace=True, panel_solve="inv")
+    assert _build.LAUNCHES["panel_scale"] == 3 and _build.LAUNCHES["row_scale"] == 4
+    eye = torch.eye(1024, dtype=torch.float64, device=cuda)
+    assert (l.double() @ l.double().T - a.double()).abs().max().item() < 1e-5
+    assert (w.double() @ l.double() - eye).abs().max().item() < 1e-5

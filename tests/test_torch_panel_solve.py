@@ -85,6 +85,19 @@ def test_blocked_linv_inv_matches_pallas(n, block, inplace):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
+def test_blocked_inv_route_matches_pallas_factor_then_inverse():
+    """The whole inv route, factor then in-place TRSM, at four 256 blocks
+    (J's panels R = 768 ... 256, K's rows N = 256 ... 1,024), each step held
+    to the JAX package's at 1e-6."""
+    a = _spd(np.random.default_rng(8), 1024)
+    l_jax = pallas_blocked_cholesky(jnp.asarray(a), 256, panel_solve="inv")
+    w_jax = np.asarray(pallas_blocked_linv(l_jax, 256, inplace=True, panel_solve="inv"))
+    l = cuda_chol.blocked_cholesky(torch.tensor(a), 256, panel_solve="inv")
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_jax), atol=1e-6)
+    w = cuda_chol.blocked_linv(l, 256, inplace=True, panel_solve="inv")
+    np.testing.assert_allclose(w.numpy(), w_jax, atol=1e-6)
+
+
 def test_inv_and_substitution_factor_alike():
     a = torch.as_tensor(_spd(np.random.default_rng(6), 512))
     l_inv = cuda_chol.blocked_cholesky(a.clone(), 128, panel_solve="inv")
