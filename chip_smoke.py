@@ -62,21 +62,25 @@ Phases, one printed line or more each; any failure exits nonzero:
    with and without Kernel L.
 
 Phase 2 also holds the out-of-core kernels (I, and A and F in band mode)
-to their twins at phase 7's shapes and L at the sharded TRSM's.  B, C, G,
-H, J and K, in float32 one split-TF32 tensor-core kernel (C, H and K its
-NN layout, B, G and J its NT layout), are held to their twins run in
-float64 at 2e-6 x sum|a||b| of the worst output (B, G and H plus 4 ulps of
+to their twins at phase 7's shapes, I bit for bit also at its scalar edges
+(heads and tails, odd pitches, float64, 70,000 rows).  B, C, G, H, J, K and
+L, in float32 one split-TF32 tensor-core kernel (C, H, K and L its NN
+layout, B, G and J its NT layout), are held to their twins run in float64
+at 2e-6 x sum|a||b| of the worst output (B, G, H and L plus 4 ulps of
 max|S| or max|U|), and to a bias gate on nonnegative operands, |mean (out
 - twin) / sum|a||b|| <= 2e-8, for B and G with a = b (sums of squares on
-the diagonal); B, G, J and K also in float64 (the SIMT tile).  C's and
+the diagonal); B, G, J, K and L also in float64 (the SIMT tile); L also
+leaves S bit-identical outside its live block.  C's and
 H's bits are held by one sha256 to those recorded before B and G joined
 their tile.  C and B are timed across j0, H at phase 7's k-step and finish
 shapes, G at its k-step and diagonal-block shapes, J and K at the first, a
 middle and the last step of the in-core factor and TRSM (C = 16,384,
-B = 256), and the in-core TRSM at C = 16,384 against the library's
+B = 256), L at the sharded TRSM's middle step and I at phase 7's k-step
+(both also by CUDA events back to back and by the host's enqueue), and the
+in-core TRSM at C = 16,384 against the library's
 triangular solve.  Every kernel's line carries its bound: the larger of
-its operations over the card's FP32 rate (67 TFLOP/s; for B, C, G, H, J
-and K the split-TF32 rate, 494.7 / 4 TFLOP/s) and its bytes over its
+its operations over the card's FP32 rate (67 TFLOP/s; for B, C, G, H, J,
+K and L the split-TF32 rate, 494.7 / 4 TFLOP/s) and its bytes over its
 memory rate (3.35 TB/s), counted from the shapes and data of the timed
 call, and the time of the one PyTorch call that computes the same
 function, where there is one.
@@ -107,7 +111,7 @@ SHARDED_W_GAP = 1e-3  # W through Kernel L against the plain W, relative to max|
 FP32_FLOPS = 67e12  # the H100's FP32 rate outside the tensor cores (700 W)
 HBM_BYTES = 3.35e12  # its memory rate
 TF32_FLOPS = 494.7e12  # its dense TF32 tensor-core rate
-SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: float32 B, C, G, H, J, K
+SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: float32 B, C, G, H, J-L
 TC_TOL = 2e-6  # those against the float64 twin: x sum|a||b| of the worst output
 TC_BIAS = 2e-8  # |mean (out - f64 twin) / sum|a||b|| on nonnegative operands
 F32_EPS = 2.0**-23
@@ -417,20 +421,48 @@ def ooc_kernels(torch, gen, results: dict) -> None:
     dev = gen.device
     r, p, c = 2 * SPILL_PANEL, SPILL_PANEL, 32768
 
-    # I: an (R, P) stripe into the (R, C) band at column 16,384; exact.
+    # I: an (R, P) stripe into the (R, C) band at column 16,384; exact.  Timed
+    # three ways beside `copy_`: the card's own time (`device_ms`, the kernels
+    # line's), CUDA events around back-to-back calls, and the host's enqueue.
     dst = torch.zeros((r, c), device=dev)
     blk = torch.randn((r, p), generator=gen, device=dev)
     c0 = c // 2
     got = cuda_chol.stripe_write(dst.clone(), blk, c0)
     err = (got - cuda_chol.stripe_write_reference(dst.clone(), blk, c0)).abs().max().item()
     del got
-    ms = time_ms(torch, lambda: cuda_chol.stripe_write(dst, blk, c0), 10)
-    plain = time_ms(torch, lambda: cuda_chol.stripe_write_reference(dst, blk, c0), 10)
+    kernel = lambda: cuda_chol.stripe_write(dst, blk, c0)  # noqa: E731
+    copy = lambda: dst[:, c0:c0 + p].copy_(blk)  # noqa: E731
+    ms = device_ms(torch, kernel, 20)
+    plain = device_ms(torch, lambda: cuda_chol.stripe_write_reference(dst, blk, c0), 20)
     check(f"stripe_write ({r}, {p}) into ({r}, {c}) at {c0} (exact)", err, 0.0, ms, plain)
-    lib = time_ms(torch, lambda: dst[:, c0:c0 + p].copy_(blk), 10)
-    results["stripe_write"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                                   **bound(0, 4 * 2 * r * p))
+    lib = device_ms(torch, copy, 20)
+    results["stripe_write"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+        events_ms=time_ms(torch, kernel, 20), library_events_ms=time_ms(torch, copy, 20),
+        host_us=host_us(torch, kernel), library_host_us=host_us(torch, copy),
+        **bound(0, 4 * 2 * r * p))
+    t = results["stripe_write"]
+    say(f"  stripe_write: card {ms:.4f} ms (copy_ {lib:.4f}), events {t['events_ms']:.4f} ms "
+        f"(copy_ {t['library_events_ms']:.4f}), host {t['host_us']:.1f} us a call (copy_ "
+        f"{t['library_host_us']:.1f}); bound {t['bound_ms']:.4f} ms")
     del dst, blk
+    # I's edges, exact: a scalar head and tail around the vectors (c0 1 or 3
+    # with blk at the same offset mod 16 bytes), scalars alone (other
+    # offsets, an odd pitch), float64, and rows past the old 65,535 grid.
+    for dtype, rows, c0, w_, lead, off in (
+            (torch.float32, 300, 1, 301, 304, 1), (torch.float32, 300, 3, 7, 16, 3),
+            (torch.float32, 300, 0, 301, 304, 0), (torch.float32, 300, 3, 301, 304, 0),
+            (torch.float32, 300, 1, 7, 7, 0), (torch.float64, 300, 1, 300, 302, 1),
+            (torch.float64, 300, 3, 7, 9, 0), (torch.float32, 70000, 0, 8, 8, 0),
+            (torch.float32, 70000, 3, 8, 8, 0)):
+        dst = torch.randn((rows, 1000), generator=gen, device=dev, dtype=dtype)
+        blk = torch.randn((rows, lead), generator=gen, device=dev, dtype=dtype)[:, off:off + w_]
+        got = cuda_chol.stripe_write(dst.clone(), blk, c0)
+        want = cuda_chol.stripe_write_reference(dst.clone(), blk, c0)
+        check(f"stripe_write {str(dtype)[6:]} ({rows}, {w_}) at {c0}, blk pitch {lead} at "
+              f"column {off} (exact)", float(not torch.equal(got, want)), 0.0,
+              err_name="rows or columns wrong")
+    del dst, blk, got, want
 
     # A in band mode: rows [16,384, 24,576) of the C = 32,768 Gram.
     params = {"lengthscale": 0.4, "signal_variance": 1.0}
@@ -1017,41 +1049,99 @@ def inv_kernel_times(torch, gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def trail_want(torch, s0, l_col, wj, j0: int, row0: int, b: int):
+    """Kernel L's float64 twin, its live block counted here (global rows
+    >= j0 + B, columns < j0 + B) rather than by the wrapper's
+    `_trail_ranges`: (want, first live row, live columns)."""
+    r_b, w = min(max(j0 + b - row0, 0), s0.shape[0]), min(j0 + b, s0.shape[1])
+    want = s0.to(torch.float64, copy=True)
+    want[r_b:, :w] -= l_col[r_b:].double() @ wj[:, :w].double()
+    return want, r_b, w
+
+
 def inv_and_trail_kernels(torch, gen, results: dict) -> None:
     """J and K (`inv_kernel_checks`), then L at the sharded TRSM's shapes
-    (P = 1: R = C = 16,384, B = 256, j0 = 8,192): tol 1e-4 x the magnitude
-    sum |a||b| of the worst output plus 4 float32 ulps of max|S| (in place,
-    as H)."""
+    (P = 1: R = C = 16,384, B = 256, j0 = 8,192; a P = 4 band at row0 4,096
+    whose live block starts inside it): float32 L, the split-TF32 tile's NN
+    layout with SUB_FROM in place, against its float64 twin at TC_TOL x
+    sum|a||b| of the worst output plus 4 float32 ulps of max|S|, S
+    bit-identical outside the live block, the bias gate on nonnegative
+    operands; float64 L (the SIMT tile) at 1e-12 x sum|a||b| at a ragged
+    shape.  Then L timed beside its float32 twin and `addmm`: the card's
+    time (`device_ms`, the kernels line's), CUDA events around back-to-back
+    calls, and the host's enqueue."""
     from gpis_tpu_torch.linalg import cuda_chol
 
     inv_kernel_checks(torch, gen, results)
     dev = gen.device
     c, b = 16384, 256
-    j0, row0 = c // 2, 0
+    ulp = torch.finfo(torch.float32).eps
     s0 = torch.randn((c, c), generator=gen, device=dev)
     l_band = torch.randn((c, c), generator=gen, device=dev) / b**0.5
-    l_col = l_band[:, j0:j0 + b]  # column panel j of the band, leading dimension C
     wj = torch.randn((b, c), generator=gen, device=dev)
-    wj[:, j0 + b:] = 0.0  # a lower-triangular W row panel
-    got = cuda_chol.band_trail(s0.clone(), l_col, wj, j0, row0)
-    want = cuda_chol.band_trail_reference(s0.clone(), l_col, wj, j0, row0)
-    err = (got - want).abs().max().item()
-    r_b, w = j0 + b - row0, j0 + b  # the live rows and columns
-    untouched = torch.equal(got[:r_b], s0[:r_b]) and torch.equal(got[:, w:], s0[:, w:])
-    del got, want
-    scale = (l_col[r_b:].abs() @ wj[:, :w].abs()).max().item()
-    tol = 1e-4 * scale + 4 * torch.finfo(torch.float32).eps * s0.abs().max().item()
+    worst = 0.0
+    for j0, row0, rows in ((c // 2, 0, c), (4096, 4096, 4096)):
+        l_col = l_band[:rows, j0:j0 + b]  # column panel j of the band, leading dimension C
+        w_j = wj.clone()
+        w_j[:, j0 + b:] = 0.0  # a lower-triangular W row panel
+        s = s0[:rows]
+        got = cuda_chol.band_trail(s.clone(), l_col, w_j, j0, row0)
+        want, r_b, w = trail_want(torch, s, l_col, w_j, j0, row0, b)
+        err, tol = tc_err(got, want, l_col[r_b:], w_j[:, :w])
+        untouched = torch.equal(got[:r_b], s[:r_b]) and torch.equal(got[:, w:], s[:, w:])
+        del got, want
+        check(f"band_trail R={rows} C={c} B={b} j0={j0} row0={row0} f32 vs f64 twin "
+              f"(tol {TC_TOL} x sum|a||b| + 4 ulp max|S|)", err,
+              tol + 4 * ulp * s.abs().max().item())
+        if not untouched:
+            fail(f"band_trail (row0 {row0}, j0 {j0}) wrote outside its live rows and columns")
+        worst = max(worst, err)
+    # The bias gate, S = 0 and nonnegative operands.
+    j0 = c // 2
+    l_col = torch.rand((c, b), generator=gen, device=dev)
+    w_j = torch.rand((b, c), generator=gen, device=dev)
+    w_j[:, j0 + b:] = 0.0
+    got = -cuda_chol.band_trail(torch.zeros((c, c), device=dev), l_col, w_j, j0, 0)
+    bias = tc_bias(got[j0 + b:, :j0 + b], l_col[j0 + b:].double() @ w_j[:, :j0 + b].double())
+    check(f"band_trail bias on nonnegative operands, j0={j0}", abs(bias), TC_BIAS,
+          err_name="|mean rel err|")
+    del got, l_col
+    # float64, the SIMT tile: a ragged band (R 3,000 at row0 1,000, B 200).
+    s64 = torch.randn((3000, 4000), generator=gen, device=dev, dtype=torch.float64)
+    l64 = torch.randn((3000, 4000), generator=gen, device=dev, dtype=torch.float64)[:, 1400:1600]
+    w64 = torch.randn((200, 4000), generator=gen, device=dev, dtype=torch.float64)
+    w64[:, 1600:] = 0.0
+    got = cuda_chol.band_trail(s64.clone(), l64, w64, 1400, 1000)
+    want, r_b, w = trail_want(torch, s64, l64, w64, 1400, 1000, 200)
+    check("band_trail float64 R=3000 B=200 j0=1400 row0=1000 (tol 1e-12 x sum|a||b|)",
+          (got - want).abs().max().item(),
+          1e-12 * (l64[r_b:].abs() @ w64[:, :w].abs()).max().item())
+    del s64, l64, w64, got, want
+
+    # Timed at P = 1, j0 = 8,192: 7,936 live rows x 8,448 columns, k 256.
+    l_col = l_band[:, j0:j0 + b]
+    w_j = wj.clone()
+    w_j[:, j0 + b:] = 0.0
+    r_b, w = j0 + b, j0 + b
     work = s0.clone()
-    ms = time_ms(torch, lambda: cuda_chol.band_trail(work, l_col, wj, j0, row0), 10)
-    plain = time_ms(torch, lambda: cuda_chol.band_trail_reference(work, l_col, wj, j0, row0), 10)
-    check(f"band_trail R={c} C={c} B={b} j0={j0} row0={row0}", err, tol, ms, plain)
-    if not untouched:
-        fail("band_trail wrote outside its live rows and columns")
-    lib = time_ms(torch, lambda: torch.addmm(s0[r_b:, :w], l_col[r_b:], wj[:, :w], alpha=-1), 10)
+    kernel = lambda: cuda_chol.band_trail(work, l_col, w_j, j0, 0)  # noqa: E731
+    lib_fn = lambda: torch.addmm(s0[r_b:, :w], l_col[r_b:], w_j[:, :w], alpha=-1)  # noqa: E731
+    ms = device_ms(torch, kernel, 10)
+    plain = device_ms(torch, lambda: cuda_chol.band_trail_reference(work, l_col, w_j, j0, 0), 10)
+    lib = device_ms(torch, lib_fn, 10)
     rows = c - r_b
-    results["band_trail"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                                 **bound(2 * rows * b * w, 4 * (2 * rows * w + rows * b + b * w)))
-    del s0, l_band, l_col, wj, work
+    results["band_trail"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain, library_ms=lib,
+        events_ms=time_ms(torch, kernel, 10), library_events_ms=time_ms(torch, lib_fn, 10),
+        host_us=host_us(torch, kernel, 50), library_host_us=host_us(torch, lib_fn, 50),
+        **bound(2 * rows * b * w, 4 * (2 * rows * w + rows * b + b * w), SPLIT_TF32_FLOPS))
+    t = results["band_trail"]
+    say(f"  band_trail R={c} B={b} j0={j0}: card {ms:.4f} ms (plain {plain:.4f}, addmm "
+        f"{lib:.4f}), events {t['events_ms']:.4f} ms (addmm {t['library_events_ms']:.4f}), host "
+        f"{t['host_us']:.1f} us a call (addmm {t['library_host_us']:.1f}); bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    del s0, l_band, l_col, wj, w_j, work
+    torch.cuda.empty_cache()
 
 
 def phase2(torch, results: dict) -> None:

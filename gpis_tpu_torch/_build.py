@@ -74,8 +74,10 @@ _SIGNATURES = {
     "gpis_panel_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P],
     # v, ldv, b, rhs, ldr, n, out, ldo, units, n_units, tiles, n_tiles, ws, stream
     "gpis_row_scale": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64, _P, _P],
-    # s, lds, r, c, lcol, ldl, wj, ldw, bw, j0, row0, stream
-    "gpis_band_trail": [_P, _I64, _I64, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P],
+    # s, lds, lcol, ldl, wj, ldw, rows, w, bw, units, n_units, tiles, n_tiles, ws, stream (s
+    # and lcol at the live block's first row, `cuda_chol._trail_ranges`)
+    "gpis_band_trail": [_P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _I64, _P,
+                        _P],
 }
 
 _lib = None

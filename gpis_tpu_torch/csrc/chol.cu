@@ -40,7 +40,19 @@
 // I, stripe write, replaces `stripe_write_pallas` (pallas_call at :429, body
 // `_stripe_kernel` :389):  dst[:, c0 : c0 + W] = blk, in place.  On the TPU
 // it existed because XLA did not alias dynamic_update_slice; here it is a
-// plain coalesced copy: a warp writes 32 consecutive elements of one row.
+// copy bound by bytes (2 R W elements moved, nothing computed), so what
+// matters is keeping enough loads in flight for HBM: 16-byte vectors, four
+// a thread loaded before any is stored, 256 threads a CTA, four CTAs
+// resident a multiprocessor (64 KB in flight an SM, where Little's law at
+// 3.35 TB/s and ~1 us asks for ~25 KB).  A grid of 8 CTAs a multiprocessor
+// walks (rows, column chunk) work items (scripts/torch_stripe_variants.py
+// measured 2, 4 and 8, and 8 loads a thread); a narrow stripe packs several
+// rows into one item.  Vectors need dst + c0 and blk at the same offset mod
+// 16 bytes and both row pitches a multiple of 16 bytes (every out-of-core
+// call: c0 a multiple of the panel, the pitches C and P); each row's scalar
+// head (up to the first 16-byte boundary) and tail, or the whole row where
+// vectors are not allowed, are copied by the same grid afterwards, one
+// element a thread.
 //
 // J, panel scale, replaces `panel_scale_pallas` (pallas_call at :461, body
 // `_panel_scale_kernel` :446), the Cholesky panel solve of the
@@ -72,28 +84,32 @@
 // rows whose global index is >= j0 + B and columns c < j0 + B.  Wj, the
 // broadcast W row panel j, is zero at columns >= j0 + B (W is
 // lower-triangular), and Lcol is masked to zero above row j0 + B: the
-// launcher trims both ranges, so no tile is launched outside them.  The
-// Pallas kernel copied those tiles through, which is why it lost to XLA on
-// the TPU (gpis_tpu/linalg/sharded.py:317-322).  L is H's product with the
-// sign flipped, on that row-trimmed view.
+// wrapper trims both ranges (cuda_chol.py `_trail_ranges`, the one place
+// that computes them) and hands both entry points the live block, so no
+// tile is launched outside it.  The Pallas kernel copied those tiles
+// through, which is why it lost to XLA on the TPU
+// (gpis_tpu/linalg/sharded.py:317-322).  L is H's product with the sign
+// flipped, on that row-trimmed view: in float32 the tensor-core tile's NN
+// layout with the SUB_FROM epilogue in place (out = S; the tile reads only
+// Lcol and Wj, other buffers), at most B = 256 deep, so never split.
 //
-// In float32, B, C, G, H, J and K run on the tensor cores (tc_nn.cuh:
+// In float32, B, C, G, H, J, K and L run on the tensor cores (tc_nn.cuh:
 // split-TF32 wgmma, TMA, a fixed-order split-K reduce; B, G and J as its NT
 // layout, B as G in place); the SIMT bodies below serve their float64
-// instantiations, and H's body serves Kernel L in both types.
+// instantiations (H's body serves L in float64).
 //
 // What bounds them on the H100: arithmetic for B, C, G, H and L; bytes for
 // I, and for float32 J and K.
 // At n = 16,384 each factor is ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes
 // of traffic per step, so the products sit far above the memory roofline;
-// for the SIMT bodies (L, and float64) the bound is the SIMT FP32 rate
-// (67 TFLOP/s at 700 W), for float32 B, C, G, H, J and K the split-TF32 rate
-// (494.7 / 4 TFLOP/s, tc_nn.cuh).  I moves 2 R W elements and computes
-// nothing.  J and K are one (R, B) x (B, B) product each (~1 GFLOP at
-// R = 16,128, B = 256, 33 MB moved): at the split-TF32 rate their bytes
-// bound them (~10 us), and launched 63 and 64 times a factor behind the
-// factor step's host sync, their launches and the host loop around them
-// set much of their share of fit_s (PERF.md section 5).
+// for the SIMT bodies (float64) the bound is the SIMT rate, for float32 B,
+// C, G, H, J, K and L the split-TF32 rate (494.7 / 4 TFLOP/s, tc_nn.cuh).
+// I moves 2 R W elements and computes nothing.  J and K are one (R, B) x
+// (B, B) product each (~1 GFLOP at R = 16,128, B = 256, 33 MB moved): at
+// the split-TF32 rate their bytes bound them (~10 us), and launched 63 and
+// 64 times a factor behind the factor step's host sync, their launches and
+// the host loop around them set much of their share of fit_s (PERF.md
+// section 5).
 // What the SIMT design does about it: a shared-memory tiled SGEMM (64 x 64
 // output tiles, k-slices of 16, 4 x 4 FMA register tiles a thread) whose k
 // loop stops at j0 (k0 for G), so the dead k >= j0 half of every product is
@@ -289,13 +305,63 @@ row_scale_kernel(const T* __restrict__ v, int64_t ldv, int64_t b, const T* __res
   }
 }
 
+// I's work items: STRIPE_ITEM vectors each, `1 << vpr_log2` of one row's
+// vectors (a power of two, >= the row's count up to STRIPE_ITEM) from each of
+// STRIPE_ITEM >> vpr_log2 rows.
+constexpr int STRIPE_THREADS = 256;
+constexpr int STRIPE_UNROLL = 4;  // vector loads a thread issues before its stores
+constexpr int STRIPE_ITEM_LOG2 = 10;
+constexpr int STRIPE_ITEM = 1 << STRIPE_ITEM_LOG2;
+static_assert(STRIPE_ITEM == STRIPE_THREADS * STRIPE_UNROLL, "one vector a thread a load");
+constexpr int STRIPE_CTAS_PER_SM = 8;  // 4 resident at once (60 registers a thread)
+
 template <typename T>
-__global__ void stripe_write_kernel(T* __restrict__ dst, int64_t ldd, const T* __restrict__ blk,
-                                    int64_t ldb, int64_t r, int64_t w, int64_t c0) {
-  for (int64_t i = blockIdx.y; i < r; i += gridDim.y)
-    for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < w;
-         c += (int64_t)gridDim.x * blockDim.x)
-      dst[i * ldd + c0 + c] = blk[i * ldb + c];
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+// dst (already at column c0) [:, :w] = blk: each row's `head` scalars, then
+// `nvec` 16-byte vectors, then its scalar tail (w - head - nvec * PER).
+template <typename T>
+__global__ void __launch_bounds__(STRIPE_THREADS)
+stripe_write_kernel(T* __restrict__ dst, int64_t ldd, const T* __restrict__ blk, int64_t ldb,
+                    int64_t r, int64_t w, int64_t head, int64_t nvec, int vpr_log2) {
+  using V = typename Vec16<T>::type;
+  constexpr int PER = 16 / sizeof(T);
+  const int64_t vpr = int64_t(1) << vpr_log2;
+  const int rpi_log2 = STRIPE_ITEM_LOG2 - vpr_log2;
+  const int64_t col_items = (nvec + vpr - 1) >> vpr_log2;
+  const int64_t items = nvec > 0 ? col_items * ((r + (int64_t(1) << rpi_log2) - 1) >> rpi_log2) : 0;
+  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+    const int64_t row0 = (it / col_items) << rpi_log2;
+    const int64_t vec0 = (it % col_items) << vpr_log2;
+    V v[STRIPE_UNROLL];
+#pragma unroll
+    for (int j = 0; j < STRIPE_UNROLL; ++j) {
+      const int e = j * STRIPE_THREADS + threadIdx.x;
+      const int64_t row = row0 + (e >> vpr_log2), vec = vec0 + (e & (vpr - 1));
+      if (row < r && vec < nvec) v[j] = reinterpret_cast<const V*>(blk + row * ldb + head)[vec];
+    }
+#pragma unroll
+    for (int j = 0; j < STRIPE_UNROLL; ++j) {
+      const int e = j * STRIPE_THREADS + threadIdx.x;
+      const int64_t row = row0 + (e >> vpr_log2), vec = vec0 + (e & (vpr - 1));
+      if (row < r && vec < nvec) reinterpret_cast<V*>(dst + row * ldd + head)[vec] = v[j];
+    }
+  }
+  const int64_t nscal = w - nvec * PER;  // head + tail of a row
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < r * nscal;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = i / nscal, k = i % nscal;
+    const int64_t col = k < head ? k : k + nvec * PER;
+    dst[row * ldd + col] = blk[row * ldb + col];
+  }
 }
 
 template <typename T>
@@ -357,18 +423,15 @@ static int launch_row_scale(const T* v, int64_t ldv, int64_t b, const T* rhs, in
   return (int)cudaGetLastError();
 }
 
-// L: the live rows of the band start at global row j0 + bw (local row
-// j0 + bw - row0), the live columns end at j0 + bw.
+// L in float64: H's SIMT body with the sign flipped, on the live block that
+// the wrapper trimmed (s and lcol at its first row, rows x w).
 template <typename T>
-static int launch_band_trail(T* s, int64_t lds, int64_t r, int64_t c, const T* lcol,
-                             int64_t ldl, const T* wj, int64_t ldw, int64_t bw, int64_t j0,
-                             int64_t row0, void* stream) {
-  const int64_t r_start = j0 + bw - row0 < 0 ? 0 : j0 + bw - row0;
-  const int64_t w = j0 + bw < c ? j0 + bw : c;
-  if (r_start >= r || w <= 0 || bw <= 0) return 0;
-  const unsigned int blocks = ceil_div(r - r_start, TILE) * ceil_div(w, TILE);
+static int launch_band_trail(T* s, int64_t lds, const T* lcol, int64_t ldl, const T* wj,
+                             int64_t ldw, int64_t rows, int64_t w, int64_t bw, void* stream) {
+  if (rows <= 0 || w <= 0 || bw <= 0) return 0;
+  const unsigned int blocks = ceil_div(rows, TILE) * ceil_div(w, TILE);
   gemm_nn_acc_masked_kernel<T, true><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
-      lcol + r_start * ldl, ldl, r - r_start, wj, ldw, bw, s + r_start * lds, lds, w);
+      lcol, ldl, rows, wj, ldw, bw, s, lds, w);
   return (int)cudaGetLastError();
 }
 
@@ -376,9 +439,33 @@ template <typename T>
 static int launch_stripe_write(T* dst, int64_t ldd, const T* blk, int64_t ldb, int64_t r,
                                int64_t w, int64_t c0, void* stream) {
   if (r <= 0 || w <= 0) return 0;
-  const dim3 grid(ceil_div(w, 256) < 64u ? ceil_div(w, 256) : 64u,
-                  r < 65535 ? (unsigned int)r : 65535u);
-  stripe_write_kernel<T><<<grid, 256, 0, (cudaStream_t)stream>>>(dst, ldd, blk, ldb, r, w, c0);
+  constexpr int PER = 16 / sizeof(T);
+  T* out = dst + c0;
+  const uintptr_t off = reinterpret_cast<uintptr_t>(blk) % 16;
+  // Vectors where every row of out and blk sits at the same offset mod 16.
+  const bool vec = reinterpret_cast<uintptr_t>(out) % 16 == off &&
+                   (ldd * (int64_t)sizeof(T)) % 16 == 0 && (ldb * (int64_t)sizeof(T)) % 16 == 0;
+  const int64_t to16 = (int64_t)((16 - off) % 16 / sizeof(T));  // scalars to a 16-byte boundary
+  const int64_t head = vec && to16 < w ? to16 : w;
+  const int64_t nvec = vec ? (w - head) / PER : 0;
+  int vpr_log2 = 0;
+  while (vpr_log2 < STRIPE_ITEM_LOG2 && (int64_t(1) << vpr_log2) < nvec) ++vpr_log2;
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int64_t rows_per_item = int64_t(1) << (STRIPE_ITEM_LOG2 - vpr_log2);
+  const int64_t items = nvec > 0 ? ((nvec + (int64_t(1) << vpr_log2) - 1) >> vpr_log2) *
+                                       ((r + rows_per_item - 1) / rows_per_item)
+                                 : 0;
+  const int64_t scalar_ctas = ceil_div(r * (w - nvec * PER), STRIPE_THREADS);
+  const int64_t want = items > scalar_ctas ? items : scalar_ctas;
+  const int64_t cap = (int64_t)STRIPE_CTAS_PER_SM * (n_sm > 0 ? n_sm : 132);
+  const unsigned int grid = (unsigned int)(want < cap ? want : cap);
+  stripe_write_kernel<T><<<grid, STRIPE_THREADS, 0, (cudaStream_t)stream>>>(
+      out, ldd, blk, ldb, r, w, head, nvec, vpr_log2);
   return (int)cudaGetLastError();
 }
 
@@ -513,14 +600,27 @@ int gpis_row_scale_f64(const double* v, int64_t ldv, int64_t b, const double* rh
   return gpis::launch_row_scale<double>(v, ldv, b, rhs, ldr, n, out, ldo, stream);
 }
 
-#define GPIS_INV_ENTRY_POINTS(T, SUF)                                                          \
-  int gpis_band_trail_##SUF(T* s, int64_t lds, int64_t r, int64_t c, const T* lcol,            \
-                            int64_t ldl, const T* wj, int64_t ldw, int64_t bw, int64_t j0,     \
-                            int64_t row0, void* stream) {                                      \
-    return gpis::launch_band_trail<T>(s, lds, r, c, lcol, ldl, wj, ldw, bw, j0, row0, stream); \
-  }
+// L in float32: S -= Lcol Wj on the live block, on the tensor cores: the NN
+// layout with SUB_FROM in place (S = out), over the plan (`_tc_plan` of the
+// live rows x w columns, k < bw; at bw <= 256 one unit a tile).  s and lcol
+// point at the block's first row (`_trail_ranges` in the wrapper); the tile
+// reads only lcol and wj, other buffers than s.
+int gpis_band_trail_f32(float* s, int64_t lds, const float* lcol, int64_t ldl, const float* wj,
+                        int64_t ldw, int64_t rows, int64_t w, int64_t bw, const void* units,
+                        int64_t n_units, const void* tiles, int64_t n_tiles, float* ws,
+                        void* stream) {
+  if (rows <= 0 || w <= 0 || bw <= 0) return 0;
+  return gpis::tc::launch<gpis::tc::NN, gpis::tc::SUB_FROM>(
+      lcol, ldl, wj, ldw, bw, w, s, lds, s, lds, rows, w,
+      static_cast<const gpis::tc::Unit*>(units), n_units,
+      static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
+}
 
-GPIS_INV_ENTRY_POINTS(float, f32)
-GPIS_INV_ENTRY_POINTS(double, f64)
+// L in float64 keeps the SIMT tile; it takes no plan.
+int gpis_band_trail_f64(double* s, int64_t lds, const double* lcol, int64_t ldl,
+                        const double* wj, int64_t ldw, int64_t rows, int64_t w, int64_t bw,
+                        const void*, int64_t, const void*, int64_t, double*, void* stream) {
+  return gpis::launch_band_trail<double>(s, lds, lcol, ldl, wj, ldw, rows, w, bw, stream);
+}
 
 }  // extern "C"

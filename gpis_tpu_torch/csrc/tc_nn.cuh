@@ -1,7 +1,8 @@
-// The float32 products of Kernels B, C, G, H, J and K on the tensor cores
+// The float32 products of Kernels B, C, G, H, J, K and L on the tensor cores
 // (sm_90a):
 //
-//     NN: out[m, n] (=, or +=) sum_{k in [kb, ke)} A[m, k] * B[k, n]
+//     NN: out[m, n] (=, or +=) sum_{k in [kb, ke)} A[m, k] * B[k, n],
+//         or (SUB_FROM) S[m, n] minus the sum
 //     NT: out[m, n] = S[m, n] - sum_{k in [kb, ke)} A[m, k] * B[n, k],
 //         or (STORE) the sum alone
 //
@@ -15,9 +16,10 @@
 // panel and row solves, one product each with V = Ljj^{-1} (B x B,
 // lower-triangular): J = acc V^T, NT with STORE, each 128-column tile over
 // k up to its last column; K = V rhs, NN with STORE, each 128-row tile over
-// k up to its last row (the plan's per-tile k range).  All six replace their
-// FP32 SIMT bodies in float32; the float64 instantiations and Kernel L keep
-// the SIMT tile of common.cuh.
+// k up to its last row (the plan's per-tile k range).  L (band_trail) is the
+// sharded TRSM's S -= Lcol Wj on a rank's live block, NN with SUB_FROM in
+// place, B = 256 deep.  All seven replace their FP32 SIMT bodies in float32;
+// the float64 instantiations keep the SIMT tile of common.cuh.
 //
 // Precision: FP32-grade products from TF32 wgmma ("split TF32").
 //   * Each operand is split as x = hi + lo, hi = rna_tf32(x),
@@ -40,8 +42,8 @@
 //     sum|a||b| at k 24,576, past the 2e-6 gate, where 2,048-deep segments
 //     keep to ~0.2e-6 (sqrt(256) ulps a segment, sqrt(12) segments).  A
 //     segment's flush reads and writes the 128 x 128 tile once, its loads
-//     issued in groups.  NN (C and H) keeps its single running sum, bit for
-//     bit.
+//     issued in groups.  NN (C, H, K and L) keeps its single running sum,
+//     bit for bit; L's S - sum is then rounded once in FP32, as `addmm_`.
 //
 // What bounds it: four TF32 passes, 494.7 TFLOP/s / 4 = 124 TFLOP/s of
 // useful work on an H100 at 700 W; the operands are read once per 128 x 128
@@ -85,6 +87,9 @@
 //   * J reads the factor's panel below the diagonal block and writes a new
 //     buffer: in place it could not be, since its tile at columns [0, 128)
 //     writes what its tile at [128, 256) reads.  K writes a new buffer too.
+//   * L (NN, SUB_FROM) is in place on the band's live block, S = out; A is
+//     the band's column panel of L and B the broadcast W row panel, other
+//     buffers than S, so no unit reads what any unit writes.
 // No unit reads what another unit, or the finish kernel, writes.
 #pragma once
 
@@ -108,8 +113,8 @@ constexpr int SMEM_BYTES = 1024 + 2 * RAW_BYTES + 2 * 4 * SPLIT_BYTES + 64;
 
 // B's layout: NN (k rows, n-contiguous) or NT (n rows, k-contiguous).
 enum Layout { NN = 0, NT = 1 };
-// Epilogues: C, J and K store, H adds into U's old values, B and G subtract
-// from S.
+// Epilogues: C, J and K store, H adds into U's old values, B, G and L
+// subtract from S.
 enum Epilogue { STORE = 0, ADD = 1, SUB_FROM = 2 };
 
 // One CTA's work: output tile (m0, n0), k range [kb, ke), and the partial

@@ -26,9 +26,9 @@ and L take their views the same way.  All but I are bound by arithmetic on
 the card, I by bytes; csrc/chol.cu says how their loops skip the dead part
 of each product.
 
-In float32, B, C, G, H, J and K are one split-TF32 tensor-core kernel
-(csrc/tc_nn.cuh; C, H and K its NN layout, G and J its NT layout, B G in
-place):
+In float32, B, C, G, H, J, K and L are one split-TF32 tensor-core kernel
+(csrc/tc_nn.cuh; C, H, K and L its NN layout, G and J its NT layout, B G
+and L in place):
 TMA reads their operands, so each float32 view it reads must start on 16
 bytes with a leading dimension of a multiple of 4 floats (`_check_tma`; a
 view that is not raises ValueError -- there is no staging copy), and
@@ -88,8 +88,8 @@ def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
              upper: str | None = None, n_sm: int = 132):
     """The tensor-core product's work over output rows [0, rows), columns
     [0, cols) and k < k_hi, as (units, finish, n_slots); the same for both
-    layouts of B (NN: C, H and K; NT: B, G and J, which take no triangle or
-    width):
+    layouts of B (NN: C, H, K and L; NT: B, G and J, which take no triangle
+    or width):
 
     * units: (m0, n0, kb, ke, slot), one CTA each: the 128 x 128 tile at
       (m0, n0) over k in [kb, ke).  A tile's k range starts at 0, or with
@@ -180,10 +180,10 @@ def _check_tma(what: str, *mats: torch.Tensor) -> None:
 def _tc_launch_args(what: str, a: torch.Tensor, b: torch.Tensor, rows: int, cols: int,
                     k_hi: int, *, triangle: bool = False, width: int = 0,
                     upper: str | None = None):
-    """The plan and workspace arguments of B's, C's, G's, H's, J's and K's
-    entry points: for float32, after `_check_tma` on the operands the kernel
-    reads (a, b); for float64 (the SIMT tile) null.  A plan with no partials
-    takes no workspace.  Returns (args, keep-alive tensors)."""
+    """The plan and workspace arguments of B's, C's, G's, H's, J's, K's and
+    L's entry points: for float32, after `_check_tma` on the operands the
+    kernel reads (a, b); for float64 (the SIMT tile) null.  A plan with no
+    partials takes no workspace.  Returns (args, keep-alive tensors)."""
     if a.dtype != torch.float32:
         return (None, 0, None, 0, None), ()
     _check_tma(what, a, b)
@@ -382,7 +382,8 @@ def row_scale(v: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def _trail_ranges(r: int, c: int, block: int, j0: int, row0: int) -> tuple[int, int]:
     """Kernel L's live region: local rows from the first whose global index
-    is >= j0 + block, columns below j0 + block."""
+    is >= j0 + block, columns below j0 + block.  The one place that computes
+    it: the twin and both of the kernel's entry points take it from here."""
     return min(max(j0 + block - row0, 0), r), min(j0 + block, c)
 
 
@@ -402,7 +403,9 @@ def band_trail(s: torch.Tensor, l_col: torch.Tensor, wj: torch.Tensor, j0: int,
     s (R, C) is a row band of S at global rows [row0, row0 + R), l_col
     (R, B) the band's column panel j of L, wj (B, C) the W row panel j,
     zero at columns >= j0 + B (the update leaves those columns alone).
-    Each is a row-major view."""
+    Each is a row-major view.  In float32 the tensor-core tile's NN layout
+    with SUB_FROM in place on the live block (`_trail_ranges`), planned over
+    its rows x columns, k < B."""
     r, c = s.shape
     b = l_col.shape[1]
     if l_col.shape[0] != r or wj.shape != (b, c) or j0 < 0 or row0 < 0:
@@ -411,11 +414,13 @@ def band_trail(s: torch.Tensor, l_col: torch.Tensor, wj: torch.Tensor, j0: int,
     if s.device.type == "cpu":
         return band_trail_reference(s, l_col, wj, j0, row0)
     _build.check_cuda_rows("band_trail", s, l_col, wj)
-    r_b, w = _trail_ranges(r, c, b, j0, row0)
+    r_b, w = _trail_ranges(r, c, b, int(j0), int(row0))
     if r_b >= r or w <= 0 or b == 0:  # no live row: nothing launched
         return s
-    _build.call("gpis_band_trail", s, s.data_ptr(), s.stride(0), r, c, l_col.data_ptr(),
-                l_col.stride(0), wj.data_ptr(), wj.stride(0), b, int(j0), int(row0))
+    live_s, live_l = s[r_b:], l_col[r_b:]
+    plan, _keep = _tc_launch_args("band_trail", live_l, wj, r - r_b, w, b)
+    _build.call("gpis_band_trail", s, live_s.data_ptr(), s.stride(0), live_l.data_ptr(),
+                l_col.stride(0), wj.data_ptr(), wj.stride(0), r - r_b, w, b, *plan)
     _build.LAUNCHES["band_trail"] += 1
     return s
 

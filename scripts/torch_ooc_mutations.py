@@ -13,8 +13,10 @@ kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
 (float32 B and G, its NT layout, with the bias gate at a = b; and B and G
 in float64, the SIMT tile) or `chip_smoke.inv_and_trail_kernels` (float32
 J and K, the tile's NT and NN layouts with STORE, with their bias gate, and
-J and K in float64, the SIMT tile, at the in-core factor's shapes; L at the
-sharded TRSM's).
+J and K in float64, the SIMT tile, at the in-core factor's shapes; float32
+L, the NN layout with SUB_FROM in place, with its bias gate and its
+untouched-region check, and L in float64, the SIMT tile, at the sharded
+TRSM's).
 A mutation is caught when a check fails.  Prints
 one line per mutation with the failing check; exits nonzero if any mutation
 passed every check.  The repository itself is never modified.
@@ -41,7 +43,7 @@ MUTATIONS = [
      "const int64_t k_end = min64(row0 + rows, c);"),
     ("G skips its last k slice (the SIMT NT body: G in float64)", NT,
      "gpis_tpu_torch/csrc/chol.cu", "ldb, cols, 0, k0);", "ldb, cols, 0, k0 - BK);"),
-    ("L skips its last k slice (the SIMT NN body: L, and H in float64)", INV,
+    ("L skips its last k slice (the SIMT NN body: L and H in float64)", INV,
      "gpis_tpu_torch/csrc/chol.cu",
      "for (int64_t k0 = 0; k0 < kd; k0 += BK) {", "for (int64_t k0 = 0; k0 < kd - BK; k0 += BK) {"),
     ("C/H drop the hi*lo cross product", NN, "gpis_tpu_torch/csrc/tc_nn.cuh",
@@ -81,8 +83,14 @@ MUTATIONS = [
     ("B/G as 1xTF32 (lo halves zero)", NT, "gpis_tpu_torch/csrc/tc_nn.cuh",
      "lo = __uint_as_float(rna_tf32(x - hi));", "lo = 0.0f;"),
     ("I drops the stripe's last row", OOC, "gpis_tpu_torch/csrc/chol.cu",
-     "for (int64_t i = blockIdx.y; i < r; i += gridDim.y)",
-     "for (int64_t i = blockIdx.y; i < r - 1; i += gridDim.y)"),
+     "out, ldd, blk, ldb, r, w, head, nvec, vpr_log2);",
+     "out, ldd, blk, ldb, r - 1, w, head, nvec, vpr_log2);"),
+    ("I's vector path drops a row's last vector", OOC, "gpis_tpu_torch/csrc/chol.cu",
+     "if (row < r && vec < nvec) reinterpret_cast<V*>(dst",
+     "if (row < r && vec < nvec - 1) reinterpret_cast<V*>(dst"),
+    ("I's scalar tail starts one column late", OOC, "gpis_tpu_torch/csrc/chol.cu",
+     "const int64_t col = k < head ? k : k + nvec * PER;",
+     "const int64_t col = k < head ? k : k + nvec * PER + 1;"),
     ("A band mode puts k(0) + noise at the in-core diagonal", OOC, "gpis_tpu_torch/csrc/cov.cu",
      "if (sym && row0 + i == j)", "if (sym && i == j)"),
     ("J stops its k loop one slice short of the tile's last column (the SIMT body: J in "
@@ -108,10 +116,20 @@ MUTATIONS = [
      ""),
     ("J/K add each truncated step unrounded", INV, "gpis_tpu_torch/csrc/tc_nn.cuh",
      "acc[i] += round23(step[i]);", "acc[i] += step[i];"),
-    ("L skips its first tile of live rows", INV, "gpis_tpu_torch/csrc/chol.cu",
-     "? 0 : j0 + bw - row0;", "? 0 : j0 + bw - row0 + TILE;"),
-    ("L drops the panel's own B columns", INV, "gpis_tpu_torch/csrc/chol.cu",
-     "const int64_t w = j0 + bw < c ? j0 + bw : c;", "const int64_t w = j0 < c ? j0 : c;"),
+    ("L skips its first tile of live rows", INV, "gpis_tpu_torch/linalg/cuda_chol.py",
+     "r_b, w = _trail_ranges(r, c, b, int(j0), int(row0))",
+     "r_b, w = _trail_ranges(r, c, b, int(j0), int(row0) - TC_TILE)"),
+    ("L drops the panel's own B columns", INV, "gpis_tpu_torch/linalg/cuda_chol.py",
+     "min(j0 + block, c)", "min(j0, c)"),
+    ("L's live rows start one row early (a dead row written)", INV,
+     "gpis_tpu_torch/linalg/cuda_chol.py", "max(j0 + block - row0, 0)",
+     "max(j0 + block - row0 - 1, 0)"),
+    ("L adds the product (ADD in place of SUB_FROM)", INV, "gpis_tpu_torch/csrc/chol.cu",
+     "gpis::tc::launch<gpis::tc::NN, gpis::tc::SUB_FROM>(\n      lcol,",
+     "gpis::tc::launch<gpis::tc::NN, gpis::tc::ADD>(\n      lcol,"),
+    ("L's plan ends one k chunk short", INV, "gpis_tpu_torch/linalg/cuda_chol.py",
+     '_tc_launch_args("band_trail", live_l, wj, r - r_b, w, b)',
+     '_tc_launch_args("band_trail", live_l, wj, r - r_b, w, b - TC_CHUNK)'),
 ]
 
 RUN = ("import torch, chip_smoke as cs; "

@@ -240,11 +240,39 @@ def test_cuda_trsm_finish_alias_case_matches_cpu(cuda):
     torch.testing.assert_close(out[0], out[1], rtol=1e-10, atol=1e-10)
 
 
-@pytest.mark.parametrize("c0", [0, 100, 700])
-def test_cuda_stripe_write_matches_twin(cuda, c0):
+# Kernel I's cases: (dtype, c0, blk's width W, blk's leading dimension, blk's
+# first column in it).  16-byte vectors where dst + c0 and blk sit at one
+# offset mod 16 bytes with both pitches multiples of 16 bytes, a scalar head
+# and tail around them; scalars alone where they do not (an odd pitch, other
+# offsets).  Every case exact.
+_STRIPE_CASES = [
+    (torch.float32, 0, 300, 500, 100), (torch.float32, 100, 300, 500, 100),
+    (torch.float32, 700, 300, 500, 100),                        # aligned: vectors only
+    (torch.float32, 0, 301, 304, 0),                            # vectors, a tail of 1
+    (torch.float32, 3, 7, 16, 3), (torch.float32, 1, 301, 304, 1),  # one offset: head, tail
+    (torch.float32, 1, 7, 16, 0), (torch.float32, 3, 301, 304, 0),  # two offsets: scalars
+    (torch.float32, 0, 301, 301, 0), (torch.float32, 4, 7, 7, 0),   # an odd pitch: scalars
+    (torch.float64, 0, 300, 500, 100), (torch.float64, 1, 300, 302, 1),
+    (torch.float64, 3, 7, 9, 0)]
+
+
+@pytest.mark.parametrize("dtype, c0, w, lead, off", _STRIPE_CASES)
+def test_cuda_stripe_write_matches_twin(cuda, dtype, c0, w, lead, off):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    dst = torch.randn((300, 1000), generator=gen, device=cuda)
-    blk = torch.randn((300, 500), generator=gen, device=cuda)[:, 100:400]
+    dst = torch.randn((300, 1000), generator=gen, device=cuda, dtype=dtype)
+    blk = torch.randn((300, lead), generator=gen, device=cuda, dtype=dtype)[:, off:off + w]
+    _build.LAUNCHES.clear()
+    got = cuda_chol.stripe_write(dst.clone(), blk, c0)
+    assert _build.LAUNCHES["stripe_write"] == 1
+    assert torch.equal(got, cuda_chol.stripe_write_reference(dst.clone(), blk, c0))
+
+
+@pytest.mark.parametrize("c0", [0, 3])
+def test_cuda_stripe_write_past_the_old_grid_cap(cuda, c0):
+    # R = 70,000 rows (the old grid stopped at 65,535 and looped) of W = 8.
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    dst = torch.randn((70000, 16), generator=gen, device=cuda)
+    blk = torch.randn((70000, 8), generator=gen, device=cuda)
     got = cuda_chol.stripe_write(dst.clone(), blk, c0)
     assert torch.equal(got, cuda_chol.stripe_write_reference(dst.clone(), blk, c0))
 
@@ -339,17 +367,85 @@ def test_cuda_row_scale_matches_twin(cuda, dtype):
     torch.testing.assert_close(got, cuda_chol.row_scale_reference(v, rhs), rtol=tol, atol=tol)
 
 
+def _trail_tol(s, l_col, wj, j0, row0):
+    """Float32 L against the float64 twin: 2e-6 x sum|a||b| of the worst live
+    output plus 4 float32 ulps of max|S| (the values the product is
+    subtracted from); 0 with no live row."""
+    r, c = s.shape
+    r_b, w = cuda_chol._trail_ranges(r, c, wj.shape[0], j0, row0)
+    if r_b >= r:
+        return 0.0
+    return _tc_tol(l_col[r_b:], wj[:, :w]) + 4 * torch.finfo(torch.float32).eps * \
+        s.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("row0, j0", [(0, 0), (0, 256), (512, 0), (256, 512), (0, 960)])
-def test_cuda_band_trail_matches_twin(cuda, row0, j0):
+def test_cuda_band_trail_matches_twin(cuda, row0, j0, dtype):
+    # float32: the tensor-core tile (NN, SUB_FROM in place); float64: the SIMT
+    # tile.  (0, 960): no live row, nothing launched.
     gen = torch.Generator(device=cuda).manual_seed(6)
     r, c, b = 512, 1024, 64
     s = torch.randn((r, c), generator=gen, device=cuda, dtype=torch.float64)
     l = torch.randn((r, c), generator=gen, device=cuda, dtype=torch.float64)
     wj = torch.randn((b, c), generator=gen, device=cuda, dtype=torch.float64)
     wj[:, j0 + b:] = 0.0
+    s, l, wj = s.to(dtype), l.to(dtype), wj.to(dtype)
+    want = cuda_chol.band_trail_reference(s.double().clone(), l[:, j0:j0 + b].double(),
+                                          wj.double(), j0, row0)
+    _build.LAUNCHES.clear()
     got = cuda_chol.band_trail(s.clone(), l[:, j0:j0 + b], wj, j0, row0)
-    want = cuda_chol.band_trail_reference(s.clone(), l[:, j0:j0 + b], wj, j0, row0)
-    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    assert _build.LAUNCHES["band_trail"] == (0 if (row0, j0) == (0, 960) else 1)
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    else:
+        err = (got.double() - want).abs().max().item()
+        assert err <= _trail_tol(s, l[:, j0:j0 + b], wj, j0, row0), err
+        assert torch.equal(cuda_chol.band_trail(s.clone(), l[:, j0:j0 + b], wj, j0, row0), got)
+
+
+@pytest.mark.parametrize("c, r, j0, row0", [(4096, 4096, 2048, 0), (4096, 1024, 1024, 1024),
+                                            (4096, 1024, 1280, 1024), (1200, 300, 320, 300)])
+def test_cuda_band_trail_leaves_s_outside_its_live_block(cuda, c, r, j0, row0):
+    """Float32 L in place: S bit-identical above global row j0 + B and at
+    columns >= j0 + B (counted here without `_trail_ranges`), the live block
+    within the tile's gate.  P = 1 at chip_smoke's geometry scaled down,
+    P = 4 bands from their first row and from inside, a ragged band."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    b = 256 if c == 4096 else 64
+    s0 = torch.randn((r, c), generator=gen, device=cuda)
+    l_col = torch.randn((r, c), generator=gen, device=cuda)[:, j0:j0 + b] / b**0.5
+    wj = torch.randn((b, c), generator=gen, device=cuda)
+    wj[:, j0 + b:] = 0.0
+    got = cuda_chol.band_trail(s0.clone(), l_col, wj, j0, row0)
+    dead = min(max(j0 + b - row0, 0), r)
+    assert torch.equal(got[:dead], s0[:dead]) and torch.equal(got[:, j0 + b:], s0[:, j0 + b:])
+    want = s0.double()
+    want[dead:, :j0 + b] -= l_col[dead:].double() @ wj[:, :j0 + b].double()
+    err = (got.double() - want).abs().max().item()
+    assert err <= _trail_tol(s0, l_col, wj, j0, row0), err
+
+
+def test_cuda_band_trail_bias_on_nonnegative_operands(cuda):
+    """Nonnegative Lcol and Wj, S = 0: float32 L's mean relative error
+    within chip_smoke's bias gate, 2e-8."""
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    c, b, j0 = 4096, 256, 1024
+    l_col = torch.rand((c, b), generator=gen, device=cuda)
+    wj = torch.rand((b, c), generator=gen, device=cuda)
+    wj[:, j0 + b:] = 0.0
+    got = -cuda_chol.band_trail(torch.zeros((c, c), device=cuda), l_col, wj, j0, 0)
+    prod = l_col[j0 + b:].double() @ wj[:, :j0 + b].double()
+    assert abs(((got[j0 + b:, :j0 + b].double() - prod) / prod).mean().item()) <= 2e-8
+
+
+def test_cuda_band_trail_refuses_a_view_tma_cannot_address(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    s = torch.zeros((512, 1024), device=cuda)
+    l = torch.randn((512, 1024), generator=gen, device=cuda)
+    wj = torch.randn((64, 1024), generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_chol.band_trail(s, l[:, 1:65], wj, 256, 0)  # the panel one column off
 
 
 def test_cuda_blocked_inv_factor_and_inverse(cuda):

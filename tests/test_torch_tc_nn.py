@@ -1,7 +1,7 @@
-"""The arithmetic and the work plan of float32 Kernels B, C, G, H, J and K,
-the split-TF32 tensor-core product (gpis_tpu_torch/csrc/tc_nn.cuh: C, H and
-K its NN layout, G and J its NT layout, B G in place), on the CPU: no card
-is needed.
+"""The arithmetic and the work plan of float32 Kernels B, C, G, H, J, K and
+L, the split-TF32 tensor-core product (gpis_tpu_torch/csrc/tc_nn.cuh: C, H,
+K and L its NN layout, G and J its NT layout, B G and L in place), on the
+CPU: no card is needed.
 
 * A float64 plain-PyTorch model of the kernel's arithmetic -- the rna split
   of each operand into TF32 hi and lo, the four products of each 8-deep
@@ -26,6 +26,11 @@ is needed.
   twins, the model's bias with and without the step rounding, the inv
   route through the model in the `_QSPLIT` regime, and `_check_tma` on
   every J and K view.
+* L (section f): the planned in-place product (NN, SUB_FROM) over the live
+  block `_trail_ranges` trims, against the twin at P = 1 and P = 4 band
+  geometries with nothing written outside the block; the plan covering the
+  live block once at every step of the sharded TRSM, unsplit; the model's
+  bias with and without the step rounding; `_check_tma` on every L view.
 """
 
 import numpy as np
@@ -414,9 +419,9 @@ def _box(x, r0, c0, nrows, ncols):
 
 def _planned_product(a, b, out, rows, cols, k_hi, *, triangle=False, width=0, add=False,
                      nt=False, s=None, upper=None, n_sm=132):
-    """out (=, or +=) a[:, :k_hi] @ b[:k_hi, :cols] -- or with nt, out =
-    s - a[:, :k_hi] @ b[:cols, :k_hi]^T, and with nt and no s (STORE) the
-    product alone -- taken as the two kernels take it: unit by unit along
+    """out (=, or +=) a[:, :k_hi] @ b[:k_hi, :cols], or with s (SUB_FROM)
+    out = s - the product -- with nt the same of a[:, :k_hi] @ b[:cols,
+    :k_hi]^T -- taken as the two kernels take it: unit by unit along
     `_tc_plan`, each unit reading a and b as they stand when it runs (a and
     b cut to k < k_hi and B to its `cols` rows or columns, zeros past them,
     as the tensor maps' extents), split tiles' partials summed in slot
@@ -431,7 +436,7 @@ def _planned_product(a, b, out, rows, cols, k_hi, *, triangle=False, width=0, ad
     def epilogue(m0, n0, tile):
         dst = out[m0:m0 + TILE, n0:n0 + TILE]
         t = tile[:dst.shape[0], :dst.shape[1]]
-        if nt and s is not None:
+        if s is not None:
             dst.copy_(s[m0:m0 + TILE, n0:n0 + TILE] - t)
         else:
             dst.copy_(dst + t if add else t)
@@ -881,3 +886,124 @@ def test_check_tma_accepts_every_j_and_k_view(monkeypatch):
     assert {r for (r, b), _ in seen["panel_scale"]} >= {768, 512, 256}
     assert any(b == 128 for (_, b), _ in seen["panel_scale"])
     assert {n for (_, n), _ in seen["row_scale"]} >= {256, 512, 768, 1024, model.capacity}
+
+
+# ------------------------------------------------------------ (f) Kernel L
+# L (band_trail, S -= Lcol Wj in place on a rank's row band) is the tile's NN
+# layout with SUB_FROM, planned over the live block that `_trail_ranges`
+# trims: rows from global row j0 + B on, columns below j0 + B, k < B.
+
+
+def _planned_band_trail(s, l_col, wj, j0, row0):
+    """`band_trail` as the wrapper hands it to the tile: the live block of
+    `_trail_ranges`, its plan (live rows x columns, k < B), SUB_FROM in
+    place on S's live block."""
+    r, c = s.shape
+    b = wj.shape[0]
+    r_b, w = cuda_chol._trail_ranges(r, c, b, j0, row0)
+    if r_b < r and w > 0:
+        live = s[r_b:, :w]
+        _planned_product(l_col[r_b:], wj, live, r - r_b, w, b, s=live)
+    return s
+
+
+# (C, R, B, j0, row0): P = 1 at chip_smoke's geometry scaled down (R = C,
+# j0 = C / 2) and at the first and a late step; P = 4 bands (R = C / 4) at
+# row0 > 0 with the live block from the band's first row, from inside it,
+# and not at all (no live row); a ragged band (R 300, B 64).
+_TRAIL_GEOMETRIES = [(2048, 2048, 256, 1024, 0), (2048, 2048, 256, 0, 0),
+                     (2048, 2048, 256, 1792, 0), (2048, 512, 256, 256, 512),
+                     (2048, 512, 256, 512, 512), (2048, 512, 256, 1536, 1536),
+                     (2048, 512, 256, 768, 512), (1200, 300, 64, 320, 300)]
+
+
+@pytest.mark.parametrize("c, r, b, j0, row0", _TRAIL_GEOMETRIES)
+def test_planned_band_trail_in_place_equals_the_twin_in_float64(c, r, b, j0, row0):
+    rng = np.random.default_rng(c + r + b + j0 + row0)
+    s0 = torch.as_tensor(rng.normal(size=(r, c)))
+    l_col = torch.as_tensor(rng.normal(size=(r, c)))[:, j0:j0 + b]  # a strided panel
+    wj = torch.as_tensor(rng.normal(size=(b, c)))
+    wj[:, j0 + b:] = 0.0
+    got = _planned_band_trail(s0.clone(), l_col, wj, j0, row0)
+    want = cuda_chol.band_trail_reference(s0.clone(), l_col, wj, j0, row0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    # Nothing written outside the live block (global rows >= j0 + B,
+    # columns < j0 + B), counted here without `_trail_ranges`.
+    dead_rows = min(max(j0 + b - row0, 0), r)
+    assert torch.equal(got[:dead_rows], s0[:dead_rows])
+    assert torch.equal(got[:, j0 + b:], s0[:, j0 + b:])
+    if dead_rows == r:
+        assert torch.equal(got, s0)
+
+
+@pytest.mark.parametrize("c, p, b", [(16384, 1, 256), (16384, 4, 256), (4096, 4, 64)])
+def test_tc_plan_covers_the_band_trail_live_block_once(c, p, b):
+    """Every step of the sharded TRSM at C (P = 1: chip_smoke's phase 9;
+    P = 4: each rank's band): the plan covers each live (row, column, k)
+    exactly once (`_check_plan`), every tile in one unit over [0, B) -- at
+    B <= 256 nothing is split, so no partial and no finish tile."""
+    r = c // p
+    live = 0
+    for j0 in range(0, c, b):
+        for row0 in range(0, c, r):
+            r_b, w = cuda_chol._trail_ranges(r, c, b, j0, row0)
+            if r_b >= r:
+                continue
+            units, finish, n_slots = _check_plan(r - r_b, w, b)
+            assert n_slots == 0 and not finish
+            assert all(kb == 0 and ke == b and slot == -1 for _, _, kb, ke, slot in units)
+            live += len(units)
+    # Every output tile of every live block, each once.
+    assert live == sum(-(-(r - min(max(j0 + b - row0, 0), r)) // TILE) * -(-(j0 + b) // TILE)
+                       for j0 in range(0, c, b) for row0 in range(0, c, r))
+
+
+def test_tc_model_band_trail_bias_needs_the_step_rounding():
+    """Nonnegative operands, S = 0: L's truncated steps read low by ~4e-8 of
+    the product, past chip_smoke's 2e-8 bias gate; rounded, they keep far
+    inside it.  L's arithmetic is NN's single running sum over B = 256,
+    subtracted once from S (`tc_nt_product` with one segment)."""
+    gen = torch.Generator().manual_seed(8)
+    l_col = torch.rand((1024, 256), generator=gen)
+    wj = torch.rand((256, 1024), generator=gen)
+    want = l_col.double() @ wj.double()
+    biases = {}
+    for rs in (True, False):
+        got = -tc_nt_product(l_col, wj, torch.zeros((1024, 1024)), segment=0, round_steps=rs)
+        biases[rs] = ((got.double() - want) / want).mean().item()
+    print(f"\nL mean relative error: rounded {biases[True]:.3e}, truncated {biases[False]:.3e}")
+    assert abs(biases[True]) <= 2e-9
+    assert biases[False] < -2e-8
+
+
+def test_check_tma_accepts_every_band_trail_view(monkeypatch, tmp_path):
+    """Every (live Lcol, Wj) pair that the sharded TRSM hands to float32 L
+    (`sharded_linv(use_kernel=True)` on one gloo rank, C = 1,024, block 128)
+    starts on 16 bytes with rows a multiple of 4 floats; the loop runs here
+    through the twin, `_check_tma` applied to each call's live views."""
+    import torch.distributed as dist
+
+    from gpis_tpu_torch.linalg import sharded as sh
+    from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+    calls = []
+    twin = cuda_chol.band_trail_reference
+
+    def band_trail(s, l_col, wj, j0, row0):
+        r_b, _ = cuda_chol._trail_ranges(s.shape[0], s.shape[1], wj.shape[0], j0, row0)
+        if r_b < s.shape[0]:
+            cuda_chol._check_tma("band_trail", l_col[r_b:], wj)
+            calls.append(j0)
+        return twin(s, l_col, wj, j0, row0)
+
+    monkeypatch.setattr(cuda_chol, "band_trail", band_trail)
+    g = torch.as_tensor(np.random.default_rng(34).normal(size=(1024, 1024)), dtype=torch.float32)
+    l = torch.linalg.cholesky(g @ g.T / 1024 + torch.eye(1024)).contiguous()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        w = sh.sharded_linv(l, make_row_mesh(1, device="cpu"), block=128, use_kernel=True)
+    finally:
+        dist.destroy_process_group()
+    assert calls == list(range(0, 1024 - 128, 128))  # every step with a live row
+    assert (w.double() @ l.double() - torch.eye(1024, dtype=torch.float64)).abs().max() < 1e-4
