@@ -11,11 +11,15 @@ Phases, one printed line or more each; any failure exits nonzero:
 2. Each kernel against its plain PyTorch twin on the card, at the slices'
    shapes (C = 4,096 and 16,384, 8,192-query chunks; the joint J = 21,504),
    with the tolerance stated beside the error, and the kernel's and the
-   twin's time (CUDA events).  The quads of Kernels D and F are held per
-   query against the twin run in float64.  Plus the variance-quad regime
-   the JAX package's `_QSPLIT` note measured (C = 1,024, noise 1e-3) held
-   against a float64 plain run, and the staged route (A or E, then D)
-   timed against the on-the-fly one (F) at one shape: the card's
+   twin's time (CUDA events).  The quads of Kernels D and F (in float32
+   the split-TF32 tensor-core tile with the QUAD epilogue, F's kq
+   generated in the tile) are held per query against the twin run in
+   float64, at ragged shapes, twice bit for bit, in float64 too, and to the
+   bias gate on nonnegative W and kq (`quad_kernel_checks`).  Plus the
+   variance-quad regime the JAX package's `_QSPLIT` note measured
+   (C = 1,024, noise 1e-3), D and F held against a float64 plain run, D
+   timed at M = 128 beside M = 8,192, and the staged route (A or E, then
+   D) timed against the on-the-fly one (F) at one shape: the card's
    crossover.
 3. The value slice through the user entry point: ObjectModelSession.start
    on a 16,256-point sphere (capacity 16,384), a few queries, the 64^3
@@ -79,8 +83,9 @@ B = 256), L at the sharded TRSM's middle step and I at phase 7's k-step
 (both also by CUDA events back to back and by the host's enqueue), and the
 in-core TRSM at C = 16,384 against the library's
 triangular solve.  Every kernel's line carries its bound: the larger of
-its operations over the card's FP32 rate (67 TFLOP/s; for B, C, G, H, J,
-K and L the split-TF32 rate, 494.7 / 4 TFLOP/s) and its bytes over its
+its operations over the card's FP32 rate (67 TFLOP/s; for B, C, D, F, G,
+H, J, K and L the products at the split-TF32 rate, 494.7 / 4 TFLOP/s, and
+F's kq generation beside them at the FP32 rate) and its bytes over its
 memory rate (3.35 TB/s), counted from the shapes and data of the timed
 call, and the time of the one PyTorch call that computes the same
 function, where there is one.
@@ -111,7 +116,7 @@ SHARDED_W_GAP = 1e-3  # W through Kernel L against the plain W, relative to max|
 FP32_FLOPS = 67e12  # the H100's FP32 rate outside the tensor cores (700 W)
 HBM_BYTES = 3.35e12  # its memory rate
 TF32_FLOPS = 494.7e12  # its dense TF32 tensor-core rate
-SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: float32 B, C, G, H, J-L
+SPLIT_TF32_FLOPS = TF32_FLOPS / 4  # four TF32 passes a product: float32 B-D, F-H, J-L
 TC_TOL = 2e-6  # those against the float64 twin: x sum|a||b| of the worst output
 TC_BIAS = 2e-8  # |mean (out - f64 twin) / sum|a||b|| on nonnegative operands
 F32_EPS = 2.0**-23
@@ -187,11 +192,13 @@ def host_us(torch, fn, reps: int = 200) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-def bound(flops: float, nbytes: float, rate: float = FP32_FLOPS) -> dict:
+def bound(flops: float, nbytes: float, rate: float = FP32_FLOPS, simt_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the operations over
-    `rate` (the FP32 rate unless said otherwise) and the bytes over the
-    memory rate, and which binds."""
-    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+    `rate` (the FP32 rate unless said otherwise), the operations done beside
+    them on the FP32 SIMT cores (`simt_flops`, F's kq generation) over the
+    FP32 rate, and the bytes over the memory rate, and which binds."""
+    t_ops = max(flops / rate, simt_flops / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "bound_rate_tflops": rate / 1e12}
@@ -237,10 +244,29 @@ def query_kernel(torch, gen, kq, results: dict | None) -> None:
     if results is not None:
         # Library call: the product W kq^T alone (the quad squares and sums it).
         lib = timed(lambda: torch.matmul(w, kq.T), 3)
+        # A small query: one wave of C / 128 units, the longest C / 32 chunks deep.
+        small = kq[:128]
+        small_ms = timed(lambda: cuda_query.staged_quad(small, w, alpha), 10)
+        small_lib = timed(lambda: torch.matmul(w, small.T), 10)
+        say(f"  staged_quad M=128 C={c}: kernel {small_ms:.4f} ms  matmul {small_lib:.4f} ms")
+        # The host's first call at a shape makes its plan (Python, then int32
+        # tensors on the card; cached after): timed here uncached.
+        from gpis_tpu_torch.linalg import cuda_chol
+
+        t0 = time.perf_counter()
+        cuda_chol._tc_plan_on.__wrapped__(kq.device, c, m, c, False, 0, "rows", 0, True)
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        say(f"  staged_quad plan M={m} C={c}: {-(-c // 128) * -(-m // 128)} units made in "
+            f"{plan_ms:.1f} ms of host time (a shape's first call)")
+        # The triangular product at the split-TF32 rate (float32: the tensor-core
+        # tile); the mean's GEMV and the squares beside it.
         results["staged_quad"] = dict(max_abs_err=max(err_mean, err_quad), ms=ms,
-                                      plain_ms=plain, library_ms=lib,
+                                      plain_ms=plain, library_ms=lib, m128_ms=small_ms,
+                                      m128_library_ms=small_lib, plan_host_ms=plan_ms,
                                       **bound(m * c * c + 4 * m * c,
-                                              4 * (m * c + c * c / 2 + c + 2 * m)))
+                                              4 * (m * c + c * c / 2 + c + 2 * m),
+                                              SPLIT_TF32_FLOPS))
 
 
 def quad_test_w(torch, c: int, gen):
@@ -361,13 +387,14 @@ def fused_quad_kernel(torch, gen, q, cols, kind: str) -> dict:
           err_name="max_rel_err")
     say(f"  crossover {shape}: staged route (kq written, then D) {staged_ms:.4f} ms, "
         f"on the fly (F) {ms:.4f} ms")
-    # The triangular product (m n^2), and kq generated once for the quad and
-    # once for the mean (about 12 operations an element for a value column,
-    # 30 for a joint one).
+    # The triangular product (m n^2) at the split-TF32 rate, and beside it
+    # on the SIMT cores kq generated once for the quad and once for the mean
+    # (about 12 operations an element for a value column, 30 for a joint one).
     m = q.shape[0]
     gen_ops = 2 * (12 if kind == "value" else 30) + 2
     return dict(max_abs_err=max(err_mean, err_quad), ms=ms, plain_ms=plain, staged_ms=staged_ms,
-                **bound(m * n * n + gen_ops * m * n, 4 * (n * n / 2 + cols.numel() + n + 5 * m)))
+                **bound(m * n * n, 4 * (n * n / 2 + cols.numel() + n + 5 * m), SPLIT_TF32_FLOPS,
+                        simt_flops=gen_ops * m * n))
 
 
 def band_test_w(torch, rows: int, row0: int, width: int, gen):
@@ -399,14 +426,15 @@ def quad_band_kernel(torch, gen, q, cols, kind: str, rows: int, row0: int) -> di
     shape = f"{kind} M={q.shape[0]} R={rows} {'C' if kind == 'value' else 'J'}={n} row0={row0}"
     say(f"  quad_band {shape}: max_abs_err {err:.3e}")
     check(f"quad_band {shape}, per query", rel, QUAD_REL_TOL, ms, plain, err_name="max_rel_err")
-    # The band's nonzeros (row row0 + i has row0 + i + 1), and kq generated
-    # once per (query, column): about 12 operations (value) or 30 (joint).
+    # The band's nonzeros (row row0 + i has row0 + i + 1) at the split-TF32
+    # rate, and beside them kq generated once per (query, column): about 12
+    # operations (value) or 30 (joint).
     m = q.shape[0]
     nnz = rows * row0 + rows * (rows + 1) // 2
     gen_ops = 12 if kind == "value" else 30
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
-                **bound(2 * m * nnz + 2 * m * rows + gen_ops * m * (row0 + rows),
-                        4 * (nnz + cols.numel() + 4 * m)))
+                **bound(2 * m * nnz + 2 * m * rows, 4 * (nnz + cols.numel() + 4 * m),
+                        SPLIT_TF32_FLOPS, simt_flops=gen_ops * m * (row0 + rows)))
 
 
 def ooc_kernels(torch, gen, results: dict) -> None:
@@ -1144,6 +1172,117 @@ def inv_and_trail_kernels(torch, gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def qsplit_problem(torch, dev, m: int):
+    """The `_QSPLIT` note's regime (C = 1,024 normal points, noise 1e-3,
+    rbf at lengthscale 0.8, where a single-pass bf16 quad measured ~1e-2
+    absolute), in float64: x, q (m, 3), W = L^{-1} and alpha."""
+    from gpis_tpu_torch.kernels import cuda_gram
+
+    rng = np.random.default_rng(20260818)
+    x64 = torch.as_tensor(rng.normal(size=(1024, 3)), device=dev)
+    q64 = torch.as_tensor(rng.normal(size=(m, 3)), device=dev)
+    y64 = torch.as_tensor(rng.normal(size=1024) * 0.2, device=dev)
+    p = {"lengthscale": 0.8, "signal_variance": 1.0}
+    k = cuda_gram.cov_reference("rbf", x64, x64, p, noise=torch.full_like(y64, 1e-3), sym=True)
+    l64 = torch.linalg.cholesky(k)
+    w64 = torch.linalg.solve_triangular(l64, torch.eye(1024, dtype=k.dtype, device=dev),
+                                        upper=False).contiguous()
+    alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
+    return x64, q64, w64, alpha64, p
+
+
+def quad_kernel_checks(torch, gen, results: dict) -> None:
+    """Kernels D and F against their twins where a fault would show, untimed:
+    float32 D on a real 8,192-query kq at C = 4,096; D and F (value) in the
+    `_QSPLIT` regime against a float64 plain run of the same GP (2e-3
+    absolute, 5x below the single-pass error); D's mean bias on nonnegative
+    W and kq (TC_BIAS); F's four modes at ragged shapes (M 129 and 1,000, C
+    and R off the 128 tile, a band at row0 700); D, F and F band twice, bit
+    for bit; and D, F and F band in float64 (the SIMT bodies) at 1e-10."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_joint, cuda_query
+    from gpis_tpu_torch.kernels import gram as kg
+
+    del results
+    dev = gen.device
+    p = {"lengthscale": 0.4, "signal_variance": 1.0}
+    x = torch.as_tensor(fibonacci_sphere(4096), dtype=torch.float32, device=dev)
+    q = (torch.rand((8192, 3), generator=gen, device=dev) * 3.0 - 1.5).contiguous()
+    query_kernel(torch, gen, kg.cross_cov("rbf", q, x, p), None)
+
+    x64, q64, w64, alpha64, pq = qsplit_problem(torch, dev, 8192)
+    kq64 = cuda_query.generated_kq("value", "rbf", q64, x64, pq)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w64, alpha64)
+    f32 = [t.float().contiguous() for t in (kq64, w64, alpha64, q64, x64)]
+    tol_m = 1e-4 * (kq64.abs() @ alpha64.abs()).max().item()
+    for route, (mean, quad) in (
+            ("staged_quad", cuda_query.staged_quad(*f32[:3])),
+            ("fused_quad value", cuda_query.fused_quad("value", "rbf", f32[3], f32[4], pq, f32[2],
+                                                       f32[1]))):
+        check(f"{route} quad C=1024 noise=1e-3 f32 vs f64", (quad.double() - quad_r).abs().max()
+              .item(), 2e-3)
+        check(f"{route} mean C=1024 noise=1e-3 f32 vs f64 (tol 1e-4 x sum|kq||alpha|)",
+              (mean.double() - mean_r).abs().max().item(), tol_m)
+    del kq64, mean_r, quad_r, f32
+
+    # The bias gate: nonnegative W and kq, where truncated steps read low.
+    w = torch.tril(torch.rand((4096, 4096), generator=gen, device=dev))
+    kq = torch.rand((2048, 4096), generator=gen, device=dev)
+    alpha = torch.rand((4096,), generator=gen, device=dev)
+    _, quad = cuda_query.staged_quad(kq, w, alpha)
+    _, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(), alpha.double())
+    check("staged_quad nonnegative C=4096 M=2048, mean bias (|mean (quad - f64) / f64|)",
+          abs(((quad.double() - quad_r) / quad_r).mean().item()), TC_BIAS,
+          err_name="bias")
+    del w, kq, quad_r
+
+    # F's four modes and D at ragged shapes, float32 against float64 twins,
+    # then float64 against float64; each call twice, bit for bit.
+    jcols = cuda_joint.pack_meta(cuda_joint.joint_meta(
+        torch.as_tensor(fibonacci_sphere(250), dtype=torch.float32, device=dev)))  # J = 1,000
+    vcols = x[:1000].contiguous()
+    for dtype in (torch.float32, torch.float64):
+        tol = QUAD_REL_TOL if dtype == torch.float32 else 1e-10
+        t = str(dtype)[6:]
+        for kind, cols in (("value", vcols), ("joint", jcols)):
+            cols = cols.to(dtype)
+            n = cols.shape[0]
+            for m in (129, 1000):
+                qm = q[:m].to(dtype)
+                w = quad_test_w(torch, n, gen).to(dtype)
+                alpha = torch.randn((n,), generator=gen, device=dev).to(dtype)
+                kq64 = cuda_query.generated_kq(kind, "rbf", qm.double(), cols.double(), p)
+                mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w.double(),
+                                                                  alpha.double())
+                runs = {"fused_quad": lambda: cuda_query.fused_quad(kind, "rbf", qm, cols, p,
+                                                                    alpha, w)}
+                if kind == "value":
+                    kq = kq64.to(dtype)
+                    runs["staged_quad"] = lambda: cuda_query.staged_quad(kq, w, alpha)
+                for name, run in runs.items():
+                    (mean, quad), again = run(), run()
+                    shape = f"{t} {kind} M={m} {'C' if kind == 'value' else 'J'}={n}"
+                    check(f"{name} {shape} quad, per query", quad_rel_err(torch, quad, quad_r),
+                          tol, err_name="max_rel_err")
+                    check(f"{name} {shape} mean", (mean.double() - mean_r).abs().max().item(),
+                          tol * (kq64.abs() @ alpha.double().abs()).max().item())
+                    check(f"{name} {shape} run twice", float(not (
+                        torch.equal(mean, again[0]) and torch.equal(quad, again[1]))), 0.0,
+                        err_name="bits differ")
+            for rows, row0 in ((300, 0), (300, 700), (128, 256)):
+                qm = q[:1000].to(dtype)
+                w = band_test_w(torch, rows, row0, row0 + rows, gen).to(dtype)
+                quad = cuda_query.quad_band(kind, "rbf", qm, cols, p, w, row0)
+                quad_r = cuda_query.quad_band_reference(kind, "rbf", qm.double(), cols.double(),
+                                                        p, w.double(), row0)
+                shape = f"{t} {kind} M=1000 R={rows} row0={row0}"
+                check(f"quad_band {shape}, per query", quad_rel_err(torch, quad, quad_r), tol,
+                      err_name="max_rel_err")
+                check(f"quad_band {shape} run twice", float(not torch.equal(
+                    quad, cuda_query.quad_band(kind, "rbf", qm, cols, p, w, row0))), 0.0,
+                    err_name="bits differ")
+
+
 def phase2(torch, results: dict) -> None:
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
@@ -1186,34 +1325,12 @@ def phase2(torch, results: dict) -> None:
         check(f"cov {name} 1024x4096 (tol 1e-5 x max|k|)", err_k,
               1e-5 * max(1.0, want.abs().max().item()))
 
-    # D at the blocked factorization's smallest capacity (4,096), then
-    # timed at the slice's 16,384, on a real 8,192-query kq chunk.
-    query_kernel(torch, gen, kq[:, :4096].contiguous(), None)
+    # D, F and F band checked at their edges (`quad_kernel_checks`: C = 4,096
+    # on a real kq, the `_QSPLIT` regime, the bias gate, float64), then D
+    # timed at the slice's 16,384 on a real 8,192-query kq chunk.
+    quad_kernel_checks(torch, gen, results)
     query_kernel(torch, gen, kq, results)
     del kq
-
-    # D in the regime of the `_QSPLIT` note (C = 1024, noise 1e-3, where a
-    # single-pass bf16 quad measured ~1e-2 absolute): float32 kernel against
-    # a float64 plain run of the same GP.  Tol 2e-3 absolute, 5x below that.
-    rng = np.random.default_rng(20260818)
-    x64 = torch.as_tensor(rng.normal(size=(1024, 3)), device=dev)
-    q64 = torch.as_tensor(rng.normal(size=(m, 3)), device=dev)
-    y64 = torch.as_tensor(rng.normal(size=1024) * 0.2, device=dev)
-    p = {"lengthscale": 0.8, "signal_variance": 1.0}
-    k = cuda_gram.cov_reference("rbf", x64, x64, p, noise=torch.full_like(y64, 1e-3), sym=True)
-    l64 = torch.linalg.cholesky(k)
-    w64 = torch.linalg.solve_triangular(l64, torch.eye(1024, dtype=k.dtype, device=dev),
-                                        upper=False)
-    alpha64 = torch.cholesky_solve(y64[:, None], l64)[:, 0]
-    kq64 = cuda_gram.cov_reference("rbf", q64, x64, p)
-    mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w64, alpha64)
-    mean, quad = cuda_query.staged_quad(*(t.float().contiguous() for t in (kq64, w64, alpha64)))
-    err_q = (quad.double() - quad_r).abs().max().item()
-    err_m = (mean.double() - mean_r).abs().max().item()
-    check("staged_quad quad C=1024 noise=1e-3 f32 vs f64", err_q, 2e-3)
-    check("staged_quad mean C=1024 noise=1e-3 f32 vs f64 (tol 1e-4 x sum|kq||alpha|)",
-          err_m, 1e-4 * (kq64.abs() @ alpha64.abs()).max().item())
-    del x64, q64, k, l64, w64, kq64
 
     # E, then F with both generators at the slices' shapes.
     instances["joint_cov_cross"] = joint_cov_kernel(torch, gen, q, results)

@@ -53,15 +53,18 @@ _SIGNATURES = {
     "gpis_panel_update": [_P, _I64, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
     # lrow, w, n, j0, bw, out, units, n_units, tiles, n_tiles, ws, stream
     "gpis_row_update": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _P],
-    # kq, m, w, alpha, c, partial, mean, quad, stream
-    "gpis_staged_quad": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+    # kq, m, w, alpha, c, partial, mean, quad, units, n_units, tiles, n_tiles, ws, stream
+    "gpis_staged_quad": [_P, _I64, _P, _P, _I64, _P, _P, _P, _P, _I64, _P, _I64, _P, _P],
     # rmeta, r, cmeta, s, noise, row0, kernel_id, ls, sv, out, stream
     "gpis_joint_cov": [_P, _I64, _P, _I64, _P, _I64, _I32, _F64, _F64, _P, _P],
-    # q, m, cols, c, joint, w, alpha, kernel_id, ls, sv, partial, mean, quad, stream
-    "gpis_fused_quad": [_P, _I64, _P, _I64, _I32, _P, _P, _I32, _F64, _F64, _P, _P, _P, _P],
-    # q, m, cols, c, joint, w, ldw, rows, row0, kernel_id, ls, sv, partial, quad, stream
-    "gpis_quad_band": [_P, _I64, _P, _I64, _I32, _P, _I64, _I64, _I64, _I32, _F64, _F64, _P, _P,
-                       _P],
+    # q, m, cols, c, joint, w, alpha, kernel_id, ls, sv, partial, mean, quad, units, n_units,
+    # tiles, n_tiles, ws, stream
+    "gpis_fused_quad": [_P, _I64, _P, _I64, _I32, _P, _P, _I32, _F64, _F64, _P, _P, _P, _P, _I64,
+                        _P, _I64, _P, _P],
+    # q, m, cols, c, joint, w, ldw, rows, width, row0, kernel_id, ls, sv, partial, quad, units,
+    # n_units, tiles, n_tiles, ws, stream
+    "gpis_quad_band": [_P, _I64, _P, _I64, _I32, _P, _I64, _I64, _I64, _I64, _I32, _F64, _F64,
+                       _P, _P, _P, _I64, _P, _I64, _P, _P],
     # a, lda, r, b, ldb, p, s, lds, out, ldo, k0, units, n_units, tiles, n_tiles, ws, stream
     "gpis_gemm_nt_masked": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P, _I64,
                             _P, _I64, _P, _P],

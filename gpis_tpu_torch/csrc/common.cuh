@@ -36,8 +36,10 @@ __device__ __forceinline__ T safe_sqrt(T r2) {
 template <typename T>
 __device__ __forceinline__ T k_r2(int kid, T r2, T ls, T sv) {
   switch (kid) {
-    case RBF:
-      return sv * gexp(T(-0.5) * r2 / (ls * ls));
+    case RBF: {  // 1 / ls^2 is the same for every value: the compiler hoists it
+      const T inv2 = T(1) / (ls * ls);
+      return sv * gexp(T(-0.5) * r2 * inv2);
+    }
     case LAPLACE:
       return sv * gexp(-safe_sqrt(r2) / ls);
     case INVERSE_MULTIQUADRIC:

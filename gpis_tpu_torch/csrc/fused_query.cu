@@ -18,59 +18,47 @@
 //     quad[q]   = sum_i (sum_k W[i, k] kq[q, k])^2    (var = k(0) - quad)
 // kq never reaches device memory, so a query of any size runs in O(m) extra
 // memory: the route for queries whose staged kq (Kernel A or E, then D)
-// would exceed the staging cap.
+// would exceed the staging cap.  The generators are quad.cuh's.
 //
 // Band mode: W is a row band, rows [row_base, row_base + R) of the factor's
 // W, stored with its own leading dimension (the out-of-core store keeps
-// trimmed panels).  Its row tile i ends at global row row_base + (i+1)*64,
-// so its live columns are k < row_base + (i+1)*64, not (i+1)*64: the bound
-// carries the band's offset.  The out-of-core query adds the band's
-// colsum(v^2) into each chunk's quad, panel by panel.
+// trimmed panels).  Its row tile at band row r0 ends at global row
+// row_base + r0 + tile, so its live columns are k < row_base + r0 + tile,
+// not r0 + tile: the bound carries the band's offset.  The out-of-core
+// query adds the band's colsum(v^2) into each chunk's quad, panel by panel.
 //
-// The structure is Kernel D's (query.cu): one block owns a (64-row tile of
-// W, 64-query tile) pair, loops k over the tile's live columns only
-// (k < (i + 1) * 64), keeps v = W kq^T in registers and writes
-// partial[i, q] = colsum(v^2); a second pass sums the partials in a fixed
-// order (no atomics).  What differs: each 16-column k slice of kq is
-// generated into shared memory from coordinates instead of being loaded.
-// Thread t generates query t % 64 (its coordinates held in registers for the
-// whole block) at columns t / 64 + 4 j, so a warp reads one column's
-// metadata (a broadcast) and writes 32 consecutive shared-memory words.
-// A block of W row tile i sees only columns k < (i + 1) * 64, so the mean
+// The structure is Kernel D's (query.cu): one block owns a (row tile of W,
+// query tile) pair, loops k over the tile's live columns only, keeps
+// v = W kq^T in registers and writes partial[i, q] = colsum(v^2); a second
+// pass sums the partials in a fixed order (no atomics).  What differs: each
+// k chunk of kq is generated from coordinates instead of being loaded.
+//   * float32: the split-TF32 tensor-core tile (tc_nn.cuh), NT layout with
+//     the QUAD epilogue and a generated B: W comes through TMA, and each
+//     128-query x 32-column kq chunk is computed straight into B's split hi
+//     and lo tiles while the previous chunk is on the tensor cores, a
+//     quarter a step (thread t: query t & 127, columns (t >> 7) * 16 ...
+//     + 16), from column metadata staged in shared memory a chunk ahead.
+//     The plan (`_tc_plan` upper "rows", k_offset = the band's first row,
+//     never split) gives each tile its live k range.
+//   * float64: the SIMT tile of common.cuh, 64 x 64: each 16-column k slice
+//     of kq is generated into shared memory; thread t generates query t % 64
+//     (its coordinates held in registers for the whole block) at columns
+//     t / 64 + 4 j, so a warp reads one column's metadata (a broadcast) and
+//     writes 32 consecutive shared-memory words.
+// A block of W row tile i sees only columns below its bound, so the mean
 // needs every column in a pass of its own: a warp per query regenerates its
-// kq row (the TPU kernel took it from its i == 0 grid plane).
+// kq row (the TPU kernel took it from its i == 0 grid plane), SIMT in both.
 //
-// What bounds it on the H100: arithmetic, as for D (~c^2 / 2 * m FMAs),
-// plus the generation: every live (W tile, query tile) pair regenerates its
-// kq slice, c / 64 / 2 times per kq element on average (one exp for the
-// value model, two for the joint one).  No TF32 and no tensor cores: plain
-// FP32 (FP64) FMA, see common.cuh.
+// What bounds it on the H100: arithmetic, as for D (~c^2 / 2 * m FMAs, at
+// the split-TF32 rate in float32), plus the generation: every live (W tile,
+// query tile) pair regenerates its kq slice, c / 128 / 2 times per kq
+// element on average in float32 (one exp for the value model, two for the
+// joint one), on the SIMT cores beside the tensor cores' product.
 #include "common.cuh"
+#include "quad.cuh"
+#include "tc_nn.cuh"
 
 namespace gpis {
-
-// Covariance of a value query q (f = 1, u = 0) with one training column.
-struct ValueGen {  // column metadata: x (3)
-  static constexpr int STRIDE = 3;
-  template <typename T>
-  __device__ __forceinline__ static T eval(int kid, const T (&q)[3], const T* __restrict__ col,
-                                           T ls, T sv) {
-    const T d0 = q[0] - col[0], d1 = q[1] - col[1], d2 = q[2] - col[2];
-    return k_r2(kid, d0 * d0 + d1 * d1 + d2 * d2, ls, sv);
-  }
-};
-
-struct JointGen {  // column metadata: coords (3), dirs (3), flag -- joint.cu's layout
-  static constexpr int STRIDE = 7;
-  template <typename T>
-  __device__ __forceinline__ static T eval(int kid, const T (&q)[3], const T* __restrict__ col,
-                                           T ls, T sv) {
-    const T d0 = q[0] - col[0], d1 = q[1] - col[1], d2 = q[2] - col[2];
-    const T r2 = d0 * d0 + d1 * d1 + d2 * d2;
-    const T vd = col[3] * d0 + col[4] * d1 + col[5] * d2;
-    return col[6] * k_r2(kid, r2, ls, sv) - T(2) * dk_dr2(kid, r2, ls, sv) * vd;
-  }
-};
 
 template <typename T, class Gen>
 __global__ void __launch_bounds__(NTHREADS)
@@ -122,16 +110,6 @@ fused_partial_kernel(const T* __restrict__ q, int64_t m, const T* __restrict__ c
   }
 }
 
-template <typename T>
-__global__ void fused_reduce_kernel(const T* __restrict__ partial, int64_t m, int64_t tiles,
-                                    T* __restrict__ quad) {
-  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= m) return;
-  T s = T(0);
-  for (int64_t i = 0; i < tiles; ++i) s += partial[i * m + q];
-  quad[q] = s;
-}
-
 template <typename T, class Gen>
 __global__ void fused_mean_kernel(const T* __restrict__ q, int64_t m, const T* __restrict__ cols,
                                   int64_t c, const T* __restrict__ alpha, int kid, T ls, T sv,
@@ -148,86 +126,137 @@ __global__ void fused_mean_kernel(const T* __restrict__ q, int64_t m, const T* _
   if (lane == 0) mean[qi] = s;
 }
 
-template <typename T, class Gen>
-static int launch_fused(const T* q, int64_t m, const T* cols, int64_t c, const T* w,
-                        const T* alpha, int kid, T ls, T sv, T* partial, T* mean, T* quad,
-                        cudaStream_t s) {
-  fused_partial_kernel<T, Gen><<<ceil_div(c, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
+// float64: the SIMT body over 64-row tiles, the partials' sum, the mean.
+template <class Gen>
+static int launch_fused_f64(const double* q, int64_t m, const double* cols, int64_t c,
+                            const double* w, const double* alpha, int kid, double ls, double sv,
+                            double* partial, double* mean, double* quad, cudaStream_t s) {
+  fused_partial_kernel<double, Gen><<<ceil_div(c, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
       q, m, cols, c, w, c, c, 0, kid, ls, sv, partial);
-  fused_reduce_kernel<T><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, (c + TILE - 1) / TILE,
-                                                          quad);
-  fused_mean_kernel<T, Gen><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(
+  quad_reduce_kernel<double><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, ceil_div(c, TILE),
+                                                              quad);
+  fused_mean_kernel<double, Gen><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(
       q, m, cols, c, alpha, kid, ls, sv, mean);
   return (int)cudaGetLastError();
 }
 
-template <typename T, class Gen>
-static int launch_band(const T* q, int64_t m, const T* cols, int64_t c, const T* w, int64_t ldw,
-                       int64_t rows, int64_t row0, int kid, T ls, T sv, T* partial, T* quad,
-                       cudaStream_t s) {
-  fused_partial_kernel<T, Gen><<<ceil_div(rows, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
-      q, m, cols, c, w, ldw, rows, row0, kid, ls, sv, partial);
-  fused_reduce_kernel<T><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, (rows + TILE - 1) / TILE,
-                                                          quad);
+template <class Gen>
+static int launch_band_f64(const double* q, int64_t m, const double* cols, int64_t c,
+                           const double* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
+                           double ls, double sv, double* partial, double* quad, cudaStream_t s) {
+  fused_partial_kernel<double, Gen>
+      <<<ceil_div(rows, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
+          q, m, cols, c, w, ldw, rows, row0, kid, ls, sv, partial);
+  quad_reduce_kernel<double><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, ceil_div(rows, TILE),
+                                                              quad);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_quad_band(const T* q, int64_t m, const T* cols, int64_t c, int joint,
-                            const T* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
-                            double ls, double sv, T* partial, T* quad, void* stream) {
-  if (m == 0 || rows == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (joint)
-    return launch_band<T, JointGen>(q, m, cols, c, w, ldw, rows, row0, kid, (T)ls, (T)sv,
-                                    partial, quad, s);
-  return launch_band<T, ValueGen>(q, m, cols, c, w, ldw, rows, row0, kid, (T)ls, (T)sv, partial,
-                                  quad, s);
+// float32: the tensor-core tile over the plan, A = W's rows [0, rows) (k
+// extent k_end: W's stored width), B generated by Gen from the queries and
+// the first k_end columns, the QUAD epilogue into partial (ceil(rows / 128),
+// m); then the partials' sum over the row tiles.
+template <class Gen>
+static int launch_quad_f32(const float* q, int64_t m, const float* cols, const float* w,
+                           int64_t ldw, int64_t rows, int64_t k_end, int kid, double ls,
+                           double sv, float* partial, float* quad, const void* units,
+                           int64_t n_units, const void* tiles, int64_t n_tiles, float* ws,
+                           cudaStream_t s) {
+  const tc::GenArgs g{q, cols, k_end, kid, (float)ls, (float)sv};
+  const int err = tc::launch<tc::NT, tc::QUAD, Gen>(
+      w, ldw, nullptr, 0, k_end, m, nullptr, 0, partial, m, rows, m,
+      static_cast<const tc::Unit*>(units), n_units, static_cast<const tc::FinishTile*>(tiles),
+      n_tiles, ws, s, g);
+  if (err) return err;
+  quad_reduce_kernel<float><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, ceil_div(rows, tc::BM),
+                                                             quad);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_fused_quad(const T* q, int64_t m, const T* cols, int64_t c, int joint,
-                             const T* w, const T* alpha, int kid, double ls, double sv,
-                             T* partial, T* mean, T* quad, void* stream) {
-  if (m == 0 || c == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (joint)
-    return launch_fused<T, JointGen>(q, m, cols, c, w, alpha, kid, (T)ls, (T)sv, partial, mean,
-                                     quad, s);
-  return launch_fused<T, ValueGen>(q, m, cols, c, w, alpha, kid, (T)ls, (T)sv, partial, mean,
-                                   quad, s);
+template <class Gen>
+static int launch_fused_f32(const float* q, int64_t m, const float* cols, int64_t c,
+                            const float* w, const float* alpha, int kid, double ls, double sv,
+                            float* partial, float* mean, float* quad, const void* units,
+                            int64_t n_units, const void* tiles, int64_t n_tiles, float* ws,
+                            cudaStream_t s) {
+  const int err = launch_quad_f32<Gen>(q, m, cols, w, c, c, c, kid, ls, sv, partial, quad, units,
+                                       n_units, tiles, n_tiles, ws, s);
+  if (err) return err;
+  fused_mean_kernel<float, Gen><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(
+      q, m, cols, c, alpha, kid, (float)ls, (float)sv, mean);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace gpis
 
 extern "C" {
 
+// F in float32: the tensor-core tile with a generated B over the plan
+// (`_tc_plan(c, m, c, upper="rows", whole=True)`), the reduce, the mean.
 int gpis_fused_quad_f32(const float* q, int64_t m, const float* cols, int64_t c, int joint,
                         const float* w, const float* alpha, int kid, double ls, double sv,
-                        float* partial, float* mean, float* quad, void* stream) {
-  return gpis::launch_fused_quad<float>(q, m, cols, c, joint, w, alpha, kid, ls, sv, partial,
-                                        mean, quad, stream);
+                        float* partial, float* mean, float* quad, const void* units,
+                        int64_t n_units, const void* tiles, int64_t n_tiles, float* ws,
+                        void* stream) {
+  if (m == 0 || c == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (joint)
+    return gpis::launch_fused_f32<gpis::JointGen>(q, m, cols, c, w, alpha, kid, ls, sv, partial,
+                                                  mean, quad, units, n_units, tiles, n_tiles,
+                                                  ws, s);
+  return gpis::launch_fused_f32<gpis::ValueGen>(q, m, cols, c, w, alpha, kid, ls, sv, partial,
+                                                mean, quad, units, n_units, tiles, n_tiles, ws,
+                                                s);
 }
 
+// F in float64 keeps the SIMT tile; it takes no plan.
 int gpis_fused_quad_f64(const double* q, int64_t m, const double* cols, int64_t c, int joint,
                         const double* w, const double* alpha, int kid, double ls, double sv,
-                        double* partial, double* mean, double* quad, void* stream) {
-  return gpis::launch_fused_quad<double>(q, m, cols, c, joint, w, alpha, kid, ls, sv, partial,
-                                         mean, quad, stream);
+                        double* partial, double* mean, double* quad, const void*, int64_t,
+                        const void*, int64_t, double*, void* stream) {
+  if (m == 0 || c == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (joint)
+    return gpis::launch_fused_f64<gpis::JointGen>(q, m, cols, c, w, alpha, kid, ls, sv, partial,
+                                                  mean, quad, s);
+  return gpis::launch_fused_f64<gpis::ValueGen>(q, m, cols, c, w, alpha, kid, ls, sv, partial,
+                                                mean, quad, s);
 }
 
+// F's band mode in float32: the band (rows x width, ldw) at global row row0,
+// over the plan (`_tc_plan(rows, m, width, upper="rows", k_offset=row0,
+// whole=True)`: each tile's live k ends at row0 + its last band row + 1).
 int gpis_quad_band_f32(const float* q, int64_t m, const float* cols, int64_t c, int joint,
-                       const float* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
-                       double ls, double sv, float* partial, float* quad, void* stream) {
-  return gpis::launch_quad_band<float>(q, m, cols, c, joint, w, ldw, rows, row0, kid, ls, sv,
-                                       partial, quad, stream);
+                       const float* w, int64_t ldw, int64_t rows, int64_t width, int64_t row0,
+                       int kid, double ls, double sv, float* partial, float* quad,
+                       const void* units, int64_t n_units, const void* tiles, int64_t n_tiles,
+                       float* ws, void* stream) {
+  (void)c;
+  (void)row0;  // the plan carries the band's offset
+  if (m == 0 || rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (joint)
+    return gpis::launch_quad_f32<gpis::JointGen>(q, m, cols, w, ldw, rows, width, kid, ls, sv,
+                                                 partial, quad, units, n_units, tiles, n_tiles,
+                                                 ws, s);
+  return gpis::launch_quad_f32<gpis::ValueGen>(q, m, cols, w, ldw, rows, width, kid, ls, sv,
+                                               partial, quad, units, n_units, tiles, n_tiles,
+                                               ws, s);
 }
 
+// F's band mode in float64 keeps the SIMT tile; it takes no plan.
 int gpis_quad_band_f64(const double* q, int64_t m, const double* cols, int64_t c, int joint,
-                       const double* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
-                       double ls, double sv, double* partial, double* quad, void* stream) {
-  return gpis::launch_quad_band<double>(q, m, cols, c, joint, w, ldw, rows, row0, kid, ls, sv,
-                                        partial, quad, stream);
+                       const double* w, int64_t ldw, int64_t rows, int64_t width, int64_t row0,
+                       int kid, double ls, double sv, double* partial, double* quad,
+                       const void*, int64_t, const void*, int64_t, double*, void* stream) {
+  (void)width;
+  if (m == 0 || rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (joint)
+    return gpis::launch_band_f64<gpis::JointGen>(q, m, cols, c, w, ldw, rows, row0, kid, ls, sv,
+                                                 partial, quad, s);
+  return gpis::launch_band_f64<gpis::ValueGen>(q, m, cols, c, w, ldw, rows, row0, kid, ls, sv,
+                                               partial, quad, s);
 }
 
 }  // extern "C"

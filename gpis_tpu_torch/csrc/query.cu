@@ -8,21 +8,28 @@
 //
 // The TPU kernel carries its v = W kq^T accumulator in scratch across a
 // sequential grid.  GPU blocks run in no order, so that does not carry
-// over.  Instead one block owns a (64-row tile of W, 64-query tile) pair,
-// loops k over the tile's live columns only (k < (i + 1) * 64, the rest of W
-// is zero), keeps v in registers, and writes partial[i, q] = colsum(v^2).
-// A second pass sums the partials over i in a fixed order: no atomics, so a
-// result repeats bit for bit.  The mean is a third, warp-per-query pass.
+// over.  Instead one block owns a (row tile of W, query tile) pair, loops k
+// over the tile's live columns only (k < the tile's last row + 1: the rest
+// of W is zero), keeps v in registers, and writes partial[i, q] =
+// colsum(v^2) over its rows.  A second pass sums the partials over i in a
+// fixed order: no atomics, so a result repeats bit for bit.  The mean is a
+// third, warp-per-query pass.
 //
 // What bounds it on the H100: arithmetic.  A 8,192-query chunk against
 // C = 16,384 is ~C^2 / 2 * m multiply-adds (1.1e12) on 1 GiB of W plus
-// 512 MiB of kq, far above the memory roofline; without tensor cores the
-// bound is the SIMT FP32 rate.  What the design does about it: the shared
-// tiled product of common.cuh (4 x 4 FMA register tiles, k-slices of 16) and
-// the triangular skip, which halves the work.  W is re-read once per query
-// tile; the 50 MB L2 absorbs part of that.  Accumulation: plain FP32 (FP64)
-// FMA, see common.cuh -- the split products of `quad_dot` are not needed.
+// 512 MiB of kq, far above the memory roofline.
+//   * float32: the split-TF32 tensor-core tile (tc_nn.cuh), NT layout with
+//     the QUAD epilogue: 128 x 128 tiles (W rows x queries), W and kq
+//     through TMA, each tile over k < its last row + 1 (`_tc_plan` upper
+//     "rows", never split), squared and summed over its rows in registers;
+//     partial is (ceil(c / 128), m).  Bound: 123.7 TFLOP/s of useful work.
+//   * float64: the SIMT tile of common.cuh (4 x 4 FMA register tiles,
+//     k-slices of 16, 64 x 64 tiles); partial is (ceil(c / 64), m).
+// W is re-read once per query tile; the 50 MB L2 absorbs part of that.  The
+// mean (a GEMV on kq, bound by its bytes) stays SIMT in both.
 #include "common.cuh"
+#include "quad.cuh"
+#include "tc_nn.cuh"
 
 namespace gpis {
 
@@ -59,16 +66,6 @@ quad_partial_kernel(const T* __restrict__ kq, int64_t m, const T* __restrict__ w
 }
 
 template <typename T>
-__global__ void quad_reduce_kernel(const T* __restrict__ partial, int64_t m, int64_t tiles,
-                                   T* __restrict__ quad) {
-  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= m) return;
-  T s = T(0);
-  for (int64_t i = 0; i < tiles; ++i) s += partial[i * m + q];
-  quad[q] = s;
-}
-
-template <typename T>
 __global__ void mean_kernel(const T* __restrict__ kq, int64_t m, const T* __restrict__ alpha,
                             int64_t c, T* __restrict__ mean) {
   const int64_t q = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
@@ -82,14 +79,10 @@ __global__ void mean_kernel(const T* __restrict__ kq, int64_t m, const T* __rest
   if (lane == 0) mean[q] = s;
 }
 
+// The partials' sum over `tiles` row tiles, then the mean.
 template <typename T>
-static int launch_staged_quad(const T* kq, int64_t m, const T* w, const T* alpha, int64_t c,
-                              T* partial, T* mean, T* quad, void* stream) {
-  if (m == 0 || c == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int64_t tiles = (c + TILE - 1) / TILE;
-  quad_partial_kernel<T><<<ceil_div(c, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
-      kq, m, w, c, partial);
+static int finish_staged_quad(const T* kq, int64_t m, const T* alpha, int64_t c, int64_t tiles,
+                              const T* partial, T* mean, T* quad, cudaStream_t s) {
   quad_reduce_kernel<T><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, tiles, quad);
   mean_kernel<T><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(kq, m, alpha, c, mean);
   return (int)cudaGetLastError();
@@ -99,15 +92,34 @@ static int launch_staged_quad(const T* kq, int64_t m, const T* w, const T* alpha
 
 extern "C" {
 
+// D in float32: the tensor-core tile over the plan (`_tc_plan(c, m, c,
+// upper="rows", whole=True)`: A = W, B = kq), then the reduce and the mean.
 int gpis_staged_quad_f32(const float* kq, int64_t m, const float* w, const float* alpha,
-                         int64_t c, float* partial, float* mean, float* quad, void* stream) {
-  return gpis::launch_staged_quad<float>(kq, m, w, alpha, c, partial, mean, quad, stream);
+                         int64_t c, float* partial, float* mean, float* quad, const void* units,
+                         int64_t n_units, const void* tiles, int64_t n_tiles, float* ws,
+                         void* stream) {
+  if (m == 0 || c == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = gpis::tc::launch<gpis::tc::NT, gpis::tc::QUAD>(
+      w, c, kq, c, c, m, nullptr, 0, partial, m, c, m,
+      static_cast<const gpis::tc::Unit*>(units), n_units,
+      static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, s);
+  if (err) return err;
+  return gpis::finish_staged_quad<float>(kq, m, alpha, c, gpis::ceil_div(c, gpis::tc::BM),
+                                         partial, mean, quad, s);
 }
 
+// D in float64 keeps the SIMT tile; it takes no plan.
 int gpis_staged_quad_f64(const double* kq, int64_t m, const double* w, const double* alpha,
-                         int64_t c, double* partial, double* mean, double* quad,
-                         void* stream) {
-  return gpis::launch_staged_quad<double>(kq, m, w, alpha, c, partial, mean, quad, stream);
+                         int64_t c, double* partial, double* mean, double* quad, const void*,
+                         int64_t, const void*, int64_t, double*, void* stream) {
+  if (m == 0 || c == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  gpis::quad_partial_kernel<double>
+      <<<gpis::ceil_div(c, gpis::TILE) * gpis::ceil_div(m, gpis::TILE), gpis::NTHREADS, 0, s>>>(
+          kq, m, w, c, partial);
+  return gpis::finish_staged_quad<double>(kq, m, alpha, c, gpis::ceil_div(c, gpis::TILE),
+                                          partial, mean, quad, s);
 }
 
 }  // extern "C"

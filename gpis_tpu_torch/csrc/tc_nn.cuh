@@ -1,10 +1,12 @@
-// The float32 products of Kernels B, C, G, H, J, K and L on the tensor cores
-// (sm_90a):
+// The float32 products of Kernels B, C, D, F, G, H, J, K and L on the tensor
+// cores (sm_90a):
 //
 //     NN: out[m, n] (=, or +=) sum_{k in [kb, ke)} A[m, k] * B[k, n],
 //         or (SUB_FROM) S[m, n] minus the sum
 //     NT: out[m, n] = S[m, n] - sum_{k in [kb, ke)} A[m, k] * B[n, k],
-//         or (STORE) the sum alone
+//         or (STORE) the sum alone,
+//         or (QUAD) partial[m0 / 128, n] = sum over the tile's 128 rows m of
+//         the sum squared
 //
 // with A row-major and k-contiguous; in NN B is row-major and n-contiguous,
 // in NT row-major and k-contiguous like A.  C (row_update) is the in-core
@@ -18,8 +20,13 @@
 // k up to its last column; K = V rhs, NN with STORE, each 128-row tile over
 // k up to its last row (the plan's per-tile k range).  L (band_trail) is the
 // sharded TRSM's S -= Lcol Wj on a rank's live block, NN with SUB_FROM in
-// place, B = 256 deep.  All seven replace their FP32 SIMT bodies in float32;
-// the float64 instantiations keep the SIMT tile of common.cuh.
+// place, B = 256 deep.  D (staged_quad) and F (fused_quad, quad_band) are
+// the variance quad colsum((W kq^T)^2), NT with QUAD: A = W (or a row band
+// of it at global row row0), B = kq, each 128-row tile of W over k up to
+// its last global row (W is lower-triangular); D reads kq through TMA, F
+// generates each kq chunk from coordinates straight into B's split tiles (a
+// generator `GEN`, quad.cuh).  All nine replace their FP32 SIMT bodies in
+// float32; the float64 instantiations keep the SIMT tile of common.cuh.
 //
 // Precision: FP32-grade products from TF32 wgmma ("split TF32").
 //   * Each operand is split as x = hi + lo, hi = rna_tf32(x),
@@ -44,6 +51,17 @@
 //     segment's flush reads and writes the 128 x 128 tile once, its loads
 //     issued in groups.  NN (C, H, K and L) keeps its single running sum,
 //     bit for bit; L's S - sum is then rounded once in FP32, as `addmm_`.
+//   * QUAD (D and F) keeps one running sum over the tile's whole k range too:
+//     a segment flushed mid-k would be squared apart from the rest.  Its
+//     gates are per query (1e-4 of the quad) and a 2e-8 mean bias, which one
+//     running sum holds at C = 16,384 deep (tests/test_torch_tc_nn.py).
+//     After the k loop each thread squares its 64 sums and adds its two rows
+//     a column, xor shuffles over 4, 8 and 16 lanes add a warp's 16 rows,
+//     and the eight warps' sums meet in shared memory (the raw ring, free
+//     after the loop), added in warp order: no atomics, the same bits every
+//     run.  QUAD units own their tile's whole k range (the plan never splits
+//     them) and write `partial[m0 / 128, n0 + j]`; a second kernel sums a
+//     query's partials over the row tiles in order.
 //
 // What bounds it: four TF32 passes, 494.7 TFLOP/s / 4 = 124 TFLOP/s of
 // useful work on an H100 at 700 W; the operands are read once per 128 x 128
@@ -65,6 +83,20 @@
 //     so that the transposing stores of a quarter warp fall on distinct banks.
 //   * The split of chunk c + 1 runs while chunk c's first step is on the
 //     tensor cores; two split buffers alternate.
+//   * A generated B (F): the raw ring carries A's box alone, and B's hi and
+//     lo tiles of chunk c + 1 are computed while chunk c is on the tensor
+//     cores, a quarter a step (one k group of four columns a thread), so
+//     that the generation overlaps all four steps and not the first alone.
+//     Thread t generates query row t & 127 (its coordinates in registers for
+//     the whole unit) at the chunk's columns (t >> 7) * 16 ... + 16, so a
+//     warp reads each column's metadata as one broadcast.  The metadata of
+//     a chunk's 32 columns sits in shared memory (the raw stage's unused B
+//     half), loaded one element a thread a chunk ahead: read one global load
+//     at a time inside each value, it held F at 2x D's time.  kq is computed
+//     in FP32, split and stored as a split tile's rows.  Columns past the
+//     generator's extent and queries past n generate 0; columns past a
+//     tile's live end meet W's zeros past its diagonal, as TMA's reads
+//     there do.
 //   * A CTA writes its tile directly when it owns the tile's whole k range,
 //     else to an f32 partial in a workspace; `tc_nn_finish_kernel` sums a
 //     tile's partials in a fixed order (no atomics: the same bits every run)
@@ -90,12 +122,15 @@
 //   * L (NN, SUB_FROM) is in place on the band's live block, S = out; A is
 //     the band's column panel of L and B the broadcast W row panel, other
 //     buffers than S, so no unit reads what any unit writes.
+//   * D and F (QUAD) write a fresh partial buffer, one row a 128-row tile.
 // No unit reads what another unit, or the finish kernel, writes.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace gpis {
 namespace tc {
@@ -114,8 +149,21 @@ constexpr int SMEM_BYTES = 1024 + 2 * RAW_BYTES + 2 * 4 * SPLIT_BYTES + 64;
 // B's layout: NN (k rows, n-contiguous) or NT (n rows, k-contiguous).
 enum Layout { NN = 0, NT = 1 };
 // Epilogues: C, J and K store, H adds into U's old values, B, G and L
-// subtract from S.
-enum Epilogue { STORE = 0, ADD = 1, SUB_FROM = 2 };
+// subtract from S, D and F square and sum over the tile's rows (NT only).
+enum Epilogue { STORE = 0, ADD = 1, SUB_FROM = 2, QUAD = 3 };
+
+// B's source: TMA from memory (every kernel but F), or a generator GEN of
+// kq from coordinates (F: quad.cuh ValueGen, JointGen) with these arguments.
+struct TmaB {};
+struct GenArgs {
+  const float* q;     // (n, 3) queries: B's rows
+  const float* cols;  // (ncols, GEN::STRIDE) column metadata
+  int64_t ncols;      // columns >= ncols generate 0
+  int kid;            // covariance function (common.cuh KernelId)
+  float ls, sv;
+};
+template <class GEN>
+constexpr bool kTmaB = std::is_same<GEN, TmaB>::value;
 
 // One CTA's work: output tile (m0, n0), k range [kb, ke), and the partial
 // slot it writes (-1: it owns the tile's whole range and writes the output).
@@ -308,9 +356,14 @@ __device__ __forceinline__ void split_chunk(const char* raw, char* dst) {
     split_cols(raw + RAW_A_BYTES, dst + 2 * SPLIT_BYTES, dst + 3 * SPLIT_BYTES);
 }
 
-template <int LAYOUT>
+template <int LAYOUT, class GEN>
 __device__ __forceinline__ void issue_chunk(const Smem& s, int stage, const CUtensorMap* ta,
                                             const CUtensorMap* tb, int m0, int n0, int k) {
+  if constexpr (!kTmaB<GEN>) {  // B is generated: A's box alone
+    mbar_expect_tx(&s.full[stage], RAW_A_BYTES);
+    tma_load_2d(s.raw[stage], ta, &s.full[stage], k, m0);
+    return;
+  }
   mbar_expect_tx(&s.full[stage], RAW_BYTES);
   tma_load_2d(s.raw[stage], ta, &s.full[stage], k, m0);
   if constexpr (LAYOUT == NT) {
@@ -321,6 +374,48 @@ __device__ __forceinline__ void issue_chunk(const Smem& s, int stage, const CUte
       tma_load_2d(s.raw[stage] + RAW_A_BYTES + j * BK * 128, tb, &s.full[stage], n0 + 32 * j,
                   k);
   }
+}
+
+// A generated B's column metadata: the 32 columns of a chunk, GEN::STRIDE
+// floats each, in shared memory (the raw stage's B half, which TMA leaves
+// alone when B is generated), so that a value's reads are broadcasts from
+// shared memory rather than one global load after another.  Thread t <
+// 32 * STRIDE loads element t (0 past the columns) one chunk ahead.
+__device__ __forceinline__ float* meta_of(const Smem& s, int stage) {
+  return reinterpret_cast<float*>(s.raw[stage] + RAW_A_BYTES);
+}
+template <class GEN>
+__device__ __forceinline__ float meta_load(const GenArgs& g, int64_t k0) {
+  const int t = threadIdx.x;
+  if (t >= BK * GEN::STRIDE || k0 + t / GEN::STRIDE >= g.ncols) return 0.0f;
+  return g.cols[k0 * GEN::STRIDE + t];
+}
+
+// Group j (0..3) of B's hi and lo tiles of the 32-deep chunk at column k0,
+// generated from its metadata `meta`: thread t computes kq of query row
+// t & 127 (coordinates qv; `live` false past the queries, which generate 0)
+// at the four columns k0 + 4 k4 ... + 4, k4 = (t >> 7) * 4 + j, splits each
+// value and stores the group.  Columns past g.ncols generate 0.
+template <class GEN>
+__device__ __forceinline__ void gen_group(const GenArgs& g, const float* meta,
+                                          const float (&qv)[3], bool live, int64_t k0, int j,
+                                          char* b_hi, char* b_lo) {
+  const int t = threadIdx.x;
+  const int row = t & (BN - 1);
+  const int k4 = (t >> 7) * 4 + j;
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // one column for the whole warp: a broadcast
+    const float x = GEN::eval(g.kid, qv, meta + (4 * k4 + e) * GEN::STRIDE, g.ls, g.sv);
+    v[e] = live && k0 + 4 * k4 + e < g.ncols ? x : 0.0f;
+  }
+  float4 h, l;
+  split(v[0], h.x, l.x);
+  split(v[1], h.y, l.y);
+  split(v[2], h.z, l.z);
+  split(v[3], h.w, l.w);
+  *reinterpret_cast<float4*>(b_hi + split_off(row, k4)) = h;
+  *reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = l;
 }
 
 // Output rows and columns of accumulator register i of thread `lane` in warp
@@ -417,11 +512,68 @@ __device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, boo
   }
 }
 
-template <int LAYOUT, int EPI>
+// QUAD: the tile's colsum(acc^2) over its 128 rows into partial row m0 / 128
+// of out (ldo = n), columns masked at n; rows past the operand's were read
+// as zeros and add 0.  A thread's two rows a column, then the warp's 16 rows
+// by xor shuffles over the lanes of equal lane & 3 (every lane ends with the
+// same bits), then the eight warps' sums in `red` (8 x 128 floats), added in
+// warp order.  The first flush stores the partial; a later one (none in the
+// kernel's own plan) adds to it.
+__device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& u, bool first,
+                                            float* red, float* out, int64_t ldo, int64_t n,
+                                            int wg, int warp, int lane) {
+  float sq[32];  // [col group i >> 2][col i & 1]
+#pragma unroll
+  for (int g = 0; g < 16; ++g) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      sq[2 * g + b] = acc[4 * g + b] * acc[4 * g + b] + acc[4 * g + 2 + b] * acc[4 * g + 2 + b];
+  }
+#pragma unroll
+  for (int off = 4; off < 32; off *= 2) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
+  }
+  __syncthreads();  // red is free: the k loop (or an earlier flush) is done with it
+  if (lane < 4) {
+    float* r = red + (4 * wg + warp) * BN;
+#pragma unroll
+    for (int g = 0; g < 16; ++g) {
+      r[acc_col(lane, 4 * g)] = sq[2 * g];
+      r[acc_col(lane, 4 * g + 1)] = sq[2 * g + 1];
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < BN && u.n0 + t < n) {
+    float sum = red[t];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) sum += red[w * BN + t];
+    float* p = out + (int64_t)(u.m0 / BM) * ldo + u.n0 + t;
+    *p = first ? sum : *p + sum;
+  }
+}
+
+// A unit's running sum to where it goes: `flush`, or for QUAD `quad_colsum`
+// (its partial row; `red` is the raw ring, free once the k loop is done).
+template <int EPI>
+__device__ __forceinline__ void hand_off(const float (&acc)[64], const Unit& u, bool first,
+                                         float* red, float* ws, const float* s, int64_t lds,
+                                         float* out, int64_t ldo, int64_t m, int64_t n, int wg,
+                                         int warp, int lane) {
+  if constexpr (EPI == QUAD)
+    quad_colsum(acc, u, first, red, out, ldo, n, wg, warp, lane);
+  else
+    flush<EPI>(acc, u, first, ws, s, lds, out, ldo, m, n, wg, warp, lane);
+}
+
+template <int LAYOUT, int EPI, class GEN = TmaB>
 __global__ void __launch_bounds__(THREADS, 1)
 tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
           const Unit* __restrict__ units, const float* s_in, int64_t lds, float* out,
-          int64_t ldo, int64_t m, int64_t n, float* __restrict__ ws) {
+          int64_t ldo, int64_t m, int64_t n, float* __restrict__ ws, const GenArgs g) {
+  static_assert(EPI != QUAD || LAYOUT == NT, "QUAD is NT's epilogue");
+  static_assert(kTmaB<GEN> || LAYOUT == NT, "a generated B is NT's (k-contiguous rows)");
   extern __shared__ char smem_raw[];
   char* base = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~uintptr_t(1023));  // 128-byte swizzle: 1 KB aligned
@@ -435,26 +587,53 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
   const Unit u = units[blockIdx.x];
   const int nch = (u.ke - u.kb + BK - 1) / BK;
   const int t = threadIdx.x;
+  // A generated B: this thread's query (row t & 127 of the tile) for the unit.
+  float qv[3] = {0.0f, 0.0f, 0.0f};
+  bool live = false;
+  if constexpr (!kTmaB<GEN>) {
+    const int64_t qi = u.n0 + (t & (BN - 1));
+    live = qi < n;
+    if (live) {
+      qv[0] = g.q[qi * 3];
+      qv[1] = g.q[qi * 3 + 1];
+      qv[2] = g.q[qi * 3 + 2];
+    }
+  }
+  // NT sums in 2,048-deep segments; QUAD in one running sum (it squares).
+  constexpr bool segmented = LAYOUT == NT && EPI != QUAD;
   if (t == 0) {
     mbar_init(&s.full[0], 1);
     mbar_init(&s.full[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if constexpr (!kTmaB<GEN>) {
+    if (t < BK * GEN::STRIDE) meta_of(s, 0)[t] = meta_load<GEN>(g, u.kb);
+  }
   __syncthreads();
   if (t == 0) {
-    issue_chunk<LAYOUT>(s, 0, &ta, &tb, u.m0, u.n0, u.kb);
-    if (nch > 1) issue_chunk<LAYOUT>(s, 1, &ta, &tb, u.m0, u.n0, u.kb + BK);
+    issue_chunk<LAYOUT, GEN>(s, 0, &ta, &tb, u.m0, u.n0, u.kb);
+    if (nch > 1) issue_chunk<LAYOUT, GEN>(s, 1, &ta, &tb, u.m0, u.n0, u.kb + BK);
   }
   mbar_wait(&s.full[0], 0);
-  split_chunk<LAYOUT>(s.raw[0], s.split[0]);
+  if constexpr (kTmaB<GEN>) {
+    split_chunk<LAYOUT>(s.raw[0], s.split[0]);
+  } else {  // chunk 0's B whole, and chunk 1's metadata
+    split_rows(s.raw[0], s.split[0], s.split[0] + SPLIT_BYTES);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      gen_group<GEN>(g, meta_of(s, 0), qv, live, u.kb, j, s.split[0] + 2 * SPLIT_BYTES,
+                     s.split[0] + 3 * SPLIT_BYTES);
+    if (t < BK * GEN::STRIDE) meta_of(s, 1)[t] = meta_load<GEN>(g, u.kb + BK);
+  }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  if (t == 0 && nch > 2) issue_chunk<LAYOUT>(s, 0, &ta, &tb, u.m0, u.n0, u.kb + 2 * BK);
+  if (t == 0 && nch > 2) issue_chunk<LAYOUT, GEN>(s, 0, &ta, &tb, u.m0, u.n0, u.kb + 2 * BK);
 
   const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
   float acc[64], step[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float meta_next = 0.0f;  // a generated B: chunk c + 2's metadata element, in flight
 
   for (int c = 0; c < nch; ++c) {
     const char* sp = s.split[c & 1];
@@ -487,15 +666,32 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
       wgmma_commit();
       if (st == 0 && c + 1 < nch) {  // split the next chunk while this step runs
         mbar_wait(&s.full[(c + 1) & 1], ((c + 1) >> 1) & 1);
-        split_chunk<LAYOUT>(s.raw[(c + 1) & 1], s.split[(c + 1) & 1]);
+        if constexpr (kTmaB<GEN>) {
+          split_chunk<LAYOUT>(s.raw[(c + 1) & 1], s.split[(c + 1) & 1]);
+        } else {
+          split_rows(s.raw[(c + 1) & 1], s.split[(c + 1) & 1],
+                     s.split[(c + 1) & 1] + SPLIT_BYTES);
+          meta_next = meta_load<GEN>(g, u.kb + (c + 2) * BK);
+        }
+      }
+      if constexpr (!kTmaB<GEN>) {  // the next chunk's B, a quarter a step
+        if (c + 1 < nch) {
+          char* next = s.split[(c + 1) & 1];
+          gen_group<GEN>(g, meta_of(s, (c + 1) & 1), qv, live, u.kb + (c + 1) * BK, st,
+                         next + 2 * SPLIT_BYTES, next + 3 * SPLIT_BYTES);
+          // Chunk c's metadata was read in the last loop; its slot takes c + 2's.
+          if (st == BK / STEP_K - 1 && t < BK * GEN::STRIDE)
+            meta_of(s, c & 1)[t] = meta_next;
+        }
       }
       wgmma_wait();
       fence_operand(step);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] += round23(step[i]);
     }
-    if (LAYOUT == NT && (c + 1) % SEG_CHUNKS == 0 && c + 1 < nch) {
-      flush<EPI>(acc, u, c + 1 == SEG_CHUNKS, ws, s_in, lds, out, ldo, m, n, wg, warp, lane);
+    if (segmented && (c + 1) % SEG_CHUNKS == 0 && c + 1 < nch) {
+      hand_off<EPI>(acc, u, c + 1 == SEG_CHUNKS, reinterpret_cast<float*>(s.raw[0]), ws, s_in,
+                    lds, out, ldo, m, n, wg, warp, lane);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
     }
@@ -503,12 +699,12 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncthreads();
       if (t == 0 && c + 3 < nch)
-        issue_chunk<LAYOUT>(s, (c + 1) & 1, &ta, &tb, u.m0, u.n0, u.kb + (c + 3) * BK);
+        issue_chunk<LAYOUT, GEN>(s, (c + 1) & 1, &ta, &tb, u.m0, u.n0, u.kb + (c + 3) * BK);
     }
   }
 
-  flush<EPI>(acc, u, LAYOUT == NN || nch <= SEG_CHUNKS, ws, s_in, lds, out, ldo, m, n, wg,
-             warp, lane);
+  hand_off<EPI>(acc, u, !segmented || nch <= SEG_CHUNKS, reinterpret_cast<float*>(s.raw[0]), ws,
+                s_in, lds, out, ldo, m, n, wg, warp, lane);
 }
 
 // One tile's partials summed in slot order, then the epilogue; blockIdx.y
@@ -582,31 +778,36 @@ inline int make_map(CUtensorMap* map, const float* p, int64_t rows, int64_t cols
 }
 
 // out (m x n, ldo) (=, +=) A (m x k_end, lda) B, or (SUB_FROM) S (lds) - A B,
-// over the planned units, then the finish tiles.  B is (k_end x n_live) in
-// NN, (n_live x k_end) in NT, leading dimension ldb; n_live is B's extent
-// along n, past which TMA reads zeros.  With no unit (NT at k_end 0) no
-// tensor map is made.  Returns a cudaError_t.
-template <int LAYOUT, int EPI>
+// or (QUAD) the partials colsum((A B^T)^2) (ceil(m / 128) x n, ldo), over the
+// planned units, then the finish tiles.  B is (k_end x n_live) in NN,
+// (n_live x k_end) in NT, leading dimension ldb; n_live is B's extent along
+// n, past which TMA reads zeros.  With a generator GEN, B is not read (b may
+// be null): `g` generates it.  With no unit (NT at k_end 0) no tensor map is
+// made.  Returns a cudaError_t.
+template <int LAYOUT, int EPI, class GEN = TmaB>
 int launch(const float* a, int64_t lda, const float* b, int64_t ldb, int64_t k_end,
            int64_t n_live, const float* s, int64_t lds, float* out, int64_t ldo, int64_t m,
            int64_t n, const Unit* units, int64_t n_units, const FinishTile* tiles,
-           int64_t n_tiles, float* ws, cudaStream_t stream) {
+           int64_t n_tiles, float* ws, cudaStream_t stream, const GenArgs& g = GenArgs{}) {
   int err = 0;
   if (n_units > 0) {
     CUtensorMap ta, tb;
     err = make_map(&ta, a, m, k_end, lda, BM);
-    if (!err)
+    if (!err && kTmaB<GEN>)
       err = LAYOUT == NT ? make_map(&tb, b, n_live, k_end, ldb, BM)
                          : make_map(&tb, b, k_end, n_live, ldb, BK);
     if (err) return err;
-    cudaFuncSetAttribute(tc_kernel<LAYOUT, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    tc_kernel<LAYOUT, EPI><<<(unsigned int)n_units, THREADS, SMEM_BYTES, stream>>>(
-        ta, tb, units, s, lds, out, ldo, m, n, ws);
+    if (!kTmaB<GEN>) tb = ta;  // not read
+    cudaFuncSetAttribute(tc_kernel<LAYOUT, EPI, GEN>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    tc_kernel<LAYOUT, EPI, GEN><<<(unsigned int)n_units, THREADS, SMEM_BYTES, stream>>>(
+        ta, tb, units, s, lds, out, ldo, m, n, ws, g);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  if (n_tiles > 0) {
+  if constexpr (EPI == QUAD) {  // whole units only: a split tile's square is not its parts'
+    if (n_tiles > 0) return (int)cudaErrorInvalidValue;
+  } else if (n_tiles > 0) {
     tc_finish_kernel<EPI><<<dim3((unsigned int)n_tiles, BM / 8), THREADS, 0, stream>>>(
         tiles, ws, s, lds, out, ldo, m, n);
     err = (int)cudaGetLastError();

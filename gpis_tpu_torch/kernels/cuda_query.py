@@ -19,6 +19,14 @@ gpis_tpu/kernels/pallas_query.py:250-437).
   query (`linalg.outofcore.ooc_predict`) adds it up panel by panel.
 * `fused_query` -- the value query: staged (A then D) or on the fly (F).
 
+In float32, D and F are the split-TF32 tensor-core tile (csrc/tc_nn.cuh,
+NT layout, QUAD epilogue; F with kq generated into the tile's shared
+memory): the plan (`cuda_chol._tc_plan`, upper "rows", never split) runs
+each 128-row tile of W over k up to its last global row, and TMA reads W
+(and D's kq), so each such view must start on 16 bytes with rows a
+multiple of 4 floats (`cuda_chol._check_tma`: a view that is not raises).
+In float64 they keep the SIMT tile.
+
 Routing.  A query takes the staged route unless its staged kq would exceed
 `KQ_STAGE_MAX` bytes; then it takes Kernel F, which needs O(M) memory.
 That is the second clause of the JAX package's `_want_staged`.  Its first
@@ -36,6 +44,7 @@ from gpis_tpu_torch import _build
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels.cuda_gram import KERNEL_IDS, pairwise_r2
 from gpis_tpu_torch.kernels.gram import cross_cov
+from gpis_tpu_torch.linalg import cuda_chol
 
 __all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "generated_kq",
            "fused_quad", "fused_quad_reference", "quad_band", "quad_band_reference",
@@ -46,7 +55,6 @@ __all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "
 # C ~ 65k model already needs.
 KQ_STAGE_MAX = 2 << 30
 
-_TILE = 64  # csrc/common.cuh TILE
 _MAX_BLOCKS = 2**31 - 1
 # Column metadata width of each Kernel F generator (csrc/fused_query.cu).
 _GEN_STRIDE = {"value": 3, "joint": 7}
@@ -62,9 +70,12 @@ def staged_quad_reference(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
     return kq @ alpha, torch.sum(v * v, dim=0)
 
 
-def _check_launch(what: str, m: int, c: int) -> int:
-    tiles = -(-c // _TILE)
-    if tiles * -(-m // _TILE) > _MAX_BLOCKS:
+def _check_launch(what: str, m: int, c: int, dtype: torch.dtype) -> int:
+    """W's row tiles (the partials' rows): 128 rows in float32 (the
+    tensor-core tile), 64 in float64 (common.cuh TILE)."""
+    tile = cuda_chol.TC_TILE if dtype == torch.float32 else 64
+    tiles = -(-c // tile)
+    if tiles * -(-m // tile) > _MAX_BLOCKS:
         raise ValueError(f"{what}: {m} queries x capacity {c} exceed one launch")
     return tiles
 
@@ -79,12 +90,16 @@ def staged_quad(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor):
     if kq.device.type == "cpu":
         return staged_quad_reference(kq, w, alpha)
     _build.check_cuda_args("staged_quad", kq, w, alpha)
-    tiles = _check_launch("staged_quad", m, c)
+    tiles = _check_launch("staged_quad", m, c, kq.dtype)
     partial = torch.empty((tiles, m), dtype=kq.dtype, device=kq.device)
     mean = torch.empty((m,), dtype=kq.dtype, device=kq.device)
     quad = torch.empty((m,), dtype=kq.dtype, device=kq.device)
+    # float32: A = W (C x C), B = kq (M x C), each W row tile over k < its
+    # last row + 1.
+    plan, _keep = cuda_chol._tc_launch_args("staged_quad", w, kq, c, m, c, upper="rows",
+                                            whole=True)
     _build.call("gpis_staged_quad", kq, kq.data_ptr(), m, w.data_ptr(), alpha.data_ptr(), c,
-                partial.data_ptr(), mean.data_ptr(), quad.data_ptr())
+                partial.data_ptr(), mean.data_ptr(), quad.data_ptr(), *plan)
     _build.LAUNCHES["staged_quad"] += 1
     return mean, quad
 
@@ -123,14 +138,17 @@ def fused_quad(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
     if name not in KERNEL_IDS or (gen == "joint" and not kf.supports_derivatives(name)):
         raise ValueError(f"fused_quad: no CUDA {gen} generator for covariance {name!r}")
     _build.check_cuda_args("fused_quad", q, cols, w, alpha)
-    tiles = _check_launch("fused_quad", m, c)
+    tiles = _check_launch("fused_quad", m, c, q.dtype)
     partial = torch.empty((tiles, m), dtype=q.dtype, device=q.device)
     mean = torch.empty((m,), dtype=q.dtype, device=q.device)
     quad = torch.empty((m,), dtype=q.dtype, device=q.device)
+    # float32: A = W, B generated (no B operand read), as D's plan.
+    plan, _keep = cuda_chol._tc_launch_args("fused_quad", w, None, c, m, c, upper="rows",
+                                            whole=True)
     _build.call("gpis_fused_quad", q, q.data_ptr(), m, cols.data_ptr(), c, int(gen == "joint"),
                 w.data_ptr(), alpha.data_ptr(), KERNEL_IDS[name], float(params["lengthscale"]),
                 float(params["signal_variance"]), partial.data_ptr(), mean.data_ptr(),
-                quad.data_ptr())
+                quad.data_ptr(), *plan)
     _build.LAUNCHES["fused_quad"] += 1
     return mean, quad
 
@@ -164,15 +182,19 @@ def quad_band(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
         raise ValueError(f"quad_band: no CUDA {gen} generator for covariance {name!r}")
     _build.check_cuda_args("quad_band", q, cols)
     _build.check_cuda_rows("quad_band", w_band)
-    tiles = _check_launch("quad_band", m, r)
+    tiles = _check_launch("quad_band", m, r, q.dtype)
     partial = torch.empty((tiles, m), dtype=q.dtype, device=q.device)
     quad = torch.empty((m,), dtype=q.dtype, device=q.device)
     if m == 0 or r == 0:
         return quad.zero_()
+    # float32: A = the band (R x width), B generated; the band's tile at row
+    # r0 is live for k < row0 + r0 + 128.
+    plan, _keep = cuda_chol._tc_launch_args("quad_band", w_band, None, r, m, width,
+                                            upper="rows", k_offset=int(row0), whole=True)
     _build.call("gpis_quad_band", q, q.data_ptr(), m, cols.data_ptr(), c, int(gen == "joint"),
-                w_band.data_ptr(), w_band.stride(0), r, int(row0), KERNEL_IDS[name],
+                w_band.data_ptr(), w_band.stride(0), r, width, int(row0), KERNEL_IDS[name],
                 float(params["lengthscale"]), float(params["signal_variance"]),
-                partial.data_ptr(), quad.data_ptr())
+                partial.data_ptr(), quad.data_ptr(), *plan)
     _build.LAUNCHES["quad_band"] += 1
     return quad
 

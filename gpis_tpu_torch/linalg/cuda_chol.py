@@ -85,20 +85,23 @@ TC_DEPTH = 256  # split units are a multiple of this deep
 
 
 def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: int = 0,
-             upper: str | None = None, n_sm: int = 132):
+             upper: str | None = None, k_offset: int = 0, whole: bool = False,
+             n_sm: int = 132):
     """The tensor-core product's work over output rows [0, rows), columns
     [0, cols) and k < k_hi, as (units, finish, n_slots); the same for both
-    layouts of B (NN: C, H, K and L; NT: B, G and J, which take no triangle
-    or width):
+    layouts of B (NN: C, H, K and L; NT: B, G, J, D and F, which take no
+    triangle or width):
 
     * units: (m0, n0, kb, ke, slot), one CTA each: the 128 x 128 tile at
       (m0, n0) over k in [kb, ke).  A tile's k range starts at 0, or with
       `triangle` (W lower-triangular, so W[k, c] = 0 for k < c) at its first
-      column n0.  It ends at k_hi, or with `upper` (V = Ljj^{-1}
-      lower-triangular) after the tile's last column ("cols", J: V[c, k] = 0
-      for k > c) or last row ("rows", K: V[r, k] = 0 for k > r), at
-      min(n0 or m0 + 128, k_hi).  slot -1: the unit owns its tile's whole
-      range and writes the output; else it writes partial `slot`.
+      column n0.  It ends at k_hi, or with `upper` (a lower-triangular
+      operand) after the tile's last column ("cols", J: V[c, k] = 0 for
+      k > c) or last row ("rows", K, D and F: V[r, k] = 0 for k > r), at
+      min(n0 or m0 + k_offset + 128, k_hi); k_offset is the global index of
+      row 0 (F's W band at row0; 0 for a whole triangle).  slot -1: the unit
+      owns its tile's whole range and writes the output; else it writes
+      partial `slot`.
     * finish: (m0, n0, slot0, cnt): a split tile's partials [slot0, slot0 +
       cnt), summed in that order; with cnt 0, a tile with no live k (NT at
       k_hi 0, whose epilogue then copies S) and, for `width` > cols, the
@@ -106,24 +109,27 @@ def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
     * n_slots: the partials' count, the workspace's (n_slots, 128, 128).
 
     Tiles are split when there are fewer than two waves of them (n_sm CTAs a
-    wave, one a streaming multiprocessor); the units are then TC_DEPTH-
-    multiples deep, about four to a multiprocessor, on k-chunk bounds.  So a
-    tile at most TC_DEPTH deep is never cut: J's and K's, whose k range is
-    one B = 256 block, are one unit each, and their plans have no partials
-    and no finish tiles.  With `upper` the units come deepest first."""
+    wave, one a streaming multiprocessor) and `whole` is not asked for; the
+    units are then TC_DEPTH-multiples deep, about four to a multiprocessor,
+    on k-chunk bounds.  So a tile at most TC_DEPTH deep is never cut: J's
+    and K's, whose k range is one B = 256 block, are one unit each, and
+    their plans have no partials and no finish tiles; nor is a tile of D or
+    F (`whole`: the QUAD epilogue squares the tile's whole sum).  With
+    `upper` the units come deepest first."""
     t = TC_TILE
     if upper not in (None, "cols", "rows"):
         raise ValueError(f"_tc_plan: upper must be None, 'cols' or 'rows', got {upper!r}")
 
     def end(m0, n0):
-        return k_hi if upper is None else min((n0 if upper == "cols" else m0) + t, k_hi)
+        return k_hi if upper is None else min((n0 if upper == "cols" else m0 + k_offset) + t,
+                                              k_hi)
 
     tiles = [(m0, n0, n0 if triangle else 0, end(m0, n0)) for m0 in range(0, rows, t)
              for n0 in range(0, cols, t)]
     empty = [(m0, n0, 0, 0) for m0, n0, lo, hi in tiles if lo >= hi]
     tiles = [(m0, n0, lo, hi) for m0, n0, lo, hi in tiles if lo < hi]
     step = 0
-    if len(tiles) < 2 * n_sm:
+    if len(tiles) < 2 * n_sm and not whole:
         depth = sum(hi - lo for _, _, lo, hi in tiles)
         step = max(TC_DEPTH, TC_DEPTH * math.ceil(depth / (4 * n_sm * TC_DEPTH)))
     units, finish, slot = [], [], 0
@@ -142,20 +148,22 @@ def _tc_plan(rows: int, cols: int, k_hi: int, *, triangle: bool = False, width: 
         finish.extend((m0, n0, 0, 0) for m0 in range(0, rows, t))
     if upper is not None:
         # Deepest units first (the card starts CTAs in index order): J's and
-        # K's tiles are 128 or 256 deep, and past one wave the shallow ones
-        # then fill in behind the deep ones rather than the other way round.
+        # K's tiles are 128 or 256 deep, D's and F's 128 to C, and past one
+        # wave the shallow ones then fill in behind the deep ones rather than
+        # the other way round.
         units.sort(key=lambda u: u[2] - u[3])
     return units, finish, slot
 
 
 @functools.lru_cache(maxsize=1024)
 def _tc_plan_on(device: torch.device, rows: int, cols: int, k_hi: int, triangle: bool,
-                width: int, upper: str | None):
+                width: int, upper: str | None, k_offset: int, whole: bool):
     """`_tc_plan` for the card `device`, as int32 tensors on it (cached: the
-    factor and TRSM loops ask for the same plans fit after fit)."""
+    factor and TRSM loops ask for the same plans fit after fit, and the
+    queries for the same plans chunk after chunk)."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     units, finish, n_slots = _tc_plan(rows, cols, k_hi, triangle=triangle, width=width,
-                                      upper=upper, n_sm=n_sm)
+                                      upper=upper, k_offset=k_offset, whole=whole, n_sm=n_sm)
 
     def on_card(rows_, ncol):
         host = torch.tensor(rows_, dtype=torch.int32).reshape(-1, ncol).pin_memory()
@@ -177,17 +185,19 @@ def _check_tma(what: str, *mats: torch.Tensor) -> None:
                              "(16-byte aligned start and rows)")
 
 
-def _tc_launch_args(what: str, a: torch.Tensor, b: torch.Tensor, rows: int, cols: int,
+def _tc_launch_args(what: str, a: torch.Tensor, b: torch.Tensor | None, rows: int, cols: int,
                     k_hi: int, *, triangle: bool = False, width: int = 0,
-                    upper: str | None = None):
-    """The plan and workspace arguments of B's, C's, G's, H's, J's, K's and
-    L's entry points: for float32, after `_check_tma` on the operands the
-    kernel reads (a, b); for float64 (the SIMT tile) null.  A plan with no
+                    upper: str | None = None, k_offset: int = 0, whole: bool = False):
+    """The plan and workspace arguments of the tensor-core tile's entry
+    points (B, C, D, F, G, H, J, K and L): for float32, after `_check_tma`
+    on the operands the kernel reads through TMA (a, and b unless F
+    generates it: None); for float64 (the SIMT tile) null.  A plan with no
     partials takes no workspace.  Returns (args, keep-alive tensors)."""
     if a.dtype != torch.float32:
         return (None, 0, None, 0, None), ()
-    _check_tma(what, a, b)
-    units, finish, n_slots = _tc_plan_on(a.device, rows, cols, k_hi, triangle, width, upper)
+    _check_tma(what, *(t for t in (a, b) if t is not None))
+    units, finish, n_slots = _tc_plan_on(a.device, rows, cols, k_hi, triangle, width, upper,
+                                         k_offset, whole)
     if not n_slots:
         return (units.data_ptr(), units.shape[0], finish.data_ptr(), finish.shape[0], None), ()
     ws = torch.empty((n_slots, TC_TILE, TC_TILE), dtype=a.dtype, device=a.device)

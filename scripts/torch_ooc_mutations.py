@@ -7,7 +7,10 @@ tensor-core (NN and NT) and the inv / sharded kernels, on one card.
 For each mutation below it copies the repository to a temporary directory,
 breaks one kernel (or its plan) there, and runs the phase-2 check that
 covers it against the broken build: `chip_smoke.ooc_kernels` (Kernel I and
-the band modes of A and F, at phase 7's shapes),
+the band modes of A and F, at phase 7's shapes), `chip_smoke.quad_kernel_checks`
+(float32 D and F's four modes, the tile's NT layout with the QUAD epilogue,
+F with a generated B, against float64 twins per query, in the `_QSPLIT`
+regime and with the bias gate; and D and F in float64, the SIMT bodies),
 `chip_smoke.nn_kernel_checks` (float32 C and H, the split-TF32 tensor-core
 kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
 (float32 B and G, its NT layout, with the bias gate at a = b; and B and G
@@ -32,13 +35,13 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-OOC, NN, NT, INV = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
-                    "inv_and_trail_kernels")
+OOC, NN, NT, INV, QUAD = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
+                          "inv_and_trail_kernels", "quad_kernel_checks")
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
 MUTATIONS = [
-    ("F band mode with the in-core live-column bound (i+1)*64", OOC,
-     "gpis_tpu_torch/csrc/fused_query.cu",
+    ("F band mode with the in-core live-column bound (i+1)*64 (the SIMT body: F band in "
+     "float64)", QUAD, "gpis_tpu_torch/csrc/fused_query.cu",
      "const int64_t k_end = min64(row_base + row0 + rows, c);",
      "const int64_t k_end = min64(row0 + rows, c);"),
     ("G skips its last k slice (the SIMT NT body: G in float64)", NT,
@@ -100,8 +103,8 @@ MUTATIONS = [
      INV, "gpis_tpu_torch/csrc/chol.cu", "const int64_t k_end = row0 + rows;",
      "const int64_t k_end = row0 + rows - BK;"),
     ("J/K's plan ends each tile's triangle one chunk short of its last column / row", INV,
-     "gpis_tpu_torch/linalg/cuda_chol.py", "else m0) + t, k_hi)",
-     "else m0) + t - TC_CHUNK, k_hi)"),
+     "gpis_tpu_torch/linalg/cuda_chol.py", "else m0 + k_offset) + t,",
+     "else m0 + k_offset) + t - TC_CHUNK,"),
     ("J adds into its output (ADD in place of STORE)", INV, "gpis_tpu_torch/csrc/chol.cu",
      "gpis::tc::launch<gpis::tc::NT, gpis::tc::STORE>(\n      acc,",
      "gpis::tc::launch<gpis::tc::NT, gpis::tc::ADD>(\n      acc,"),
@@ -130,6 +133,25 @@ MUTATIONS = [
     ("L's plan ends one k chunk short", INV, "gpis_tpu_torch/linalg/cuda_chol.py",
      '_tc_launch_args("band_trail", live_l, wj, r - r_b, w, b)',
      '_tc_launch_args("band_trail", live_l, wj, r - r_b, w, b - TC_CHUNK)'),
+    ("QUAD drops one warpgroup's rows from the column sum", QUAD,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "for (int w = 1; w < 8; ++w) sum += red[w * BN + t];",
+     "for (int w = 1; w < 4; ++w) sum += red[w * BN + t];"),
+    ("QUAD squares before the last chunk (NT's 2,048-deep segments flushed mid-k)", QUAD,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "constexpr bool segmented = LAYOUT == NT && EPI != QUAD;",
+     "constexpr bool segmented = LAYOUT == NT;"),
+    ("D's plan ends each tile's triangle one chunk short", QUAD,
+     "gpis_tpu_torch/kernels/cuda_query.py",
+     '_tc_launch_args("staged_quad", w, kq, c, m, c, upper="rows",',
+     '_tc_launch_args("staged_quad", w, kq, c, m, c, upper="rows", k_offset=-cuda_chol.TC_CHUNK,'),
+    ("F band's plan without k_offset (the in-core bound)", QUAD,
+     "gpis_tpu_torch/kernels/cuda_query.py", "upper=\"rows\", k_offset=int(row0), whole=True)",
+     "upper=\"rows\", k_offset=0, whole=True)"),
+    ("F's generator drops the lo half (1xTF32 kq)", QUAD, "gpis_tpu_torch/csrc/tc_nn.cuh",
+     "*reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = l;",
+     "*reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = make_float4(0.f, 0.f, 0.f, 0.f);"),
+    ("the quad's reduce skips the last partial row", QUAD, "gpis_tpu_torch/csrc/quad.cuh",
+     "for (int64_t i = 0; i < tiles; ++i) s += partial[i * m + q];",
+     "for (int64_t i = 0; i < tiles - 1; ++i) s += partial[i * m + q];"),
 ]
 
 RUN = ("import torch, chip_smoke as cs; "

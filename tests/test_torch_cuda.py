@@ -75,7 +75,29 @@ def test_cuda_blocked_factor_and_inverse(cuda):
                                rtol=1e-10, atol=1e-10)
 
 
-def test_cuda_staged_quad_matches_twin(cuda):
+QUAD_REL_TOL = 1e-4  # chip_smoke.py's: the quad per query against the float64 twin
+
+
+def _assert_quad_close(mean, quad, mean_r, quad_r, kq, alpha):
+    """float64: only the summation order differs (1e-10).  float32 (the
+    tensor-core tile) against the twin run in float64 on the same values:
+    each query's quad within 1e-4 of itself, the mean within 1e-4 x
+    sum|kq||alpha|."""
+    if quad.dtype == torch.float64:
+        torch.testing.assert_close(quad, quad_r, rtol=1e-10, atol=1e-10)
+        if mean is not None:
+            torch.testing.assert_close(mean, mean_r, rtol=1e-10, atol=1e-10)
+        return
+    ref = quad_r.clamp_min(torch.finfo(torch.float64).tiny)
+    rel = ((quad.double() - quad_r).abs() / ref).max().item()
+    assert rel <= QUAD_REL_TOL, rel
+    if mean is not None:
+        err = (mean.double() - mean_r).abs().max().item()
+        assert err <= 1e-4 * (kq.abs() @ alpha.abs()).max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_staged_quad_matches_twin(cuda, dtype):
     rng = np.random.default_rng(13)
     c, m = 1024, 1000
     x = torch.as_tensor(rng.normal(size=(c, 3)), device=cuda)
@@ -84,14 +106,14 @@ def test_cuda_staged_quad_matches_twin(cuda):
     l = torch.linalg.cholesky(kg.gram("rbf", x, params, noise=1e-3))
     # solve_triangular returns column-major; the kernels take row-major only.
     w = torch.linalg.solve_triangular(l, torch.eye(c, dtype=l.dtype, device=cuda),
-                                      upper=False).contiguous()
-    alpha = torch.as_tensor(rng.normal(size=c), device=cuda)
-    kq = cuda_query.stage_kq("rbf", q, x, params)
+                                      upper=False).to(dtype).contiguous()
+    alpha = torch.as_tensor(rng.normal(size=c), dtype=dtype, device=cuda)
+    kq = cuda_query.stage_kq("rbf", q.to(dtype), x.to(dtype), params)
+    _build.LAUNCHES.clear()
     mean, quad = cuda_query.staged_quad(kq, w, alpha)
-    mean_r, quad_r = cuda_query.staged_quad_reference(kq, w, alpha)
-    # float64 on both sides: only the summation order differs.
-    torch.testing.assert_close(quad, quad_r, rtol=1e-10, atol=1e-10)
-    torch.testing.assert_close(mean, mean_r, rtol=1e-10, atol=1e-10)
+    assert _build.LAUNCHES["staged_quad"] == 1
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(), alpha.double())
+    _assert_quad_close(mean, quad, mean_r, quad_r, kq.double(), alpha.double())
 
 
 def test_cuda_untiled_fit_padded_then_linv_matches_cpu(cuda):
@@ -137,24 +159,24 @@ def test_cuda_joint_rows_matches_twin(cuda, name, dtype):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("gen", ["value", "joint"])
-def test_cuda_fused_quad_matches_twin(cuda, gen):
+def test_cuda_fused_quad_matches_twin(cuda, gen, dtype):
     rng = np.random.default_rng(16)
     c, m = 256, 1000
-    x = torch.as_tensor(rng.normal(size=(c, 3)), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(c, 3)), dtype=dtype, device=cuda)
     params = kf.kernel_params(0.8, 1.0)
     cols = x if gen == "value" else cuda_joint.pack_meta(cuda_joint.joint_meta(x))
     n = cols.shape[0]
-    w = torch.tril(torch.as_tensor(rng.normal(size=(n, n)), device=cuda)).contiguous()
-    alpha = torch.as_tensor(rng.normal(size=n), device=cuda)
-    q = torch.as_tensor(rng.normal(size=(m, 3)), device=cuda)
+    w = torch.tril(torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype, device=cuda))
+    alpha = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=cuda)
+    q = torch.as_tensor(rng.normal(size=(m, 3)), dtype=dtype, device=cuda)
     _build.LAUNCHES.clear()
     mean, quad = cuda_query.fused_quad(gen, "rbf", q, cols, params, alpha, w)
     assert _build.LAUNCHES["fused_quad"] == 1
-    mean_r, quad_r = cuda_query.fused_quad_reference(gen, "rbf", q, cols, params, alpha, w)
-    # float64 on both sides: only the summation order differs.
-    torch.testing.assert_close(quad, quad_r, rtol=1e-10, atol=1e-10)
-    torch.testing.assert_close(mean, mean_r, rtol=1e-10, atol=1e-10)
+    kq = cuda_query.generated_kq(gen, "rbf", q.double(), cols.double(), params)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq, w.double(), alpha.double())
+    _assert_quad_close(mean, quad, mean_r, quad_r, kq, alpha.double())
 
 
 def test_cuda_joint_session_matches_cpu_session(cuda, monkeypatch):
@@ -277,21 +299,129 @@ def test_cuda_stripe_write_past_the_old_grid_cap(cuda, c0):
     assert torch.equal(got, cuda_chol.stripe_write_reference(dst.clone(), blk, c0))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("gen", ["value", "joint"])
-def test_cuda_quad_band_matches_twin(cuda, gen):
+def test_cuda_quad_band_matches_twin(cuda, gen, dtype):
     rng = np.random.default_rng(19)
-    x = torch.as_tensor(rng.normal(size=(256, 3)), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(256, 3)), dtype=dtype, device=cuda)
     params = kf.kernel_params(0.8, 1.0)
     cols = x if gen == "value" else cuda_joint.pack_meta(cuda_joint.joint_meta(x))
     n = cols.shape[0]
-    w = torch.tril(torch.as_tensor(rng.normal(size=(n, n)), device=cuda))
-    q = torch.as_tensor(rng.normal(size=(1000, 3)), device=cuda)
+    w = torch.tril(torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype, device=cuda))
+    q = torch.as_tensor(rng.normal(size=(1000, 3)), dtype=dtype, device=cuda)
     for row0, r in ((0, 128), (n - 192, 192)):
         band = w[row0:row0 + r, :row0 + r]  # trimmed to its true width, a strided view
         got = cuda_query.quad_band(gen, "rbf", q, cols, params, band, row0)
-        want = cuda_query.quad_band_reference(gen, "rbf", q, cols, params, band, row0)
-        # float64 on both sides: only the summation order differs.
-        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+        want = cuda_query.quad_band_reference(gen, "rbf", q.double(), cols.double(), params,
+                                              band.double(), row0)
+        _assert_quad_close(None, got, None, want, None, None)
+
+
+def _scaled_tril(rng, rows, width, row0, dtype, dev, nonneg=False):
+    """Rows [row0, row0 + rows) of a lower-triangular W, zero past each
+    row's own global index, row i scaled by 1/sqrt(row0 + i + 1) so that
+    every row tile carries a share of each query's quad."""
+    g = rng.uniform(size=(rows, width)) if nonneg else rng.normal(size=(rows, width))
+    w = np.tril(g, k=row0) / np.sqrt(np.arange(row0 + 1, row0 + rows + 1))[:, None]
+    return torch.as_tensor(w, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("m", [1, 127, 129, 1000])
+@pytest.mark.parametrize("c", [1000, 1152])
+def test_cuda_tc_quad_edge_shapes_match_f64_twin(cuda, m, c):
+    """float32 D and F (value) at query counts around the 128-query tile and
+    capacities off the 128-row tile (1,000; 1,152 = 9 tiles)."""
+    rng = np.random.default_rng(m + c)
+    x = torch.as_tensor(rng.normal(size=(c, 3)), dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(rng.normal(size=(m, 3)), dtype=torch.float32, device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    w = _scaled_tril(rng, c, c, 0, torch.float32, cuda)
+    alpha = torch.as_tensor(rng.normal(size=c), dtype=torch.float32, device=cuda)
+    kq = cuda_query.stage_kq("rbf", q, x, params)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(), alpha.double())
+    _assert_quad_close(*cuda_query.staged_quad(kq, w, alpha), mean_r, quad_r, kq.double(),
+                       alpha.double())
+    kq64 = cuda_query.generated_kq("value", "rbf", q.double(), x.double(), params)
+    mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w.double(), alpha.double())
+    _assert_quad_close(*cuda_query.fused_quad("value", "rbf", q, x, params, alpha, w), mean_r,
+                       quad_r, kq64, alpha.double())
+
+
+@pytest.mark.parametrize("gen", ["value", "joint"])
+@pytest.mark.parametrize("row0, r", [(0, 300), (256, 128), (700, 300), (700, 1000)])
+def test_cuda_tc_quad_band_edges_match_f64_twin(cuda, gen, row0, r):
+    """float32 F band at row0 off the 32-deep chunk (700) and R off the
+    128-row tile: the tile's bound carries row0, and W's stored zeros past
+    each row's diagonal carry the rest of its last chunk."""
+    rng = np.random.default_rng(row0 + r)
+    n_pts = 600 if gen == "value" else 150
+    x = torch.as_tensor(rng.normal(size=(n_pts, 3)), dtype=torch.float32, device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    cols = x if gen == "value" else cuda_joint.pack_meta(cuda_joint.joint_meta(x))
+    width = row0 + r
+    cols = cols.repeat(-(-width // cols.shape[0]), 1)  # coincident columns past n_pts
+    band = _scaled_tril(rng, r, width + 36, row0, torch.float32, cuda)[:, :width]  # strided
+    q = torch.as_tensor(rng.normal(size=(700, 3)), dtype=torch.float32, device=cuda)
+    got = cuda_query.quad_band(gen, "rbf", q, cols, params, band, row0)
+    want = cuda_query.quad_band_reference(gen, "rbf", q.double(), cols.double(), params,
+                                          band.double(), row0)
+    _assert_quad_close(None, got, None, want, None, None)
+
+
+def test_cuda_tc_quad_bias_on_nonnegative_operands(cuda):
+    """float32 D on nonnegative W and kq: the mean relative error of the quad
+    within 2e-8 (chip_smoke's bias gate; truncated steps would read ~1e-7
+    low, squared)."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    c, m = 4096, 2048
+    w = torch.tril(torch.rand((c, c), generator=gen, device=cuda))
+    kq = torch.rand((m, c), generator=gen, device=cuda)
+    alpha = torch.rand((c,), generator=gen, device=cuda)
+    _, quad = cuda_query.staged_quad(kq, w, alpha)
+    _, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(), alpha.double())
+    bias = ((quad.double() - quad_r) / quad_r).mean().item()
+    assert abs(bias) <= 2e-8, bias
+
+
+def test_cuda_tc_quad_repeats_bit_for_bit(cuda):
+    """D and F twice each: the partials meet in a fixed order, no atomics."""
+    rng = np.random.default_rng(27)
+    c, m = 2048, 1000
+    x = torch.as_tensor(rng.normal(size=(c, 3)), dtype=torch.float32, device=cuda)
+    q = torch.as_tensor(rng.normal(size=(m, 3)), dtype=torch.float32, device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    w = _scaled_tril(rng, c, c, 0, torch.float32, cuda)
+    alpha = torch.as_tensor(rng.normal(size=c), dtype=torch.float32, device=cuda)
+    kq = cuda_query.stage_kq("rbf", q, x, params)
+    for run in (lambda: cuda_query.staged_quad(kq, w, alpha),
+                lambda: cuda_query.fused_quad("value", "rbf", q, x, params, alpha, w),
+                lambda: (cuda_query.quad_band("value", "rbf", q, x, params, w[1024:], 1024),)):
+        first, second = run(), run()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_cuda_tc_quad_refuses_a_view_tma_cannot_address(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    c, m = 512, 256
+    x = torch.randn((c, 3), generator=gen, device=cuda)
+    q = torch.randn((m, 3), generator=gen, device=cuda)
+    params = kf.kernel_params(0.8, 1.0)
+    alpha = torch.randn((c,), generator=gen, device=cuda)
+    kq = cuda_query.stage_kq("rbf", q, x, params)
+    # A contiguous W one float off a 16-byte boundary (D and F).
+    w = torch.tril(torch.randn((c * c + 1,), generator=gen, device=cuda)[1:].view(c, c))
+    w_off = torch.randn((c * c + 1,), generator=gen, device=cuda)[1:].view(c, c).copy_(w)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_query.staged_quad(kq, w_off, alpha)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_query.fused_quad("value", "rbf", q, x, params, alpha, w_off)
+    # A band whose rows step by an odd count of floats, and one starting a
+    # column off (F band).
+    wide = torch.randn((256, 1023), generator=gen, device=cuda)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_query.quad_band("value", "rbf", q, x, params, wide[:, :512], 256)
+    with pytest.raises(ValueError, match="TMA"):
+        cuda_query.quad_band("value", "rbf", q, x, params, w[256:, 1:], 255)
 
 
 @pytest.mark.parametrize("store", ["tiered", "host"])

@@ -332,31 +332,36 @@ def test_tc_model_deep_sums_of_squares_need_the_segments():
 # ---------------------------------------------------------- (b) the plan
 
 
-def _tile_end(m0, n0, k_hi, upper):
-    """Where a tile's k range ends: k_hi, or with V's triangle after the
-    tile's last column (J, "cols") or row (K, "rows"), never past k_hi."""
-    return k_hi if upper is None else min((n0 if upper == "cols" else m0) + TILE, k_hi)
+def _tile_end(m0, n0, k_hi, upper, k_offset=0):
+    """Where a tile's k range ends: k_hi, or with a triangular operand after
+    the tile's last column (J, "cols") or last global row (K, D, F: "rows",
+    row m0 being global row m0 + k_offset), never past k_hi."""
+    if upper is None:
+        return k_hi
+    return min((n0 if upper == "cols" else m0 + k_offset) + TILE, k_hi)
 
 
-def _check_plan(rows, cols, k_hi, *, triangle=False, width=0, upper=None, n_sm=132):
+def _check_plan(rows, cols, k_hi, *, triangle=False, width=0, upper=None, k_offset=0,
+                whole=False, n_sm=132):
     """Every live 128 x 128 tile's k range [lo, hi) covered exactly once
     (hi = k_hi, or the tile's own bound with `upper`), in units on k-chunk
     bounds; split tiles' slots contiguous, in k order, and named by one
     finish entry each; cnt-0 finish tiles on the tiles with no live k and on
     [round_up(cols), width)."""
     units, finish, n_slots = cuda_chol._tc_plan(rows, cols, k_hi, triangle=triangle,
-                                                width=width, upper=upper, n_sm=n_sm)
+                                                width=width, upper=upper, k_offset=k_offset,
+                                                whole=whole, n_sm=n_sm)
     per_tile = {}
     for m0, n0, kb, ke, slot in units:
         per_tile.setdefault((m0, n0), []).append((kb, ke, slot))
     live = {(m0, n0) for m0 in range(0, rows, TILE) for n0 in range(0, cols, TILE)
-            if (n0 if triangle else 0) < _tile_end(m0, n0, k_hi, upper)}
+            if (n0 if triangle else 0) < _tile_end(m0, n0, k_hi, upper, k_offset)}
     assert set(per_tile) == live
     split = {}
     for (m0, n0), us in per_tile.items():
         lo = n0 if triangle else 0
         us.sort()
-        assert us[0][0] == lo and us[-1][1] == _tile_end(m0, n0, k_hi, upper)
+        assert us[0][0] == lo and us[-1][1] == _tile_end(m0, n0, k_hi, upper, k_offset)
         for (kb, ke, _), nxt in zip(us, us[1:] + [None]):
             assert kb < ke and (kb - lo) % CHUNK == 0
             assert nxt is None or nxt[0] == ke
@@ -552,7 +557,7 @@ def test_tc_plan_covers_every_gemm_nt_masked_shape_once(rows, cols, k0):
 # ------------------------------------------------------ (d) the alignment rule
 
 
-def test_check_tma_accepts_every_main_path_view():
+def test_check_tma_accepts_every_main_path_view(monkeypatch, tmp_path):
     n, panel, c = 1024, 256, 2048
     l = torch.zeros((n, n))
     for j0 in range(0, n, 256):  # blocked_linv: W and L's row panel j
@@ -563,6 +568,69 @@ def test_check_tma_accepts_every_main_path_view():
         cuda_chol._check_tma("gemm_nn_acc_masked", cur[:, k0:k0 + panel], u[:panel])
     for r0 in range(256, 2 * panel, 256):  # _trsm_finish: -Ljj's rows, U's solved rows
         cuda_chol._check_tma("gemm_nn_acc_masked", -cur[r0:r0 + 256, :r0], u[:r0])
+    _check_tma_on_query_views(monkeypatch, tmp_path)
+
+
+def _check_tma_on_query_views(monkeypatch, tmp_path):
+    """D's and F's views on the query paths, run here in float32 through the
+    twins with `_check_tma` applied to what TMA would read: W and the staged
+    kq (D), W (F), the W bands of `ooc_predict` (F band) and the sharded
+    query's `w_loc` (F band), at a capacity the 256 block tiles and one it
+    does not (`fit` + `with_linv`)."""
+    import torch.distributed as dist
+
+    from gpis_tpu_torch.linalg import sharded as sh
+    from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+    seen = {"staged_quad": 0, "fused_quad": 0, "quad_band": 0}
+    d_twin, f_twin, b_twin = (cuda_query.staged_quad_reference, cuda_query.fused_quad_reference,
+                              cuda_query.quad_band_reference)
+
+    def staged_quad(kq, w, alpha):
+        cuda_chol._check_tma("staged_quad", w, kq)
+        seen["staged_quad"] += 1
+        return d_twin(kq, w, alpha)
+
+    def fused_quad(gen, name, q, cols, params, alpha, w):
+        cuda_chol._check_tma("fused_quad", w)
+        seen["fused_quad"] += 1
+        return f_twin(gen, name, q, cols, params, alpha, w)
+
+    def quad_band(gen, name, q, cols, params, w_band, row0):
+        assert w_band.dtype == torch.float32
+        cuda_chol._check_tma("quad_band", w_band)
+        seen["quad_band"] += 1
+        return b_twin(gen, name, q, cols, params, w_band, row0)
+
+    monkeypatch.setattr(cuda_query, "staged_quad", staged_quad)
+    monkeypatch.setattr(cuda_query, "fused_quad", fused_quad)
+    monkeypatch.setattr(cuda_query, "quad_band", quad_band)
+    x, y, q = _qsplit_problem()
+    noise = torch.full((N_QS,), 1e-3)
+    for model in (regression.fit_inference("rbf", x, y, noise, PARAMS),
+                  regression.with_linv(regression.fit("rbf", x[:800], y[:800], noise[:800],
+                                                      PARAMS, touch_capacity=0))):
+        regression.predict(model, q)  # staged: D
+        monkeypatch.setattr(cuda_query, "KQ_STAGE_MAX", 0)
+        regression.predict(model, q)  # on the fly: F
+        monkeypatch.setattr(cuda_query, "KQ_STAGE_MAX", 2 << 30)
+    m = ooc.ooc_fit("rbf", x, y, noise, kf.kernel_params(0.8, 1.0), panel=256, block=128,
+                    store="tiered", device_budget=2 * 256 * N_QS * 4)
+    ooc.ooc_predict(m, q)
+    n_ooc = seen["quad_band"]
+    assert seen["staged_quad"] == 2 and seen["fused_quad"] == 2 and n_ooc == N_QS // 256
+    model = regression.fit_inference("rbf", x, y, noise, PARAMS)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        sh.sharded_predict_linv("rbf", q, model.x, model.params, model.alpha, model.linv,
+                                make_row_mesh(1, device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert seen["quad_band"] == n_ooc + 1
+    # P = 4: each rank's w_loc, a row band of the one W.
+    for r in range(4):
+        cuda_chol._check_tma("quad_band", model.linv[r * N_QS // 4:(r + 1) * N_QS // 4])
 
 
 def test_check_tma_accepts_every_factor_view_of_b_and_g(monkeypatch, tmp_path):
@@ -1007,3 +1075,180 @@ def test_check_tma_accepts_every_band_trail_view(monkeypatch, tmp_path):
         dist.destroy_process_group()
     assert calls == list(range(0, 1024 - 128, 128))  # every step with a live row
     assert (w.double() @ l.double() - torch.eye(1024, dtype=torch.float64)).abs().max() < 1e-4
+
+
+# --------------------------------------------------- (g) Kernels D and F (QUAD)
+# D (staged_quad) and F (fused_quad, quad_band) are the tile's NT layout with
+# the QUAD epilogue: A = W (or a row band of it at global row row0), B = kq
+# (F: generated), each 128-row tile of W over k up to its last global row + 1
+# (`_tc_plan(upper="rows", k_offset=row0, whole=True)`), its product squared
+# and summed over its rows into partial[m0 / 128, q], the partials then
+# summed over the row tiles in order.
+
+from gpis_tpu_torch.kernels import cuda_query  # noqa: E402
+
+
+def _quad_plan(rows, m, width, row0):
+    return cuda_chol._tc_plan(rows, m, width, upper="rows", k_offset=row0, whole=True)
+
+
+def _planned_quad(w, kq, row0, product=None):
+    """colsum((W kq^T)^2) as the kernel takes it: unit by unit along the
+    QUAD plan, each unit reading W's and kq's boxes over its chunks (32 deep
+    from k 0, so the last chunk runs past the tile's bound into W's zeros;
+    zeros past W's width and past the rows and queries, as the tensor maps'
+    extents), its tile squared and summed over its 128 rows into its
+    partial row, the partials summed in row order.  `product(a, b)` is
+    a @ b^T of a unit's boxes: exact in W's dtype by default."""
+    rows, width = w.shape
+    m = kq.shape[0]
+    product = product or (lambda a, b: a @ b.T)
+    units, finish, n_slots = _quad_plan(rows, m, width, row0)
+    assert not finish and n_slots == 0
+    partial = torch.full((-(-rows // TILE), m), float("nan"), dtype=w.dtype)
+    for m0, n0, kb, ke, slot in units:
+        assert slot == -1
+        read = min(kb + CHUNK * -(-(ke - kb) // CHUNK), width)
+        tile = product(_box(w, m0, kb, TILE, read - kb), _box(kq[:, :width], n0, kb, TILE,
+                                                              read - kb))
+        partial[m0 // TILE, n0:n0 + TILE] = (tile * tile).sum(0)[:m - n0]
+    quad = torch.zeros((m,), dtype=w.dtype)
+    for row in partial:
+        quad = quad + row
+    return quad
+
+
+def _band_problem(rng, r, row0, m, c=None):
+    """Rows [row0, row0 + r) of a lower-triangular W (zero past each row's
+    global index), row i scaled by 1/sqrt(row0 + i + 1), stored trimmed to
+    width row0 + r, and a kq (m, c >= width) from random points, float64."""
+    width = row0 + r
+    c = c or width
+    w = np.tril(rng.normal(size=(r, width)), k=row0)
+    w /= np.sqrt(np.arange(row0 + 1, row0 + r + 1))[:, None]
+    cols = torch.as_tensor(rng.normal(size=(c, 3)))
+    q = torch.as_tensor(rng.normal(size=(m, 3)))
+    return torch.as_tensor(w), cols, q
+
+
+# (R, row0): the D shape (a whole triangle, C 1,000 off the 128 tile) and
+# bands at row0 0, 256 and 700 (off the 32-deep chunk), R 300 off the tile.
+_QUAD_SHAPES = [(1000, 0), (256, 0), (300, 256), (300, 700), (128, 700)]
+
+
+@pytest.mark.parametrize("r, row0", _QUAD_SHAPES)
+def test_planned_quad_equals_the_twins_in_float64(r, row0):
+    rng = np.random.default_rng(r + row0)
+    w, cols, q = _band_problem(rng, r, row0, 300)
+    params = kf.kernel_params(0.8, 1.0)
+    kq = cuda_query.generated_kq("value", "rbf", q, cols, params)
+    got = _planned_quad(w, kq, row0)
+    want = cuda_query.quad_band_reference("value", "rbf", q, cols, params, w, row0)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    if row0 == 0:  # the whole triangle: Kernel D's twin
+        alpha = torch.as_tensor(rng.normal(size=r))
+        torch.testing.assert_close(got, cuda_query.staged_quad_reference(kq, w, alpha)[1],
+                                   rtol=1e-12, atol=0)
+
+
+def test_planned_quad_band_without_k_offset_misses_the_band():
+    """The band's offset is what its bound leans on: planned with the
+    in-core bound (k_offset 0) a band at row0 700 keeps only k < its row
+    tile's local end, and loses most of every query's quad."""
+    rng = np.random.default_rng(35)
+    w, cols, q = _band_problem(rng, 300, 700, 200)
+    kq = cuda_query.generated_kq("value", "rbf", q, cols, kf.kernel_params(0.8, 1.0))
+    want = _planned_quad(w, kq, 700)
+    units, _, _ = _quad_plan(300, 200, 1000, 0)
+    assert max(ke for *_, ke, _ in units) == 384  # the in-core bound of rows [256, 300)
+    got = torch.zeros_like(want)
+    for m0, n0, kb, ke, _ in units:
+        tile = w[m0:m0 + TILE, kb:ke] @ kq[n0:n0 + TILE, kb:ke].T
+        got[n0:n0 + TILE] += (tile * tile).sum(0)
+    assert ((want - got) / want).min() > 0.5
+
+
+@pytest.mark.parametrize("rows, m, width, row0", [
+    (16384, 8192, 16384, 0), (16384, 128, 16384, 0), (1000, 300, 1000, 0), (21504, 8192, 21504, 0),
+    (4096, 8192, 32768, 28672), (1024, 8192, 20480, 19456), (1024, 8192, 16384, 15360),
+    (300, 1000, 1000, 700), (128, 129, 384, 256), (16384, 4096, 16384, 0)])
+def test_tc_plan_quad_covers_each_tile_once_unsplit_deepest_first(rows, m, width, row0):
+    """D's (C x M at k_hi C) and F band's (R x M at width, k_offset row0)
+    plans, at the session's shapes and ragged ones: every live (row tile,
+    query tile, k) covered once (`_check_plan`), k never reaching row0 +
+    m0 + 128, one unit a tile from k 0 at every shape -- no partial, no
+    finish tile, whatever the count of tiles -- and the units deepest
+    first."""
+    units, finish, n_slots = _check_plan(rows, m, width, upper="rows", k_offset=row0,
+                                         whole=True)
+    assert n_slots == 0 and not finish
+    assert len(units) == -(-rows // TILE) * -(-m // TILE)
+    for m0, n0, kb, ke, slot in units:
+        assert kb == 0 and slot == -1 and ke == min(row0 + m0 + TILE, width)
+    depths = [ke - kb for *_, kb, ke, _ in units]
+    assert depths == sorted(depths, reverse=True)
+    # The live k summed over the plan: each row tile's triangle, per query tile.
+    assert sum(depths) == -(-m // TILE) * sum(min(row0 + m0 + TILE, width)
+                                             for m0 in range(0, rows, TILE))
+
+
+def _model_quad(w, kq, **kw):
+    """The float32 quad as the tile computes it: v = W kq^T through the
+    model (`tc_nt_product` with one running sum, STORE: -(0 - v)), squared,
+    summed over each 128-row tile and the tiles' partials summed in order,
+    all in float32.  Steps past a tile's bound would add W's zeros, so the
+    whole k range is taken at once."""
+    v = -tc_nt_product(w, kq.T, torch.zeros((w.shape[0], kq.shape[0])), **kw)
+    sq = v * v
+    quad = torch.zeros((kq.shape[0],))
+    for m0 in range(0, w.shape[0], TILE):
+        quad = quad + sq[m0:m0 + TILE].sum(0)
+    return quad
+
+
+def test_tc_model_quad_in_the_qsplit_regime():
+    """The quad through the modelled tile in the `_QSPLIT` regime: the
+    float32 in-core fit's W and kq (C = 1,024, noise 1e-3), the variance
+    k(0) - quad within 2e-3 of the float64 oracle and within 4x the float32
+    twin's own error + 1e-6."""
+    x, y, q = _qsplit_problem()
+    torch.exp(torch.zeros(64))  # a process's first float32 exp can be ~1e-4 off on the CPU
+    m = regression.fit_inference("rbf", x, y, torch.full((N_QS,), 1e-3), PARAMS)  # linv: W
+    oracle = _oracle_var(x, m.noise, q)
+    kq = cuda_query.stage_kq("rbf", q, m.x, m.params)
+    twin = cuda_query.staged_quad_reference(kq, m.linv, m.alpha)[1]
+    err_twin = np.abs((1.0 - twin).double().numpy() - oracle).max()
+    errs = {}
+    for name, kw in (("rounded", {}), ("truncated", {"round_steps": False}),
+                     ("1xTF32", {"products": 1})):
+        errs[name] = np.abs((1.0 - _model_quad(m.linv, kq, **kw)).double().numpy()
+                            - oracle).max()
+    print(f"\nQSPLIT max |var - f64 oracle|: f32 twin {err_twin:.3e}, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert errs["rounded"] <= 2e-3
+    assert errs["rounded"] <= 4.0 * err_twin + 1e-6, (errs, err_twin)
+    assert errs["1xTF32"] > 2e-3  # the trap the split avoids
+
+
+def test_tc_model_quad_one_running_sum_holds_at_c_16384():
+    """The deepest tiles of D at C = 16,384 (rows 15,872 ... 16,383: k over
+    all 16,384 columns, 2,048 steps), nonnegative W and kq: the quad of one
+    running float32 sum (the kernel's QUAD) within 1e-4 of the float64 quad
+    per query and within 2e-8 in the mean, as the 2,048-deep segments of
+    NT's other epilogues; with the steps unrounded the mean reads low past
+    2e-8.  So QUAD keeps one running sum and no second register tile."""
+    gen = torch.Generator().manual_seed(36)
+    k = 16384
+    w = torch.rand((4 * TILE, k), generator=gen)
+    kq = torch.rand((TILE, k), generator=gen)
+    want = ((w.double() @ kq.double().T) ** 2).sum(0)
+    stats = {}
+    for name, kw in (("one running sum", {"segment": 0}), ("segments", {}),
+                     ("one sum, truncated", {"segment": 0, "round_steps": False})):
+        rel = (_model_quad(w, kq, **kw).double() - want) / want
+        stats[name] = (rel.abs().max().item(), rel.mean().item())
+    print("\nC 16,384 tile (max |rel|, mean rel): "
+          + ", ".join(f"{n} {a:.3e} {b:.3e}" for n, (a, b) in stats.items()))
+    for name in ("one running sum", "segments"):
+        assert stats[name][0] <= 1e-4 and abs(stats[name][1]) <= 2e-8
+    assert stats["one sum, truncated"][1] < -2e-8
