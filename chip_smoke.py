@@ -65,6 +65,12 @@ Phases, one printed line or more each; any failure exits nonzero:
    A band, G, L, A and F band launched; then sharded_linv timed in turns
    with and without Kernel L.
 
+Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
+for the three covariances with coincident points, at an aligned and a
+ragged layout (J % 4 == 3), as value rows and as an off-tile band with
+noise, and on general metadata, over NaN-filled outputs, twice bit for bit
+(`joint_kernel_checks`); then timed at the Gram, the cross and phase 6's
+band (the band by the card's time, behind a spin kernel).
 Phase 2 also holds the out-of-core kernels (I, and A and F in band mode)
 to their twins at phase 7's shapes, I bit for bit also at its scalar edges
 (heads and tails, odd pitches, float64, 70,000 rows).  B, C, G, H, J, K and
@@ -297,30 +303,70 @@ def joint_columns(torch, dev):
     return cuda_joint.joint_meta(x, torch.zeros((1024, 3), device=dev))
 
 
-def joint_cov_kernel(torch, gen, q, results: dict) -> dict:
-    """Kernel E against its twin: three covariances with coincident points
-    in Gram mode (noise) and cross mode (none); then rbf at the joint
-    slice's shapes, timed."""
+def joint_kernel_checks(torch, gen, results: dict) -> None:
+    """Kernel E against its twin at its edges, in float32 and float64, for
+    the three covariances with coincident points: an aligned layout (C =
+    1,024, T = 256: J % 4 == 0, the vector stores) and a ragged one (C =
+    1,001, T = 63: J = 4,067, J % 4 == 3, the scalar path, the kinds'
+    boundaries mid-tile), each as the Gram with noise, as value rows (64
+    queries on data points) and as a band of 517 rows at row0 1,037 (off a
+    tile, the noise diagonal entering mid-tile) with noise; and the ragged
+    Gram of general metadata (random directions and flags: the full blend).  Every
+    output is allocated over NaN (a missed element shows), and a second
+    call must repeat the first bit for bit.  Tolerance: 1e-5 x max|K| in
+    float32, 1e-10 x max(1, max|K|) in float64 (only rounding differs: one
+    exp or sqrt against three)."""
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_joint
 
-    dev = q.device
-    x = torch.as_tensor(fibonacci_sphere(1024), dtype=torch.float32, device=dev)
-    x[512:576] = x[:64]  # distinct indices, coincident points
-    meta = cuda_joint.joint_meta(x, torch.zeros((256, 3), device=dev))
-    noise = torch.rand((meta[0].shape[0],), generator=gen, device=dev) * 9e-3 + 1e-3
-    qmeta = cuda_joint.value_meta(torch.cat([x[:64], q[:1984]]))  # 64 queries on data points
+    dev = gen.device
     worst = 0.0
-    for name, ls in (("rbf", 0.4), ("thin_plate", 2.5), ("inverse_multiquadric", 0.4)):
-        p = {"lengthscale": ls, "signal_variance": 1.0}
-        for mode, rows, nz in (("gram+noise", meta, noise), ("cross", qmeta, None)):
-            want = cuda_joint.joint_rows_reference(name, rows, meta, p, noise_col=nz)
-            err = (cuda_joint.joint_rows(name, rows, meta, p, noise_col=nz) - want).abs().max()
-            tol = 1e-5 * max(1.0, want.abs().max().item())
-            check(f"joint_cov {name} {mode} {rows[0].shape[0]}x{meta[0].shape[0]} "
-                  f"(tol 1e-5 x max|K|)", err.item(), tol)
-            worst = max(worst, err.item())
-            del want
+    for dt in (torch.float32, torch.float64):
+        for layout, c, t in (("aligned", 1024, 256), ("ragged", 1001, 63)):
+            x = torch.as_tensor(fibonacci_sphere(c), dtype=dt, device=dev)
+            x[c // 2:c // 2 + 64] = x[:64]  # distinct indices, coincident points
+            meta = cuda_joint.joint_meta(x, torch.zeros((t, 3), dtype=dt, device=dev))
+            j = meta[0].shape[0]
+            noise = torch.rand((j,), generator=gen, device=dev, dtype=dt) * 9e-3 + 1e-3
+            q = torch.rand((1984, 3), generator=gen, device=dev, dtype=dt) * 3.0 - 1.5
+            cases = [("gram+noise", meta, meta, noise, 0),
+                     ("value rows", cuda_joint.value_meta(torch.cat([x[:64], q])), meta, None, 0),
+                     ("band+noise 517 rows at row0 1037",
+                      tuple(m[1037:1037 + 517] for m in meta), meta, noise, 1037)]
+            if layout == "ragged":
+                general = (meta[0], torch.randn((j, 3), generator=gen, device=dev, dtype=dt),
+                           torch.rand((j,), generator=gen, device=dev, dtype=dt))
+                cases.append(("general metadata", general, general, noise, 0))
+            for name, ls in (("rbf", 0.4), ("thin_plate", 2.5), ("inverse_multiquadric", 0.4)):
+                p = {"lengthscale": ls, "signal_variance": 1.0}
+                for mode, rows, cols, nz, row0 in cases:
+                    want = cuda_joint.joint_rows_reference(name, rows, cols, p, noise_col=nz,
+                                                           row0=row0)
+                    shape = (rows[0].shape[0], j)
+                    poisoned_empty(torch, shape, dev, dt)
+                    got = cuda_joint.joint_rows(name, rows, cols, p, noise_col=nz, row0=row0)
+                    poisoned_empty(torch, shape, dev, dt)
+                    again = cuda_joint.joint_rows(name, rows, cols, p, noise_col=nz, row0=row0)
+                    err = (got - want).abs().max().item()
+                    scale = max(1.0, want.abs().max().item())
+                    tol = (1e-5 if dt == torch.float32 else 1e-10) * scale
+                    what = (f"joint_cov {name} {layout} {mode} {shape[0]}x{j} {str(dt)[6:]}")
+                    check(f"{what} (tol {tol / scale:.0e} x max(1, max|K|))", err, tol)
+                    if not torch.equal(got, again):
+                        fail(f"{what}: a second call gave other bits")
+                    if dt == torch.float32:
+                        worst = max(worst, err)
+                    del want, got, again
+    results["joint_cov_checks"] = worst
+
+
+def joint_cov_kernel(torch, gen, q, results: dict) -> dict:
+    """Kernel E against its twin in rbf at the joint slice's shapes, timed:
+    the Gram with noise (J = 21,504), the value-query cross (no noise) and
+    phase 6's band of 1,024 rows at row0 19,456 with noise."""
+    from gpis_tpu_torch.kernels import cuda_joint
+
+    dev = q.device
     p = {"lengthscale": 0.4, "signal_variance": 1.0}
     meta = joint_columns(torch, dev)
     j = meta[0].shape[0]
@@ -342,11 +388,30 @@ def joint_cov_kernel(torch, gen, q, results: dict) -> dict:
     ms_x = time_ms(torch, lambda: cuda_joint.joint_rows("rbf", qmeta, meta, p), 5)
     plain_x = time_ms(torch, lambda: cuda_joint.joint_rows_reference("rbf", qmeta, meta, p), 1)
     check(f"joint_cov rbf cross M={q.shape[0]} J={j}", err_x, tol_x, ms_x, plain_x)
-    # About 45 operations and three exps an element of the Gram.
-    results["joint_cov"] = dict(max_abs_err=max(worst, err, err_x), ms=ms, plain_ms=plain,
-                                library_ms=None, **bound(48 * j * j, 4 * (j * j + 8 * j)))
+    row0, rb = 19456, 1024
+    band = tuple(m[row0:row0 + rb] for m in meta)
+    want = cuda_joint.joint_rows_reference("rbf", band, meta, p, noise_col=noise, row0=row0)
+    err_b = (cuda_joint.joint_rows("rbf", band, meta, p, noise_col=noise, row0=row0)
+             - want).abs().max().item()
+    tol_b = 1e-5 * max(1.0, want.abs().max().item())
+    del want
+    # A ~0.05 ms launch: the card's time (queued behind a spin), not the host's.
+    ms_b = device_ms(torch, lambda: cuda_joint.joint_rows("rbf", band, meta, p, noise_col=noise,
+                                                          row0=row0), 20)
+    plain_b = device_ms(torch, lambda: cuda_joint.joint_rows_reference(
+        "rbf", band, meta, p, noise_col=noise, row0=row0), 3)
+    check(f"joint_cov rbf band R={rb} at row0 {row0} J={j}", err_b, tol_b, ms_b, plain_b)
+    # About 30 operations and one exp an element; one store an element, the
+    # rows' and columns' 7-float metadata and the noise read once.
+    results["joint_cov"] = dict(max_abs_err=max(results.get("joint_cov_checks", 0.0), err, err_x,
+                                                err_b),
+                                ms=ms, plain_ms=plain, library_ms=None,
+                                **bound(30 * j * j, 4 * (j * j + 15 * j)))
     m = q.shape[0]
-    return dict(ms=ms_x, plain_ms=plain_x, **bound(48 * m * j, 4 * (m * j + 8 * j + 7 * m)))
+    return {"joint_cov_cross": dict(ms=ms_x, plain_ms=plain_x,
+                                    **bound(30 * m * j, 4 * (m * j + 7 * j + 7 * m))),
+            "joint_cov_band": dict(ms=ms_b, plain_ms=plain_b,
+                                   **bound(30 * rb * j, 4 * (rb * j + 7 * rb + 8 * j)))}
 
 
 def fused_quad_kernel(torch, gen, q, cols, kind: str) -> dict:
@@ -955,10 +1020,11 @@ INV_J_ROWS = (16128, 8064, 256)
 INV_K_COLS = (16384, 8448, 256)
 
 
-def poisoned_empty(torch, shape, dev):
+def poisoned_empty(torch, shape, dev, dtype=None):
     """Let the caching allocator's next block of `shape` hold NaN, so that a
-    kernel that reads its fresh output before writing it shows NaN."""
-    torch.full(shape, float("nan"), device=dev)
+    kernel that reads its fresh output before writing it, or leaves an
+    element unwritten, shows NaN."""
+    torch.full(shape, float("nan"), device=dev, dtype=dtype)
 
 
 def inv_kernel_checks(torch, gen, results: dict) -> None:
@@ -1333,7 +1399,8 @@ def phase2(torch, results: dict) -> None:
     del kq
 
     # E, then F with both generators at the slices' shapes.
-    instances["joint_cov_cross"] = joint_cov_kernel(torch, gen, q, results)
+    joint_kernel_checks(torch, gen, results)
+    instances.update(joint_cov_kernel(torch, gen, q, results))
     value = fused_quad_kernel(torch, gen, q, x, "value")
     joint = fused_quad_kernel(torch, gen, q, cuda_joint.pack_meta(joint_columns(torch, dev)),
                               "joint")

@@ -103,15 +103,18 @@ class ObjectModelSession:
             torch.cuda.synchronize(self.device)
 
     def start(self, points, *, normals=None, params=None, out_of_core: bool = False,
-              experts: int = 0):
+              experts: int = 0, expert_gate: int = 0, expert_beta: str = "rbcm"):
         """Downsample, normalize, label and fit an (N,3) world-frame cloud.
         With `normals` (N,3), surface orientation becomes derivative
         observations and the model is the joint system (`gp.derivative`).
         `out_of_core=True` fits through the panel-streamed factorization
         (`linalg.outofcore`), for clouds whose one-matrix factor does not
-        fit on the card.  On a mesh every rank fits rank 0's cloud."""
-        if experts:
-            not_ported("experts= (committee fits)", 13, "gp/experts.py")
+        fit on the card.  On a mesh every rank fits rank 0's cloud.
+        `experts`, `expert_gate` and `expert_beta` (the committee fit) take
+        only their defaults until the committee is ported."""
+        if experts or expert_gate or expert_beta != "rbcm":
+            not_ported("experts=, expert_gate=, expert_beta= (committee fits)", 13,
+                       "gp/experts.py")
         t0 = time.perf_counter()
         points = np.asarray(points, dtype=self.config.dtype)
         if points.ndim != 2 or points.shape[1] != 3 or len(points) == 0:

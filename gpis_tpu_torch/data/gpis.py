@@ -45,10 +45,10 @@ class TrainingSet:
     n_external: int
 
 
-def normalize_cloud(pts: torch.Tensor) -> tuple[torch.Tensor, Frame]:
+def normalize_cloud(points: torch.Tensor) -> tuple[torch.Tensor, Frame]:
     """Centroid-center and scale the cloud into the unit sphere."""
-    centroid = pts.mean(dim=0)
-    centered = pts - centroid
+    centroid = points.mean(dim=0)
+    centered = points - centroid
     scale = torch.linalg.norm(centered, dim=1).max()
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     return centered / scale, Frame(centroid=centroid, scale=scale)
@@ -64,9 +64,11 @@ def fibonacci_sphere(n: int, radius: float = 1.0, dtype=np.float64) -> np.ndarra
     )
 
 
-def build_training_set(points, cfg: ModelConfig, *, device="cuda") -> TrainingSet:
+def build_training_set(points, cfg: ModelConfig, normals=None, *, device="cuda") -> TrainingSet:
     """Cloud (world frame, (N,3) array or tensor) -> training set in the
-    normalized frame on `device`, in the cloud's dtype."""
+    normalized frame on `device`, in the cloud's dtype.  `normals` is
+    accepted and unused, as in the JAX package: the session hands normals to
+    the joint fit itself."""
     dev = resolve_device(device)
     pts = torch.as_tensor(np.asarray(points), device=dev)
     surf, frame = normalize_cloud(pts)

@@ -22,7 +22,7 @@ import dataclasses
 import torch
 
 from gpis_tpu_torch._build import not_ported
-from gpis_tpu_torch.gp.model import align_capacity, round_up
+from gpis_tpu_torch.gp.model import align_capacity, as_dtype, round_up
 from gpis_tpu_torch.gp.regression import _LINV_BLOCK, _MAX_JITTER_RETRIES, _float_params
 from gpis_tpu_torch.kernels import cuda_joint
 from gpis_tpu_torch.kernels import derivative as kd
@@ -80,13 +80,16 @@ class DerivGPModel:
 
 
 def fit_with_normals(kernel: str, x, y, normals, noise_f, noise_g, params, *, block: int = 64,
-                     touch_capacity: int = 0, pad_noise: float = 1e10) -> DerivGPModel:
-    """Fit on (x, y, normals) in x's dtype.  Normal observations follow the
-    GPIS convention that grad f on the surface is the outward unit normal.
-    touch_capacity > 0 preallocates value-only tactile slots at the joint
-    tail (origin points with pad noise, inert until an update writes them).
-    The capacity rule is the JAX package's, so both pad to the same J."""
-    dtype, dev = x.dtype, x.device
+                     touch_capacity: int = 0, pad_noise: float = 1e10, dtype=None,
+                     max_jitter_retries: int = _MAX_JITTER_RETRIES) -> DerivGPModel:
+    """Fit on (x, y, normals) in `dtype` (x's when None).  Normal
+    observations follow the GPIS convention that grad f on the surface is
+    the outward unit normal.  touch_capacity > 0 preallocates value-only
+    tactile slots at the joint tail (origin points with pad noise, inert
+    until an update writes them).  The capacity rule is the JAX package's,
+    so both pad to the same J; the jitter ladder retries up to
+    `max_jitter_retries` times, as `regression.fit`'s."""
+    dtype, dev = as_dtype(dtype, x), x.device
     n = x.shape[0]
     c = round_up(n, block)
     t = round_up(touch_capacity, block) if touch_capacity else 0
@@ -114,7 +117,7 @@ def fit_with_normals(kernel: str, x, y, normals, noise_f, noise_g, params, *, bl
 
     jitter0 = 4.0 * torch.finfo(dtype).eps * (4 * c + t) * abs(float(kf.k_diag0(kernel, params)))
     extra = 0.0
-    for attempt in range(_MAX_JITTER_RETRIES + 1):
+    for attempt in range(max_jitter_retries + 1):
         # The factor overwrites the Gram in place (lin.cholesky), so every
         # attempt assembles the whole (J, J) system anew.
         l = lin.cholesky(kd.joint_gram(kernel, xp, params, noise_f=npf + extra,

@@ -19,6 +19,7 @@ matrix that is not positive definite); a kernel failure raises through it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -27,7 +28,7 @@ from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.gp.model import GPModel, align_capacity, as_dtype, round_up
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
-from gpis_tpu_torch.kernels.cuda_query import fused_query
+from gpis_tpu_torch.kernels.cuda_query import exact_fp32, fused_query, staged_quad_reference
 from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
@@ -66,12 +67,13 @@ def _first_jitter(kernel, params, dtype, capacity: int) -> float:
 
 
 def fit(kernel: str, x, y, noise, params, *, block: int = 128, touch_capacity: int = 256,
-        pad_noise: float = 1e10, dtype=None,
+        pad_noise: float = 1e10, dtype=None, chol_impl=lin.cholesky,
         max_jitter_retries: int = _MAX_JITTER_RETRIES) -> GPModel:
     """GPModel from (x, y, per-point noise) in `dtype` (x's when None): pad
-    to capacity, then `fit_padded`, retrying up to `max_jitter_retries`
-    times with escalating diagonal jitter while the factor comes back NaN
-    (f32 Grams of dense clouds with tiny noise are numerically indefinite)."""
+    to capacity, then `fit_padded` (the factor by `chol_impl`), retrying up
+    to `max_jitter_retries` times with escalating diagonal jitter while the
+    factor comes back NaN (f32 Grams of dense clouds with tiny noise are
+    numerically indefinite)."""
     dtype = as_dtype(dtype, x)
     n0 = round_up(x.shape[0], block)
     capacity = align_capacity(n0 + round_up(touch_capacity, block))
@@ -79,7 +81,8 @@ def fit(kernel: str, x, y, noise, params, *, block: int = 128, touch_capacity: i
     jitter = _first_jitter(kernel, params, dtype, capacity)
     extra = 0.0
     for attempt in range(max_jitter_retries + 1):
-        model = fit_padded(kernel, xp, yp, noisep + extra, params, n0=n0, pad_noise=pad_noise)
+        model = fit_padded(kernel, xp, yp, noisep + extra, params, n0=n0, chol_impl=chol_impl,
+                           pad_noise=pad_noise)
         if not _has_nan_diagonal(model.chol):
             return model
         extra = jitter * (10.0**attempt)
@@ -89,11 +92,15 @@ def fit(kernel: str, x, y, noise, params, *, block: int = 128, touch_capacity: i
     )
 
 
-def fit_padded(kernel: str, xp, yp, noisep, params, *, n0: int,
+def fit_padded(kernel: str, xp, yp, noisep, params, *, n0: int, chol_impl=lin.cholesky,
                pad_noise: float = 1e10) -> GPModel:
-    """Fit on already-padded capacity-C arrays."""
+    """Fit on already-padded capacity-C arrays.  `chol_impl` factors the
+    (C, C) Gram into its lower Cholesky factor: the port's own blocked
+    factor by default (it may overwrite its argument), or any torch
+    callable of the same contract, which marks a failure with NaN on the
+    diagonal for the ladder of `fit`."""
     params = _float_params(params)
-    l = lin.cholesky(kg.gram(kernel, xp, params, noise=noisep))
+    l = chol_impl(kg.gram(kernel, xp, params, noise=noisep))
     return GPModel(x=xp, y=yp, noise=noisep, params=params, chol=l,
                    alpha=lin.cho_solve(l, yp), n_touch=0, kernel=kernel, n0=n0,
                    pad_noise=pad_noise)
@@ -141,7 +148,7 @@ def with_linv(model: GPModel, *, block: int = _LINV_BLOCK) -> GPModel:
     return dataclasses.replace(model, linv=blocked_linv(model.chol, b))
 
 
-def predict(model, q: torch.Tensor):
+def predict(model, q: torch.Tensor, *, precision=None):
     """Posterior (mean, variance) at queries q (M,3).
 
     mean = K* alpha;  var = k(0) - |W K*^T|^2 column-wise with W = L^{-1}.
@@ -153,6 +160,14 @@ def predict(model, q: torch.Tensor):
     `outofcore.ooc_predict`, which streams each W panel once for all of q,
     and a sharded one (`gp.sharded_model`) to its `predict`, which every
     rank calls with the same q.
+    precision=None takes those routes.  For a dense value model, any other
+    value (the JAX package passes `jax.lax.Precision.HIGHEST`; any non-None
+    value is read the same way) computes the mean and the quad as plain
+    PyTorch products in exact FP32 (`cuda_query.exact_fp32`), with no
+    split-TF32 tile: kq is staged and W kq^T materialized, so this route is
+    slow and memory-hungry, for checking the fast one.  As in the JAX
+    package, the joint, out-of-core and sharded models ignore it here
+    (`ShardedGPModel.predict` takes its own).
     The variance is not clamped (the conditionally-PD thin plate
     legitimately goes negative), except by the out-of-core query, which
     clamps it to [0, k0] as the JAX package does."""
@@ -167,17 +182,21 @@ def predict(model, q: torch.Tensor):
         return gpd.predict(model, q)
     q = q.contiguous()
     k0 = kf.k_diag0(model.kernel, model.params)
-    if model.linv is not None:
+    if model.linv is not None and precision is None:
         mean, quad = fused_query(model.kernel, q, model.x, model.params, model.alpha,
                                  model.linv)
         return mean, k0 - quad
     kq = kg.cross_cov(model.kernel, q, model.x, model.params)  # (M, C)
-    mean = kq @ model.alpha
-    if model.kinv is not None:
-        quad = torch.sum(kq * (kq @ model.kinv), dim=1)
-    else:
-        v = lin.solve_lower(model.chol, kq.T)
-        quad = torch.sum(v * v, dim=0)
+    with exact_fp32() if precision is not None else contextlib.nullcontext():
+        if model.linv is not None:
+            mean, quad = staged_quad_reference(kq, model.linv, model.alpha)
+            return mean, k0 - quad
+        mean = kq @ model.alpha
+        if model.kinv is not None:
+            quad = torch.sum(kq * (kq @ model.kinv), dim=1)
+        else:
+            v = lin.solve_lower(model.chol, kq.T)
+            quad = torch.sum(v * v, dim=0)
     return mean, k0 - quad
 
 

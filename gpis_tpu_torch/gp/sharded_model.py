@@ -60,15 +60,17 @@ class ShardedGPModel:
         not_ported("ShardedGPModel.update (the sharded bordering update)", 7,
                    "linalg/sharded.py sharded_update_tail")
 
-    def predict(self, q: torch.Tensor):
+    def predict(self, q: torch.Tensor, *, precision=None):
         """Posterior (mean, variance) at q (M, 3), the same on every rank:
         q is padded to a multiple of P, each rank answers its shard, and an
-        all-gather joins the shards."""
+        all-gather joins the shards.  precision other than None takes the
+        exact FP32 plain products (`sharded_predict_linv`; slow)."""
         m, p = q.shape[0], self.mesh.size
         pad = (-m) % p
         qp = torch.cat([q, q.new_zeros((pad, 3))]) if pad else q
         mean, var = sh.sharded_predict_linv(self.kernel, qp.contiguous(), self.x, self.params,
-                                            self.alpha, self.w, self.mesh)
+                                            self.alpha, self.w, self.mesh,
+                                            precision=precision)
         return _all_gather(mean, p)[:m], _all_gather(var, p)[:m]
 
 

@@ -124,7 +124,7 @@ def joint_rows(name: str, rmeta, cmeta, params, noise_col=None, row0: int = 0) -
     rm, cm = pack_meta(rmeta), pack_meta(cmeta)
     tensors = (rm, cm) if noise_col is None else (rm, cm, noise_col.contiguous())
     _build.check_cuda_args("joint_rows", *tensors)
-    if -(-r // 64) * -(-s // 32) > _MAX_BLOCKS:
+    if -(-r // 256) * -(-s // 128) > _MAX_BLOCKS:  # joint.cu's 256 x 128 tiles
         raise ValueError(f"joint_rows: {r} x {s} exceeds one launch")
     out = torch.empty((r, s), dtype=rm.dtype, device=rm.device)
     _build.call("gpis_joint_cov", rm, rm.data_ptr(), r, cm.data_ptr(), s,

@@ -18,6 +18,9 @@ gpis_tpu/kernels/pallas_query.py:250-437).
   `fused_joint_quad_band_pallas` (pallas_joint.py:500).  The out-of-core
   query (`linalg.outofcore.ooc_predict`) adds it up panel by panel.
 * `fused_query` -- the value query: staged (A then D) or on the fly (F).
+* `exact_fp32` -- a block whose plain PyTorch products run in full FP32
+  (TF32 off): the `precision=` route of the predict functions, which takes
+  the plain twins in place of the split-TF32 tile.
 
 In float32, D and F are the split-TF32 tensor-core tile (csrc/tc_nn.cuh,
 NT layout, QUAD epilogue; F with kq generated into the tile's shared
@@ -38,6 +41,8 @@ records both routes' times at one shape).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from gpis_tpu_torch import _build
@@ -48,7 +53,7 @@ from gpis_tpu_torch.linalg import cuda_chol
 
 __all__ = ["KQ_STAGE_MAX", "stage_kq", "staged_quad", "staged_quad_reference", "generated_kq",
            "fused_quad", "fused_quad_reference", "quad_band", "quad_band_reference",
-           "want_staged", "fused_query"]
+           "want_staged", "fused_query", "exact_fp32"]
 
 # Largest staged kq, in bytes: 4 x the 512 MiB of one 8,192-query chunk at
 # C = 16,384 in float32, a quarter of the memory the one C x C W of a
@@ -62,6 +67,20 @@ _GEN_STRIDE = {"value": 3, "joint": 7}
 
 # Stage A: kq = K(Q, X) (M, C), written once -- the cross-covariance itself.
 stage_kq = cross_cov
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """Inside the block, float32 matrix products on the card are exact FP32
+    (torch.backends.cuda.matmul.allow_tf32 off); the flag is restored
+    after.  The package turns TF32 off at import, so this matters only to a
+    caller who turned it back on since."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def staged_quad_reference(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor):

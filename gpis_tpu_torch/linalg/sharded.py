@@ -264,14 +264,17 @@ def _ring_shift(q: torch.Tensor, quad: torch.Tensor, mesh: RowMesh):
 
 
 def sharded_predict_linv(name: str, q: torch.Tensor, x: torch.Tensor, params,
-                         alpha: torch.Tensor, w_loc: torch.Tensor, mesh: RowMesh):
+                         alpha: torch.Tensor, w_loc: torch.Tensor, mesh: RowMesh, *,
+                         precision=None):
     """Posterior (mean, variance) at this rank's shard of the replicated
     queries q (M, 3), M a multiple of P: rows [r M / P, (r + 1) M / P).  The
     mean is kq @ alpha (kq through Kernel A); the variance's ||W kq^T||^2
     pairs every W band with every query shard, so the shards ride a ring
     and each hop adds this band's partial quad (Kernel F's band mode, kq
     generated on chip against the band's live columns).  After P hops every
-    shard is home with all P bands' share."""
+    shard is home with all P bands' share.  precision other than None takes
+    each hop's kq through Kernel A and its product as exact FP32 plain
+    PyTorch (`cuda_query.exact_fp32`; slow, for checking the fast route)."""
     m = q.shape[0]
     if m % mesh.size:
         raise ValueError(f"query count {m} not divisible by mesh size {mesh.size}")
@@ -282,7 +285,12 @@ def sharded_predict_linv(name: str, q: torch.Tensor, x: torch.Tensor, params,
     quad = torch.zeros((per,), dtype=q.dtype, device=q.device)
     qv = q_loc
     for _ in range(mesh.size):
-        quad = quad + cuda_query.quad_band("value", name, qv, x, params, w_loc, row0)
+        if precision is None:
+            quad = quad + cuda_query.quad_band("value", name, qv, x, params, w_loc, row0)
+        else:
+            with cuda_query.exact_fp32():
+                v = w_loc @ kg.cross_cov(name, qv, x, params).T
+            quad = quad + torch.sum(v * v, dim=0)
         if mesh.size > 1:
             qv, quad = _ring_shift(qv, quad, mesh)
     return mean, float(kf.k_diag0(name, params)) - quad

@@ -2,7 +2,10 @@
 """Mutation check of chip_smoke.py's kernel checks for the out-of-core, the
 tensor-core (NN and NT) and the inv / sharded kernels, on one card.
 
-    python3 scripts/torch_ooc_mutations.py
+    python3 scripts/torch_ooc_mutations.py [CHECK ...]
+
+With CHECK names (e.g. joint_kernel_checks) only the mutations that those
+checks cover run.
 
 For each mutation below it copies the repository to a temporary directory,
 breaks one kernel (or its plan) there, and runs the phase-2 check that
@@ -14,7 +17,10 @@ regime and with the bias gate; and D and F in float64, the SIMT bodies),
 `chip_smoke.nn_kernel_checks` (float32 C and H, the split-TF32 tensor-core
 kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
 (float32 B and G, its NT layout, with the bias gate at a = b; and B and G
-in float64, the SIMT tile) or `chip_smoke.inv_and_trail_kernels` (float32
+in float64, the SIMT tile), `chip_smoke.joint_kernel_checks` (Kernel E in
+float32 and float64, three covariances, aligned and ragged layouts, value
+rows, an off-tile band with noise and general metadata, over NaN-filled
+outputs, twice bit for bit) or `chip_smoke.inv_and_trail_kernels` (float32
 J and K, the tile's NT and NN layouts with STORE, with their bias gate, and
 J and K in float64, the SIMT tile, at the in-core factor's shapes; float32
 L, the NN layout with SUB_FROM in place, with its bias gate and its
@@ -28,15 +34,15 @@ passed every check.  The repository itself is never modified.
 from __future__ import annotations
 
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_turns
 
-OOC, NN, NT, INV, QUAD = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
-                          "inv_and_trail_kernels", "quad_kernel_checks")
+OOC, NN, NT, INV, QUAD, JOINT = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
+                                 "inv_and_trail_kernels", "quad_kernel_checks",
+                                 "joint_kernel_checks")
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
 MUTATIONS = [
@@ -152,6 +158,17 @@ MUTATIONS = [
     ("the quad's reduce skips the last partial row", QUAD, "gpis_tpu_torch/csrc/quad.cuh",
      "for (int64_t i = 0; i < tiles; ++i) s += partial[i * m + q];",
      "for (int64_t i = 0; i < tiles - 1; ++i) s += partial[i * m + q];"),
+    ("E's value rows take the value/value formula (k) at gradient columns", JOINT,
+     "gpis_tpu_torch/csrc/joint.cu", "v[m] = cm[m][6] * k - g * vd;", "v[m] = k;"),
+    ("E's scalar path stops a column short of the right edge", JOINT,
+     "gpis_tpu_torch/csrc/joint.cu", "if (cb + m < s) o[m] = v[m];",
+     "if (cb + m < s - 1) o[m] = v[m];"),
+    ("E drops the noise in tiles the diagonal enters mid-tile", JOINT,
+     "gpis_tpu_torch/csrc/joint.cu", "&& c0 < row0 + r0 + JT_ROWS;", "&& c0 <= row0 + r0;"),
+    ("E drops the r2 <= 1e-24 mask from d2k", JOINT, "gpis_tpu_torch/csrc/joint.cu",
+     "    h = zero ? T(0) : h;\n", ""),
+    ("E's gradient rows take u_c along axis 0 whatever their axis", JOINT,
+     "gpis_tpu_torch/csrc/joint.cu", "cm[m][6] * da - cm[m][2 + KIND]", "cm[m][6] * da - cm[m][3]"),
 ]
 
 RUN = ("import torch, chip_smoke as cs; "
@@ -160,11 +177,12 @@ RUN = ("import torch, chip_smoke as cs; "
 
 def main() -> int:
     missed = 0
+    only = set(sys.argv[1:])
     for what, check, rel, text, broken in MUTATIONS:
+        if only and check not in only:
+            continue
         with tempfile.TemporaryDirectory() as tmp:
-            copy = os.path.join(tmp, "repo")
-            shutil.copytree(REPO, copy, ignore=shutil.ignore_patterns(
-                "_build", ".git", "__pycache__"))
+            copy = torch_turns.copy_tree(os.path.join(tmp, "repo"))
             path = os.path.join(copy, rel)
             with open(path) as f:
                 src = f.read()

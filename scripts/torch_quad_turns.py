@@ -1,15 +1,13 @@
 #!/usr/bin/env python3
 """Kernels D and F of several source trees, timed in turns on one card.
 
-    python3 scripts/torch_quad_turns.py OTHER_TREE [OTHER_TREE ...] [--reps N]
+    python3 scripts/torch_quad_turns.py [OTHER_TREE ...] [--reps N]
 
 Each OTHER_TREE is another checkout of this repository (an older commit,
 or a variant of this one), or just its `gpis_tpu_torch` package in a
-directory.  The script runs the trees, then this tree, then all of them
-again in the reverse order (with one other tree: OTHER, this, this,
-OTHER), each in a process of its own that imports that tree's
-`gpis_tpu_torch` (building its kernels there), and times at phase 2's
-shapes of chip_smoke.py, in float32
+directory.  The trees run in turns (`torch_turns.main`), each in a process
+of its own that imports that tree's `gpis_tpu_torch` (building its kernels
+there), and each times at phase 2's shapes of chip_smoke.py, in float32
 on the same inputs made from one seed: D (`staged_quad`) at M 8,192 and
 M 128 against C 16,384, F value at M 8,192, C 16,384, F joint at J 21,504,
 F band value (R 4,096 at row0 28,672 of C 32,768) and F band joint (R 1,024
@@ -21,26 +19,19 @@ the card's name and power limit.
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import torch_turns
 
 
 def worker(tree: str, reps: int) -> dict:
-    sys.path.insert(0, tree)
+    torch_turns.import_tree(tree)
     import torch
 
-    from gpis_tpu_torch import _build
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_joint, cuda_query
     from gpis_tpu_torch.kernels import gram as kg
 
-    assert os.path.dirname(os.path.dirname(os.path.abspath(_build.__file__))) == \
-        os.path.abspath(tree)
-    _build.library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     p = {"lengthscale": 0.4, "signal_variance": 1.0}
@@ -50,15 +41,7 @@ def worker(tree: str, reps: int) -> dict:
         return w.div_(torch.arange(row0 + 1, row0 + rows + 1, device=dev).sqrt()[:, None])
 
     def ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        return torch_turns.device_ms(fn, reps)
 
     out = {}
     q = (torch.rand((8192, 3), generator=gen, device=dev) * 3.0 - 1.5).contiguous()
@@ -92,39 +75,7 @@ def worker(tree: str, reps: int) -> dict:
 
 
 def main() -> int:
-    args = sys.argv[1:]
-    reps = 5
-    if "--reps" in args:
-        i = args.index("--reps")
-        reps = int(args[i + 1])
-        del args[i:i + 2]
-    if args and args[0] == "--worker":
-        print(json.dumps(worker(args[1], reps)), flush=True)
-        return 0
-    if not args:
-        print(__doc__, file=sys.stderr)
-        return 2
-    trees = [os.path.abspath(a) for a in args] + [HERE]
-    runs = {tree: [] for tree in trees}
-    for tree in trees + trees[::-1]:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
-                               "--reps", str(reps)], capture_output=True, text=True, cwd=tree,
-                              timeout=1200)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return 1
-        times = json.loads(proc.stdout.strip().splitlines()[-1])
-        runs[tree].append(times)
-        print(json.dumps({"tree": tree, "ms": times}), flush=True)
-    mine = runs[HERE]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    for tree in trees[:-1]:
-        ratio = {k: (runs[tree][0][k] + runs[tree][1][k]) / (mine[0][k] + mine[1][k])
-                 for k in mine[0]}
-        print(json.dumps({"tree": tree, "other_over_this": ratio,
-                          "card": card.strip().splitlines()[0]}))
-    return 0
+    return torch_turns.main(__file__, worker, reps=5)
 
 
 if __name__ == "__main__":

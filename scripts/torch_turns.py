@@ -1,0 +1,116 @@
+"""Shared driver of the scripts that time kernels of several source trees
+in turns on one card (`torch_quad_turns.py`, `torch_joint_turns.py`).
+
+A turns script defines a `worker(tree, reps) -> {name: value}` that runs
+in a process of its own, imports that tree's `gpis_tpu_torch`
+(`import_tree`) and times its kernels (`device_ms`).  `main` runs the
+trees, then this tree, then all of them again in the reverse order (with
+one other tree: OTHER, this, this, OTHER), prints one JSON line a run,
+then for each other tree the ratio of its two runs' mean to this tree's
+(OTHER / this) for every timed value, and the card's name and power limit.
+`ignored` and `copy_tree` make copies of this tree without the directories
+`.gitignore` lists (build outputs, logs, scratch checkouts).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from collections.abc import Callable
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def ignored() -> list[str]:
+    """The names of the directories .gitignore lists."""
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        return [os.path.basename(ln.strip().rstrip("/")) for ln in f if ln.strip().endswith("/")]
+
+
+def copy_tree(dst: str) -> str:
+    """Copy this tree to dst, without .git and the ignored directories."""
+    shutil.copytree(REPO, dst, ignore=shutil.ignore_patterns(".git", *ignored()))
+    return dst
+
+
+def import_tree(tree: str):
+    """Put tree first on sys.path, check that its `gpis_tpu_torch` is the
+    one imported, build its kernels, and return its `_build`."""
+    sys.path.insert(0, tree)
+    from gpis_tpu_torch import _build
+
+    assert os.path.dirname(os.path.dirname(os.path.abspath(_build.__file__))) == \
+        os.path.abspath(tree)
+    _build.library()
+    return _build
+
+
+def device_ms(fn, reps: int, *, spin: bool = False) -> float:
+    """Mean ms of `reps` calls of fn by CUDA events, after one warm-up call.
+    With spin the calls queue behind a ~3 ms spin kernel, so that the card's
+    time and not the host's enqueue is read."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if spin:
+        torch.cuda._sleep(6_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def main(script: str, worker: Callable[[str, int], dict], *, reps: int,
+         timed: Callable[[str], bool] = lambda key: True,
+         extra_trees: Callable[[str], list[str]] | None = None,
+         after: Callable[[list[str]], None] | None = None) -> int:
+    """Command line of a turns script: `[OTHER_TREE ...] [--reps N]` (no
+    other tree times this one alone, twice), or `--worker TREE` in the
+    processes it starts.  `timed` picks the keys whose ratios are printed;
+    `extra_trees(tmp)` adds trees made in a temporary directory;
+    `after(trees)` prints more once the runs end."""
+    args = sys.argv[1:]
+    if "--reps" in args:
+        i = args.index("--reps")
+        reps = int(args[i + 1])
+        del args[i:i + 2]
+    if args and args[0] == "--worker":
+        print(json.dumps(worker(args[1], reps)), flush=True)
+        return 0
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = [os.path.abspath(a) for a in args] + (extra_trees(tmp) if extra_trees else [])
+        trees.append(REPO)
+        runs = {tree: [] for tree in trees}
+        for tree in trees + trees[::-1]:
+            proc = subprocess.run([sys.executable, os.path.abspath(script), "--worker", tree,
+                                   "--reps", str(reps)], capture_output=True, text=True,
+                                  cwd=tree, timeout=1200)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return 1
+            times = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[tree].append(times)
+            print(json.dumps({"tree": tree, "ms": times}), flush=True)
+        mine = runs[REPO]
+        for tree in trees[:-1]:
+            ratio = {k: (runs[tree][0][k] + runs[tree][1][k]) / (mine[0][k] + mine[1][k])
+                     for k in mine[0] if timed(k)}
+            print(json.dumps({"tree": tree, "other_over_this": ratio}), flush=True)
+        print(json.dumps({"card": card()}), flush=True)
+        if after:
+            after(trees)
+    return 0

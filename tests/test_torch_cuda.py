@@ -138,24 +138,32 @@ def test_cuda_untiled_fit_padded_then_linv_matches_cpu(cuda):
     np.testing.assert_allclose(out[0][1], out[1][1], atol=1e-6)
 
 
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "band"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", ["rbf", "thin_plate", "inverse_multiquadric"])
-def test_cuda_joint_rows_matches_twin(cuda, name, dtype):
+def test_cuda_joint_rows_matches_twin(cuda, name, dtype, layout):
+    # aligned: J = 4 x 300 + 64 (rows on 16 bytes: Kernel E's vector
+    # stores); ragged: T = 63, J = 1,263 (J % 4 = 3: its scalar path, the
+    # kinds' boundaries mid-tile); band: 300 rows at row0 700 with noise.
     rng = np.random.default_rng(15)
     x = rng.normal(size=(300, 3))
     x[100:120] = x[:20]  # coincident points: the pinned k and masked d2k
-    tx = rng.normal(size=(64, 3))
+    tx = rng.normal(size=(63 if layout == "ragged" else 64, 3))
     params = kf.kernel_params(3.0 if name == "thin_plate" else 0.8, 1.1)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=cuda)  # noqa: E731
     meta = cuda_joint.joint_meta(t(x), t(tx))
-    noise = t(rng.uniform(1e-3, 1e-2, size=4 * 300 + 64))
+    noise = t(rng.uniform(1e-3, 1e-2, size=meta[0].shape[0]))
     qmeta = cuda_joint.value_meta(t(np.concatenate([x[:30], rng.normal(size=(500, 3))])))
     # float64: only rounding order differs.  float32: values are O(10) at
     # most, and the two sides round exp and r2 differently.
     tol = 1e-10 if dtype == torch.float64 else 2e-5
-    for rows, noise_col in ((meta, noise), (qmeta, None)):
-        got = cuda_joint.joint_rows(name, rows, meta, params, noise_col=noise_col)
-        want = cuda_joint.joint_rows_reference(name, rows, meta, params, noise_col=noise_col)
+    cases = [(meta, noise, 0), (qmeta, None, 0)]
+    if layout == "band":
+        cases = [(tuple(m[700:1000] for m in meta), noise, 700)]
+    for rows, noise_col, row0 in cases:
+        got = cuda_joint.joint_rows(name, rows, meta, params, noise_col=noise_col, row0=row0)
+        want = cuda_joint.joint_rows_reference(name, rows, meta, params, noise_col=noise_col,
+                                               row0=row0)
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
 
 import oracle
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
@@ -287,3 +288,102 @@ def test_joint_twins_launch_nothing_on_cpu():
     assert sum(_build.LAUNCHES.values()) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gpd.update_joint(dataclasses.replace(model), q[:1], 0.0, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Kernel E's arithmetic (csrc/joint.cu), written out in float64 torch: each
+# row classified by its metadata, k, 2 dk and -4 d2k from one transcendental,
+# and the blend collapsed by the row's kind.  Held to the plain twin and to
+# the JAX kernel, so the collapse is the blend wherever callers lay rows out.
+
+def _row_kinds(meta):
+    """0 value (dirs 0, flag 1), 1-3 gradient along axis 0-2 (dirs e_a
+    exactly, flag 0), 4 general: the CUDA body's `joint_kind`."""
+    _, u, f = meta
+    kinds = torch.full(f.shape, 4, dtype=torch.long)
+    kinds[(u == 0).all(dim=1) & (f == 1)] = 0
+    for a in range(3):
+        e = torch.zeros(3, dtype=u.dtype)
+        e[a] = 1.0
+        kinds[(u == e).all(dim=1) & (f == 0)] = a + 1
+    return kinds
+
+
+def _one_transcendental(name, r2, params):
+    """(k, g = 2 dk/dr2, h = -4 d2k/dr2^2): the CUDA body's `joint_derivs`."""
+    ls, sv = params["lengthscale"], params["signal_variance"]
+    if name == "rbf":
+        b = 1.0 / (ls * ls)
+        k = sv * torch.exp(-0.5 * b * r2)
+        return k, -b * k, -b * b * k
+    if name == "inverse_multiquadric":
+        rs = torch.rsqrt(r2 + ls * ls)
+        k = sv * rs
+        return k, -k * rs * rs, -3.0 * k * rs**4
+    r = torch.sqrt(r2)  # thin plate: h is infinite at r = 0, behind the mask
+    return sv * (r2 * (2.0 * r - 3.0 * ls) + ls**3), 6.0 * sv * (r - ls), -6.0 * sv / r
+
+
+def _collapsed_rows(name, rmeta, cmeta, params, noise_col=None, row0=0):
+    (rc, ru, rf), (cc, cu, cf) = rmeta, cmeta
+    diff = rc[:, None, :] - cc[None, :, :]
+    r2 = (diff * diff).sum(-1)
+    zero = r2 <= 1e-24
+    k, g, h = _one_transcendental(name, r2, params)
+    k = torch.where(zero, torch.as_tensor(float(kf.k_diag0(name, params)), dtype=r2.dtype), k)
+    h = torch.where(zero, torch.zeros_like(h), h)
+    vd = torch.einsum("sd,rsd->rs", cu, diff)
+    fc = cf[None, :]
+    kinds = _row_kinds(rmeta)[:, None]
+    out = fc * k - g * vd  # value rows
+    for a in range(3):  # gradient rows along axis a
+        da = diff[..., a]
+        out = torch.where(kinds == a + 1, g * (fc * da - cu[None, :, a]) + h * da * vd, out)
+    ud = torch.einsum("rd,rsd->rs", ru, diff)
+    blend = rf[:, None] * fc * k + g * (ud * fc - vd * rf[:, None] - ru @ cu.T) + h * ud * vd
+    out = torch.where(kinds == 4, blend, out)
+    if noise_col is not None:
+        rows = row0 + torch.arange(out.shape[0])[:, None]
+        out = torch.where(rows == torch.arange(out.shape[1])[None, :], out + noise_col, out)
+    return out
+
+
+@pytest.mark.parametrize("case", ["coincident", "ragged", "value_rows", "band", "general"])
+@pytest.mark.parametrize("name", DERIV_KERNELS)
+def test_collapsed_joint_rows_match_twin_and_jax(name, case):
+    # ragged: C = 300, T = 63 (J = 1,263: kinds change mid-tile, J % 4 = 3);
+    # band: 300 rows at row0 700 of that layout with noise; general: random
+    # dirs and flags, which take the full blend.
+    rng = np.random.default_rng(31)
+    p, jp = _params(name)
+    c, t = (60, 16) if case in ("coincident", "general") else (300, 63)
+    x = rng.normal(size=(c, 3))
+    x[c // 2:c // 2 + 10] = x[:10]  # distinct indices, coincident points
+    meta = cuda_joint.joint_meta(_t(x), _t(rng.normal(size=(t, 3))))
+    j = meta[0].shape[0]
+    noise = _t(rng.uniform(1e-3, 1e-2, size=j))
+    row0, noise_col = 0, noise
+    if case == "general":
+        meta = (meta[0], _t(rng.normal(size=(j, 3))), _t(rng.uniform(size=j)))
+        meta[1][::7] = 0.0  # some value-like and gradient-like rows among them
+        meta[2][::7] = 1.0
+        meta[1][3::7] = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float64)
+        meta[2][3::7] = 0.0
+        assert set(_row_kinds(meta).tolist()) == {0, 2, 4}
+    rows = meta
+    if case == "value_rows":
+        rows = cuda_joint.value_meta(_t(np.concatenate([x[:8], rng.normal(size=(90, 3))])))
+        noise_col = None
+    elif case == "band":
+        row0 = 700
+        rows = tuple(m[row0:row0 + 300] for m in meta)
+    elif case == "ragged":
+        assert j == 1263 and j % 4 == 3
+    got = _collapsed_rows(name, rows, meta, p, noise_col, row0)
+    want = cuda_joint.joint_rows_reference(name, rows, meta, p, noise_col=noise_col, row0=row0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    if case != "ragged":  # JAX's kernel in interpret mode: the band stands for the layout
+        (jr, jc) = (tuple(_j(m.numpy()) for m in rows), tuple(_j(m.numpy()) for m in meta))
+        kw = {} if noise_col is None else {"noise_col": _j(noise_col.numpy()), "row0": row0}
+        jwant = jpj.joint_rows_pallas(name, jr, jc, jp, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-12, atol=1e-12)

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
 
 from gpis_tpu.linalg.pallas_chol import (pallas_blocked_cholesky, pallas_blocked_linv,
                                          panel_scale_pallas, row_scale_pallas)

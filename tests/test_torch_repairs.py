@@ -2,14 +2,31 @@
 in float64: the session's public names, the grid functions' `chunk=` and
 `want_var=`, `fit` / `fit_inference`'s `dtype=` and `max_jitter_retries=`,
 and `fit_sharded`'s `dtype=` and `jitter=` (one gloo rank against a mesh of
-one virtual device).  The bar is BASELINE.md row 2: 1e-6."""
+one virtual device); `fit_with_normals`' `dtype=` and
+`max_jitter_retries=`, `predict`'s and `ShardedGPModel.predict`'s
+`precision=`, `build_training_set`'s positional `normals`, the session's
+`expert_gate=` / `expert_beta=` and `fit` / `fit_padded`'s `chol_impl=`.
+A guard compares every public signature of the two packages.  The bar is
+BASELINE.md row 2: 1e-6."""
 
+import importlib
+import inspect
+import pkgutil
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
 
+import gpis_tpu
+import gpis_tpu_torch
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
+from gpis_tpu.config import ModelConfig as JaxModelConfig
+from gpis_tpu.data import gpis as jgpis
+from gpis_tpu.data import synthetic
+from gpis_tpu.gp import derivative as jgpd
 from gpis_tpu.gp import regression as jgpr
 from gpis_tpu.gp import sharded_model as jgsm
 from gpis_tpu.kernels import functions as jkf
@@ -17,6 +34,9 @@ from gpis_tpu.linalg import outofcore as jooc
 from gpis_tpu.parallel import mesh as jpm
 from gpis_tpu.surface import grid as jgrid
 from gpis_tpu_torch.api.session import ObjectModelSession
+from gpis_tpu_torch.config import ModelConfig
+from gpis_tpu_torch.data import gpis
+from gpis_tpu_torch.gp import derivative as gpd
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.gp import sharded_model as gsm
 from gpis_tpu_torch.gp.model import align_capacity, round_up
@@ -200,5 +220,283 @@ def test_fit_sharded_dtype_and_jitter_match_jax(tmp_path):
     np.testing.assert_allclose(model.noise.numpy(), np.asarray(jm.noise), rtol=1e-12)
     np.testing.assert_allclose(model.noise.numpy()[:len(x)], 97.5, rtol=1e-12)
     jmean, jvar = jm.predict(jnp.asarray(q))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+
+
+# JAX parameters the port leaves out on purpose, each with its reason:
+# (module, function or Class.method) -> {parameter names}.
+_ALLOWED_GAPS = {
+    # ROADMAP §3: torch.distributed has no mesh axis, and the sharded
+    # functions take this rank's band under a name that says so.
+    ("linalg.sharded", "sharded_gram"): {"axis"},
+    ("linalg.sharded", "sharded_cholesky"): {"a", "axis", "precision", "use_pallas"},
+    ("linalg.sharded", "sharded_solve_lower_vec"): {"l", "axis"},
+    ("linalg.sharded", "sharded_solve_lower_t_vec"): {"l", "axis"},
+    ("linalg.sharded", "sharded_cho_solve_vec"): {"l", "axis"},
+    ("linalg.sharded", "sharded_linv"): {"l", "axis", "precision", "use_pallas"},
+    ("linalg.sharded", "sharded_alpha_from_linv"): {"w", "axis"},
+    # cross_fn: joint models on a mesh, ROADMAP §1 item 14.
+    ("linalg.sharded", "sharded_predict_linv"): {"w", "axis", "cross_fn"},
+    ("linalg.sharded", "sharded_linv_ll"): {"l", "axis", "precision"},
+    ("parallel.mesh", "make_row_mesh"): {"axis_name"},
+    # ROADMAP §1 item 15: the out-of-core knobs kept as module constants or
+    # refused until their features are ported (spill codecs, disk spill,
+    # process-split phases, the MLL's log-determinant, the bordering tail).
+    ("linalg.outofcore", "TieredPanelStore"): {"spill_dtype", "device_dtype", "spill_dir",
+                                               "write_through", "tag", "spill_codec"},
+    ("linalg.outofcore", "TieredPanelStore.__init__"): {"spill_dtype", "device_dtype",
+                                                        "spill_dir", "write_through", "tag",
+                                                        "spill_codec"},
+    ("linalg.outofcore", "ooc_trsm"): {"y", "accumulate_alpha", "width_quant", "start_panel",
+                                       "end_panel", "progress_cb", "on_panel", "store_final"},
+    ("linalg.outofcore", "ooc_cholesky"): {"x", "noisep", "width_quant", "start_panel", "u0",
+                                           "progress_cb", "end_panel", "logdiag0", "stats"},
+    ("linalg.outofcore", "OOCModel"): {"u", "logdiag_sum", "alpha0", "n_tail", "tail_x",
+                                       "tail_y", "tail_noise", "tail_v", "tail_a", "tail_chol",
+                                       "tail_alpha"},
+    ("linalg.outofcore", "ooc_residual_check"): {"n_blocks", "block", "tol", "tol_y"},
+    ("linalg.outofcore", "plan_sweeps"): {"c", "panel", "itemsize", "limit", "w_itemsize",
+                                          "l_itemsize", "width_quant", "max_sweep"},
+    ("linalg.outofcore", "ooc_fit"): {"dtype", "max_jitter_retries", "initial_jitter",
+                                      "width_quant", "sweep", "trsm_sweep"},
+    ("linalg.outofcore", "ooc_factor_phase"): {
+        "kernel", "x", "y", "noise", "params", "panel", "spill_dir", "block", "sweep",
+        "width_quant", "pad_noise", "dtype", "max_jitter_retries", "initial_jitter",
+        "device_budget", "resume", "normals", "noise_g", "l_codec", "defer_alpha"},
+    ("linalg.outofcore", "ooc_solve_phase"): {"spill_dir", "w_dtype", "trsm_sweep",
+                                              "device_budget", "resume", "stop_after",
+                                              "fused_query", "keep_w"},
+    # ROADMAP §1 item 16: the native marching library.
+    ("surface.marching", "marching_tetrahedra"): {"native"},
+}
+for _cls in ("OOCJointModel", "OOCJointModel.__init__", "OOCModel.__init__"):
+    _ALLOWED_GAPS[("linalg.outofcore", _cls)] = _ALLOWED_GAPS[("linalg.outofcore", "OOCModel")]
+_ALLOWED_GAPS[("linalg.outofcore", "ooc_fit_joint")] = _ALLOWED_GAPS[("linalg.outofcore",
+                                                                      "ooc_fit")]
+
+
+def _modules(pkg) -> dict:
+    out = {}
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        try:
+            out[info.name.split(".", 1)[1]] = importlib.import_module(info.name)
+        except ImportError:  # the JAX package's native library is not a module
+            continue
+    return out
+
+
+def _parameters(fn):
+    try:
+        return inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return None
+
+
+def _public_pairs(jmod, tmod):
+    """(name, JAX callable, port callable) of every public function, class
+    and method defined in the JAX module that the port's module has too."""
+    for attr, jobj in vars(jmod).items():
+        if attr.startswith("_") or getattr(jobj, "__module__", None) != jmod.__name__:
+            continue
+        tobj = getattr(tmod, attr, None)
+        if tobj is None or not callable(jobj) or not callable(tobj):
+            continue
+        yield attr, jobj, tobj
+        if inspect.isclass(jobj) and inspect.isclass(tobj):
+            for meth, jm in vars(jobj).items():
+                if (meth == "__init__" or not meth.startswith("_")) and callable(jm) \
+                        and callable(getattr(tobj, meth, None)):
+                    yield f"{attr}.{meth}", jm, getattr(tobj, meth)
+
+
+def test_every_jax_parameter_is_in_the_port_or_allowed():
+    jmods, tmods = _modules(gpis_tpu), _modules(gpis_tpu_torch)
+    missing, compared = {}, 0
+    for mod in sorted(set(jmods) & set(tmods)):
+        for name, jfn, tfn in _public_pairs(jmods[mod], tmods[mod]):
+            jp, tp = _parameters(jfn), _parameters(tfn)
+            if jp is None or tp is None:
+                continue
+            compared += 1
+            gap = {p for p in jp if p not in tp} - _ALLOWED_GAPS.get((mod, name), set())
+            if gap:
+                missing[f"{mod}.{name}"] = sorted(gap)
+    assert compared > 100, compared
+    assert not missing, missing
+
+
+def test_allowed_gaps_are_still_gaps():
+    # An allow-list entry whose parameter the port has gained is stale.
+    jmods, tmods = _modules(gpis_tpu), _modules(gpis_tpu_torch)
+    stale = []
+    for (mod, name), allowed in _ALLOWED_GAPS.items():
+        pairs = {n: (j, t) for n, j, t in _public_pairs(jmods[mod], tmods[mod])}
+        jfn, tfn = pairs[name]
+        jp, tp = _parameters(jfn), _parameters(tfn)
+        stale += [f"{mod}.{name}:{p}" for p in allowed if p not in jp or p in tp]
+    assert not stale, stale
+
+
+def _joint_problem(n=40, seed=9):
+    pts, nrm = synthetic.ellipsoid_cloud(n, seed=seed)
+    return pts, np.zeros(n), nrm
+
+
+def test_fit_with_normals_dtype_casts_float32_inputs_as_jax_does():
+    pts, y, nrm = (a.astype(np.float32) for a in _joint_problem())
+    p, jp = kf.kernel_params(0.5, 1.0), jkf.kernel_params(0.5, 1.0)
+    model = gpd.fit_with_normals("rbf", _t(pts), _t(y), _t(nrm), 1e-4, 1e-3, p, block=8,
+                                 dtype=torch.float64)
+    jm = jgpd.fit_with_normals("rbf", jnp.asarray(pts), jnp.asarray(y), jnp.asarray(nrm), 1e-4,
+                               1e-3, jp, block=8, dtype=jnp.float64)
+    assert model.x.dtype == torch.float64 and jm.x.dtype == jnp.float64
+    q = np.random.default_rng(10).normal(size=(25, 3))
+    mean, var = gpd.predict(model, _t(q))
+    jmean, jvar = jgpd.predict(jm, jnp.asarray(q))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+
+
+@pytest.mark.parametrize("retries", [1, 2])
+def test_fit_with_normals_max_jitter_retries_stops_where_jax_does(retries):
+    # Points far apart against the lengthscale: the joint Gram is diagonal,
+    # k(0) on value rows and -2 dk(0) = 1 / ls^2 on gradient rows.  A value
+    # noise of -k(0) - 5 j (j = 4 eps J k(0)) needs the ladder's third rung,
+    # 10 j (rungs 0, j, 10 j): two retries.
+    x, _ = _separated(16)
+    y = np.random.default_rng(3).normal(size=len(x))
+    nrm = np.zeros_like(x)
+    p, jp = kf.kernel_params(LS, 1.0), jkf.kernel_params(LS, 1.0)
+    jsize = 4 * round_up(len(x), 8)
+    j = 4.0 * float(np.finfo(np.float64).eps) * jsize
+    noise_f = -1.0 - 5.0 * j
+    call = lambda: gpd.fit_with_normals("rbf", _t(x), _t(y), _t(nrm), noise_f, 1e-3, p,  # noqa
+                                        block=8, max_jitter_retries=retries)
+    jcall = lambda: jgpd.fit_with_normals("rbf", jnp.asarray(x), jnp.asarray(y),  # noqa: E731
+                                          jnp.asarray(nrm), noise_f, 1e-3, jp, block=8,
+                                          max_jitter_retries=retries)
+    if retries == 1:
+        with pytest.raises(FloatingPointError):
+            call()
+        with pytest.raises(FloatingPointError):
+            jcall()
+        return
+    model, jm = call(), jcall()
+    np.testing.assert_allclose(model.alpha.numpy(), np.asarray(jm.alpha), rtol=1e-6)
+    q = np.random.default_rng(4).uniform(20.0, 400.0, size=(20, 3))
+    np.testing.assert_allclose(gpd.predict(model, _t(q))[0].numpy(),
+                               np.asarray(jgpd.predict(jm, jnp.asarray(q))[0]), atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["linv", "chol", "joint"])
+def test_predict_precision_matches_jax(kind):
+    # A joint model ignores precision in both packages: it keeps its route.
+    x, y, noise = _problem(200, seed=14)
+    q = np.random.default_rng(15).uniform(-1.3, 1.3, size=(64, 3))
+    p, jp = kf.kernel_params(LS, 1.0), jkf.kernel_params(LS, 1.0)
+    if kind == "joint":
+        pts, yj, nrm = _joint_problem()
+        model = gpd.with_linv_joint(gpd.fit_with_normals("rbf", _t(pts), _t(yj), _t(nrm), 1e-4,
+                                                         1e-3, p, block=8))
+        jm = jgpd.with_linv_joint(jgpd.fit_with_normals(
+            "rbf", jnp.asarray(pts), jnp.asarray(yj), jnp.asarray(nrm), 1e-4, 1e-3, jp, block=8))
+    else:
+        model = gpr.fit("rbf", _t(x), _t(y), _t(noise), p, touch_capacity=0)
+        jm = jgpr.fit("rbf", jnp.asarray(x), jnp.asarray(y), jnp.asarray(noise), jp,
+                      touch_capacity=0)
+        if kind == "linv":
+            model, jm = gpr.with_linv(model), jgpr.with_linv(jm)
+    mean, var = gpr.predict(model, _t(q), precision="highest")
+    jmean, jvar = jgpr.predict(jm, jnp.asarray(q), precision=jax.lax.Precision.HIGHEST)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+    fast = gpr.predict(model, _t(q))
+    np.testing.assert_allclose(mean.numpy(), fast[0].numpy(), atol=1e-12)
+    np.testing.assert_allclose(var.numpy(), fast[1].numpy(), atol=1e-12)
+
+
+def test_sharded_predict_precision_matches_jax(tmp_path):
+    import torch.distributed as dist
+
+    from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+    x, y, noise = _problem(200, seed=16)
+    q = np.random.default_rng(17).uniform(-1.3, 1.3, size=(50, 3))
+    jm = jgsm.fit_sharded("rbf", jnp.asarray(x), jnp.asarray(y), jnp.asarray(noise),
+                          jkf.kernel_params(LS, 1.0), mesh=jpm.make_row_mesh(1), block=64)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        model = gsm.fit_sharded("rbf", _t(x), _t(y), _t(noise), kf.kernel_params(LS, 1.0),
+                                mesh=make_row_mesh(1, device="cpu"), block=64)
+        mean, var = model.predict(_t(q), precision="highest")
+        fast = model.predict(_t(q))
+    finally:
+        dist.destroy_process_group()
+    jmean, jvar = jm.predict(jnp.asarray(q), precision=jax.lax.Precision.HIGHEST)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), fast[1].numpy(), atol=1e-12)
+
+
+def test_build_training_set_takes_normals_third_as_jax_does():
+    cfg = ModelConfig(n_external=32, n_internal=3, dtype="float64")
+    jcfg = JaxModelConfig(n_external=32, n_internal=3, dtype="float64")
+    pts, _, nrm = _joint_problem(60, seed=18)
+    ts = gpis.build_training_set(pts, cfg, nrm, device="cpu")
+    jts = jgpis.build_training_set(jnp.asarray(pts), jcfg, jnp.asarray(nrm))
+    np.testing.assert_allclose(ts.x.numpy(), np.asarray(jts.x), atol=1e-12)
+    np.testing.assert_allclose(ts.y.numpy(), np.asarray(jts.y), atol=1e-12)
+    np.testing.assert_allclose(ts.noise.numpy(), np.asarray(jts.noise), atol=1e-12)
+    np.testing.assert_allclose(gpis.normalize_cloud(points=_t(pts))[0].numpy(),
+                               np.asarray(jgpis.normalize_cloud(points=jnp.asarray(pts))[0]),
+                               atol=1e-12)
+
+
+def test_session_start_takes_expert_gate_and_beta():
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=64,
+                      touch_capacity=0, dtype="float64")
+    pts = np.random.default_rng(19).normal(size=(200, 3))
+    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True) * 1.2 - 0.1
+    sess = ObjectModelSession(cfg, device="cpu").start(pts, experts=0, expert_gate=0,
+                                                       expert_beta="rbcm")
+    jsess = JaxSession(cfg).start(pts, experts=0, expert_gate=0, expert_beta="rbcm")
+    q = np.random.default_rng(20).uniform(-1.5, 1.5, size=(64, 3))
+    np.testing.assert_allclose(sess.query(q), jsess.query(q), atol=1e-6)
+    for kw in ({"expert_gate": 2}, {"expert_beta": "bcm"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13:"):
+            ObjectModelSession(cfg, device="cpu").start(pts, **kw)
+
+
+@pytest.mark.parametrize("fn", ["fit", "fit_padded"])
+def test_fit_chol_impl_matches_jax(fn):
+    x, y, noise = _problem(150, seed=21)
+    q = np.random.default_rng(22).uniform(-1.3, 1.3, size=(40, 3))
+    p, jp = kf.kernel_params(LS, 1.0), jkf.kernel_params(LS, 1.0)
+    calls = []
+
+    def chol(a):
+        calls.append(a.shape)
+        return torch.linalg.cholesky(a)
+
+    if fn == "fit":
+        model = gpr.fit("rbf", _t(x), _t(y), _t(noise), p, touch_capacity=64, chol_impl=chol)
+        jm = jgpr.fit("rbf", jnp.asarray(x), jnp.asarray(y), jnp.asarray(noise), jp,
+                      touch_capacity=64, chol_impl=jnp.linalg.cholesky)
+    else:
+        cap = 256
+        xp = np.zeros((cap, 3))
+        xp[:150] = x
+        yp = np.zeros(cap)
+        yp[:150] = y
+        npad = np.full(cap, 1e10)
+        npad[:150] = noise
+        model = gpr.fit_padded("rbf", _t(xp), _t(yp), _t(npad), p, n0=256, chol_impl=chol)
+        jm = jgpr.fit_padded("rbf", jnp.asarray(xp), jnp.asarray(yp), jnp.asarray(npad), jp,
+                             n0=256, chol_impl=jnp.linalg.cholesky)
+    assert calls == [model.chol.shape]
+    mean, var = gpr.predict(model, _t(q))
+    jmean, jvar = jgpr.predict(jm, jnp.asarray(q))
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
     np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)

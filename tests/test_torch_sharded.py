@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
 
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
 from gpis_tpu.config import MeshConfig as JaxMeshConfig

@@ -36,6 +36,7 @@ CPU: no card is needed.
 import numpy as np
 import pytest
 import torch
+import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
 
 from gpis_tpu_torch.gp import regression
 from gpis_tpu_torch.kernels import functions as kf
