@@ -64,6 +64,32 @@ Phases, one printed line or more each; any failure exits nonzero:
    surface RMSE < 0.02, the grid within 1e-2 of phase 3's, no NaN, Kernels
    A band, G, L, A and F band launched; then sharded_linv timed in turns
    with and without Kernel L.
+10. Tactile updates and surface projection: phase 3's sphere (16,256
+   points) and phase 4's (4,992) with their cap z > 0.8 left out, the part
+   a camera did not see, where the contacts (64 a batch) go.  The value
+   session with 256 touch slots (capacity 17,408): four batches, a
+   65,536-point query, the 64^3 grid, surface_points(n=256) and a fifth
+   batch on the observed part of the sphere; the
+   out-of-core value session and the one-rank sharded model (NCCL): two
+   batches each, then the grid; phase 4's joint session (J = 21,504,
+   1,024 slots): sixteen bordering batches and a seventeenth that
+   overflows into the refit (J = 26,624), then the grid and
+   predict_gradient; the out-of-core joint session: two batches, a big
+   query and the grid.  Each update is timed on the host clock.  Gates: at
+   every touched point the variance fell and |mean - target| <= 1e-3 (on
+   the observed part, where a float32 touch moves the variance by less
+   than its rounding, the fall is held on a float64 run of the same
+   session and the float32 variance may rise by at most its quad's error
+   against float64 there; after the joint refit, whose float32 W-quad errs
+   by more than a touch beside the cloud lowers the variance, the fall is
+   held on a float64 run and the float32 variance within 5e-4 of it; both
+   float64 runs follow the counted run); surface RMSE
+   < 0.02 and no NaN; each out-of-core and the sharded grid within 1e-2 of
+   the in-core grid after the same touches; surface_points within 1e-5 of
+   f = 0 with >= 95 % of seeds converged; A, E, D, F, F band, B and C
+   launched; small float64 sessions (value with surface_points, joint
+   through its refit, out of core) updated on the card and held to the CPU
+   path at 1e-6.
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -1978,6 +2004,416 @@ def phase_sharded(torch, launches, incore) -> dict:
     return counts
 
 
+TOUCH_BATCH = 64  # contacts a session.update call: one tactile sweep
+TOUCH_CAPACITY = 256  # phase 10's value sessions: n0 16,384, capacity 17,408
+SURFACE_F_TOL = 1e-5  # |f| at every surface_points point
+SURFACE_CONVERGED = 0.95  # the share of surface_points seeds that must converge
+TOUCH_MEAN_TOL = 1e-3  # |mean - target| at a touched point
+# The joint refit's float32 variance at the touched points against float64:
+# 1.66e-4 read on an H100, about 3x under the gate; a refit that left the
+# touches out reads its prior's gap, ~1.8e-2 (printed beside it each run).
+REFIT_VAR_GAP = 5e-4
+CAP_Z = 0.8  # phase 10's clouds leave out the cap z > 0.8 of their sphere; the touches go there
+
+
+def capped_sphere(n: int, radius: float = 1.0, center=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """n Fibonacci points of a sphere at phase 3's spacing with its cap
+    z > CAP_Z (in units of the radius) left out: the part of the object the
+    camera did not see, where the fingers go.  The cap holds a tenth of a
+    Fibonacci sphere's points, the first tenth of its order."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    total = round(n / (1.0 - (1.0 - CAP_Z) / 2.0))
+    pts = fibonacci_sphere(total)
+    pts = pts[pts[:, 2] <= CAP_Z][-n:]
+    if len(pts) != n:
+        fail(f"capped_sphere: {len(pts)} points below the cap, not {n}")
+    return (np.asarray(center) + radius * pts).astype(np.float32)
+
+
+def touch_batches(rng, n_batches: int, center, radius: float) -> list:
+    """n_batches of TOUCH_BATCH contacts spread uniformly over the cap
+    z > CAP_Z of a sphere (world frame)."""
+    k = n_batches * TOUCH_BATCH
+    z = rng.uniform(CAP_Z, 1.0, size=k)
+    phi = rng.uniform(0.0, 2.0 * np.pi, size=k)
+    s = np.sqrt(1.0 - z * z)
+    d = np.stack([s * np.cos(phi), s * np.sin(phi), z], axis=1)
+    pts = (np.asarray(center) + radius * d).astype(np.float32)
+    return [pts[i * TOUCH_BATCH:(i + 1) * TOUCH_BATCH] for i in range(n_batches)]
+
+
+def observed_touches(rng, center, radius: float) -> np.ndarray:
+    """TOUCH_BATCH contacts spread uniformly over the observed part z <= CAP_Z
+    of a sphere (world frame): the common case of touching again."""
+    z = rng.uniform(-1.0, CAP_Z, size=TOUCH_BATCH)
+    phi = rng.uniform(0.0, 2.0 * np.pi, size=TOUCH_BATCH)
+    s = np.sqrt(1.0 - z * z)
+    d = np.stack([s * np.cos(phi), s * np.sin(phi), z], axis=1)
+    return (np.asarray(center) + radius * d).astype(np.float32)
+
+
+def timed_updates(torch, update, batches) -> list:
+    """Each batch's update and its host seconds (the update ends in a
+    synchronize)."""
+    times = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def touched_checks(what: str, var0, mean, var) -> dict:
+    """The JAX tests' gate at every touched point: the variance fell and the
+    mean (unless None) sits at the target (0, the surface)."""
+    fell = bool(np.all(var < var0))
+    rise = var - var0
+    say(f"  {what}: at {len(var)} touched points variance fell everywhere: {fell} "
+        f"(before max {float(var0.max()):.3e}, min {float(var0.min()):.3e}; after max "
+        f"{float(var.max()):.3e}; {int((rise >= 0).sum())} rose, by at most "
+        f"{float(rise.max()):.3e}, where it was {float(var0[np.argmax(rise)]):.3e})")
+    if not fell:
+        fail(f"{what}: the variance did not fall at every touched point")
+    out = {"touched_var_max": float(var.max())}
+    if mean is not None:
+        out["touched_mean_gap"] = float(np.abs(mean).max())
+        check(f"{what}: |mean - target| at the touched points", out["touched_mean_gap"],
+              TOUCH_MEAN_TOL)
+    return out
+
+
+def small_update_parity() -> None:
+    """Small float64 sessions on the card, updated with the same touches as
+    the CPU path and held to it at 1e-6: value (C = 1,152, with W; then
+    surface_points), joint (J = 2,176: two bordering batches, then the
+    overflow refit) and out of core (C = 1,024, panel 256)."""
+    from gpis_tpu_torch import ModelConfig, ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                        n_internal=1, block=128, touch_capacity=128, dtype="float64")
+    batches = touch_batches(np.random.default_rng(11), 3, (0.0, 0.0, 0.0), 1.0)
+    for what, n, normals, out_of_core, n_batches in (
+            ("value C=1152", 896, False, False, 2),
+            ("joint J=2176 (border, border, refit)", 384, True, False, 3),
+            ("out-of-core value C=1024", 896, False, True, 2)):
+        pts = fibonacci_sphere(n)
+        kw = {"normals": pts} if normals else {}
+        sessions = [ObjectModelSession(small, device=d).start(pts, out_of_core=out_of_core, **kw)
+                    for d in ("cuda", "cpu")]
+        for s in sessions:
+            for b in batches[:n_batches]:
+                s.update(b.astype(np.float64))
+        grids = [s.evaluate_grid(16, 1.5) for s in sessions]
+        err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
+        check(f"updated {what} float64, 16^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
+        if what.startswith("value"):
+            (p_c, ok_c), (p_h, ok_h) = (s.surface_points(n=64) for s in sessions)
+            if not np.array_equal(ok_c, ok_h):
+                fail("surface_points converged masks differ between cuda and cpu")
+            check("surface_points float64, 64 seeds, cuda vs cpu", float(np.abs(p_c - p_h).max()),
+                  1e-6)
+
+
+def value_float64(cfg, pts, batches, seen):
+    """Phase 10's value session in float64 on the card: the variance at the
+    observed touches `seen` after the fit, and before and after their own
+    batch (which follows `batches`), with the mean after it."""
+    import dataclasses
+
+    from gpis_tpu_torch import ObjectModelSession
+
+    sess = ObjectModelSession(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+    sess.start(pts.astype(np.float64))
+    var_fit = sess.query(seen)[1]
+    for b in batches:
+        sess.update(b.astype(np.float64))
+    var0 = sess.query(seen)[1]
+    sess.update(seen.astype(np.float64))
+    mean, var = sess.query(seen)
+    return var_fit, var0, mean, var
+
+
+def joint_refit_float64(cfg4, jpts, normals, batches, touched):
+    """Phase 10's joint session in float64 on the card: the variance at the
+    touched points before the updates and after the last batch's refit."""
+    import dataclasses
+
+    from gpis_tpu_torch import ObjectModelSession
+
+    sess = ObjectModelSession(dataclasses.replace(cfg4, dtype="float64"), device="cuda")
+    sess.start(jpts.astype(np.float64), normals=normals.astype(np.float64))
+    var0 = sess.query(touched)[1]
+    for b in batches:
+        sess.update(b.astype(np.float64))
+    if sess.model.n_touch != 0:
+        fail("the float64 joint session did not take the refit path")
+    return var0, sess.query(touched)[1]
+
+
+def phase10(torch, launches, cfg3, cfg4) -> dict:
+    """Tactile updates and surface projection at full width, through the
+    entry points a user calls: phase 3's configuration with 256 touch slots
+    (capacity 17,408), phase 4's joint session to its overflow refit,
+    phases 5-6's out-of-core sessions and phase 9's one-rank sharded model.
+    The clouds are phases 3-4's spheres at the same point counts with the
+    cap z > CAP_Z left out, and the touches fall on that cap, but for one
+    value batch on the observed part: where the cloud is dense a touch
+    moves the float32 variance by less than its rounding (the touch noise
+    is floored at 4 eps C k(0), ~8e-3 here).  The launches are counted over
+    the float32 sessions only; the float64 runs that hold them follow."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.gp import derivative as gpd
+    from gpis_tpu_torch.gp import regression
+    from gpis_tpu_torch.gp.sharded_model import fit_sharded
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.surface import grid, marching
+
+    small_update_parity()
+    cfg = dataclasses.replace(cfg3, touch_capacity=TOUCH_CAPACITY)
+    pts = capped_sphere(16256)
+    n_j, radius, center = JOINT_SPHERE
+    jpts = capped_sphere(n_j, radius, center)
+    normals = (jpts - np.asarray(center, np.float32)) / radius
+    rng = np.random.default_rng(10)
+    value_touch = touch_batches(rng, 4, (0.0, 0.0, 0.0), 1.0)
+    seen = observed_touches(np.random.default_rng(12), (0.0, 0.0, 0.0), 1.0)
+    big = big_query(torch, pts)
+    out: dict = {"card": card_line()}
+    torch.cuda.synchronize()
+    launches.clear()
+
+    # Value, in core: four batches into the 1,024 slots.
+    t0 = time.perf_counter()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts)
+    out["value_fit_s"] = time.perf_counter() - t0
+    touched = np.concatenate(value_touch)
+    _, var0 = sess.query(touched)
+    var_fit_seen = sess.query(seen)[1]
+    updates = timed_updates(torch, sess.update, value_touch[:2])
+    grid2 = sess.evaluate_grid()[:2]  # the out-of-core and sharded runs' touches
+    updates += timed_updates(torch, sess.update, value_touch[2:])
+    mean_t, var_t = sess.query(touched)
+    out["value"] = {"capacity": sess.model.capacity, "n0": sess.model.n0,
+                    "n_touch": sess.model.n_touch, "update_s": updates,
+                    **touched_checks("value in core", var0, mean_t, var_t)}
+    big_mean, big_var, out["value"]["big_query_s"] = timed_query(torch, sess, big)
+    mean, var, axis = sess.evaluate_grid()
+    out["value"]["query_s"] = sess.stats["grid_s"]
+    verts, _ = marching.marching_tetrahedra(mean, axis)
+    verts_w = sess.frame.to_world(torch.as_tensor(verts, device="cuda")).cpu().numpy()
+    out["value"]["surface_rmse"] = surface_rmse(verts_w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    surf, ok = sess.surface_points(n=256)
+    out["value"]["surface_points_s"] = time.perf_counter() - t0
+    f_surf = float(np.abs(sess.query(surf)[0]).max()) if len(surf) else float("nan")
+    out["value"]["surface_points_converged"] = float(ok.mean())
+    out["value"]["surface_points_max_abs_f"] = f_surf
+    # One more batch on the observed part of the surface, where a float32
+    # touch moves the variance by less than its rounding: held below, after
+    # the counted run, to the quad's error against float64.
+    var_seen0 = sess.query(seen)[1]
+    out["value"]["observed_update_s"] = timed_updates(torch, sess.update, [seen])[0]
+    mean_seen, var_seen = sess.query(seen)
+    finite = [np.isfinite(a).all() for a in (mean, var, big_mean, big_var, mean_t, var_t, surf,
+                                             mean_seen, var_seen)]
+    del sess
+    torch.cuda.empty_cache()
+
+    # Out of core, value: phase 5's cloud and panel, two batches into the tail.
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, out_of_core=True)
+    touched2 = np.concatenate(value_touch[:2])
+    _, var0 = sess.query(touched2)
+    updates = timed_updates(torch, sess.update, value_touch[:2])
+    mean_t, var_t = sess.query(touched2)
+    out["ooc_value"] = {"n_tail": sess.model.n_tail, "update_s": updates,
+                        **touched_checks("out-of-core value", var0, mean_t, var_t)}
+    big_mean, big_var, out["ooc_value"]["big_query_s"] = timed_query(torch, sess, big)
+    mean, var, axis = sess.evaluate_grid()
+    out["ooc_value"]["query_s"] = sess.stats["grid_s"]
+    verts, _ = marching.marching_tetrahedra(mean, axis)
+    verts_w = sess.frame.to_world(torch.as_tensor(verts, device="cuda")).cpu().numpy()
+    out["ooc_value"]["surface_rmse"] = surface_rmse(verts_w)
+    out["ooc_value"]["grid_gap"] = [float(np.abs(mean - grid2[0]).max()),
+                                    float(np.abs(var - grid2[1]).max())]
+    finite += [np.isfinite(a).all() for a in (mean, var, big_mean, big_var)]
+    del sess
+    torch.cuda.empty_cache()
+
+    # Sharded, one NCCL rank: phase 9's fit with touch slots, two batches.
+    store = tempfile.mkdtemp(prefix="gpis_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            rank=0, world_size=1)
+    try:
+        ts = gpis.build_training_set(pts, cfg, device="cuda")
+        params = kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
+        model = fit_sharded(cfg.kernel, ts.x, ts.y, ts.noise, params, n_devices=1, block=256,
+                            touch_capacity=TOUCH_CAPACITY, pad_noise=cfg.pad_noise)
+        q_t = ts.frame.to_normalized(torch.as_tensor(touched2, device="cuda"))
+        var0 = regression.predict(model, q_t)[1].cpu().numpy()
+        box = {"model": model}
+
+        def sharded_update(b):
+            q = ts.frame.to_normalized(torch.as_tensor(b, device="cuda"))
+            box["model"] = box["model"].update(q, 0.0, cfg.noise_touch)
+
+        updates = timed_updates(torch, sharded_update, value_touch[:2])
+        model = box.pop("model")
+        mean_t, var_t = (t.cpu().numpy() for t in regression.predict(model, q_t))
+        out["sharded"] = {"capacity": model.capacity, "n_touch": model.n_touch,
+                          "update_s": updates,
+                          **touched_checks("sharded P=1", var0, mean_t, var_t)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, var, axis = (t.cpu().numpy() for t in grid.evaluate_grid(model, 64, 1.5))
+        out["sharded"]["query_s"] = time.perf_counter() - t0
+        verts, _ = marching.marching_tetrahedra(mean, axis)
+        verts_w = ts.frame.to_world(torch.as_tensor(verts, device="cuda")).cpu().numpy()
+        out["sharded"]["surface_rmse"] = surface_rmse(verts_w)
+        out["sharded"]["grid_gap"] = [float(np.abs(mean - grid2[0]).max()),
+                                      float(np.abs(var - grid2[1]).max())]
+        finite += [np.isfinite(a).all() for a in (mean, var)]
+        del model, box
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # Joint, in core: phase 4's session, bordering until a batch overflows.
+    joint_touch = touch_batches(rng, 17, center, radius)
+    t0 = time.perf_counter()
+    sess = ObjectModelSession(cfg4, device="cuda").start(jpts, normals=normals)
+    out["joint_fit_s"] = time.perf_counter() - t0
+    slots = sess.model.touch_capacity
+    if slots != 16 * TOUCH_BATCH:
+        fail(f"phase 4's joint session has {slots} touch slots, not {16 * TOUCH_BATCH}")
+    touched = np.concatenate(joint_touch)
+    _, var0 = sess.query(touched)
+    j_size = sess.model.chol.shape[0]
+    updates = timed_updates(torch, sess.update, joint_touch[:2])
+    gridj2 = sess.evaluate_grid()[:2]
+    updates += timed_updates(torch, sess.update, joint_touch[2:16])
+    if sess.model.n_touch != slots:
+        fail(f"the joint session bordered {sess.model.n_touch} touches, not {slots}")
+    bordered = np.concatenate(joint_touch[:16])
+    out["joint"] = touched_checks("joint in core (16 batches bordered)", var0[:len(bordered)],
+                                  *sess.query(bordered))
+    refit = timed_updates(torch, sess.update, joint_touch[16:])
+    if sess.model.n_touch != 0:
+        fail("the overflowing joint batch did not take the refit path")
+    mean_t, var_t = sess.query(touched)
+    rise = var_t - var0
+    out["joint"].update({
+        "joint_size": j_size, "joint_size_after_refit": sess.model.chol.shape[0],
+        "border_update_s": updates, "refit_update_s": refit,
+        "refit_jitter": float(sess.model.noise_f[0]) - cfg4.noise_surface,
+        "refit_touched_mean_gap": float(np.abs(mean_t).max()),
+        "refit_touched_var_rose": int((rise >= 0).sum()), "refit_touched_var_max_rise":
+        float(rise.max())})
+    check("joint in core (after the refit): |mean - target| at the touched points",
+          out["joint"]["refit_touched_mean_gap"], TOUCH_MEAN_TOL)
+    mean, var, axis = sess.evaluate_grid()
+    out["joint"]["query_s"] = sess.stats["grid_s"]
+    verts, _ = marching.marching_tetrahedra(mean, axis)
+    c_n = sess.frame.to_normalized(torch.as_tensor(np.asarray(center, np.float32),
+                                                   device="cuda"))
+    sel = torch.as_tensor(verts[np.linspace(0, len(verts) - 1, 256).astype(int)],
+                          dtype=sess.dtype, device="cuda")
+    grad = gpd.predict_gradient(sess.model, sel)
+    radial = sel - c_n
+    out["joint"]["min_normal_cos"] = (torch.sum(grad * radial, dim=1)
+                                      / (grad.norm(dim=1) * radial.norm(dim=1))).min().item()
+    rad = np.linalg.norm(verts - c_n.cpu().numpy(), axis=1) - radius / float(sess.frame.scale)
+    out["joint"]["surface_rmse"] = float(np.sqrt(np.mean(rad**2))) if len(verts) else float("nan")
+    finite += [np.isfinite(a).all() for a in (mean, var, mean_t, var_t)]
+    finite.append(torch.isfinite(grad).all().item())
+    del sess, grad, sel
+    torch.cuda.empty_cache()
+    var0_joint, var_refit = var0, var_t
+
+    # Out of core, joint: phase 6's session, two batches into the tail.
+    sess = ObjectModelSession(cfg4, device="cuda").start(jpts, normals=normals, out_of_core=True)
+    touched2 = np.concatenate(joint_touch[:2])
+    _, var0 = sess.query(touched2)
+    updates = timed_updates(torch, sess.update, joint_touch[:2])
+    mean_t, var_t = sess.query(touched2)
+    out["ooc_joint"] = {"n_tail": sess.model.n_tail, "update_s": updates,
+                        **touched_checks("out-of-core joint", var0, mean_t, var_t)}
+    big_mean, big_var, out["ooc_joint"]["big_query_s"] = timed_query(torch, sess, big_query(
+        torch, jpts))
+    mean, var, axis = sess.evaluate_grid()
+    out["ooc_joint"]["query_s"] = sess.stats["grid_s"]
+    out["ooc_joint"]["grid_gap"] = [float(np.abs(mean - gridj2[0]).max()),
+                                    float(np.abs(var - gridj2[1]).max())]
+    finite += [np.isfinite(a).all() for a in (mean, var, big_mean, big_var)]
+    del sess
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+
+    # Float64 on the card, after the counted run.  The observed batch: the
+    # fall, and the float32 rise held to the float32 quad's error there
+    # (after the fit, against float64).
+    var_fit64, var0_64, mean_64, var_64 = value_float64(cfg, pts, value_touch, seen)
+    touched_checks("value in core float64, observed part", var0_64, mean_64, var_64)
+    out["value"]["observed"] = {
+        "quad_err_float64": float(np.abs(var_fit_seen - var_fit64).max()),
+        "var_max_rise": float((var_seen - var_seen0).max()),
+        "touched_mean_gap": float(np.abs(mean_seen).max())}
+    # The joint refit folds the touches in with the config's 1e-6 noise,
+    # unfloored (as in JAX), and the float32 quad through W = L^{-1} of that
+    # system errs by ~1e-4 (W's error grows with 1 / sqrt(noise)), more than
+    # a touch beside the cloud lowers the variance.  So the fall is held in
+    # float64 on the card, and the float32 variance to the float64 one.
+    var0_64, var_64 = joint_refit_float64(cfg4, jpts, normals, joint_touch, touched)
+    touched_checks("joint in core float64 (after the refit)", var0_64, None, var_64)
+    out["joint"]["refit_var_gap_float64"] = float(np.abs(var_refit - var_64).max())
+    out["joint"]["refit_var_gap_touches_left_out"] = float(np.abs(var0_joint - var_64).max())
+
+    say(f"  launches in the tactile-update run: {counts}")
+    say(json.dumps({"tactile_updates": out}))
+    if not all(bool(f) for f in finite):
+        fail("NaN or inf in an updated posterior")
+    for what in ("value", "ooc_value", "sharded", "joint"):
+        if not out[what]["surface_rmse"] < RMSE_GATE:
+            fail(f"{what} surface RMSE after updates {out[what]['surface_rmse']} >= {RMSE_GATE}")
+    if not out["joint"]["min_normal_cos"] > COS_GATE:
+        fail(f"joint min cos(normal, radial) after updates {out['joint']['min_normal_cos']}")
+    for what, ref in (("ooc_value", "in-core value"), ("sharded", "in-core value"),
+                      ("ooc_joint", "in-core joint")):
+        gap_mean, gap_var = out[what]["grid_gap"]
+        check(f"{what} 64^3 grid against the {ref} grid after the same touches: mean",
+              gap_mean, OOC_GRID_GAP)
+        check(f"{what} 64^3 grid against the {ref} grid after the same touches: var",
+              gap_var, OOC_GRID_GAP)
+    seen_out = out["value"]["observed"]
+    check("value in core, observed part: |mean - target| at the touched points",
+          seen_out["touched_mean_gap"], TOUCH_MEAN_TOL)
+    check("value in core, observed part: float32 variance rise against the quad's error",
+          seen_out["var_max_rise"], seen_out["quad_err_float64"], err_name="max_rise")
+    check("joint float32 variance at the touched points after the refit against float64 "
+          f"(a refit without the touches reads {out['joint']['refit_var_gap_touches_left_out']:.3e})",
+          out["joint"]["refit_var_gap_float64"], REFIT_VAR_GAP)
+    check("surface_points: max |f| at the converged points", f_surf, SURFACE_F_TOL)
+    conv = out["value"]["surface_points_converged"]
+    say(f"  surface_points: {conv:.4f} of 256 seeds converged (gate >= {SURFACE_CONVERGED})")
+    if not conv >= SURFACE_CONVERGED:
+        fail(f"surface_points converged {conv} < {SURFACE_CONVERGED}")
+    require_launches(counts, ("cov", "joint_cov", "staged_quad", "fused_quad", "quad_band",
+                              "panel_update", "row_update"), "tactile-update")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2040,6 +2476,10 @@ def main() -> int:
 
     say("phase 9: the row-sharded pipeline on a one-rank NCCL group")
     runs.append(phase_sharded(torch, _build.LAUNCHES, incore_value))
+    torch.cuda.empty_cache()
+
+    say("phase 10: tactile updates and surface projection through ObjectModelSession")
+    runs.append(phase10(torch, _build.LAUNCHES, incore_value[0], incore_joint[0]))
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -13,7 +13,9 @@ one-matrix-peak `fit_inference`, any other `fit` + `with_linv`.  With
 row mesh (`parallel.mesh`): every rank constructs it and calls each verb
 with the same arguments, and `start` fits the row-sharded value model
 (`gp.sharded_model.fit_sharded`) on rank 0's cloud, which it broadcasts.
-`query`, `evaluate_grid` and `extract_surface` serve the fitted model.  The
+`query`, `evaluate_grid`, `extract_surface` and `surface_points` serve the
+fitted model; `update` borders tactile points into it (a joint model past
+its touch slots is refit with every touch folded into its core).  The
 verbs not yet ported raise NotImplementedError naming the ROADMAP.md §1
 item that ports them.
 """
@@ -31,11 +33,12 @@ from gpis_tpu_torch.data import gpis, voxel
 from gpis_tpu_torch.gp import derivative as gpd
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.gp import sharded_model as gsm
+from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.parallel.mesh import make_row_mesh
 from gpis_tpu_torch.surface import grid as grid_mod
-from gpis_tpu_torch.surface import marching
+from gpis_tpu_torch.surface import marching, projection
 
 __all__ = ["ObjectModelSession"]
 
@@ -206,12 +209,82 @@ class ObjectModelSession:
             verts = self.frame.to_world(verts_n).cpu().numpy()
         return verts, faces, vvar
 
-    # Verbs of the JAX session that later ports bring over.
     def surface_points(self, seeds_world=None, n: int = 256):
-        not_ported("surface_points", 7, "surface/projection.py")
+        """Points on the estimated surface: seeds (world frame; by default n
+        points of the unit sphere in the normalized frame) Newton-projected
+        onto f = 0 (`surface.projection`).  Returns (the converged points in
+        the world frame, the converged mask), as numpy."""
+        self._require_model()
+        if seeds_world is None:
+            seeds = torch.as_tensor(gpis.fibonacci_sphere(n, radius=1.0).astype(self.config.dtype),
+                                    device=self.device)
+        else:
+            seeds = self.frame.to_normalized(torch.as_tensor(
+                np.asarray(seeds_world, self.config.dtype), device=self.device))
+        pts, ok = projection.project_points(self.model, seeds)
+        ok = ok.cpu().numpy()
+        return self.frame.to_world(pts).cpu().numpy()[ok], ok
 
     def update(self, touch_points_world, *, targets=None):
-        not_ported("update (tactile bordering updates)", 7, "session half of gp/regression.py")
+        """Append tactile points (world frame; targets 0, the surface, by
+        default) with the config's touch noise.  An in-core value model
+        borders them into its touch slots (`gp.regression.update`; overflow
+        raises); a joint one likewise (`gp.derivative.update_joint`) while
+        slots last, and past them refits with every touch so far folded into
+        the core observations (value-only: zero normals, pad-noise
+        gradients), the old model released first; an out-of-core model
+        borders them into its in-core tail of max(touch_capacity, 64) slots
+        (`linalg.outofcore.ooc_update`); a sharded one into its last band's
+        slots (`ShardedGPModel.update`)."""
+        self._require_model()
+        kind = model_kind(self.model)
+        cfg = self.config
+        pts = self.frame.to_normalized(torch.as_tensor(
+            np.asarray(touch_points_world, cfg.dtype), device=self.device))
+        y = (torch.zeros(pts.shape[0], dtype=pts.dtype, device=self.device) if targets is None
+             else torch.as_tensor(targets, dtype=pts.dtype, device=self.device))
+        if kind in ("ooc", "ooc_joint"):
+            self.model = self.model.update(pts, y, cfg.noise_touch,
+                                           tail_capacity=max(int(cfg.touch_capacity), 64))
+        elif kind == "sharded":
+            self.model = self.model.update(pts, y, cfg.noise_touch)
+        elif kind == "joint":
+            self._update_joint(pts, y)
+        else:
+            self.model = gpr.update(self.model, pts, y, cfg.noise_touch)
+        self._sync()
+        return self
+
+    def _update_joint(self, pts, y):
+        m = self.model
+        # As in the JAX session, the list of touches is never cleared, not
+        # even by a later start().
+        self._touches = getattr(self, "_touches", [])
+        self._touches.append((pts.cpu().numpy(), y.cpu().numpy()))
+        if m.touch_x is not None and int(m.n_touch) + pts.shape[0] <= m.touch_capacity:
+            self.model = gpd.update_joint(m, pts, y, self.config.noise_touch)
+            return
+        ts, cfg = self.training, self.config
+        tx = torch.as_tensor(np.concatenate([t[0] for t in self._touches]), device=self.device)
+        ty = torch.as_tensor(np.concatenate([t[1] for t in self._touches]), device=self.device)
+        c0, dt = ts.x.shape[0], ts.x.dtype
+        x = torch.cat([ts.x, tx.to(dt)])
+        yv = torch.cat([ts.y, ty.to(dt)])
+        nrm = torch.cat([m.normals[:c0], torch.zeros((len(tx), 3), dtype=dt, device=self.device)])
+        noise_f = torch.cat([ts.noise, torch.full((len(tx),), cfg.noise_touch, dtype=dt,
+                                                  device=self.device)])
+        noise_g = torch.cat([m.noise_g[:c0], torch.full((len(tx),), cfg.pad_noise, dtype=dt,
+                                                        device=self.device)])
+        kernel, params = m.kernel, m.params
+        # The old joint factor and W go before the refit builds new ones:
+        # both alive at once would double the peak.
+        del m
+        self.model = None
+        self.model = gpd.fit_with_normals(kernel, x, yv, nrm, noise_f, noise_g, params,
+                                          block=cfg.block, pad_noise=cfg.pad_noise,
+                                          touch_capacity=cfg.touch_capacity)
+        if 4 * self.model.capacity >= 1024:
+            self.model = gpd.with_linv_joint(self.model)
 
     def next_best_path(self, *, seed_world=None):
         not_ported("next_best_path", 8, "explore/atlas.py and explore/planner.py")

@@ -79,12 +79,18 @@ def gp_model_from_arrays(arrays, meta: dict, device="cuda"):
     )
 
 
+_OOC_TAIL = ("u", "alpha0", "tail_x", "tail_y", "tail_noise", "tail_v", "tail_a", "tail_chol",
+             "tail_alpha")
+
+
 def ooc_model_from_arrays(arrays, panels, *, kernel: str, params, panel: int, n_real: int,
                           device="cuda"):
     """The port's OOCModel (or OOCJointModel, when `arrays` has "meta") from
     a `gpis_tpu` out-of-core model: its arrays (x, y, noise, alpha; a joint
-    model's meta, normals, noise_g) and its W panels in order, trimmed as
-    stored, all numpy.  The panels go to a device store on `device`."""
+    model's meta, normals, noise_g; u for updates, and after updates
+    alpha0, n_tail and the tail_* arrays) and its W panels in order,
+    trimmed as stored, all numpy.  The panels go to a device store on
+    `device`."""
     dev = resolve_device(device)
 
     def t(a):
@@ -95,7 +101,10 @@ def ooc_model_from_arrays(arrays, panels, *, kernel: str, params, panel: int, n_
         wstore.put(j, t(w))
     common = dict(kernel=kernel, x=t(arrays["x"]), y=t(arrays["y"]), noise=t(arrays["noise"]),
                   params={k: float(v) for k, v in params.items()}, alpha=t(arrays["alpha"]),
-                  wstore=wstore, panel=int(panel), n_real=int(n_real))
+                  wstore=wstore, panel=int(panel), n_real=int(n_real),
+                  n_tail=int(arrays["n_tail"]) if "n_tail" in arrays else 0,
+                  **{k: t(arrays[k]) for k in _OOC_TAIL
+                     if k in arrays and arrays[k] is not None})
     if "meta" in arrays:
         return OOCJointModel(meta=t(arrays["meta"]), normals=t(arrays["normals"]),
                              noise_g=t(arrays["noise_g"]), n0=int(np.shape(arrays["x"])[0]),

@@ -13,6 +13,9 @@ they stay inert, as in gp.model.
 * `predict` -- posterior mean and variance of f; a model carrying W takes
   `cuda_joint.fused_joint_query` (Kernels E + D staged, or F on the fly).
 * `predict_gradient` -- posterior mean of grad f: surface normals.
+* `update_joint` -- tactile (value-only) points bordered into the touch
+  slots: the factor's trailing rows [4C, J) re-formed (K21 through
+  Kernel E), W carried through when attached.
 """
 
 from __future__ import annotations
@@ -21,12 +24,12 @@ import dataclasses
 
 import torch
 
-from gpis_tpu_torch._build import not_ported
 from gpis_tpu_torch.gp.model import align_capacity, as_dtype, round_up
-from gpis_tpu_torch.gp.regression import _LINV_BLOCK, _MAX_JITTER_RETRIES, _float_params
+from gpis_tpu_torch.gp.regression import _LINV_BLOCK, _MAX_JITTER_RETRIES, _border, _float_params
 from gpis_tpu_torch.kernels import cuda_joint
 from gpis_tpu_torch.kernels import derivative as kd
 from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
 
@@ -175,5 +178,38 @@ def predict_gradient(model: DerivGPModel, q: torch.Tensor) -> torch.Tensor:
 
 
 def update_joint(model: DerivGPModel, new_x, new_y, new_noise) -> DerivGPModel:
-    not_ported("update_joint (tactile bordering of a joint model)", 7,
-               "session half of gp/regression.py")
+    """Append tactile (value-only) points to a joint model's touch slots and
+    re-form only the trailing factor rows [4C, J) by bordering, the joint
+    mirror of `gp.regression.update`: K21 = cov(touch values, the 4C core
+    observations) through Kernel E, K22 over the touch slots with their
+    noise (floored at 4 eps J k(0)).  W, when attached, is carried through
+    and alpha = W^T (W y) over the joint targets and then the touch
+    targets.  A new model is returned; overflow raises."""
+    if model.touch_x is None:
+        raise ValueError(
+            "model has no touch slots; fit with touch_capacity > 0 "
+            "(or refit via the session, which falls back automatically)"
+        )
+    t = model.touch_capacity
+    n4 = 4 * model.capacity
+    dt, dev = model.dtype, model.device
+    new_x = torch.as_tensor(new_x).to(dtype=dt, device=dev)
+    k_new = new_x.shape[0]
+    occ = int(model.n_touch)
+    if occ + k_new > t:
+        raise ValueError(f"cumulative touches {occ + k_new} exceed touch capacity {t}")
+    new_y = torch.as_tensor(new_y, dtype=dt, device=dev).broadcast_to((k_new,))
+    floor = 4.0 * torch.finfo(dt).eps * (n4 + t) * float(kf.k_diag0(model.kernel, model.params))
+    new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev), min=floor)
+
+    tx, ty, tn = model.touch_x.clone(), model.touch_y.clone(), model.touch_noise.clone()
+    tx[occ:occ + k_new] = new_x
+    ty[occ:occ + k_new] = new_y
+    tn[occ:occ + k_new] = new_noise.broadcast_to((k_new,))
+
+    k21 = kd.cross_cov_value(model.kernel, tx, model.x, model.params)  # (T, 4C)
+    k22 = kg.gram_reference(model.kernel, tx, model.params, noise=tn)
+    yj = torch.cat([kd.joint_targets(model.y, model.normals), ty])
+    chol, linv, alpha = _border(model.chol, model.linv, k21, k22, yj)
+    return dataclasses.replace(model, chol=chol, alpha=alpha, linv=linv, touch_x=tx,
+                               touch_y=ty, touch_noise=tn, n_touch=occ + k_new)

@@ -1,4 +1,4 @@
-"""Exact GP regression (port of gpis_tpu/gp/regression.py:50-293, 296-378).
+"""Exact GP regression (port of gpis_tpu/gp/regression.py:50-503).
 
 * ``fit`` / ``fit_padded`` -- Gram, Cholesky, alpha, with the NaN-jitter
   ladder.
@@ -11,6 +11,9 @@
   Kernel F on the fly); a joint model is dispatched to ``gp.derivative``,
   an out-of-core one to ``linalg.outofcore`` and a sharded one to its own
   ``predict`` through ``gp.kinds.model_kind``.
+* ``update`` / ``reset_touches`` -- tactile points written into the touch
+  slots [n0, C) and the factor's trailing rows re-formed by bordering
+  (K21 through Kernel A), carrying W through when the model has it.
 
 Functions take tensors and work on the device the tensors are on.  The
 ladder reacts only to a NaN factor diagonal (what `cholesky` returns for a
@@ -33,7 +36,8 @@ from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
 
-__all__ = ["fit", "fit_padded", "fit_inference", "with_linv", "predict", "predict_mean"]
+__all__ = ["fit", "fit_padded", "fit_inference", "with_linv", "predict", "predict_mean", "update",
+           "reset_touches"]
 
 _LINV_BLOCK = 256
 _MAX_JITTER_RETRIES = 6
@@ -211,3 +215,94 @@ def predict_mean(model, q: torch.Tensor) -> torch.Tensor:
 
         return gpd.joint_cross_value(model, q.contiguous()) @ model.alpha
     return kg.cross_cov(model.kernel, q.contiguous(), model.x, model.params) @ model.alpha
+
+
+def update(model: GPModel, new_x, new_y, new_noise) -> GPModel:
+    """Append tactile points to the touch slots and re-form only the
+    trailing factor rows [n0, C) by bordering:
+
+        L21 = K21 W11^T  (W attached)  or  (L11^{-1} K12)^T,
+        L22 = chol(K22 - L21 L21^T);
+
+    rows [0, n0) of K and of L are untouched.  With W attached it is
+    carried through, W21 = -L22^{-1} L21 W11, W22 = L22^{-1}, W's block
+    [:n0, n0:] zeroed, and alpha = W^T (W y); else alpha = cho_solve.  The
+    products are exact FP32 (TF32 off), the JAX package's HIGHEST ones.
+    new_y may be a scalar; the noise is floored at 4 eps C k(0).  A new
+    model is returned and the caller's tensors are left as they were.  A
+    batch larger than the slots, or one that would overflow them, raises:
+    the occupancy `n_touch` is a host int here, so the JAX package's
+    traced-occupancy NaN poison has no case.  A `fit_inference` model has
+    no slots (its `chol` is W) and so raises before its factor is read."""
+    c, n0 = model.capacity, model.n0
+    t = c - n0
+    dt, dev = model.dtype, model.device
+    new_x = torch.as_tensor(new_x).to(dtype=dt, device=dev)
+    k_new = new_x.shape[0]
+    if k_new > t:
+        raise ValueError(f"touch batch {k_new} exceeds touch capacity {t}")
+    new_y = torch.as_tensor(new_y, dtype=dt, device=dev).broadcast_to((k_new,))
+    total = model.n_touch + k_new
+    if total > t:
+        raise ValueError(
+            f"cumulative touches {total} exceed touch capacity {t}; "
+            f"refit with a larger touch_capacity (session.start does this)"
+        )
+    # Dtype-aware floor (as the fit's jitter): in float32 a touch noise of
+    # 1e-6 can make the trailing block indefinite.
+    floor = 4.0 * torch.finfo(dt).eps * c * float(kf.k_diag0(model.kernel, model.params))
+    new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev), min=floor)
+
+    start = n0 + model.n_touch
+    x, y, noise = model.x.clone(), model.y.clone(), model.noise.clone()
+    x[start:start + k_new] = new_x
+    y[start:start + k_new] = new_y
+    noise[start:start + k_new] = new_noise.broadcast_to((k_new,))
+
+    xt = x[n0:]
+    k21 = kg.cross_cov(model.kernel, xt, x[:n0], model.params)  # (T, n0)
+    k22 = kg.gram(model.kernel, xt, model.params, noise=noise[n0:])  # (T, T)
+    chol, linv, alpha = _border(model.chol, model.linv, k21, k22, y)
+    return GPModel(x=x, y=y, noise=noise, params=model.params, chol=chol, alpha=alpha,
+                   n_touch=total, kernel=model.kernel, n0=n0, pad_noise=model.pad_noise,
+                   linv=linv)
+
+
+def _border(chol, linv, k21, k22, y):
+    """The bordering of `update` and `update_joint`: new copies of the
+    factor and of W (when given) with their trailing rows [n, J) re-formed
+    from K21 (T, n) and K22 (T, T), and alpha for the targets y (J,)."""
+    n = k21.shape[1]
+    if linv is not None:
+        w11 = linv[:n, :n]
+        l21 = k21 @ w11.T  # a GEMM in place of an n-wide triangular solve
+    else:
+        l21 = lin.solve_lower(chol[:n, :n], k21.T).T
+    l22 = lin.cholesky(k22 - l21 @ l21.T)
+    chol = chol.clone()
+    chol[n:, :n] = l21
+    chol[n:, n:] = l22
+    if linv is None:
+        return chol, None, lin.cho_solve(chol, y)
+    linv = linv.clone()
+    linv[n:, :n] = -torch.linalg.solve_triangular(l22, l21 @ w11, upper=False)
+    linv[n:, n:] = torch.linalg.solve_triangular(
+        l22, torch.eye(l22.shape[0], dtype=l22.dtype, device=l22.device), upper=False)
+    linv[:n, n:] = 0.0
+    return chol, linv, linv.T @ (linv @ y)
+
+
+def reset_touches(model: GPModel) -> GPModel:
+    """Clear every touch slot back to padding: origin points, zero targets
+    and the fit's `pad_noise` (not max(noise), which once every slot holds a
+    touch is a real observation's), then re-form the trailing rows.  As in
+    the JAX package the result carries no W."""
+    n0 = model.n0
+    x, y, noise = model.x.clone(), model.y.clone(), model.noise.clone()
+    x[n0:] = 0.0
+    y[n0:] = 0.0
+    noise[n0:] = model.pad_noise
+    m = GPModel(x=x, y=y, noise=noise, params=model.params, chol=model.chol, alpha=model.alpha,
+                n_touch=0, kernel=model.kernel, n0=n0, pad_noise=model.pad_noise)
+    empty = torch.zeros((0,), dtype=model.dtype, device=model.device)
+    return update(m, empty.reshape(0, 3), empty, empty)

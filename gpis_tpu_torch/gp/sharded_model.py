@@ -6,7 +6,8 @@ mesh (one process per rank): band Gram -> distributed blocked Cholesky,
 with the jitter ladder -> W = L^{-1} -> alpha.  The `ShardedGPModel` it
 returns holds this rank's bands of L and W and the replicated small state
 (coordinates, targets, noise, alpha).  Every rank calls `predict` with the
-same queries and gets the whole answer back.
+same queries and gets the whole answer back; `update` borders tactile
+points into touch slots of the last rank's band (`sharded_update_tail`).
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from gpis_tpu_torch._build import not_ported
 from gpis_tpu_torch.gp.model import as_dtype, round_up
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.linalg import sharded as sh
@@ -56,9 +56,34 @@ class ShardedGPModel:
     def device(self) -> torch.device:
         return self.x.device
 
-    def update(self, new_x, new_y, new_noise):
-        not_ported("ShardedGPModel.update (the sharded bordering update)", 7,
-                   "linalg/sharded.py sharded_update_tail")
+    def update(self, new_x, new_y, new_noise) -> "ShardedGPModel":
+        """Write tactile points into the touch slots, which begin after the
+        real rows but never before the last rank's band, and re-form that
+        band alone (`sharded_update_tail`).  Every rank passes the same
+        points; the noise is floored at 4 eps C k(0).  Returns a new
+        model."""
+        c, dt, dev = self.capacity, self.dtype, self.device
+        band = c // self.mesh.size
+        rest = c - band
+        new_x = torch.as_tensor(new_x).to(dtype=dt, device=dev)
+        k_new = new_x.shape[0]
+        start = max(self.n_real, rest) + self.n_touch
+        if start + k_new > c:
+            raise ValueError(
+                f"touch batch {k_new} exceeds remaining tail-band capacity "
+                f"{c - start} (band size {band})"
+            )
+        floor = 4.0 * torch.finfo(dt).eps * c * abs(float(kf.k_diag0(self.kernel, self.params)))
+        x, y, noise = self.x.clone(), self.y.clone(), self.noise.clone()
+        x[start:start + k_new] = new_x
+        y[start:start + k_new] = torch.as_tensor(new_y, dtype=dt, device=dev)
+        noise[start:start + k_new] = torch.clamp(
+            torch.as_tensor(new_noise, dtype=dt, device=dev).broadcast_to((k_new,)), min=floor)
+        l_new, w_new = sh.sharded_update_tail(self.kernel, self.params, x, noise, self.l, self.w,
+                                              self.mesh)
+        alpha = sh.sharded_alpha_from_linv(w_new, y, self.mesh)
+        return dataclasses.replace(self, x=x, y=y, noise=noise, l=l_new, w=w_new, alpha=alpha,
+                                   n_touch=self.n_touch + k_new)
 
     def predict(self, q: torch.Tensor, *, precision=None):
         """Posterior (mean, variance) at q (M, 3), the same on every rank:

@@ -35,6 +35,13 @@ streams each W panel once in total (the panel loop is outermost) through
 Kernel F's band mode, adding ||W_j kq^T||^2 into every chunk's quad, then
 clamps to [0, k0] as the JAX package does.
 
+Tactile updates (`ooc_update`) border the factor without rewriting a panel:
+L_full = [[L, 0], [V^T, Lt]] with V = W K(X, X_tail) and
+Lt = chol(K_tail + diag(noise) - V^T V).  The tail block lives on the card
+(V and A = W^T V, (C, T); Lt, (T, T)); one pass over the W panels a batch
+forms the new columns of V and A, and a query adds the tail's mean and its
+share of the quad from the mean's own kq (`_posterior_chunk`).
+
 What differs from the JAX package, and why:
 * Operands are views with a leading dimension.  The JAX package padded
   every panel to full width and sliced with `lax.dynamic_slice` so that one
@@ -52,8 +59,7 @@ What differs from the JAX package, and why:
   each way, nothing more.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-§1 item): tactile updates (`ooc_update`, item 7), the marginal likelihood
-(item 10), and from item 15 the disk spill, the f16 W spill, the int16 L
+§1 item): the marginal likelihood (item 10), and from item 15 the disk spill, the f16 W spill, the int16 L
 codec with `ooc_residual_check`, the process-split phases and `plan_sweeps`.
 
 Functions take tensors and work on the device the tensors are on; on the
@@ -72,12 +78,14 @@ from gpis_tpu_torch.gp.model import round_up
 from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
 from gpis_tpu_torch.kernels import derivative as kd
 from gpis_tpu_torch.kernels import functions as kf
+from gpis_tpu_torch.kernels import gram as kg
+from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import cuda_chol
 
 __all__ = ["TRAFFIC", "DeviceBudget", "HostPanelStore", "DevicePanelStore", "TieredPanelStore",
            "ooc_cholesky", "ooc_alpha_backward", "ooc_trsm", "ooc_predict", "ooc_predict_mean",
            "ooc_fit", "ooc_fit_joint", "OOCModel", "OOCJointModel", "ooc_update",
-           "ooc_residual_check", "ooc_factor_phase", "ooc_solve_phase", "plan_sweeps"]
+           "tail_cross", "ooc_residual_check", "ooc_factor_phase", "ooc_solve_phase", "plan_sweeps"]
 
 # Bytes moved between host RAM and the card by the panel stores, each way
 # ("h2d_bytes", "d2h_bytes").
@@ -575,8 +583,33 @@ def _value_cross(name: str, q: torch.Tensor, cols: torch.Tensor, params) -> torc
     return cuda_gram.cov(name, q, cols, params)
 
 
-def _mean_chunk(name: str, q, cols, params, alpha) -> torch.Tensor:
-    return _value_cross(name, q, cols, params) @ alpha
+def tail_cross(model, q, *, grad: bool = False) -> torch.Tensor:
+    """K(q, touch tail) (M, T), or with `grad` its gradient in q (3M, T,
+    dimension-major), with the unused slots' columns zeroed: the one place
+    the tail's live slots are masked."""
+    cross = kd.cross_cov_grad_value if grad else kg.cross_cov
+    live = (torch.arange(model.tail_x.shape[0], device=q.device) < model.n_tail).to(q.dtype)
+    return cross(model.kernel, q, model.tail_x, model.params) * live
+
+
+def _posterior_chunk(model, q, cols, quad: bool):
+    """(mean, tail quad) of one query chunk; the tail quad is None unless
+    `quad`, and zero before any update.  The core kq is formed once for the
+    mean and for s = kq A, the tail's share of the quad: the bordered
+    factor's tail rows act on a query column as Lt^{-1} (kq2 - V^T W kq1),
+    and V^T W kq1 = A^T kq1, so no second W stream is needed.  Unused slots
+    are inert: zero kq2 columns, zero A columns and Lt's identity rows."""
+    kq = _value_cross(model.kernel, q, cols, model.params)
+    mean = kq @ model.alpha
+    if not model.n_tail:
+        return mean, (torch.zeros_like(mean) if quad else None)
+    kq2 = tail_cross(model, q)
+    mean = mean + kq2 @ model.tail_alpha
+    if not quad:
+        return mean, None
+    tv = torch.linalg.solve_triangular(model.tail_chol, (kq2 - kq @ model.tail_a).T,
+                                       upper=False)
+    return mean, torch.sum(tv * tv, dim=0)
 
 
 def _quad_band(name: str, q, cols, params, w_band, row0: int) -> torch.Tensor:
@@ -591,27 +624,29 @@ def _chunks(q: torch.Tensor, chunk: int):
 
 
 def ooc_predict_mean(model: "OOCModel", q: torch.Tensor, *, chunk: int = 8192) -> torch.Tensor:
-    """Posterior mean at q (M, 3), chunked: K(q, X) alpha, no panel read."""
+    """Posterior mean at q (M, 3), chunked: K(q, X) alpha, plus the touch
+    tail's K(q, X_tail) alpha_tail after updates; no panel read."""
     q = q.to(model.dtype).contiguous()
     cols = _factor_cols(model)
     if q.shape[0] == 0:
         return q.new_zeros((0,))
-    return torch.cat([_mean_chunk(model.kernel, ch, cols, model.params, model.alpha)
+    return torch.cat([_posterior_chunk(model, ch, cols, quad=False)[0]
                       for ch in _chunks(q, chunk)])
 
 
 def ooc_predict(model: "OOCModel", q: torch.Tensor, *, chunk: int = 8192):
     """Posterior (mean, variance) at q (M, 3), chunked.  The W panels stream
     once in total: the panel loop is outermost and every chunk's quad adds
-    the panel's share.  The variance is clamped to [0, k0], as in the JAX
+    the panel's share (after updates each chunk's quad starts at the touch
+    tail's share).  The variance is clamped to [0, k0], as in the JAX
     package (W's rounding concentrates where the true variance is ~0)."""
     q = q.to(model.dtype).contiguous()
-    mean = ooc_predict_mean(model, q, chunk=chunk)
     if q.shape[0] == 0:
-        return mean, q.new_zeros((0,))
+        return q.new_zeros((0,)), q.new_zeros((0,))
     cols = _factor_cols(model)
     chunks = _chunks(q, chunk)
-    quads = [torch.zeros((ch.shape[0],), dtype=model.dtype, device=q.device) for ch in chunks]
+    mean, quads = zip(*(_posterior_chunk(model, ch, cols, quad=True) for ch in chunks))
+    mean = torch.cat(mean)
     nb = cols.shape[0] // model.panel
     for j, wj in _Prefetcher(model.wstore, range(nb)):
         for quad, ch in zip(quads, chunks):
@@ -626,7 +661,9 @@ def ooc_predict(model: "OOCModel", q: torch.Tensor, *, chunk: int = 8192):
 @dataclasses.dataclass
 class OOCModel:
     """Query handle of an out-of-core fit: the small state on the card, the
-    W = L^{-1} panels in `wstore`."""
+    W = L^{-1} panels in `wstore`.  `u` = L^{-1} y, kept from the fit, is
+    what a tactile update needs; the tail fields hold the updates' bordered
+    block (`ooc_update`), in-core, with `alpha0` the fit's alpha."""
 
     kernel: str
     x: torch.Tensor  # (C, 3)
@@ -637,6 +674,16 @@ class OOCModel:
     wstore: object  # panel store of W's trimmed row panels
     panel: int
     n_real: int
+    u: torch.Tensor | None = None  # L^{-1} y from the fit
+    alpha0: torch.Tensor | None = None  # the core alpha before the first update
+    n_tail: int = 0
+    tail_x: torch.Tensor | None = None  # (T, 3)
+    tail_y: torch.Tensor | None = None  # (T,)
+    tail_noise: torch.Tensor | None = None  # (T,)
+    tail_v: torch.Tensor | None = None  # V = W K(X, X_tail), (C, T)
+    tail_a: torch.Tensor | None = None  # A = W^T V = K^{-1} K(X, X_tail), (C, T)
+    tail_chol: torch.Tensor | None = None  # Lt, identity on unused slots
+    tail_alpha: torch.Tensor | None = None  # (T,)
 
     @property
     def capacity(self) -> int:
@@ -690,9 +737,108 @@ class OOCJointModel(OOCModel):
     n0: int = 0  # core capacity C
 
 
-def ooc_update(model, new_x, new_y, new_noise, *, tail_capacity: int = 256):
-    not_ported("ooc_update (tactile updates of an out-of-core fit)", 7,
-                "session half of gp/regression.py")
+def ooc_update(model: OOCModel, new_x, new_y, new_noise, *,
+               tail_capacity: int = 256) -> OOCModel:
+    """Tactile bordering update of an out-of-core fit; the panel store is
+    never rewritten.  The bordered factor is [[L, 0], [V^T, Lt]] with
+    V = W K(X, X_new) and Lt = chol(K_new + diag(noise) - V^T V) (bordered
+    in turn against the earlier batches' slots).  One pass over the W panels
+    forms V's new columns and A = W^T V's, each panel at its own trimmed
+    width.  Then, with u = L^{-1} y from the fit,
+
+        u_t = Lt^{-1} (y_tail - V^T u),  alpha_t = Lt^{-T} u_t,
+        alpha = alpha0 - A alpha_t.
+
+    The noise is floored at 4 eps C k(0); the tail holds `tail_capacity`
+    slots (fixed by the first update) and overflow raises.  Returns a new
+    model."""
+    if model.u is None:
+        raise ValueError(
+            "this out-of-core fit predates the stored forward-substitution "
+            "vector u; refit (ooc_fit / ooc_factor_phase) to enable updates"
+        )
+    dt, dev = model.dtype, model.device
+    new_x = torch.as_tensor(new_x).to(dtype=dt, device=dev).contiguous()
+    t = new_x.shape[0]
+    new_y = torch.as_tensor(new_y, dtype=dt, device=dev).broadcast_to((t,))
+    # Floored like every other update: a touch that repeats an observation
+    # leaves a Schur complement of ~ noise + O(eps), and below the floor
+    # the tail's Cholesky fails in float32.
+    floor = (4.0 * torch.finfo(dt).eps * model.alpha.shape[0]
+             * abs(float(kf.k_diag0(model.kernel, model.params))))
+    new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev).broadcast_to((t,)),
+                            min=floor)
+    # The JAX package refuses here a W store with spill-compressed (f16)
+    # panels, whose rounding the mean's correction would amplify.  The port
+    # has no such store: ooc_fit refuses w_dtype (ROADMAP.md §1 item 15).
+    occ = int(model.n_tail)
+    cap = int(tail_capacity if model.tail_v is None else model.tail_v.shape[1])
+    if occ + t > cap:
+        raise ValueError(
+            f"touch tail is full ({occ}+{t} > capacity {cap}); fold the "
+            f"tail into a refit (session.update does this automatically "
+            f"for in-core models) or raise tail_capacity"
+        )
+    cols = _factor_cols(model)
+    c = cols.shape[0]
+    if model.tail_v is None:
+        tail_x = torch.zeros((cap, 3), dtype=dt, device=dev)
+        tail_y = torch.zeros((cap,), dtype=dt, device=dev)
+        tail_noise = torch.ones((cap,), dtype=dt, device=dev)
+        tail_v = torch.zeros((c, cap), dtype=dt, device=dev)
+        tail_a = torch.zeros((c, cap), dtype=dt, device=dev)
+        tail_chol = torch.eye(cap, dtype=dt, device=dev)
+    else:
+        tail_x, tail_y, tail_noise = (model.tail_x.clone(), model.tail_y.clone(),
+                                      model.tail_noise.clone())
+        tail_v, tail_a, tail_chol = (model.tail_v.clone(), model.tail_a.clone(),
+                                     model.tail_chol.clone())
+    alpha0 = model.alpha0 if model.alpha0 is not None else model.alpha
+
+    # One pass over the W panels.  The factor rows' cross K(rows, x_new) is
+    # the value query's cross transposed, for value and joint columns alike.
+    k_n = _value_cross(model.kernel, new_x, cols, model.params).T  # (C, t)
+    v_new = torch.zeros((c, t), dtype=dt, device=dev)
+    a_new = torch.zeros((c, t), dtype=dt, device=dev)
+    for j, wj in _Prefetcher(model.wstore, range(c // model.panel)):
+        w = wj.shape[1]  # the stored panel's own width: columns beyond it are zero
+        g = wj @ k_n[:w]  # (panel, t)
+        v_new[j * model.panel:(j + 1) * model.panel] = g
+        a_new[:w] += wj.T @ g
+
+    # The tail's Schur bordering, over the occupied slots only.
+    s22 = kg.gram_reference(model.kernel, new_x, model.params, noise=new_noise) - v_new.T @ v_new
+    if occ:
+        s21 = (kg.cross_cov(model.kernel, new_x, tail_x[:occ], model.params)
+               - v_new.T @ tail_v[:, :occ])
+        b21 = torch.linalg.solve_triangular(tail_chol[:occ, :occ], s21.T, upper=False).T
+        s22 = s22 - b21 @ b21.T
+        tail_chol[occ:occ + t, :occ] = b21
+    l22 = lin.cholesky(s22)
+    if bool(torch.isnan(l22).any()):
+        raise FloatingPointError(
+            "tail bordering Cholesky produced NaN — touch noise too small "
+            "for this dtype; raise noise_touch"
+        )
+    occ2 = occ + t
+    tail_chol[occ:occ2, occ:occ2] = l22
+    tail_x[occ:occ2] = new_x
+    tail_y[occ:occ2] = new_y
+    tail_noise[occ:occ2] = new_noise
+    tail_v[:, occ:occ2] = v_new
+    tail_a[:, occ:occ2] = a_new
+
+    # The posterior weights of the bordered factor.
+    lt = tail_chol[:occ2, :occ2]
+    u_t = torch.linalg.solve_triangular(
+        lt, (tail_y[:occ2] - tail_v[:, :occ2].T @ model.u)[:, None], upper=False)
+    z = torch.linalg.solve_triangular(lt.T, u_t, upper=True)[:, 0]
+    tail_alpha = torch.zeros((cap,), dtype=dt, device=dev)
+    tail_alpha[:occ2] = z
+    return dataclasses.replace(
+        model, alpha=alpha0 - tail_a[:, :occ2] @ z, alpha0=alpha0, n_tail=occ2, tail_x=tail_x,
+        tail_y=tail_y, tail_noise=tail_noise, tail_v=tail_v, tail_a=tail_a,
+        tail_chol=tail_chol, tail_alpha=tail_alpha)
 
 
 def ooc_residual_check(model, **kwargs):
@@ -827,7 +973,7 @@ def ooc_fit(kernel: str, x, y, noise, params, *, panel: int, block: int = 256,
     wstore = _make_store(store, budget, xp.device)
     ooc_trsm(st, wstore, capacity=c, panel=panel, block=block, sweep=TRSM_SWEEP)
     return OOCModel(kernel=kernel, x=xp, y=yp, noise=noisep + extra, params=params, alpha=alpha,
-                    wstore=wstore, panel=panel, n_real=n)
+                    wstore=wstore, panel=panel, n_real=n, u=u)
 
 
 def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel: int,
@@ -850,5 +996,5 @@ def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel
     wstore = _make_store(store, budget, xp.device)
     ooc_trsm(st, wstore, capacity=j_tot, panel=panel, block=block, sweep=TRSM_SWEEP)
     return OOCJointModel(kernel=kernel, x=xp, y=yj, noise=nf + extra, params=params,
-                         alpha=alpha, wstore=wstore, panel=panel, n_real=n, meta=meta,
+                         alpha=alpha, wstore=wstore, panel=panel, n_real=n, u=u, meta=meta,
                          normals=nrm, noise_g=ng + extra, n0=c)

@@ -22,11 +22,9 @@ its row panel from its own square buffer and so cannot take a band whose
 panel row lives on another rank; the right-looking TRSM's trailing update
 is Kernel L (`band_trail`) when asked for, else its plain masked product;
 the query is Kernel A for the mean and Kernel F's band mode for each ring
-hop's quad.  The B x B potrf and the triangular solves stay library calls,
-as the JAX package leaves them to XLA.
-
-Not ported: `sharded_update_tail` (the tactile update, ROADMAP.md §1
-item 7).
+hop's quad; the tactile update's tail rows are Kernel A.  The B x B potrf
+and the triangular solves stay library calls, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -37,13 +35,14 @@ import torch.distributed as dist
 from gpis_tpu_torch.kernels import cuda_gram, cuda_query
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
+from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import cuda_chol
 from gpis_tpu_torch.parallel.mesh import RowMesh
 
 __all__ = ["sharded_gram", "sharded_cholesky", "sharded_solve_lower_vec",
            "sharded_solve_lower_t_vec", "sharded_cho_solve_vec", "sharded_linv",
-           "sharded_linv_ll", "sharded_alpha_from_linv", "sharded_predict_linv",
-           "any_nan_diagonal"]
+           "sharded_linv_ll", "sharded_alpha_from_linv", "sharded_update_tail",
+           "sharded_predict_linv", "any_nan_diagonal"]
 
 
 def _bcast_from(t: torch.Tensor, owner: int) -> torch.Tensor:
@@ -250,6 +249,50 @@ def sharded_linv_ll(l_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256) -> 
 def sharded_alpha_from_linv(w_loc: torch.Tensor, y: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
     """alpha = K^{-1} y = W^T (W y), W row-sharded, y and alpha replicated."""
     return _psum(w_loc.T @ (w_loc @ y))
+
+
+def sharded_update_tail(name: str, params, x: torch.Tensor, noise, l_loc: torch.Tensor,
+                        w_loc: torch.Tensor, mesh: RowMesh):
+    """Re-form the LAST row band [rest, C) of the sharded factor and of W
+    after its training rows changed (the touch slots live there); the
+    leading rows are untouched.  With W11 = L11^{-1}, the unchanged leading
+    block of W, the bordering is products alone:
+
+        L21 = K21 W11^T         (each rank's columns from its W band,
+                                 all-gathered into the tail rows)
+        L22 = chol(K22 - L21 L21^T)
+        W21 = -L22^{-1} (L21 W11)   (an all-reduce of the band partials)
+        W22 = L22^{-1}
+
+    x and noise are replicated (C,); returns this rank's (l_loc, w_loc),
+    the last rank's re-formed, the others' as given.  At P = 1 the last
+    band is the whole matrix (rest = 0)."""
+    c = x.shape[0]
+    band = c // mesh.size
+    rest = c - band
+    dt, dev = l_loc.dtype, l_loc.device
+    x_tail = x[rest:]
+    if mesh.rank == mesh.size - 1:  # its columns of L21 are zero: W11 has none of its rows
+        l21_cols = torch.zeros((band, w_loc.shape[0]), dtype=dt, device=dev)
+        part = torch.zeros((band, c), dtype=dt, device=dev)
+    else:
+        l21_cols = kg.cross_cov(name, x_tail, x, params) @ w_loc.T  # this rank's columns of L21
+        part = l21_cols @ w_loc
+    parts = [torch.empty_like(l21_cols) for _ in range(mesh.size)]
+    dist.all_gather(parts, l21_cols)
+    t = _psum(part)  # L21 W, (band, C)
+    if mesh.rank != mesh.size - 1:
+        return l_loc, w_loc
+    l21 = torch.cat(parts, dim=1)  # (band, C)
+    noise = torch.as_tensor(noise, dtype=dt, device=dev).broadcast_to((c,))
+    l22 = lin.cholesky(kg.gram(name, x_tail, params, noise=noise[rest:]) - l21 @ l21.T)
+    # Row-major, as the query's band kernel reads W (a solve returns its
+    # result column-major).
+    w_tail = (-torch.linalg.solve_triangular(l22, t, upper=False)).contiguous()
+    w_tail[:, rest:] = torch.linalg.solve_triangular(
+        l22, torch.eye(band, dtype=dt, device=dev), upper=False)
+    l21[:, rest:] = l22
+    return l21, w_tail
 
 
 def _ring_shift(q: torch.Tensor, quad: torch.Tensor, mesh: RowMesh):

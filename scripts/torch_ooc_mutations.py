@@ -5,7 +5,9 @@ tensor-core (NN and NT) and the inv / sharded kernels, on one card.
     python3 scripts/torch_ooc_mutations.py [CHECK ...]
 
 With CHECK names (e.g. joint_kernel_checks) only the mutations that those
-checks cover run.
+checks cover run; `cpu` names the mutations of the tactile-update path,
+which the CPU tests catch (they import jax, so they run where the CPU tier
+runs, with no card).
 
 For each mutation below it copies the repository to a temporary directory,
 breaks one kernel (or its plan) there, and runs the phase-2 check that
@@ -26,6 +28,9 @@ J and K in float64, the SIMT tile, at the in-core factor's shapes; float32
 L, the NN layout with SUB_FROM in place, with its bias gate and its
 untouched-region check, and L in float64, the SIMT tile, at the sharded
 TRSM's).
+The tactile-update mutations (the noise floor, W's upper block, alpha0,
+the out-of-core tail in the mean, a converged seed's steps) run the CPU
+tests that cover them instead, `JAX_PLATFORMS=cpu python -m pytest NODE`.
 A mutation is caught when a check fails.  Prints
 one line per mutation with the failing check; exits nonzero if any mutation
 passed every check.  The repository itself is never modified.
@@ -169,17 +174,47 @@ MUTATIONS = [
      "    h = zero ? T(0) : h;\n", ""),
     ("E's gradient rows take u_c along axis 0 whatever their axis", JOINT,
      "gpis_tpu_torch/csrc/joint.cu", "cm[m][6] * da - cm[m][2 + KIND]", "cm[m][6] * da - cm[m][3]"),
+    ("update drops the touch noise floor", "tests/test_torch_update.py::"
+     "test_update_noise_floor_matches_jax", "gpis_tpu_torch/gp/regression.py",
+     "new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev), min=floor)",
+     "new_noise = torch.as_tensor(new_noise, dtype=dt, device=dev)"),
+    ("update leaves W's block [:n0, n0:] as it found it", "tests/test_torch_update.py::"
+     "test_update_zeroes_the_upper_block_of_w_as_jax_does", "gpis_tpu_torch/gp/regression.py",
+     "    linv[:n, n:] = 0.0\n", ""),
+    ("ooc_update borders against alpha in place of the fit's alpha0", "tests/test_torch_ooc.py::"
+     "test_ooc_update_matches_jax", "gpis_tpu_torch/linalg/outofcore.py",
+     "alpha0 = model.alpha0 if model.alpha0 is not None else model.alpha",
+     "alpha0 = model.alpha"),
+    ("the out-of-core mean skips the touch tail's term", "tests/test_torch_ooc.py::"
+     "test_ooc_update_matches_jax", "gpis_tpu_torch/linalg/outofcore.py",
+     "    mean = mean + kq2 @ model.tail_alpha\n", ""),
+    ("a converged seed keeps stepping while others are active", "tests/test_torch_projection.py::"
+     "test_converged_seeds_do_not_move", "gpis_tpu_torch/surface/projection.py",
+     "active = torch.nonzero(f.abs() > tol).flatten()\n        if active.numel() == 0:",
+     "active = torch.arange(f.shape[0], device=f.device)\n"
+     "        if not bool((f.abs() > tol).any()):"),
 ]
 
 RUN = ("import torch, chip_smoke as cs; "
        "cs.{}(torch, torch.Generator(device='cuda').manual_seed(0), {{}})")
 
 
+def _command(check: str, copy: str) -> tuple[list[str], dict]:
+    """The command that runs `check` against the broken copy: a chip_smoke
+    check on the card, or CPU tests (a pytest node id)."""
+    env = dict(os.environ, PYTHONPATH=copy)
+    if check.startswith("tests/"):
+        env["JAX_PLATFORMS"] = "cpu"
+        return [sys.executable, "-m", "pytest", check, "-q", "-x", "-p", "no:cacheprovider"], env
+    return [sys.executable, "-c", RUN.format(check)], env
+
+
 def main() -> int:
     missed = 0
     only = set(sys.argv[1:])
     for what, check, rel, text, broken in MUTATIONS:
-        if only and check not in only:
+        kind = "cpu" if check.startswith("tests/") else check
+        if only and kind not in only:
             continue
         with tempfile.TemporaryDirectory() as tmp:
             copy = torch_turns.copy_tree(os.path.join(tmp, "repo"))
@@ -191,9 +226,9 @@ def main() -> int:
                 return 1
             with open(path, "w") as f:
                 f.write(src.replace(text, broken))
-            env = dict(os.environ, PYTHONPATH=copy)
-            proc = subprocess.run([sys.executable, "-c", RUN.format(check)], cwd=copy, env=env,
-                                  capture_output=True, text=True, timeout=900)
+            cmd, env = _command(check, copy)
+            proc = subprocess.run(cmd, cwd=copy, env=env, capture_output=True, text=True,
+                                  timeout=900)
         failed = [ln.strip() for ln in proc.stdout.splitlines() if "FAILED" in ln]
         caught = proc.returncode != 0 and bool(failed)
         missed += not caught

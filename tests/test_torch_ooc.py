@@ -12,6 +12,7 @@ end-to-end comparisons are exact-grade; their bar is BASELINE.md row 2,
 1e-6 on posterior mean and variance."""
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +23,7 @@ import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the 
 from gpis_tpu import config as jconfig
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
 from gpis_tpu.config import ModelConfig as JaxModelConfig
+from gpis_tpu.gp import regression as jgpr
 from gpis_tpu.kernels import functions as jkf
 from gpis_tpu.kernels import pallas_joint as jpj
 from gpis_tpu.kernels.pallas_gram import gram_band_pallas
@@ -287,6 +289,111 @@ def test_ooc_predict_on_converted_jax_model(problem, jax_models, kind):
     np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-10)
 
 
+def _touch_batches(seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(k, 3)) * 0.8 for k in (3, 2)]
+
+
+@pytest.mark.parametrize("kind", ["value", "joint"])
+def test_ooc_update_matches_jax(problem, jax_models, kind):
+    """tests/test_outofcore.py's test_ooc_update_matches_incore_bordering
+    and tests/test_ooc_joint.py's test_ooc_joint_update_matches_dense_bordering:
+    two batches bordered into the tail of a tiered fit whose W spills (so
+    the update streams host panels), held to JAX's update: the query with
+    the tail's share, the mean alone, the tail's arrays and alpha."""
+    q = problem[3]
+    jm = jax_models[kind]
+    m = _port_fit(kind, problem, "tiered", 2 * jm.panel * jm.alpha.shape[0] * 8)
+    assert m.wstore.spilled() and m.u is not None
+    mean0, var0 = m.predict(_t(q), chunk=128)
+    for tx in _touch_batches(23):
+        m = m.update(_t(tx), 0.0, 1e-6, tail_capacity=8)
+        jm = jm.update(_j(tx), 0.0, 1e-6, tail_capacity=8)
+    assert m.n_tail == jm.n_tail == 5
+    mean, var = m.predict(_t(q), chunk=128)
+    jmean, jvar = jm.predict(_j(q), chunk=128)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+    np.testing.assert_allclose(gpr.predict_mean(m, _t(q)).numpy(),
+                               np.asarray(jgpr.predict_mean(jm, _j(q))), atol=1e-6)
+    np.testing.assert_allclose(grid.evaluate_points_chunked(m, _t(q), want_var=False)[0].numpy(),
+                               mean.numpy(), atol=1e-10)
+    for key in ("alpha", "alpha0", "tail_x", "tail_y", "tail_noise", "tail_v", "tail_a",
+                "tail_chol", "tail_alpha"):
+        np.testing.assert_allclose(getattr(m, key).numpy(), np.asarray(getattr(jm, key)),
+                                   atol=1e-6, err_msg=key)
+    # The model the updates started from still predicts as before.
+    first = _port_fit(kind, problem, "device")
+    np.testing.assert_allclose(first.update(_t(_touch_batches(23)[0]), 0.0, 1e-6,
+                                            tail_capacity=8).alpha0.numpy(),
+                               first.alpha.numpy(), atol=0)
+    np.testing.assert_allclose(first.predict(_t(q), chunk=128)[1].numpy(), var0.numpy(),
+                               atol=1e-10)
+
+
+def test_ooc_update_matches_incore_bordering(problem):
+    """The out-of-core bordering against the JAX package's in-core one on
+    the same points (the same system, the factor streamed)."""
+    x, y, noise, q = problem
+    m = _port_fit("value", problem, "device")
+    jp = jkf.kernel_params(LS, SV)
+    ref = jgpr.with_linv(jgpr.fit("rbf", _j(x), _j(y), _j(noise), jp, block=PANEL,
+                                  touch_capacity=8), block=PANEL)
+    for tx in _touch_batches(24):
+        m = m.update(_t(tx), 0.0, 1e-6, tail_capacity=8)
+        ref = jgpr.update(ref, _j(tx), jnp.zeros(len(tx)), 1e-6)
+    mean, var = m.predict(_t(q), chunk=64)
+    rmean, rvar = jgpr.predict(ref, _j(q))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(rmean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(rvar), atol=1e-6)
+    _, var_t = m.predict(_t(_touch_batches(24)[0]), chunk=64)
+    assert float(var_t.max()) < 1e-4
+
+
+@pytest.mark.parametrize("case", ["full", "no_u"])
+def test_ooc_update_guards_raise_as_jax(problem, jax_models, case):
+    jm = jax_models["value"]
+    m = _port_fit("value", problem, "device")
+    rng = np.random.default_rng(5)
+    if case == "full":
+        first = rng.normal(size=(3, 3))
+        m = m.update(_t(first), 0.0, 1e-6, tail_capacity=4)
+        jm = jm.update(_j(first), 0.0, 1e-6, tail_capacity=4)
+        tx = rng.normal(size=(2, 3))
+    else:
+        m, jm = dataclasses.replace(m, u=None), dataclasses.replace(jm, u=None)
+        tx = np.zeros((1, 3))
+    with pytest.raises(ValueError) as e:
+        jm.update(_j(tx), 0.0, 1e-6)
+    with pytest.raises(ValueError, match=f"^{re.escape(str(e.value))}$"):
+        m.update(_t(tx), 0.0, 1e-6)
+
+
+@pytest.mark.parametrize("kind", ["value", "joint"])
+def test_touched_jax_ooc_model_converts_and_updates_alike(problem, jax_models, kind):
+    """`convert.ooc_model_from_arrays` carries u, alpha0, n_tail and the
+    tail: the touched JAX model predicts the same in the port, and one more
+    update on each side agrees too."""
+    t1, t2 = _touch_batches(25)
+    jm = jax_models[kind].update(_j(t1), 0.0, 1e-6, tail_capacity=8)
+    keys = ["x", "y", "noise", "alpha", "u", "alpha0", "n_tail", "tail_x", "tail_y",
+            "tail_noise", "tail_v", "tail_a", "tail_chol", "tail_alpha"]
+    if kind == "joint":
+        keys += ["meta", "normals", "noise_g"]
+    arrays = {k: np.asarray(getattr(jm, k)) for k in keys}
+    nb = jm.alpha.shape[0] // jm.panel
+    m = convert.ooc_model_from_arrays(arrays, _panels(jm.wstore, nb), kernel=jm.kernel,
+                                      params={k: float(v) for k, v in jm.params.items()},
+                                      panel=jm.panel, n_real=jm.n_real, device="cpu")
+    assert m.n_tail == 3
+    q = problem[3]
+    for a, b in ((m, jm), (m.update(_t(t2), 0.0, 1e-6), jm.update(_j(t2), 0.0, 1e-6))):
+        mean, var = a.predict(_t(q), chunk=100)
+        jmean, jvar = b.predict(_j(q), chunk=128)
+        np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
+        np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+
+
 def test_ooc_jitter_ladder_escalates():
     """Exact duplicate points and near-zero noise force a NaN factor first;
     the ladder escalates and the fit stays finite, as in the JAX package."""
@@ -322,8 +429,18 @@ def test_ooc_session_matches_jax_session(normals):
     np.testing.assert_allclose(vvar, jvvar, atol=1e-6)
     qpts = np.concatenate([pts[:20], np.random.default_rng(1).uniform(-1, 1, (80, 3)) + center])
     np.testing.assert_allclose(sess.query(qpts), jsess.query(qpts), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sess.update(pts[:2])
+    # Tactile updates border into the in-core tail of max(touch_capacity, 64)
+    # slots, as in the JAX session.
+    touch = pts[:3] * 1.02
+    _, v0 = sess.query(touch)
+    for s_ in (sess, jsess):
+        s_.update(touch)
+        s_.update(touch[:1] * 1.05, targets=np.array([0.1]))
+    assert sess.model.n_tail == jsess.model.n_tail == 4
+    assert sess.model.tail_x.shape[0] == jsess.model.tail_x.shape[0] == max(cfg.touch_capacity, 64)
+    mean, var = sess.query(touch)
+    assert np.all(var < v0)
+    np.testing.assert_allclose(sess.query(qpts), jsess.query(qpts), atol=1e-6)
 
 
 # ------------------------------------------------------------ the package
@@ -335,7 +452,6 @@ def test_model_config_matches_jax():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda m: m.update(np.zeros((1, 3)), 0.0, 1e-3), "item 7"),
     (lambda m: m.log_marginal_likelihood(), "item 10"),
     (lambda m: ooc.ooc_residual_check(m), "item 15"),
     (lambda m: ooc.plan_sweeps(m.capacity, m.panel), "item 15"),

@@ -12,6 +12,7 @@ BASELINE.md row 2: 1e-6."""
 import importlib
 import inspect
 import pkgutil
+import re
 
 import jax
 import jax.numpy as jnp
@@ -72,13 +73,22 @@ def test_session_has_every_public_name_of_the_jax_session():
     assert not missing, missing
 
 
-@pytest.mark.parametrize("verb, item", [("surface_points", 7), ("is_done", 8),
-                                        ("export_exploration", 16), ("restore", 9)])
+@pytest.mark.parametrize("verb, item", [("is_done", 8), ("export_exploration", 16),
+                                        ("restore", 9)])
 def test_session_verbs_added_as_stubs_name_their_item(verb, item):
     sess = ObjectModelSession(device="cpu")
     args = ("x.html",) if verb in ("export_exploration", "restore") else ()
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}:"):
         getattr(sess, verb)(*args)
+
+
+@pytest.mark.parametrize("verb", ["surface_points", "update"])
+def test_session_verbs_before_start_raise_as_jax(verb):
+    args = () if verb == "surface_points" else (np.zeros((1, 3)),)
+    with pytest.raises(RuntimeError) as e:
+        getattr(JaxSession(), verb)(*args)
+    with pytest.raises(RuntimeError, match=f"^{re.escape(str(e.value))}$"):
+        getattr(ObjectModelSession(device="cpu"), verb)(*args)
 
 
 def test_session_constructor_takes_the_jax_positional_order():
@@ -239,10 +249,11 @@ _ALLOWED_GAPS = {
     # cross_fn: joint models on a mesh, ROADMAP §1 item 14.
     ("linalg.sharded", "sharded_predict_linv"): {"w", "axis", "cross_fn"},
     ("linalg.sharded", "sharded_linv_ll"): {"l", "axis", "precision"},
+    ("linalg.sharded", "sharded_update_tail"): {"l", "w", "axis"},
     ("parallel.mesh", "make_row_mesh"): {"axis_name"},
     # ROADMAP §1 item 15: the out-of-core knobs kept as module constants or
     # refused until their features are ported (spill codecs, disk spill,
-    # process-split phases, the MLL's log-determinant, the bordering tail).
+    # process-split phases; the MLL's log-determinant, item 10).
     ("linalg.outofcore", "TieredPanelStore"): {"spill_dtype", "device_dtype", "spill_dir",
                                                "write_through", "tag", "spill_codec"},
     ("linalg.outofcore", "TieredPanelStore.__init__"): {"spill_dtype", "device_dtype",
@@ -252,9 +263,7 @@ _ALLOWED_GAPS = {
                                        "end_panel", "progress_cb", "on_panel", "store_final"},
     ("linalg.outofcore", "ooc_cholesky"): {"x", "noisep", "width_quant", "start_panel", "u0",
                                            "progress_cb", "end_panel", "logdiag0", "stats"},
-    ("linalg.outofcore", "OOCModel"): {"u", "logdiag_sum", "alpha0", "n_tail", "tail_x",
-                                       "tail_y", "tail_noise", "tail_v", "tail_a", "tail_chol",
-                                       "tail_alpha"},
+    ("linalg.outofcore", "OOCModel"): {"logdiag_sum"},
     ("linalg.outofcore", "ooc_residual_check"): {"n_blocks", "block", "tol", "tol_y"},
     ("linalg.outofcore", "plan_sweeps"): {"c", "panel", "itemsize", "limit", "w_itemsize",
                                           "l_itemsize", "width_quant", "max_sweep"},

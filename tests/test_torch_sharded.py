@@ -61,7 +61,9 @@ def problem():
     return dict(x=x, y=y, noise=noise, l=l, w=w, alpha=alpha, q=q, q_odd=q[:301],
                 ls=LS, sv=SV, block=B, touch_capacity=TOUCH, session_pts=pts,
                 session_q=np.array([[1.0, 0.0, 0.0], [1.5, 0.0, 0.0], [1.2, 0.3, -0.1]]),
-                session_ls=SESSION_LS, session_block=SESSION_BLOCK)
+                session_ls=SESSION_LS, session_block=SESSION_BLOCK,
+                touch_x=rng.normal(size=(8, 3)) * 0.8, touch_y=rng.normal(size=8) * 0.1,
+                session_touch=pts[:3] * 1.03 - np.array([0.03, 0.0, 0.0]))
 
 
 def _spawn(p: int, inputs: dict, out_dir) -> list[dict]:
@@ -95,7 +97,7 @@ def _spawn(p: int, inputs: dict, out_dir) -> list[dict]:
 
 
 @pytest.fixture(scope="module")
-def ranks(problem, jax_fits, tmp_path_factory):
+def ranks(problem, jax_fits, jax_touched, tmp_path_factory):
     """ranks(P): the P ranks' results, spawned once per P.  The inputs carry
     the JAX fit_sharded model's arrays (jm_*) for `convert`."""
     done = {}
@@ -103,9 +105,11 @@ def ranks(problem, jax_fits, tmp_path_factory):
     def get(p):
         if p not in done:
             model = jax_fits(p)
-            jm = {f"jm_{k}": np.asarray(getattr(model, k))
-                  for k in ("x", "y", "noise", "l", "w", "alpha")}
-            inputs = {**problem, **jm, "jm_n_real": model.n_real}
+            keys = ("x", "y", "noise", "l", "w", "alpha")
+            jm = {f"jm_{k}": np.asarray(getattr(model, k)) for k in keys}
+            touched = jax_touched(p, 1)
+            jm.update({f"jmt_{k}": np.asarray(getattr(touched, k)) for k in keys})
+            inputs = {**problem, **jm, "jm_n_real": model.n_real, "jmt_n_touch": touched.n_touch}
             done[p] = _spawn(p, inputs, tmp_path_factory.mktemp(f"sharded{p}"))
         return done[p]
 
@@ -237,6 +241,68 @@ def test_converted_jax_model_predicts_as_jax(p, which, problem, ranks, jax_fits)
 
 
 @pytest.fixture(scope="module")
+def jax_touched(problem, jax_fits):
+    """jax_touched(P, batches): the JAX model after the first touch batch
+    (5 points) or both (then 3 more), as the ranks update theirs."""
+    done = {}
+
+    def get(p, batches):
+        if (p, batches) not in done:
+            tx, ty = _j(problem["touch_x"]), _j(problem["touch_y"])
+            m = jax_fits(p).update(tx[:5], ty[:5], 1e-6)
+            if batches == 2:
+                m = m.update(tx[5:], 0.0, 1e-6)
+            done[p, batches] = m
+        return done[p, batches]
+
+    return get
+
+
+@P
+@pytest.mark.parametrize("key", ["mean", "var", "alpha", "l", "w"])
+def test_sharded_update_matches_jax(p, key, problem, ranks, jax_touched):
+    """tests/test_sharded.py's sharded update: two batches bordered into the
+    last band, held to ShardedGPModel.update on the virtual mesh."""
+    model = jax_touched(p, 2)
+    outs = ranks(p)
+    for out in outs:
+        assert int(out["update_n_touch"]) == model.n_touch == 8
+    if key in ("mean", "var"):
+        mean, var = model.predict(_j(problem["q_odd"]))
+        want = np.asarray(mean if key == "mean" else var)
+        for out in outs:
+            np.testing.assert_allclose(out[f"update_{key}"], want, atol=1e-6)
+    elif key == "alpha":
+        for out in outs:
+            np.testing.assert_allclose(out["update_alpha"], np.asarray(model.alpha), atol=1e-6)
+    else:
+        np.testing.assert_allclose(_bands(outs, f"update_{key}"),
+                                   np.asarray(getattr(model, key)), atol=1e-6)
+
+
+@P
+@pytest.mark.parametrize("which", ["mean", "var"])
+def test_converted_touched_jax_model_updates_as_jax(p, which, problem, ranks, jax_touched):
+    """A JAX model after one batch, carried across by `convert` with its
+    n_touch, then bordered once more on each side."""
+    mean, var = jax_touched(p, 2).predict(_j(problem["q_odd"]))
+    want = np.asarray(mean if which == "mean" else var)
+    for out in ranks(p):
+        np.testing.assert_allclose(out[f"converted_update_{which}"], want, atol=1e-6)
+
+
+@P
+def test_sharded_update_overflow_raises_as_jax(p, problem, ranks, jax_fits):
+    model = jax_fits(p)
+    band = model.capacity // p
+    room = model.capacity - max(model.n_real, model.capacity - band)
+    with pytest.raises(ValueError) as e:
+        model.update(_j(problem["q"][:room + 1]), 0.0, 1e-6)
+    for out in ranks(p):
+        assert str(out["err_update"]) == f"ValueError: {e.value}"
+
+
+@pytest.fixture(scope="module")
 def jax_session(problem):
     cfg = JaxModelConfig(kernel="rbf", lengthscale=SESSION_LS, noise_surface=1e-4,
                          n_external=32, n_internal=1, dtype="float64")
@@ -259,8 +325,18 @@ def test_mesh_session_matches_jax_session(which, problem, ranks, jax_session):
         np.testing.assert_allclose(out[keys[1]], np.asarray(var), atol=1e-6)
 
 
+def test_mesh_session_update_matches_jax_session(problem, ranks):
+    cfg = JaxModelConfig(kernel="rbf", lengthscale=SESSION_LS, noise_surface=1e-4,
+                         n_external=32, n_internal=1, dtype="float64")
+    sess = JaxSession(cfg, mesh=JaxMeshConfig(n_devices=2, block=SESSION_BLOCK))
+    sess.start(problem["session_pts"]).update(problem["session_touch"])
+    mean, var = sess.query(problem["session_q"])
+    for out in ranks(2):
+        np.testing.assert_allclose(out["session_update_mean"], np.asarray(mean), atol=1e-6)
+        np.testing.assert_allclose(out["session_update_var"], np.asarray(var), atol=1e-6)
+
+
 @pytest.mark.parametrize("key, want", [
-    ("err_update", "NotImplementedError: ShardedGPModel.update"),
     ("err_world", "ValueError: requested 3 devices, the process group has 2 ranks"),
     ("err_out_of_core", "ValueError: out_of_core is the single-card"),
     ("err_normals", "NotImplementedError: normals= on a mesh"),
@@ -269,8 +345,6 @@ def test_sharded_refusals(key, want, ranks):
     for out in ranks(2):
         msg = str(out[key])
         assert msg.startswith(want), msg
-        if key == "err_update":
-            assert "item 7" in msg, msg
         if key == "err_normals":
             assert "item 14" in msg, msg
 

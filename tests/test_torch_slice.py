@@ -139,12 +139,8 @@ def test_session_verbs_not_yet_ported_raise():
     cfg = ModelConfig(touch_capacity=0, dtype="float64")
     sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
-    joint = ObjectModelSession(cfg, device="cpu").start(pts, normals=pts)
-    ooc = ObjectModelSession(cfg, device="cpu").start(pts, out_of_core=True)
-    for call in (lambda: joint.update(pts[:2]), lambda: sess.start(pts, experts=4),
-                 lambda: ooc.update(pts[:2]), lambda: sess.next_best_path(),
-                 lambda: sess.update(pts[:2]), lambda: sess.save("x"),
-                 lambda: sess.optimize_hyperparameters()):
+    for call in (lambda: sess.start(pts, experts=4), lambda: sess.next_best_path(),
+                 lambda: sess.save("x"), lambda: sess.optimize_hyperparameters()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

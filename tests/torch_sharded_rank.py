@@ -5,9 +5,10 @@ tests/test_torch_sharded.py.  It imports torch and gpis_tpu_torch only.
 
 reads DIR/inputs.npz, joins a gloo group through the file store
 DIR/store (collectives time out after 60 s, so a hung one ends the rank),
-runs every sharded function on the inputs (and predicts from the JAX
-model's arrays, the `jm_*` inputs, through `convert`) and writes its results to
-DIR/out<RANK>.npz: its bands of the sharded outputs, the replicated ones
+runs every sharded function on the inputs, the tactile update with them
+(and predicts from the JAX model's arrays, the `jm_*` inputs, and from
+those of the JAX model after an update, `jmt_*`, through `convert`) and
+writes its results to DIR/out<RANK>.npz: its bands of the sharded outputs, the replicated ones
 whole, the messages of the calls that must raise, and whether jax or any
 gpis_tpu module was imported.
 """
@@ -81,12 +82,26 @@ def run(out_dir: str, rank: int, world: int) -> None:
     out["fit_capacity"] = np.array(model.capacity)
     out["fit_alpha"] = model.alpha.numpy()
     out["fit_mean"], out["fit_var"] = mean.numpy(), var.numpy()
-    out["err_update"] = np.array(_raises(lambda: model.update(t["x"][:2], t["y"][:2], 1e-6)))
+    touched = model.update(t["touch_x"][:5], t["touch_y"][:5], 1e-6)
+    touched = touched.update(t["touch_x"][5:], 0.0, 1e-6)
+    out["update_n_touch"] = np.array(touched.n_touch)
+    out["update_l"], out["update_w"] = touched.l.numpy(), touched.w.numpy()
+    out["update_alpha"] = touched.alpha.numpy()
+    out["update_mean"], out["update_var"] = (v.numpy() for v in gpr.predict(touched, t["q_odd"]))
+    room = model.capacity - max(model.n_real, model.capacity - rows)
+    out["err_update"] = np.array(_raises(lambda: model.update(t["q"][:room + 1], 0.0, 1e-6)))
 
     jax_model = {k[3:]: v for k, v in inp.items() if k.startswith("jm_")}
     converted = convert.sharded_model_from_arrays(jax_model, mesh, kernel="rbf", params=params,
                                                   block=block, n_real=int(inp["jm_n_real"]))
     out["converted_mean"], out["converted_var"] = (
+        v.numpy() for v in gpr.predict(converted, t["q_odd"]))
+    touched_jax = {k[4:]: v for k, v in inp.items() if k.startswith("jmt_")}
+    converted = convert.sharded_model_from_arrays(touched_jax, mesh, kernel="rbf", params=params,
+                                                  block=block, n_real=int(inp["jm_n_real"]),
+                                                  n_touch=int(inp["jmt_n_touch"]))
+    converted = converted.update(t["touch_x"][5:], 0.0, 1e-6)
+    out["converted_update_mean"], out["converted_update_var"] = (
         v.numpy() for v in gpr.predict(converted, t["q_odd"]))
 
     cfg = ModelConfig(kernel="rbf", lengthscale=float(inp["session_ls"]), noise_surface=1e-4,
@@ -100,6 +115,8 @@ def run(out_dir: str, rank: int, world: int) -> None:
     out["session_mean"], out["session_var"] = sess.query(inp["session_q"])
     grid_mean, grid_var, _ = sess.evaluate_grid(12, 1.5)
     out["session_grid_mean"], out["session_grid_var"] = grid_mean, grid_var
+    sess.update(inp["session_touch"])
+    out["session_update_mean"], out["session_update_var"] = sess.query(inp["session_q"])
 
     out["err_world"] = np.array(_raises(lambda: ObjectModelSession(
         cfg, mesh=MeshConfig(n_devices=world + 1), device="cpu")))
