@@ -90,6 +90,33 @@ Phases, one printed line or more each; any failure exits nonzero:
    launched; small float64 sessions (value with surface_points, joint
    through its refit, out of core) updated on the card and held to the CPU
    path at 1e-6.
+11. Marginal-likelihood hyperparameter optimization (config 3) through the
+   entry points a user calls.  (a) BASELINE.md's config-3 bar in float64:
+   y drawn from an RBF GP of lengthscale 0.5 on 4,000 points (capacity
+   4,096, so the MLL's Gram is Kernel A under `gram_ad` and its factor
+   Kernel B under `blocked_cholesky_ad`), `optimize` from 2.0 (4x off) for
+   150 Adam steps; gates: the lengthscale within 10 % of 0.5, the start's
+   gradient within 1e-4 (norm-wise) of a central difference and within
+   1e-6 of the CPU twins'.  (b) Phase 3's value session (float32,
+   C = 16,384): optimize_hyperparameters(steps=10), the refit's 64^3 grid
+   and surface; gates: no NaN in the history, the best MLL above the
+   start's, RMSE < 0.02; then one objective step timed whole and split
+   (Kernel A's primal, Kernel B's factor, the solves, the Cholesky
+   pullback, the Gram pullback) beside the same step through the
+   library's factor and its autograd.  (c) Phase 4's joint session
+   (J = 21,504): five steps, the refit; gates: RMSE < 0.02, min
+   cos(normal, radial) > 0.99.  (d) Phase 5's out-of-core session,
+   method="stream": one objective step timed, its start gradient held to
+   (b)'s dense float32 one within twice that one's distance to float64
+   plus 1e-4 x max|g|, two steps and the refit; a small float64 stream
+   objective held to the CPU path at 1e-6.  (e) Phase 6's out-of-core joint
+   session, one stream step, and phase 9's one-rank NCCL sharded model,
+   method="distributed", two steps.  Each refit's grid in (d) and (e)
+   within 1e-2 of the in-core pipeline's at the refit's hyperparameters,
+   and every refit's surface RMSE < 0.02.
+   Launches: A and B in (a) and (b), E and B in (c), A band, G, H, I and B
+   in (d), E, G, H and I in (e)'s out-of-core run, A band and G in its
+   sharded one.
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -2414,6 +2441,434 @@ def phase10(torch, launches, cfg3, cfg4) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 11
+
+CFG3_N, CFG3_C = 4000, 4096  # config 3's bar: points, capacity (Kernels A and B in float64)
+CFG3_LS, CFG3_LS0, CFG3_NOISE = 0.5, 2.0, 1e-2  # the truth, the start 4x off, the noise
+CFG3_STEPS = 150
+CFG3_LS_TOL = 0.10  # the lengthscale within 10 % of the truth
+FD_REL = 1e-4  # the gradient against a central finite difference (BASELINE.md config 3)
+FD_STEP = 1e-5
+CPU_REL = 1e-6  # the card's float64 gradient against the CPU twins'
+HYPEROPT_STEPS = {"value": 10, "joint": 5, "stream": 2, "ooc_joint": 1, "distributed": 2}
+
+
+def mll_and_grad(torch, xp, yp, noisep, n_real: int, theta, chol_impl=None):
+    """`gp.hyperopt.optimize`'s objective (the MLL, signal variance 1) and
+    its gradient in theta = (log lengthscale, log noise scale)."""
+    from gpis_tpu_torch.gp import regression as gpr
+
+    t = torch.tensor(theta, dtype=xp.dtype, device=xp.device, requires_grad=True)
+    real = torch.arange(xp.shape[0], device=xp.device) < n_real
+    mll = gpr.log_marginal_likelihood(
+        "rbf", xp, yp, torch.where(real, noisep * torch.exp(t[1]), noisep),
+        {"lengthscale": torch.exp(t[0]), "signal_variance": 1.0}, chol_impl=chol_impl)
+    (g,) = torch.autograd.grad(mll, t)
+    return float(mll.detach()), g.cpu().numpy().astype(np.float64)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|: the norm-wise relative error."""
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max())
+
+
+def config3_bar(torch, launches) -> dict:
+    """BASELINE.md's config-3 bar on the card in float64: y drawn from an RBF
+    GP of lengthscale 0.5 on 4,000 points (capacity 4,096, so the MLL's Gram
+    is Kernel A and its factor Kernel B), `optimize` from lengthscale 2.0;
+    the start's gradient against a central finite difference and against
+    the CPU twins."""
+    from gpis_tpu_torch.gp import hyperopt as ho
+    from gpis_tpu_torch.gp import regression as gpr
+    from gpis_tpu_torch.kernels import gram as kg
+
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.uniform(-1.0, 1.0, size=(CFG3_N, 3)), device="cuda")
+    k = kg.gram_reference("rbf", x, {"lengthscale": CFG3_LS, "signal_variance": 1.0},
+                          noise=CFG3_NOISE)
+    y = torch.linalg.cholesky(k) @ torch.tensor(rng.normal(size=CFG3_N), device="cuda")
+    del k
+    xp, yp, noisep = gpr._pad_training(x, y, CFG3_NOISE, CFG3_C, 1e10)
+    torch.cuda.synchronize()
+    launches.clear()
+    t0 = time.perf_counter()
+    res = ho.optimize("rbf", xp, yp, noisep, {"lengthscale": CFG3_LS0, "signal_variance": 1.0},
+                      n_real=CFG3_N, steps=CFG3_STEPS)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    counts = dict(launches)
+    ls = res.params["lengthscale"]
+    within = [abs(v - CFG3_LS) / CFG3_LS <= CFG3_LS_TOL for v in res.lengthscale_history]
+    steps_to_bar = next((i for i in range(len(within)) if all(within[i:])), None)
+    theta0 = [np.log(CFG3_LS0), 0.0]
+    mll0, g = mll_and_grad(torch, xp, yp, noisep, CFG3_N, theta0)
+    fd = []
+    for i in range(2):
+        up, dn = list(theta0), list(theta0)
+        up[i] += FD_STEP
+        dn[i] -= FD_STEP
+        fd.append((mll_and_grad(torch, xp, yp, noisep, CFG3_N, up)[0]
+                   - mll_and_grad(torch, xp, yp, noisep, CFG3_N, dn)[0]) / (2 * FD_STEP))
+    _, g_cpu = mll_and_grad(torch, xp.cpu(), yp.cpu(), noisep.cpu(), CFG3_N, theta0)
+    out = {"config3": "rbf ls 0.5 from 2.0, float64", "n": CFG3_N, "capacity": CFG3_C,
+           "steps": CFG3_STEPS, "lengthscale": ls, "noise_scale": res.noise_scale,
+           "steps_to_bar": steps_to_bar, "optimize_s": opt_s, "step_s": opt_s / CFG3_STEPS,
+           "mll_start": mll0, "mll_best": res.mll, "grad_start": g.tolist(), "grad_fd": fd,
+           "grad_cpu": g_cpu.tolist(), "launches": counts, "card": card_line()}
+    say(json.dumps(out))
+    check("config 3: lengthscale from 2.0 against the truth 0.5 (relative)",
+          abs(ls - CFG3_LS) / CFG3_LS, CFG3_LS_TOL, err_name="rel_err")
+    check("config 3: gradient at the start against a central difference (norm-wise)",
+          rel_err(g, fd), FD_REL, err_name="rel_err")
+    check("config 3: the card's float64 gradient against the CPU twins' (norm-wise)",
+          rel_err(g, g_cpu), CPU_REL, err_name="rel_err")
+    require_launches(counts, ("cov", "panel_update"), "config-3 bar")
+    return counts
+
+
+def objective_split(torch, xp, yp, noisep) -> dict:
+    """One float32 objective step (value and gradient at the start) timed
+    whole (CUDA events), split into Kernel A's primal, Kernel B's factor,
+    the solves' forward and backward, the Cholesky pullback and the Gram
+    pullback, and beside it the same objective through the library's
+    factor and its own autograd."""
+    from gpis_tpu_torch.gp import regression as gpr
+    from gpis_tpu_torch.kernels import gram as kg
+    from gpis_tpu_torch.linalg import cholesky as lin
+
+    c = xp.shape[0]
+    theta0 = [np.log(0.4), 0.0]
+    ms = {"step": time_ms(torch, lambda: mll_and_grad(torch, xp, yp, noisep, c, theta0), 2),
+          "library_step": time_ms(torch, lambda: mll_and_grad(
+              torch, xp, yp, noisep, c, theta0, chol_impl=gpr._library_chol), 2)}
+    ls = torch.tensor(0.4, device="cuda", requires_grad=True)
+    noise = noisep.clone().requires_grad_(True)
+    params = {"lengthscale": ls, "signal_variance": 1.0}
+    ms["gram_primal_A"] = time_ms(torch, lambda: kg.gram_ad("rbf", xp, params, noise), 2)
+    k0 = kg.gram_ad("rbf", xp, params, noise)
+    kbuf = torch.empty_like(k0)
+    with torch.no_grad():
+        ms["factor_B"] = time_ms(torch, lambda: lin.blocked_cholesky_ad(kbuf.copy_(k0), 256), 2)
+        ms["copy_into_factor"] = time_ms(torch, lambda: kbuf.copy_(k0), 2)
+    a = k0.detach().clone().requires_grad_(True)
+    l = lin.blocked_cholesky_ad(a * 1.0, 256)
+    l_leaf = l.detach().requires_grad_(True)
+
+    def rest():
+        alpha = lin.cho_solve(l_leaf, yp)
+        mll = -0.5 * torch.dot(yp, alpha) - torch.sum(torch.log(torch.diagonal(l_leaf)))
+        return torch.autograd.grad(mll, l_leaf)[0]
+
+    ms["solves_fwd_bwd"] = time_ms(torch, rest, 2)
+    lbar = rest()
+    ms["cholesky_pullback"] = time_ms(
+        torch, lambda: torch.autograd.grad(l, a, lbar, retain_graph=True), 2)
+    kbar = lbar + lbar.T
+    ms["gram_pullback"] = time_ms(
+        torch, lambda: torch.autograd.grad(k0, (ls, noise), kbar, retain_graph=True), 2)
+    return ms
+
+
+def value_hyperopt(torch, launches, incore) -> tuple[dict, dict]:
+    """(b) Phase 3's value session, float32, C = 16,384: optimize, refit, the
+    64^3 grid and the surface; then the start's dense gradient in float32
+    and float64 (for (d)) and the objective step's split."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.gp import regression as gpr
+
+    cfg, pts, _, _ = incore
+    torch.cuda.synchronize()
+    launches.clear()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts)
+    t0 = time.perf_counter()
+    res = sess.optimize_hyperparameters(steps=HYPEROPT_STEPS["value"])
+    opt_s = time.perf_counter() - t0
+    mean, var, axis = sess.evaluate_grid()
+    verts, _, vvar = sess.extract_surface()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    hist = np.asarray(res.history)
+    rmse = surface_rmse(verts)
+    ts = sess.training
+    c = sess.model.capacity
+    del sess
+    torch.cuda.empty_cache()
+    xp, yp, noisep = gpr._pad_training(ts.x, ts.y, ts.noise, c, cfg.pad_noise)
+    theta0 = [np.log(cfg.lengthscale), 0.0]
+    g32 = mll_and_grad(torch, xp, yp, noisep, c, theta0)[1]
+    g64 = mll_and_grad(torch, xp.double(), yp.double(), noisep.double(), c, theta0)[1]
+    split = objective_split(torch, xp, yp, noisep)
+    nan_steps = [i for i, h in enumerate(hist) if not np.isfinite(h)]
+    out = {"hyperopt": "value session, float32", "capacity": c, "steps": len(hist),
+           "optimize_s": opt_s, "history": hist.tolist(), "params": res.params,
+           "noise_scale": res.noise_scale, "surface_rmse": rmse, "grad_start_f32": g32.tolist(),
+           "grad_start_f64": g64.tolist(), "step_ms": split, "launches": counts,
+           "card": card_line()}
+    say(json.dumps(out))
+    if nan_steps:
+        say(f"  finding: the float32 objective met a NaN factor at steps {nan_steps}")
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all() and np.isfinite(vvar).all())
+    if nan_steps or not finite:
+        fail("NaN in the value session's hyperopt history or its refit's posterior")
+    if not res.mll > hist[0]:
+        fail(f"the best MLL {res.mll} is not above the start's {hist[0]}")
+    if not rmse < RMSE_GATE:
+        fail(f"surface RMSE after the value hyperopt {rmse} >= {RMSE_GATE}")
+    require_launches(counts, ("cov", "panel_update"), "value hyperopt")
+    return counts, {"g32": g32, "g64": g64}
+
+
+def joint_hyperopt(torch, launches, incore) -> dict:
+    """(c) Phase 4's joint session, J = 21,504: optimize, refit, the grid,
+    the surface and its normals."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.gp import derivative as gpd
+
+    cfg, pts, normals, _, _ = incore
+    n, radius, center = JOINT_SPHERE
+    torch.cuda.synchronize()
+    launches.clear()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, normals=normals)
+    t0 = time.perf_counter()
+    res = sess.optimize_hyperparameters(steps=HYPEROPT_STEPS["joint"])
+    opt_s = time.perf_counter() - t0
+    mean, var, _ = sess.evaluate_grid()
+    verts, _, vvar = sess.extract_surface(world_frame=False)
+    c_n = sess.frame.to_normalized(torch.as_tensor(np.asarray(center, np.float32),
+                                                   device="cuda"))
+    sel = torch.as_tensor(verts[np.linspace(0, len(verts) - 1, 256).astype(int)],
+                          dtype=sess.dtype, device="cuda")
+    grad = gpd.predict_gradient(sess.model, sel)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    radial = sel - c_n
+    min_cos = (torch.sum(grad * radial, dim=1) / (grad.norm(dim=1) * radial.norm(dim=1))).min()
+    rad = np.linalg.norm(verts - c_n.cpu().numpy(), axis=1) - radius / float(sess.frame.scale)
+    rmse = float(np.sqrt(np.mean(rad**2))) if len(verts) else float("nan")
+    hist = np.asarray(res.history)
+    say(json.dumps({"hyperopt": "joint session, float32", "joint_size": sess.model.chol.shape[0],
+                    "steps": len(hist), "optimize_s": opt_s, "history": hist.tolist(),
+                    "params": res.params, "surface_rmse": rmse,
+                    "min_normal_cos": float(min_cos), "launches": counts, "card": card_line()}))
+    if not (np.isfinite(hist).all() and np.isfinite(mean).all() and np.isfinite(vvar).all()):
+        fail("NaN in the joint session's hyperopt history or its refit's posterior")
+    if not rmse < RMSE_GATE:
+        fail(f"joint surface RMSE after the hyperopt {rmse} >= {RMSE_GATE}")
+    if not float(min_cos) > COS_GATE:
+        fail(f"min cos(normal, radial) after the joint hyperopt {float(min_cos)} <= {COS_GATE}")
+    require_launches(counts, ("joint_cov", "panel_update"), "joint hyperopt")
+    return counts
+
+
+def small_stream_parity(torch) -> None:
+    """A small float64 stream objective (C = 1,024, panel 256) on the card
+    against the CPU path at 1e-6."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.gp import ooc_hyperopt as oho
+
+    x = fibonacci_sphere(1000)
+    y = np.random.default_rng(5).normal(size=1000) * 0.3
+    got = []
+    for dev in ("cuda", "cpu"):
+        mll, g = oho.ooc_mll_and_grad("rbf", torch.tensor(x, device=dev),
+                                      torch.tensor(y, device=dev), 1e-3,
+                                      {"lengthscale": 0.4, "signal_variance": 1.0}, panel=256,
+                                      noise_scale=1.3)
+        got.append([float(mll)] + [float(g[k]) for k in ("log_ls", "log_noise_scale",
+                                                          "log_sv")])
+    check("stream objective float64, C=1024, cuda vs cpu (MLL and gradient, relative)",
+          max(abs(a - b) / abs(b) for a, b in zip(*got)), CPU_REL, err_name="rel_err")
+
+
+def refit_checks(torch, what, sess, params, noise, joint=None) -> tuple[tuple, float]:
+    """A refit's 64^3 grid against the in-core pipeline's (fit_inference, or
+    the joint fit and W) on the same training set at the refit's
+    hyperparameters and noise, and its surface's RMSE against the sphere
+    the cloud was drawn on (phase 3's unit sphere, or phase 4's with
+    `joint`).  Returns ((mean gap, var gap), RMSE)."""
+    from gpis_tpu_torch.gp import derivative as gpd
+    from gpis_tpu_torch.gp import regression as gpr
+    from gpis_tpu_torch.surface import grid, marching
+
+    mean, var, axis = sess.evaluate_grid()
+    verts, _ = marching.marching_tetrahedra(mean, axis)
+    if joint is None:  # phase 3's unit sphere, in the world frame
+        rmse = surface_rmse(sess.frame.to_world(torch.as_tensor(verts, device="cuda"))
+                            .cpu().numpy())
+    else:  # phase 4's sphere, in the normalized frame, as phase 4 measures it
+        _, radius, center = JOINT_SPHERE
+        c_n = sess.frame.to_normalized(torch.as_tensor(np.asarray(center, np.float32),
+                                                       device="cuda")).cpu().numpy()
+        rad = np.linalg.norm(verts - c_n, axis=1) - radius / float(sess.frame.scale)
+        rmse = float(np.sqrt(np.mean(rad**2))) if len(verts) else float("nan")
+    cfg, ts = sess.config, sess.training
+    if joint is None:
+        model = gpr.fit_inference(cfg.kernel, ts.x, ts.y, noise, params, block=cfg.block,
+                                  pad_noise=cfg.pad_noise)
+    else:
+        nrm, noise_g = joint
+        model = gpd.with_linv_joint(gpd.fit_with_normals(
+            cfg.kernel, ts.x, ts.y, nrm, noise, noise_g, params, block=cfg.block,
+            pad_noise=cfg.pad_noise))
+    in_mean, in_var, _ = (t.cpu().numpy() for t in grid.evaluate_grid(
+        model, cfg.grid_resolution, cfg.grid_extent))
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all())
+    if not finite:
+        fail(f"NaN in the {what} refit's grid")
+    gaps = float(np.abs(mean - in_mean).max()), float(np.abs(var - in_var).max())
+    check(f"{what} refit 64^3 grid against the in-core fit at its optimum: mean", gaps[0],
+          OOC_GRID_GAP)
+    check(f"{what} refit 64^3 grid against the in-core fit at its optimum: var", gaps[1],
+          OOC_GRID_GAP)
+    if not rmse < RMSE_GATE:
+        fail(f"{what} refit surface RMSE {rmse} >= {RMSE_GATE}")
+    return gaps, rmse
+
+
+def stream_hyperopt(torch, launches, incore, dense) -> dict:
+    """(d) Phase 5's out-of-core value session, method="stream": one
+    objective step timed and its gradient held to (b)'s dense one, then two
+    optimizer steps, the refit and its grid."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.gp import ooc_hyperopt as oho
+
+    small_stream_parity(torch)
+    cfg, pts, _, _ = incore
+    torch.cuda.synchronize()
+    launches.clear()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, out_of_core=True)
+    ts, m = sess.training, sess.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mll, g = oho.ooc_mll_and_grad(cfg.kernel, ts.x, ts.y, ts.noise, m.params, panel=m.panel,
+                                  pad_noise=cfg.pad_noise)
+    g = np.array([float(g["log_ls"]), float(g["log_noise_scale"])])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sess.optimize_hyperparameters(method="stream", steps=HYPEROPT_STEPS["stream"])
+    opt_s = time.perf_counter() - t0
+    counts = dict(launches)
+    gaps, rmse = refit_checks(torch, "out-of-core stream", sess, res.params,
+                              ts.noise * res.noise_scale)
+    # Float32's reach on this gradient: how far the dense float32 one lies
+    # from float64, doubled (the stream trace comes from an explicit W, the
+    # dense one from solves), plus 1e-4 of its size.
+    reach = np.abs(dense["g32"] - dense["g64"])
+    tol = 2.0 * reach + 1e-4 * np.abs(dense["g64"]).max()
+    say(json.dumps({"hyperopt": "out-of-core value session, stream", "panel": m.panel,
+                    "stream_step_s": step_s, "optimize_s": opt_s, "history": res.history,
+                    "params": res.params, "grad_start_stream_f32": g.tolist(),
+                    "grad_start_dense_f32": dense["g32"].tolist(),
+                    "grad_start_dense_f64": dense["g64"].tolist(), "grad_tol": tol.tolist(),
+                    "grid_gap": gaps, "surface_rmse": rmse, "launches": counts,
+                    "card": card_line()}))
+    for i, name in enumerate(("log lengthscale", "log noise scale")):
+        check(f"stream gradient ({name}) against the dense float32 one (tol 2 x the dense "
+              "float32's distance to float64 + 1e-4 x max|g|)", abs(g[i] - dense["g32"][i]),
+              tol[i], err_name="abs_err")
+    if not np.isfinite(res.history).all():
+        fail("NaN in the stream hyperopt history")
+    require_launches(counts, ("gram_band", "gemm_nt_masked", "gemm_nn_acc_masked",
+                              "stripe_write", "panel_update"), "stream hyperopt")
+    return counts
+
+
+def ooc_joint_and_sharded_hyperopt(torch, launches, incore_value, incore_joint) -> list:
+    """(e) Phase 6's out-of-core joint session, one stream step, and phase
+    9's one-rank NCCL sharded model, method="distributed" (a one-rank mesh
+    session keeps the single-card path, so the model is put in a session),
+    each refit's grid held to the in-core pipeline's at its optimum."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.gp.sharded_model import fit_sharded
+    from gpis_tpu_torch.kernels import functions as kf
+
+    cfg4, jpts, normals, _, _ = incore_joint
+    torch.cuda.synchronize()
+    launches.clear()
+    sess = ObjectModelSession(cfg4, device="cuda").start(jpts, normals=normals,
+                                                         out_of_core=True)
+    m = sess.model
+    t0 = time.perf_counter()
+    res = sess.optimize_hyperparameters(method="stream", steps=HYPEROPT_STEPS["ooc_joint"])
+    opt_s = time.perf_counter() - t0
+    runs = [dict(launches)]
+    n = m.n_real
+    gaps, rmse = refit_checks(torch, "out-of-core joint stream", sess, res.params,
+                              m.noise[:n] * res.noise_scale,
+                              joint=(m.normals[:n], m.noise_g[:n]))
+    say(json.dumps({"hyperopt": "out-of-core joint session, stream", "panel": m.panel,
+                    "optimize_s": opt_s, "history": res.history, "params": res.params,
+                    "grid_gap": gaps, "surface_rmse": rmse, "launches": runs[0],
+                    "card": card_line()}))
+    if not np.isfinite(res.history).all():
+        fail("NaN in the out-of-core joint hyperopt history")
+    require_launches(runs[0], ("joint_cov", "gemm_nt_masked", "gemm_nn_acc_masked",
+                               "stripe_write"), "out-of-core joint hyperopt")
+    del sess, m
+    torch.cuda.empty_cache()
+
+    cfg = incore_value[0]
+    store = tempfile.mkdtemp(prefix="gpis_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            rank=0, world_size=1)
+    try:
+        dist.all_reduce(torch.zeros((1,), device="cuda"))
+        ts = gpis.build_training_set(incore_value[1], cfg, device="cuda")
+        sess = ObjectModelSession(cfg, device="cuda")
+        sess.training, sess.frame = ts, ts.frame
+        torch.cuda.synchronize()
+        launches.clear()
+        sess.model = fit_sharded(cfg.kernel, ts.x, ts.y, ts.noise,
+                                 kf.kernel_params(cfg.lengthscale, cfg.signal_variance),
+                                 n_devices=1, block=256, touch_capacity=cfg.touch_capacity,
+                                 pad_noise=cfg.pad_noise)
+        noise = sess.model.noise[:sess.model.n_real]
+        t0 = time.perf_counter()
+        res = sess.optimize_hyperparameters(method="distributed",
+                                            steps=HYPEROPT_STEPS["distributed"])
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
+        runs.append(dict(launches))
+        gaps, rmse = refit_checks(torch, "sharded P=1 distributed", sess, res.params,
+                                  noise * res.noise_scale)
+        del sess
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    say(json.dumps({"hyperopt": "sharded P=1 nccl, distributed", "optimize_s": opt_s,
+                    "history": res.history, "params": res.params, "grid_gap": gaps,
+                    "surface_rmse": rmse, "launches": runs[1], "card": card_line()}))
+    if not np.isfinite(res.history).all():
+        fail("NaN in the distributed hyperopt history")
+    require_launches(runs[1], ("gram_band", "gemm_nt_masked"), "distributed hyperopt")
+    return runs
+
+
+def phase11(torch, launches, incore_value, incore_joint) -> list:
+    """Config 3, marginal-likelihood hyperparameter optimization, through the
+    entry points a user calls; the launches of each sub-phase's run."""
+    t0 = time.perf_counter()
+    runs = [config3_bar(torch, launches)]
+    torch.cuda.empty_cache()
+    counts, dense = value_hyperopt(torch, launches, incore_value)
+    runs.append(counts)
+    torch.cuda.empty_cache()
+    runs.append(joint_hyperopt(torch, launches, incore_joint))
+    torch.cuda.empty_cache()
+    runs.append(stream_hyperopt(torch, launches, incore_value, dense))
+    torch.cuda.empty_cache()
+    runs += ooc_joint_and_sharded_hyperopt(torch, launches, incore_value, incore_joint)
+    say(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2480,6 +2935,10 @@ def main() -> int:
 
     say("phase 10: tactile updates and surface projection through ObjectModelSession")
     runs.append(phase10(torch, _build.LAUNCHES, incore_value[0], incore_joint[0]))
+    torch.cuda.empty_cache()
+
+    say("phase 11: marginal-likelihood hyperparameter optimization (config 3)")
+    runs += phase11(torch, _build.LAUNCHES, incore_value, incore_joint)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -1,6 +1,6 @@
 """ObjectModelSession, the user-facing orchestrator (port of
-gpis_tpu/api/session.py:62-318 for the in-core value and joint models, the
-out-of-core ones and the row-sharded value model).
+gpis_tpu/api/session.py:62-469 and 506-930 for the in-core value and joint
+models, the out-of-core ones and the row-sharded value model).
 
 World frame in, world frame out: the session owns the normalization Frame.
 `start` fits: with `out_of_core=True` the panel-streamed fit
@@ -15,9 +15,10 @@ with the same arguments, and `start` fits the row-sharded value model
 (`gp.sharded_model.fit_sharded`) on rank 0's cloud, which it broadcasts.
 `query`, `evaluate_grid`, `extract_surface` and `surface_points` serve the
 fitted model; `update` borders tactile points into it (a joint model past
-its touch slots is refit with every touch folded into its core).  The
-verbs not yet ported raise NotImplementedError naming the ROADMAP.md §1
-item that ports them.
+its touch slots is refit with every touch folded into its core);
+`optimize_hyperparameters` maximizes the marginal likelihood (config 3) and
+refits with the optimum.  The verbs not yet ported raise
+NotImplementedError naming the ROADMAP.md §1 item that ports them.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ from gpis_tpu_torch._build import not_ported, resolve_device
 from gpis_tpu_torch.config import MeshConfig, ModelConfig
 from gpis_tpu_torch.data import gpis, voxel
 from gpis_tpu_torch.gp import derivative as gpd
+from gpis_tpu_torch.gp import hyperopt as ho
+from gpis_tpu_torch.gp import ooc_hyperopt as oho
 from gpis_tpu_torch.gp import regression as gpr
+from gpis_tpu_torch.gp import sharded_hyperopt as sho
 from gpis_tpu_torch.gp import sharded_model as gsm
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.kernels import functions as kf
@@ -296,7 +300,177 @@ class ObjectModelSession:
         not_ported("export_exploration", 16, "viz/export.py")
 
     def optimize_hyperparameters(self, **kw):
-        not_ported("optimize_hyperparameters", 10, "config 3")
+        """MLL optimization (config 3) in place, then a refit with the
+        optimum; keywords go to the optimizer (`steps`, `learning_rate`,
+        `learn_noise`, ...).  `method` picks the objective by model kind:
+
+        * in core (value or joint): "subsample", the whole padded model
+          (`gp.hyperopt.optimize` / `optimize_joint`); the value refit keeps
+          the touch slots' points, the joint one folds the occupied slots
+          into its core as value-only observations;
+        * out of core: "subsample" (default; `subsample=` points, 4,096
+          value / 1,024 joint) or "stream" (the full-data objective of
+          `gp.ooc_hyperopt`, one out-of-core factor a step); the refit
+          folds the touch tail in;
+        * sharded: "subsample" (a single-device fit of `subsample=` 2,048
+          points) or "distributed" (`gp.sharded_hyperopt`, one sharded fit
+          a step); every rank calls it alike."""
+        self._require_model()
+        m = self.model
+        kind = model_kind(m)
+        if kind in ("ooc", "ooc_joint"):
+            return self._optimize_ooc(m, kind, kw)
+        if kind == "sharded":
+            return self._optimize_sharded(m, kw)
+        bad = kw.pop("method", "subsample")
+        if bad != "subsample":
+            raise ValueError(
+                f"unknown hyperopt method {bad!r} for an in-core model "
+                "('distributed' needs a sharded fit, 'stream' an "
+                "out-of-core fit)"
+            )
+        cfg = self.config
+        if kind == "joint":
+            res = ho.optimize_joint(m.kernel, m.x, m.y, m.normals, m.noise_f, m.noise_g, m.params,
+                                    n_real=m.n0, **kw)
+            # Refit with the optimum, the OCCUPIED touch slots folded into the
+            # core as value-only observations (the slots re-arm empty).
+            x, yv, nrm, nf, ng = m.x, m.y, m.normals, res.noise, res.noise_g
+            occ = int(m.n_touch or 0)
+            if occ:
+                dt, dev = x.dtype, x.device
+                x = torch.cat([x, m.touch_x[:occ]])
+                yv = torch.cat([yv, m.touch_y[:occ]])
+                nrm = torch.cat([nrm, torch.zeros((occ, 3), dtype=dt, device=dev)])
+                nf = torch.cat([nf, m.touch_noise[:occ]])
+                ng = torch.cat([ng, torch.full((occ,), cfg.pad_noise, dtype=dt, device=dev)])
+            self.model = gpd.fit_with_normals(m.kernel, x, yv, nrm, nf, ng, res.params,
+                                              block=cfg.block, pad_noise=cfg.pad_noise,
+                                              touch_capacity=cfg.touch_capacity)
+            if 4 * self.model.capacity >= 1024:
+                self.model = gpd.with_linv_joint(self.model)
+        else:
+            res = ho.optimize(m.kernel, m.x, m.y, m.noise, m.params, n_real=m.n0, **kw)
+            # As in the JAX package the refit keeps the padded arrays, touch
+            # slots included (its n_touch starts at 0 again); W is attached,
+            # as `start` attaches it.
+            self.model = gpr.with_linv(gpr.fit_padded(m.kernel, m.x, m.y, res.noise, res.params,
+                                                      n0=m.n0, pad_noise=m.pad_noise))
+        self._sync()
+        return res
+
+    def _optimize_ooc(self, m, kind: str, kw: dict):
+        """The out-of-core branches of optimize_hyperparameters."""
+        method = kw.pop("method", "subsample")
+        cfg = self.config
+        if kind == "ooc_joint":
+            n = m.n_real
+            if method == "stream":
+                kw.pop("subsample", None)
+                res_d = oho.optimize_ooc_joint(m.kernel, m.x[:n], m.y[:n], m.normals[:n],
+                                               m.noise[:n], m.noise_g[:n], m.params,
+                                               panel=m.panel, pad_noise=cfg.pad_noise, **kw)
+                # The stream objective scales the value noise only.
+                res = ho.HyperoptResult(params=res_d["params"],
+                                        noise=m.noise[:n] * res_d["noise_scale"],
+                                        noise_scale=res_d["noise_scale"], noise_scale_g=1.0,
+                                        history=res_d["history"], mll=res_d["mll"])
+            elif method == "subsample":
+                step = max(1, n // int(kw.pop("subsample", 1024)))
+                res = ho.optimize_joint(m.kernel, m.x[:n:step], m.y[:n:step],
+                                        m.normals[:n:step], m.noise[:n:step],
+                                        m.noise_g[:n:step], m.params,
+                                        n_real=m.x[:n:step].shape[0], **kw)
+            else:
+                raise ValueError(
+                    f"unknown hyperopt method {method!r} for a joint "
+                    "out-of-core model (use 'subsample' or 'stream')"
+                )
+            fx, fy, fnrm = m.x[:n], m.y[:n], m.normals[:n]
+            fnf = m.noise[:n] * float(res.noise_scale)
+            fng = m.noise_g[:n] * float(res.noise_scale_g)
+            if m.n_tail:
+                # Touches fold in as value-only observations.
+                occ, dt, dev = m.n_tail, m.dtype, m.device
+                fx = torch.cat([fx, m.tail_x[:occ]])
+                fy = torch.cat([fy, m.tail_y[:occ]])
+                fnrm = torch.cat([fnrm, torch.zeros((occ, 3), dtype=dt, device=dev)])
+                fnf = torch.cat([fnf, m.tail_noise[:occ]])
+                fng = torch.cat([fng, torch.full((occ,), cfg.pad_noise, dtype=dt, device=dev)])
+            self.model = ooc.ooc_fit_joint(m.kernel, fx, fy, fnrm, fnf, fng, res.params,
+                                           panel=m.panel, pad_noise=cfg.pad_noise)
+        else:
+            ts = self.training
+            if ts is None:
+                raise ValueError(
+                    "hyperopt on a restored out-of-core session needs the "
+                    "original training set (not part of the checkpoint); "
+                    "re-start() from the cloud, or optimize before saving"
+                )
+            if method == "stream":
+                kw.pop("subsample", None)
+                res_d = oho.optimize_ooc(m.kernel, ts.x, ts.y, ts.noise, m.params,
+                                         panel=m.panel, pad_noise=cfg.pad_noise, **kw)
+                res = ho.HyperoptResult(params=res_d["params"],
+                                        noise=ts.noise * res_d["noise_scale"],
+                                        noise_scale=res_d["noise_scale"],
+                                        history=res_d["history"], mll=res_d["mll"])
+            elif method == "subsample":
+                step = max(1, ts.x.shape[0] // int(kw.pop("subsample", 4096)))
+                xs = ts.x[::step]
+                res = ho.optimize(m.kernel, xs, ts.y[::step], ts.noise[::step], m.params,
+                                  n_real=xs.shape[0], **kw)
+            else:
+                raise ValueError(
+                    f"unknown hyperopt method {method!r} for an out-of-core "
+                    "model (use 'subsample', or 'stream' for full-data "
+                    "exact gradients at one factorization per step)"
+                )
+            # The touch tail folds into the refit at its own noise: the scale
+            # applies to the training set the objective saw.
+            fx, fy = ts.x, ts.y
+            fnoise = ts.noise * float(res.noise_scale)
+            if m.n_tail:
+                occ = m.n_tail
+                fx = torch.cat([fx, m.tail_x[:occ]])
+                fy = torch.cat([fy, m.tail_y[:occ]])
+                fnoise = torch.cat([fnoise, m.tail_noise[:occ]])
+            self.model = ooc.ooc_fit(m.kernel, fx, fy, fnoise, res.params, panel=m.panel,
+                                     pad_noise=cfg.pad_noise)
+        self.model.promote_for_serving()
+        self._sync()
+        return res
+
+    def _optimize_sharded(self, m, kw: dict):
+        """The sharded branches of optimize_hyperparameters (every rank)."""
+        method = kw.pop("method", "subsample")
+        if method not in ("subsample", "distributed"):
+            raise ValueError(
+                f"unknown hyperopt method {method!r} for a sharded "
+                "model (use 'subsample' or 'distributed')"
+            )
+        cfg, n = self.config, m.n_real
+        if method == "distributed":
+            res_d = sho.optimize_sharded(m.kernel, m.x, m.y, m.noise, m.params, m.mesh,
+                                         block=m.block, n_real=n, **kw)
+            res = ho.HyperoptResult(params=res_d["params"],
+                                    noise=m.noise[:n] * res_d["noise_scale"],
+                                    noise_scale=res_d["noise_scale"],
+                                    history=res_d["history"], mll=res_d["mll"])
+        else:
+            step = max(1, n // int(kw.pop("subsample", 2048)))
+            sub = gpr.fit(m.kernel, m.x[:n:step], m.y[:n:step], m.noise[:n:step], m.params,
+                          block=cfg.block, touch_capacity=0, pad_noise=cfg.pad_noise)
+            res = ho.optimize(m.kernel, sub.x, sub.y, sub.noise, m.params,
+                              n_real=m.x[:n:step].shape[0], **kw)
+            del sub
+        # One multiplicative scale on every real row's noise.
+        self.model = gsm.fit_sharded(m.kernel, m.x[:n], m.y[:n],
+                                     m.noise[:n] * float(res.noise_scale), res.params,
+                                     mesh=m.mesh, block=m.block,
+                                     touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise)
+        self._sync()
+        return res
 
     def save(self, path: str):
         not_ported("save", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")

@@ -74,7 +74,11 @@ class ModelConfig:
 
     def __post_init__(self):
         if self.kernel not in _KERNELS:
-            # The port has no custom-kernel registry yet (ROADMAP.md §1 item 2).
+            # A registered custom kernel is accepted too.
+            from gpis_tpu_torch.kernels.functions import _REGISTRY
+
+            if self.kernel in _REGISTRY:
+                return
             raise ValueError(f"unknown kernel {self.kernel!r}; expected one of {_KERNELS}")
 
 

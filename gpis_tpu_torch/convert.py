@@ -87,10 +87,10 @@ def ooc_model_from_arrays(arrays, panels, *, kernel: str, params, panel: int, n_
                           device="cuda"):
     """The port's OOCModel (or OOCJointModel, when `arrays` has "meta") from
     a `gpis_tpu` out-of-core model: its arrays (x, y, noise, alpha; a joint
-    model's meta, normals, noise_g; u for updates, and after updates
-    alpha0, n_tail and the tail_* arrays) and its W panels in order,
-    trimmed as stored, all numpy.  The panels go to a device store on
-    `device`."""
+    model's meta, normals, noise_g; u for updates, u and the scalar
+    logdiag_sum for `log_marginal_likelihood`, and after updates alpha0,
+    n_tail and the tail_* arrays) and its W panels in order, trimmed as
+    stored, all numpy.  The panels go to a device store on `device`."""
     dev = resolve_device(device)
 
     def t(a):
@@ -103,6 +103,8 @@ def ooc_model_from_arrays(arrays, panels, *, kernel: str, params, panel: int, n_
                   params={k: float(v) for k, v in params.items()}, alpha=t(arrays["alpha"]),
                   wstore=wstore, panel=int(panel), n_real=int(n_real),
                   n_tail=int(arrays["n_tail"]) if "n_tail" in arrays else 0,
+                  logdiag_sum=(None if arrays.get("logdiag_sum") is None
+                               else float(arrays["logdiag_sum"])),
                   **{k: t(arrays[k]) for k in _OOC_TAIL
                      if k in arrays and arrays[k] is not None})
     if "meta" in arrays:

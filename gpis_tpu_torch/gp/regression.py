@@ -5,7 +5,8 @@
 * ``fit_inference`` -- the one-matrix-peak pipeline of query-only sessions:
   Gram (Kernel A) -> in-place blocked Cholesky (Kernel B) -> in-place
   W = L^{-1} (Kernel C) -> alpha = W^T (W y).
-* ``with_linv`` -- attach W = L^{-1} (Kernel C) to a fitted model.
+* ``with_linv`` -- attach W = L^{-1} (Kernel C) to a fitted model;
+  ``with_inverse`` -- attach (K + diag(noise))^{-1}.
 * ``predict`` / ``predict_mean`` -- posterior mean and variance; a model
   carrying W goes through the dense query (Kernels A and D staged, or
   Kernel F on the fly); a joint model is dispatched to ``gp.derivative``,
@@ -14,6 +15,10 @@
 * ``update`` / ``reset_touches`` -- tactile points written into the touch
   slots [n0, C) and the factor's trailing rows re-formed by bordering
   (K21 through Kernel A), carrying W through when the model has it.
+* ``log_marginal_likelihood`` -- the config-3 objective, differentiable by
+  torch.autograd: the Gram is `kernels.gram.gram_ad` (Kernel A as its
+  primal), the factor `linalg.cholesky.blocked_cholesky_ad` (Kernel B) at
+  C >= 4096 on a card, the library's differentiable factor otherwise.
 
 Functions take tensors and work on the device the tensors are on.  The
 ladder reacts only to a NaN factor diagonal (what `cholesky` returns for a
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 
@@ -36,8 +42,8 @@ from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
 
-__all__ = ["fit", "fit_padded", "fit_inference", "with_linv", "predict", "predict_mean", "update",
-           "reset_touches"]
+__all__ = ["fit", "fit_padded", "fit_inference", "with_inverse", "with_linv", "predict",
+           "predict_mean", "update", "reset_touches", "log_marginal_likelihood"]
 
 _LINV_BLOCK = 256
 _MAX_JITTER_RETRIES = 6
@@ -144,6 +150,13 @@ def fit_inference(kernel: str, x, y, noise, params, *, block: int = 128,
                    n_touch=0, kernel=kernel, n0=n0, pad_noise=pad_noise, linv=w)
 
 
+def with_inverse(model: GPModel) -> GPModel:
+    """Attach (K + diag(noise))^{-1} = cho_solve(L, I), the two-GEMM variance
+    path of `predict`."""
+    eye = torch.eye(model.capacity, dtype=model.dtype, device=model.device)
+    return dataclasses.replace(model, kinv=lin.cho_solve(model.chol, eye))
+
+
 def with_linv(model: GPModel, *, block: int = _LINV_BLOCK) -> GPModel:
     """Attach W = L^{-1} (left-looking blocked TRSM, Kernel C) -- the
     dense-grid variance path."""
@@ -186,7 +199,8 @@ def predict(model, q: torch.Tensor, *, precision=None):
         return gpd.predict(model, q)
     q = q.contiguous()
     k0 = kf.k_diag0(model.kernel, model.params)
-    if model.linv is not None and precision is None:
+    # A registered kernel has no CUDA body: it takes the staged plain route.
+    if model.linv is not None and precision is None and model.kernel in kf.KERNEL_NAMES:
         mean, quad = fused_query(model.kernel, q, model.x, model.params, model.alpha,
                                  model.linv)
         return mean, k0 - quad
@@ -306,3 +320,42 @@ def reset_touches(model: GPModel) -> GPModel:
                 n_touch=0, kernel=model.kernel, n0=n0, pad_noise=model.pad_noise)
     empty = torch.zeros((0,), dtype=model.dtype, device=model.device)
     return update(m, empty.reshape(0, 3), empty, empty)
+
+
+def _mll_chol(c: int, device: torch.device):
+    """The marginal likelihood's factor: on a card at C >= 4096 tiling into
+    256 blocks, Kernel B's in-place factor under `blocked_cholesky_ad`
+    (its pullback two triangular solves, O(C^2) memory); otherwise the
+    library's differentiable factor, a NaN factor (not an exception) where
+    the matrix is not positive definite, as `jnp.linalg.cholesky` gives."""
+    if device.type == "cuda" and c >= 4096 and c % 256 == 0:
+        return lambda k: lin.blocked_cholesky_ad(k, 256)
+    return _library_chol
+
+
+def _library_chol(k: torch.Tensor) -> torch.Tensor:
+    l, info = torch.linalg.cholesky_ex(k)
+    return torch.where(info == 0, l, torch.full_like(l, float("nan")))
+
+
+def log_marginal_likelihood(kernel, xp, yp, noisep, params, *, n_real=None, chol_impl=None):
+    """log p(y | X, theta) on padded arrays (config 3), differentiable by
+    torch.autograd in xp, the params (floats or tensors) and noisep.
+
+    The padding rows add a theta-independent constant (their diagonal is
+    pad_noise-dominated), so the gradients match the unpadded MLL to
+    O(k^2 / pad_noise); with `n_real`, their 0.5 log(2 pi noise_i) each is
+    taken back out so that the value matches an unpadded oracle too.
+    `chol_impl` overrides the factor (`_mll_chol` by default); it may
+    overwrite its argument.  The Gram is `gram_ad`: no (C, C, 3) temporary
+    in the graph."""
+    k = kg.gram_ad(kernel, xp, params, noisep)
+    c = xp.shape[0]
+    l = (chol_impl or _mll_chol(c, xp.device))(k)
+    alpha = lin.cho_solve(l, yp)
+    mll = (-0.5 * torch.dot(yp, alpha) - torch.sum(torch.log(torch.diagonal(l)))
+           - 0.5 * c * math.log(2.0 * math.pi))
+    if n_real is not None:
+        noise = torch.as_tensor(noisep, dtype=xp.dtype, device=xp.device).broadcast_to((c,))
+        mll = mll + torch.sum(0.5 * torch.log(2.0 * math.pi * noise[n_real:]))
+    return mll

@@ -82,7 +82,7 @@ def _joint_tile(d0, d1, d2, ud, vd, uv, fr, fc, name, params):
     zero = r2 <= 1e-24
     # Exact k(0) where points coincide; d2k (singular at r = 0 for the thin
     # plate) multiplies diff factors that vanish there: mask the product.
-    k = torch.where(zero, torch.as_tensor(float(kf.k_diag0(name, params)), dtype=r2.dtype,
+    k = torch.where(zero, torch.as_tensor(kf.k_diag0(name, params), dtype=r2.dtype,
                                           device=r2.device), kf.k_r2(name, r2, params))
     dk = kf.dk_dr2(name, r2, params)
     outer = torch.where(zero, torch.zeros_like(r2), kf.d2k_dr2(name, r2, params) * ud * vd)

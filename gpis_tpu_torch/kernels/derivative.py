@@ -54,7 +54,9 @@ def joint_gram_reference(name: str, x, params, noise_f=None, noise_g=None) -> to
     c = x.shape[0]
     d, r2 = _diff_r2(x, x)
     eye = torch.eye(c, dtype=torch.bool, device=x.device)
-    kff = torch.where(eye, torch.as_tensor(float(kf.k_diag0(name, params)), dtype=x.dtype,
+    # k(0) as a tensor: the hyperopt differentiates it (signal variance, and
+    # the lengthscale of IMQ and the thin plate).
+    kff = torch.where(eye, torch.as_tensor(kf.k_diag0(name, params), dtype=x.dtype,
                                            device=x.device), kf.k_r2(name, r2, params))
     dk = kf.dk_dr2(name, r2, params)
     d2k = kf.d2k_dr2(name, r2, params)

@@ -10,6 +10,12 @@ tensors; for the thin plate the lengthscale is the scale R.
 
 Derivative (surface-normal) observations need dk/dr2 and d2k/dr2^2:
 grad_x k = 2 dk (x - x'), and d2k/dx dx'^T = -2 dk I - 4 d2k (x-x')(x-x')^T.
+
+`register_kernel` adds a covariance of the user's under a new name, usable
+wherever a built-in name is.  It has no CUDA body: the callers that would
+launch Kernel A on a card take its plain twin for it (`kernels.gram`,
+`gp.regression.predict`), as the JAX package keeps registered kernels off
+Pallas.
 """
 
 from __future__ import annotations
@@ -18,12 +24,31 @@ from typing import Any, Mapping
 
 import torch
 
-__all__ = ["KERNEL_NAMES", "kernel_params", "k_r2", "k_diag0", "dk_dr2", "d2k_dr2",
-           "supports_derivatives"]
+__all__ = ["KERNEL_NAMES", "register_kernel", "unregister_kernel", "kernel_params", "k_r2",
+           "k_diag0", "dk_dr2", "d2k_dr2", "supports_derivatives"]
 
 KERNEL_NAMES = ("rbf", "thin_plate", "laplace", "inverse_multiquadric")
 
 Params = Mapping[str, Any]
+
+# Registered covariances: name -> {"k_r2", "k_diag0", "dk_dr2", "d2k_dr2"},
+# each a callable of (r2, params), k_diag0 of (params); the derivatives may
+# be None.
+_REGISTRY: dict[str, dict] = {}
+
+
+def register_kernel(name: str, *, k_r2, k_diag0, dk_dr2=None, d2k_dr2=None):
+    """Register a covariance function of squared distance under `name`.
+    Derivative observations need both dk_dr2 and d2k_dr2; without dk_dr2,
+    the callers that need dk/dr2 (the MLL's Gram pullback, the projection's
+    normals) take it by forward-mode AD of k_r2."""
+    if name in KERNEL_NAMES:
+        raise ValueError(f"cannot shadow built-in kernel {name!r}")
+    _REGISTRY[name] = {"k_r2": k_r2, "k_diag0": k_diag0, "dk_dr2": dk_dr2, "d2k_dr2": d2k_dr2}
+
+
+def unregister_kernel(name: str):
+    _REGISTRY.pop(name, None)
 
 
 def kernel_params(lengthscale=1.0, signal_variance=1.0) -> dict:
@@ -49,6 +74,8 @@ def k_r2(name: str, r2: torch.Tensor, params: Params) -> torch.Tensor:
     if name == "thin_plate":
         r = _safe_sqrt(r2)
         return sv * (2.0 * r * r2 - 3.0 * ls * r2 + ls * ls * ls)
+    if name in _REGISTRY:
+        return _REGISTRY[name]["k_r2"](r2, params)
     raise ValueError(f"unknown kernel {name!r}")
 
 
@@ -62,12 +89,18 @@ def k_diag0(name: str, params: Params):
         return sv / ls
     if name == "thin_plate":
         return sv * ls * ls * ls
+    if name in _REGISTRY:
+        return _REGISTRY[name]["k_diag0"](params)
     raise ValueError(f"unknown kernel {name!r}")
 
 
 def supports_derivatives(name: str) -> bool:
     """Laplace is not differentiable at r = 0, so normal observations are
-    refused for it (as in the JAX package)."""
+    refused for it (as in the JAX package); a registered kernel needs both
+    derivatives."""
+    if name in _REGISTRY:
+        entry = _REGISTRY[name]
+        return entry["dk_dr2"] is not None and entry["d2k_dr2"] is not None
     return name in ("rbf", "thin_plate", "inverse_multiquadric")
 
 
@@ -86,6 +119,13 @@ def dk_dr2(name: str, r2: torch.Tensor, params: Params) -> torch.Tensor:
     if name == "laplace":
         r = _safe_sqrt(r2)
         return -0.5 * sv * torch.exp(-r / ls) / (ls * r)
+    if name in _REGISTRY:
+        fn = _REGISTRY[name]["dk_dr2"]
+        if fn is not None:
+            return fn(r2, params)
+        # k_r2 is elementwise in r2, so one forward-mode derivative is exact.
+        return torch.func.jvp(lambda t: _REGISTRY[name]["k_r2"](t, params), (r2,),
+                              (torch.ones_like(r2),))[1]
     raise ValueError(f"unknown kernel {name!r}")
 
 
@@ -102,4 +142,6 @@ def d2k_dr2(name: str, r2: torch.Tensor, params: Params) -> torch.Tensor:
         return 0.75 * sv * (r2 + ls * ls) ** (-2.5)
     if name == "thin_plate":
         return sv * 1.5 / _safe_sqrt(r2)
+    if name in _REGISTRY and _REGISTRY[name]["d2k_dr2"] is not None:
+        return _REGISTRY[name]["d2k_dr2"](r2, params)
     raise ValueError(f"kernel {name!r} does not support second derivatives")

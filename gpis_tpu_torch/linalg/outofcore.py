@@ -20,7 +20,10 @@ Kernel E for a joint factor):
                 cur[:, kB:(k+1)B] = S_k L_kk^{-T}                      (Kernel I)
     S_jj = cur[:, jB:] - cur[:, :jB] cur[:, :jB]^T ;  L_jj = potrf(S_jj)
 
-with the forward substitution u = L^{-1} y taken inline from each band.
+with the forward substitution u = L^{-1} y taken inline from each band, and
+with `stats` the running sum(log diag L) (the L panels are consumed by the
+TRSM, so this is the one moment the diagonal is on the card): with u it
+gives the exact marginal likelihood for free (`OOCModel.log_marginal_likelihood`).
 alpha = L^{-T} u streams the L panels once backwards (`ooc_alpha_backward`).
 
 TRSM (`ooc_trsm`) -- left-looking W = L^{-1} by row panels:
@@ -28,7 +31,10 @@ TRSM (`ooc_trsm`) -- left-looking W = L^{-1} by row panels:
     U   = sum_{k<j} L_j[:, kB:(k+1)B] W_k       (Kernel H, output columns < (k+1)B)
     W_j = L_jj^{-1} [-U | I]                     (Kernels I and H, triangular solves)
 
-Step j consumes L panel j, so W_j takes its place in the budget.
+Step j consumes L panel j, so W_j takes its place in the budget.  With
+`accumulate_alpha` it sums alpha = W^T (W y) sweep by sweep; `on_panel(j0,
+rows)` hands a consumer each sweep's full-width W rows while they are on
+the card (the streamed MLL gradient of `gp.ooc_hyperopt` rides on it).
 
 Query (`ooc_predict`) -- mean = K(Q, X) alpha per chunk; the variance
 streams each W panel once in total (the panel loop is outermost) through
@@ -59,8 +65,8 @@ What differs from the JAX package, and why:
   each way, nothing more.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-§1 item): the marginal likelihood (item 10), and from item 15 the disk spill, the f16 W spill, the int16 L
-codec with `ooc_residual_check`, the process-split phases and `plan_sweeps`.
+§1 item 15): the disk spill, the f16 W spill, the int16 L codec with
+`ooc_residual_check`, the process-split phases and `plan_sweeps`.
 
 Functions take tensors and work on the device the tensors are on; on the
 CPU every kernel call takes its plain twin.
@@ -70,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 
 import torch
 
@@ -425,6 +432,13 @@ def _diag_nan(cur: torch.Tensor, j0: int) -> bool:
     return bool(torch.isnan(cur[:, j0:j0 + r].diagonal()).any())
 
 
+def _band_logdiag(cur: torch.Tensor, j0: int) -> float:
+    """sum(log diag L) over the band's diagonal block: local row t of the
+    band is global row j0 + t, its diagonal entry cur[t, j0 + t]."""
+    r = cur.shape[0]
+    return float(torch.sum(torch.log(cur[:, j0:j0 + r].diagonal())))
+
+
 def _fwd_sub_step(u: torch.Tensor, lj: torch.Tensor, y: torch.Tensor, j0: int) -> None:
     """u[j0:j0+b] = L_jj^{-1} (y_j - L_j u), in place, for the b rows of lj
     (trimmed): u[j0:] is still zero, so the whole row product needs no mask."""
@@ -480,19 +494,23 @@ def _store_width(j: int, panel: int, c: int) -> int:
 
 
 def ooc_cholesky(kernel: str, cols: torch.Tensor, noise: torch.Tensor, params, store, *,
-                 panel: int, block: int = 256, sweep: int = 1, y: torch.Tensor | None = None):
+                 panel: int, block: int = 256, sweep: int = 1, y: torch.Tensor | None = None,
+                 logdiag0: float = 0.0, stats: dict | None = None):
     """Row-panel bordering Cholesky of K(cols) + diag(noise) into `store`
     (trimmed panels, zero past their true width).  cols is (C, 3) points or
     (J, 7) packed joint metadata.  Returns (ok, u): ok False if the factor
     came back NaN (the caller escalates jitter); with y, u = L^{-1} y, taken
     inline from each band while it is on the card.  `sweep` row panels form
-    one band, so each stored panel is fetched once a sweep."""
+    one band, so each stored panel is fetched once a sweep.  With `stats`,
+    stats["logdiag_sum"] holds logdiag0 + sum(log diag L) over the panels
+    factored so far, after every sweep."""
     c = cols.shape[0]
     if c % panel:
         raise ValueError(f"capacity {c} must be a multiple of panel {panel}")
     nb = c // panel
     writer = _AsyncWriter(store)
     u = None if y is None else torch.zeros_like(y)
+    logdiag = float(logdiag0)
     j = 0
     while j < nb:
         r = min(max(int(sweep), 1), nb - j)
@@ -505,6 +523,9 @@ def ooc_cholesky(kernel: str, cols: torch.Tensor, noise: torch.Tensor, params, s
             writer.drain()
             return False, None
         _mask_cols(cur, j0 + rows)
+        if stats is not None:
+            logdiag += _band_logdiag(cur, j0)
+            stats["logdiag_sum"] = logdiag
         if u is not None:
             _fwd_sub_step(u, cur, y, j0)
         for rr in range(r):
@@ -526,16 +547,25 @@ def ooc_alpha_backward(lstore, u: torch.Tensor, *, panel: int) -> torch.Tensor:
     return alpha
 
 
-def ooc_trsm(lstore, wstore, *, capacity: int, panel: int, block: int = 256,
-             sweep: int = 1) -> None:
+def ooc_trsm(lstore, wstore, y: torch.Tensor, *, panel: int, block: int = 256,
+             accumulate_alpha: bool = True, sweep: int = 1, on_panel=None,
+             store_final: bool = True):
     """W = L^{-1} by left-looking row panels into `wstore`, consuming the L
     panels as it goes (L panel j is freed before W panel j is stored, so W_j
     takes its budget).  `sweep` W row panels are solved per outer step, so
-    each earlier W panel is fetched once a sweep."""
+    each earlier W panel is fetched once a sweep.  y (C,) sets the size;
+    returns alpha = W^T (W y) accumulated sweep by sweep, or None without
+    `accumulate_alpha` (the fits take alpha by substitution against L).
+    `on_panel(j0, rows)` is called with each sweep's (R, C) W rows, zero
+    past column j0 + R, while they are on the card.  store_final=False
+    leaves the last sweep's panels out of `wstore`: the TRSM never reads
+    them again, so a caller whose consumer rode on `on_panel` saves their
+    write."""
     if panel % block:
         raise ValueError(f"panel ({panel}) must be a multiple of block ({block})")
-    c = capacity
+    c = y.shape[0]
     nb = c // panel
+    alpha = torch.zeros_like(y) if accumulate_alpha else None
     dev = lstore.device
     writer = _AsyncWriter(wstore)
     j = 0
@@ -560,12 +590,18 @@ def ooc_trsm(lstore, wstore, *, capacity: int, panel: int, block: int = 256,
             lstore.free(j + rr)
         _trsm_finish(ljj, u, j0, block=block)
         del ljj
-        for rr in range(r):
-            w = _store_width(j + rr, panel, c)
-            writer.put(j + rr, u[rr * panel:(rr + 1) * panel, :w])
+        if accumulate_alpha:
+            alpha += (u @ y) @ u
+        if on_panel is not None:
+            on_panel(j0, u)
+        if store_final or j + r < nb:
+            for rr in range(r):
+                w = _store_width(j + rr, panel, c)
+                writer.put(j + rr, u[rr * panel:(rr + 1) * panel, :w])
         del u
         j += r
     writer.drain()
+    return alpha
 
 
 def _factor_cols(model) -> torch.Tensor:
@@ -662,8 +698,9 @@ def ooc_predict(model: "OOCModel", q: torch.Tensor, *, chunk: int = 8192):
 class OOCModel:
     """Query handle of an out-of-core fit: the small state on the card, the
     W = L^{-1} panels in `wstore`.  `u` = L^{-1} y, kept from the fit, is
-    what a tactile update needs; the tail fields hold the updates' bordered
-    block (`ooc_update`), in-core, with `alpha0` the fit's alpha."""
+    what a tactile update needs, and with `logdiag_sum` what the marginal
+    likelihood needs; the tail fields hold the updates' bordered block
+    (`ooc_update`), in-core, with `alpha0` the fit's alpha."""
 
     kernel: str
     x: torch.Tensor  # (C, 3)
@@ -675,6 +712,7 @@ class OOCModel:
     panel: int
     n_real: int
     u: torch.Tensor | None = None  # L^{-1} y from the fit
+    logdiag_sum: float | None = None  # sum(log diag L), from the fit
     alpha0: torch.Tensor | None = None  # the core alpha before the first update
     n_tail: int = 0
     tail_x: torch.Tensor | None = None  # (T, 3)
@@ -704,7 +742,34 @@ class OOCModel:
         return ooc_update(self, new_x, new_y, new_noise, tail_capacity=tail_capacity)
 
     def log_marginal_likelihood(self) -> float:
-        not_ported("OOCModel.log_marginal_likelihood", 10, "config 3")
+        """Exact log p(y | X, theta) of the factored system from the fit's
+        byproducts, ||u||^2 and sum(log diag L), plus the in-core touch
+        tail's bordered block: O(C) work, no panel read.  The padding rows'
+        0.5 log(2 pi noise) constants are taken out, as the dense MLL's
+        n_real does; the stored noise includes the jitter the factor needed."""
+        if self.u is None or self.logdiag_sum is None:
+            raise ValueError(
+                "this out-of-core fit predates the factorization MLL "
+                "byproducts (u / logdiag_sum); refit with ooc_fit or "
+                "ooc_factor_phase to enable log_marginal_likelihood"
+            )
+        u = self.u
+        mll = (-0.5 * float(u @ u) - float(self.logdiag_sum)
+               - 0.5 * u.shape[0] * math.log(2.0 * math.pi))
+        mll += self._mll_pad_correction()
+        if self.n_tail:
+            # Bordered factor [[L, 0], [V^T, Lt]]: the tail adds
+            # -0.5 ||u_t||^2 - sum(log diag Lt) - 0.5 T log 2 pi, with
+            # u_t = Lt^T tail_alpha (unused slots: identity rows, zero alpha).
+            ut = self.tail_chol.T @ self.tail_alpha
+            mll += (-0.5 * float(ut @ ut)
+                    - float(torch.sum(torch.log(torch.diagonal(self.tail_chol))))
+                    - 0.5 * self.n_tail * math.log(2.0 * math.pi))
+        return mll
+
+    def _mll_pad_correction(self) -> float:
+        """The padding rows' 0.5 log(2 pi noise) constants (rows [n_real, C))."""
+        return float(torch.sum(0.5 * torch.log(2.0 * math.pi * self.noise[self.n_real:])))
 
     def promote_for_serving(self, *, reserve_bytes: int | None = None) -> int:
         """Pin spilled W panels into the device memory the finished fit freed
@@ -735,6 +800,13 @@ class OOCJointModel(OOCModel):
     normals: torch.Tensor | None = None  # (C, 3) unit normals (zero pad rows)
     noise_g: torch.Tensor | None = None  # (C,) gradient noise
     n0: int = 0  # core capacity C
+
+    def _mll_pad_correction(self) -> float:
+        """A padded point is one value row and three gradient rows: all four
+        constants come out."""
+        return float(torch.sum(0.5 * torch.log(2.0 * math.pi * self.noise[self.n_real:]))
+                     + 3.0 * torch.sum(0.5 * torch.log(2.0 * math.pi
+                                                       * self.noise_g[self.n_real:])))
 
 
 def ooc_update(model: OOCModel, new_x, new_y, new_noise, *,
@@ -925,15 +997,16 @@ def _pad_joint_problem(kernel: str, x, y, normals, noise_f, noise_g, params, *, 
 def _factor_with_jitter(kernel, cols, noise, params, budget, *, panel, block, store, y,
                         jitter):
     """The NaN-escalation jitter ladder around `ooc_cholesky`.  Returns
-    (store, u, extra), extra the jitter added to the factor's diagonal,
-    which the caller folds into its stored noises."""
+    (store, u, logdiag_sum, extra), extra the jitter added to the factor's
+    diagonal, which the caller folds into its stored noises."""
     extra = 0.0
     for _ in range(MAX_JITTER_RETRIES + 1):
         st = _make_store(store, budget, cols.device)
+        stats: dict = {}
         ok, u = ooc_cholesky(kernel, cols, noise + extra, params, st, panel=panel, block=block,
-                             sweep=SWEEP, y=y)
+                             sweep=SWEEP, y=y, stats=stats)
         if ok:
-            return st, u, extra
+            return st, u, stats["logdiag_sum"], extra
         st.clear()
         del st
         extra = max(extra * 10.0, jitter)
@@ -967,13 +1040,13 @@ def ooc_fit(kernel: str, x, y, noise, params, *, panel: int, block: int = 256,
     xp, yp, noisep, params, c, n, jitter = _pad_problem(kernel, x, y, noise, params,
                                                         panel=panel, pad_noise=pad_noise)
     budget = _fit_budget(device_budget, panel, c, xp)
-    st, u, extra = _factor_with_jitter(kernel, xp, noisep, params, budget, panel=panel,
-                                       block=block, store=store, y=yp, jitter=jitter)
+    st, u, logdiag, extra = _factor_with_jitter(kernel, xp, noisep, params, budget, panel=panel,
+                                                block=block, store=store, y=yp, jitter=jitter)
     alpha = ooc_alpha_backward(st, u, panel=panel)
     wstore = _make_store(store, budget, xp.device)
-    ooc_trsm(st, wstore, capacity=c, panel=panel, block=block, sweep=TRSM_SWEEP)
+    ooc_trsm(st, wstore, yp, panel=panel, block=block, accumulate_alpha=False, sweep=TRSM_SWEEP)
     return OOCModel(kernel=kernel, x=xp, y=yp, noise=noisep + extra, params=params, alpha=alpha,
-                    wstore=wstore, panel=panel, n_real=n, u=u)
+                    wstore=wstore, panel=panel, n_real=n, u=u, logdiag_sum=logdiag)
 
 
 def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel: int,
@@ -990,11 +1063,12 @@ def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel
     j_tot = 4 * c
     budget = _fit_budget(device_budget, panel, j_tot, xp)
     noisej = cuda_joint.joint_noise(c, nf, ng, None, xp)
-    st, u, extra = _factor_with_jitter(kernel, meta, noisej, params, budget, panel=panel,
-                                       block=block, store=store, y=yj, jitter=jitter)
+    st, u, logdiag, extra = _factor_with_jitter(kernel, meta, noisej, params, budget,
+                                                panel=panel, block=block, store=store, y=yj,
+                                                jitter=jitter)
     alpha = ooc_alpha_backward(st, u, panel=panel)
     wstore = _make_store(store, budget, xp.device)
-    ooc_trsm(st, wstore, capacity=j_tot, panel=panel, block=block, sweep=TRSM_SWEEP)
+    ooc_trsm(st, wstore, yj, panel=panel, block=block, accumulate_alpha=False, sweep=TRSM_SWEEP)
     return OOCJointModel(kernel=kernel, x=xp, y=yj, noise=nf + extra, params=params,
-                         alpha=alpha, wstore=wstore, panel=panel, n_real=n, u=u, meta=meta,
-                         normals=nrm, noise_g=ng + extra, n0=c)
+                         alpha=alpha, wstore=wstore, panel=panel, n_real=n, u=u,
+                         logdiag_sum=logdiag, meta=meta, normals=nrm, noise_g=ng + extra, n0=c)

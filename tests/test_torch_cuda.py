@@ -868,3 +868,67 @@ def test_cuda_tc_blocked_inv_route_float32(cuda):
     eye = torch.eye(1024, dtype=torch.float64, device=cuda)
     assert (l.double() @ l.double().T - a.double()).abs().max().item() < 1e-5
     assert (w.double() @ l.double() - eye).abs().max().item() < 1e-5
+
+
+# ------------------------------------------------------------ config 3
+
+
+def _mll_grads(device, x, y, noise):
+    """The MLL and its gradient in (lengthscale, signal variance, noise) on
+    `device`, float64."""
+    ls = torch.tensor(0.5, dtype=torch.float64, device=device, requires_grad=True)
+    sv = torch.tensor(1.1, dtype=torch.float64, device=device, requires_grad=True)
+    nz = torch.as_tensor(noise, device=device).requires_grad_(True)
+    mll = regression.log_marginal_likelihood(
+        "rbf", torch.as_tensor(x, device=device), torch.as_tensor(y, device=device), nz,
+        {"lengthscale": ls, "signal_variance": sv}, n_real=4000)
+    grads = torch.autograd.grad(mll, (ls, sv, nz))
+    return [mll.detach().cpu().numpy()] + [g.cpu().numpy() for g in grads]
+
+
+def test_cuda_mll_gradient_matches_cpu(cuda):
+    """At C = 4,096 the MLL's Gram is Kernel A under `gram_ad` and its
+    factor Kernel B under `blocked_cholesky_ad`; value and gradient held
+    to the CPU path (the twins and the library factor) at 1e-9 relative."""
+    rng = np.random.default_rng(31)
+    x = rng.uniform(-1.0, 1.0, size=(4096, 3))
+    y = rng.normal(size=4096) * 0.3
+    noise = rng.uniform(1e-2, 2e-2, size=4096)
+    _build.LAUNCHES.clear()
+    got = _mll_grads(cuda, x, y, noise)
+    assert _build.LAUNCHES["cov"] == 1 and _build.LAUNCHES["panel_update"] == 15
+    for g, w in zip(got, _mll_grads("cpu", x, y, noise)):
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-9 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("out_of_core, method", [(False, "subsample"), (True, "stream")])
+def test_cuda_session_hyperopt_matches_cpu_session(cuda, out_of_core, method):
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      touch_capacity=0, dtype="float64")
+    pts = fibonacci_sphere(896) * 1.3 + np.array([0.2, 0.0, -0.5])
+    sessions = [ObjectModelSession(cfg, device=d).start(pts, out_of_core=out_of_core)
+                for d in (cuda, "cpu")]
+    got, want = (s.optimize_hyperparameters(method=method, steps=3) for s in sessions)
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-9)
+    got, want = (s.evaluate_grid(16, 1.5) for s in sessions)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-6)
+
+
+def test_cuda_registered_kernel_takes_the_twins(cuda):
+    """A registered covariance has no CUDA body: the session fits and
+    queries it on the card through the plain twins, as on the CPU."""
+    kf.register_kernel("rq2_card", k_r2=lambda r2, p: p["signal_variance"] * (
+        1.0 + r2 / (4.0 * p["lengthscale"] ** 2)) ** -2.0, k_diag0=lambda p: p["signal_variance"])
+    try:
+        cfg = ModelConfig(kernel="rq2_card", lengthscale=0.4, noise_surface=1e-3,
+                          n_external=127, touch_capacity=0, dtype="float64")
+        pts = fibonacci_sphere(896) * 1.3 + np.array([0.2, 0.0, -0.5])
+        _build.LAUNCHES.clear()
+        got = ObjectModelSession(cfg, device=cuda).start(pts).evaluate_grid(16, 1.5)
+        assert _build.LAUNCHES["cov"] == 0 and _build.LAUNCHES["fused_quad"] == 0
+        want = ObjectModelSession(cfg, device="cpu").start(pts).evaluate_grid(16, 1.5)
+        np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+        np.testing.assert_allclose(got[1], want[1], atol=1e-6)
+    finally:
+        kf.unregister_kernel("rq2_card")

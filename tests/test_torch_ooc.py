@@ -34,6 +34,7 @@ from gpis_tpu.linalg.pallas_chol import (gemm_nn_acc_masked_pallas, gemm_nt_mask
 from gpis_tpu_torch import config, convert
 from gpis_tpu_torch.api.session import ObjectModelSession
 from gpis_tpu_torch.data.gpis import fibonacci_sphere
+from gpis_tpu_torch.gp import ooc_hyperopt as oho
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
 from gpis_tpu_torch.kernels import functions as kf
@@ -207,7 +208,8 @@ def test_ooc_phases_match_jax(problem, store, sweep):
                                np.asarray(jooc.ooc_alpha_backward(jst, ju, panel=PANEL)),
                                atol=1e-8)
     wst = ooc._make_store(store, ooc.DeviceBudget(0), "cpu")
-    ooc.ooc_trsm(st, wst, capacity=c, panel=PANEL, block=BLOCK, sweep=sweep)
+    assert ooc.ooc_trsm(st, wst, yp, panel=PANEL, block=BLOCK, accumulate_alpha=False,
+                        sweep=sweep) is None
     jwst = jooc.HostPanelStore() if store == "host" else jooc.DevicePanelStore()
     jooc.ooc_trsm(jst, jwst, _j(yp), panel=PANEL, block=BLOCK, accumulate_alpha=False,
                   sweep=sweep)
@@ -452,7 +454,7 @@ def test_model_config_matches_jax():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda m: m.log_marginal_likelihood(), "item 10"),
+    (lambda m: oho.ooc_mll_and_grad_solve_phase("spill", noise_base=m.noise), "item 15"),
     (lambda m: ooc.ooc_residual_check(m), "item 15"),
     (lambda m: ooc.plan_sweeps(m.capacity, m.panel), "item 15"),
     (lambda m: ooc.ooc_fit("rbf", m.x, m.y, m.noise, m.params, panel=128, w_dtype="float16"),

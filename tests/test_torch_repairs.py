@@ -253,17 +253,16 @@ _ALLOWED_GAPS = {
     ("parallel.mesh", "make_row_mesh"): {"axis_name"},
     # ROADMAP §1 item 15: the out-of-core knobs kept as module constants or
     # refused until their features are ported (spill codecs, disk spill,
-    # process-split phases; the MLL's log-determinant, item 10).
+    # process-split phases).
     ("linalg.outofcore", "TieredPanelStore"): {"spill_dtype", "device_dtype", "spill_dir",
                                                "write_through", "tag", "spill_codec"},
     ("linalg.outofcore", "TieredPanelStore.__init__"): {"spill_dtype", "device_dtype",
                                                         "spill_dir", "write_through", "tag",
                                                         "spill_codec"},
-    ("linalg.outofcore", "ooc_trsm"): {"y", "accumulate_alpha", "width_quant", "start_panel",
-                                       "end_panel", "progress_cb", "on_panel", "store_final"},
+    ("linalg.outofcore", "ooc_trsm"): {"width_quant", "start_panel", "end_panel",
+                                       "progress_cb"},
     ("linalg.outofcore", "ooc_cholesky"): {"x", "noisep", "width_quant", "start_panel", "u0",
-                                           "progress_cb", "end_panel", "logdiag0", "stats"},
-    ("linalg.outofcore", "OOCModel"): {"logdiag_sum"},
+                                           "progress_cb", "end_panel"},
     ("linalg.outofcore", "ooc_residual_check"): {"n_blocks", "block", "tol", "tol_y"},
     ("linalg.outofcore", "plan_sweeps"): {"c", "panel", "itemsize", "limit", "w_itemsize",
                                           "l_itemsize", "width_quant", "max_sweep"},
@@ -279,10 +278,12 @@ _ALLOWED_GAPS = {
     # ROADMAP §1 item 16: the native marching library.
     ("surface.marching", "marching_tetrahedra"): {"native"},
 }
-for _cls in ("OOCJointModel", "OOCJointModel.__init__", "OOCModel.__init__"):
-    _ALLOWED_GAPS[("linalg.outofcore", _cls)] = _ALLOWED_GAPS[("linalg.outofcore", "OOCModel")]
 _ALLOWED_GAPS[("linalg.outofcore", "ooc_fit_joint")] = _ALLOWED_GAPS[("linalg.outofcore",
                                                                       "ooc_fit")]
+# The stream objectives factor through ooc_fit's path: the same knobs.
+for _fn in ("ooc_mll_and_grad", "ooc_joint_mll_and_grad"):
+    _ALLOWED_GAPS[("gp.ooc_hyperopt", _fn)] = {"dtype", "max_jitter_retries", "width_quant",
+                                               "sweep", "trsm_sweep"}
 
 
 def _modules(pkg) -> dict:
@@ -333,6 +334,27 @@ def test_every_jax_parameter_is_in_the_port_or_allowed():
                 missing[f"{mod}.{name}"] = sorted(gap)
     assert compared > 100, compared
     assert not missing, missing
+
+
+@pytest.mark.parametrize("mod, name", [
+    ("kernels.functions", "register_kernel"), ("kernels.functions", "unregister_kernel"),
+    ("kernels.gram", "gram_ad"), ("linalg.cholesky", "blocked_cholesky"),
+    ("linalg.cholesky", "blocked_linv"), ("gp.regression", "with_inverse"),
+    ("gp.regression", "log_marginal_likelihood"), ("gp.hyperopt", "optimize"),
+    ("gp.hyperopt", "optimize_joint"), ("gp.ooc_hyperopt", "ooc_mll_and_grad"),
+    ("gp.ooc_hyperopt", "optimize_ooc"), ("gp.ooc_hyperopt", "ooc_joint_mll_and_grad"),
+    ("gp.ooc_hyperopt", "optimize_ooc_joint"), ("gp.sharded_hyperopt", "sharded_mll_and_grad"),
+    ("gp.sharded_hyperopt", "optimize_sharded"), ("linalg.outofcore", "ooc_trsm"),
+    ("linalg.outofcore", "ooc_cholesky"), ("linalg.outofcore", "OOCModel.__init__"),
+])
+def test_the_guard_compares_the_config3_signatures(mod, name):
+    """Config 3's functions (and the item 2, 4 and 5 residues beside them)
+    are among the pairs the signature guard compares."""
+    jmod = importlib.import_module(f"gpis_tpu.{mod}")
+    tmod = importlib.import_module(f"gpis_tpu_torch.{mod}")
+    pairs = {n: (j, t) for n, j, t in _public_pairs(jmod, tmod)}
+    assert name in pairs
+    assert _parameters(pairs[name][0]) is not None and _parameters(pairs[name][1]) is not None
 
 
 def test_allowed_gaps_are_still_gaps():

@@ -7,7 +7,10 @@ results are held, one quantity a test, to the same JAX functions on a
 `make_row_mesh(P)` of the suite's virtual CPU devices at 1e-6 (BASELINE.md
 row 2).  The ranks' collectives time out after 60 s and the spawn kills
 them after SPAWN_TIMEOUT, so a hung collective fails the tests of its P
-instead of hanging the suite.  Kernel L's twin is held to
+instead of hanging the suite.  At P = 2 the ranks also run the distributed
+MLL objective (held to the JAX package's dense autodiff gradient) and the
+mesh session's two hyperopt methods (held to the JAX session's).  Kernel
+L's twin is held to
 `band_trail_update_pallas` in interpret mode, where `_dot3` is an exact dot.
 """
 
@@ -40,6 +43,7 @@ LS, SV = 0.8, 1.2
 TOUCH = 64
 SESSION_LS, SESSION_BLOCK = 0.6, 64
 SPAWN_TIMEOUT = 180  # seconds for all ranks of one P; a rank alone takes a few
+MLL_N_REAL, MLL_SCALE = 1000, 1.3  # the distributed objective's padding and noise scale
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 (virtual) devices")
 
@@ -63,7 +67,8 @@ def problem():
                 session_q=np.array([[1.0, 0.0, 0.0], [1.5, 0.0, 0.0], [1.2, 0.3, -0.1]]),
                 session_ls=SESSION_LS, session_block=SESSION_BLOCK,
                 touch_x=rng.normal(size=(8, 3)) * 0.8, touch_y=rng.normal(size=8) * 0.1,
-                session_touch=pts[:3] * 1.03 - np.array([0.03, 0.0, 0.0]))
+                session_touch=pts[:3] * 1.03 - np.array([0.03, 0.0, 0.0]),
+                mll_n_real=MLL_N_REAL, mll_scale=MLL_SCALE)
 
 
 def _spawn(p: int, inputs: dict, out_dir) -> list[dict]:
@@ -334,6 +339,51 @@ def test_mesh_session_update_matches_jax_session(problem, ranks):
     for out in ranks(2):
         np.testing.assert_allclose(out["session_update_mean"], np.asarray(mean), atol=1e-6)
         np.testing.assert_allclose(out["session_update_var"], np.asarray(var), atol=1e-6)
+
+
+def test_sharded_mll_and_grad_matches_dense_gradient(problem, ranks):
+    """The distributed objective (P = 2, ring trace over gloo) against the
+    JAX package's dense MLL and its autodiff gradient in (log lengthscale,
+    log noise scale, log signal variance), at 1e-6."""
+    from gpis_tpu.gp import regression as jgpr
+
+    x, y, noise = (_j(problem[k]) for k in ("x", "y", "noise"))
+    real = jnp.arange(C) < MLL_N_REAL
+
+    def mll(theta):
+        prm = {"lengthscale": jnp.exp(theta[0]), "signal_variance": jnp.exp(theta[2])}
+        nz = jnp.where(real, noise * jnp.exp(theta[1]), noise)
+        return jgpr.log_marginal_likelihood("rbf", x, y, nz, prm, n_real=MLL_N_REAL)
+
+    theta = jnp.array([np.log(LS), np.log(MLL_SCALE), np.log(SV)])
+    want, grad = jax.value_and_grad(mll)(theta)
+    for out in ranks(2):
+        np.testing.assert_allclose(float(out["mll"]), float(want), rtol=1e-6)
+        np.testing.assert_allclose(out["mll_grad"], np.asarray(grad), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["distributed", "subsample"])
+def test_mesh_session_hyperopt_matches_jax_session(method, problem, ranks):
+    cfg = JaxModelConfig(kernel="rbf", lengthscale=SESSION_LS, noise_surface=1e-4,
+                         n_external=32, n_internal=1, dtype="float64")
+    sess = JaxSession(cfg, mesh=JaxMeshConfig(n_devices=2, block=SESSION_BLOCK))
+    kw = {"subsample": 64} if method == "subsample" else {}
+    res = sess.start(problem["session_pts"]).optimize_hyperparameters(method=method, steps=2,
+                                                                      **kw)
+    mean, var = sess.query(problem["session_q"])
+    for out in ranks(2):
+        np.testing.assert_allclose(out[f"hyperopt_{method}_history"], res.history, rtol=1e-6)
+        np.testing.assert_allclose(float(out[f"hyperopt_{method}_ls"]),
+                                   float(res.params["lengthscale"]), rtol=1e-6)
+        np.testing.assert_allclose(out[f"hyperopt_{method}_mean"], np.asarray(mean), atol=1e-6)
+        np.testing.assert_allclose(out[f"hyperopt_{method}_var"], np.asarray(var), atol=1e-6)
+
+
+def test_mesh_session_hyperopt_refuses_an_unknown_method_as_jax(ranks):
+    for out in ranks(2):
+        assert str(out["err_hyperopt"]) == (
+            "ValueError: unknown hyperopt method 'stream' for a sharded model "
+            "(use 'subsample' or 'distributed')")
 
 
 @pytest.mark.parametrize("key, want", [

@@ -140,7 +140,7 @@ def test_session_verbs_not_yet_ported_raise():
     sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
     for call in (lambda: sess.start(pts, experts=4), lambda: sess.next_best_path(),
-                 lambda: sess.save("x"), lambda: sess.optimize_hyperparameters()):
+                 lambda: sess.save("x"), lambda: sess.is_done()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

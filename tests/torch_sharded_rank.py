@@ -5,7 +5,8 @@ tests/test_torch_sharded.py.  It imports torch and gpis_tpu_torch only.
 
 reads DIR/inputs.npz, joins a gloo group through the file store
 DIR/store (collectives time out after 60 s, so a hung one ends the rank),
-runs every sharded function on the inputs, the tactile update with them
+runs every sharded function on the inputs, the tactile update with them,
+at P = 2 the distributed MLL objective and the session's hyperopt methods
 (and predicts from the JAX model's arrays, the `jm_*` inputs, and from
 those of the JAX model after an update, `jmt_*`, through `convert`) and
 writes its results to DIR/out<RANK>.npz: its bands of the sharded outputs, the replicated ones
@@ -24,6 +25,7 @@ from gpis_tpu_torch import convert
 from gpis_tpu_torch.api.session import ObjectModelSession
 from gpis_tpu_torch.config import MeshConfig, ModelConfig
 from gpis_tpu_torch.gp import regression as gpr
+from gpis_tpu_torch.gp import sharded_hyperopt as sho
 from gpis_tpu_torch.gp import sharded_model as gsm
 from gpis_tpu_torch.linalg import sharded as sh
 from gpis_tpu_torch.parallel.mesh import make_row_mesh
@@ -118,6 +120,9 @@ def run(out_dir: str, rank: int, world: int) -> None:
     sess.update(inp["session_touch"])
     out["session_update_mean"], out["session_update_var"] = sess.query(inp["session_q"])
 
+    if world == 2:
+        hyperopt(inp, t, mesh, cfg, mesh_cfg, out)
+
     out["err_world"] = np.array(_raises(lambda: ObjectModelSession(
         cfg, mesh=MeshConfig(n_devices=world + 1), device="cpu")))
     out["err_out_of_core"] = np.array(_raises(lambda: sess.start(pts, out_of_core=True)))
@@ -127,6 +132,25 @@ def run(out_dir: str, rank: int, world: int) -> None:
                or m == "gpis_tpu" or m.startswith("gpis_tpu.")]
     out["imported"] = np.array(" ".join(jax_pkg))
     np.savez(f"{out_dir}/out{rank}.npz", **out)
+
+
+def hyperopt(inp, t, mesh, cfg, mesh_cfg, out) -> None:
+    """The distributed MLL objective and the session's two hyperopt methods."""
+    params = {"lengthscale": float(inp["ls"]), "signal_variance": float(inp["sv"])}
+    mll, g = sho.sharded_mll_and_grad("rbf", t["x"], t["y"], t["noise"], params, mesh,
+                                      block=int(inp["block"]), n_real=int(inp["mll_n_real"]),
+                                      noise_scale=float(inp["mll_scale"]))
+    out["mll"] = np.array(float(mll))
+    out["mll_grad"] = np.array([float(g[k]) for k in ("log_ls", "log_noise_scale", "log_sv")])
+    for method in ("distributed", "subsample"):
+        sess = ObjectModelSession(cfg, mesh=mesh_cfg, device="cpu").start(inp["session_pts"])
+        kw = {"subsample": 64} if method == "subsample" else {}
+        res = sess.optimize_hyperparameters(method=method, steps=2, **kw)
+        out[f"hyperopt_{method}_history"] = np.array(res.history)
+        out[f"hyperopt_{method}_ls"] = np.array(res.params["lengthscale"])
+        out[f"hyperopt_{method}_mean"], out[f"hyperopt_{method}_var"] = sess.query(
+            inp["session_q"])
+    out["err_hyperopt"] = np.array(_raises(lambda: sess.optimize_hyperparameters(method="stream")))
 
 
 if __name__ == "__main__":
