@@ -117,6 +117,35 @@ Phases, one printed line or more each; any failure exits nonzero:
    Launches: A and B in (a) and (b), E and B in (c), A band, G, H, I and B
    in (d), E, G, H and I in (e)'s out-of-core run, A band and G in its
    sharded one.
+12. The exploration loop and its service.  (a) Phase 10's value
+   configuration (capacity 17,408) on its cap-less sphere behind
+   `make_server(session, port=0)` in a thread, driven by a urllib client:
+   /health, /start, /done (false: the cap is unseen), then four rounds of
+   /next_best_path and an /update of 64 contacts along the path, moved
+   radially onto the true sphere; then a 65,536-point /query, /stats,
+   /mesh?resolution=32 and one malformed /query (a 400).  Gates: every
+   other answer a 200; the first target in the cap (its direction's z >
+   0.7); reached_threshold as the target's variance says; no empty path
+   (each call's projection attempts and failures printed); after each
+   round the variance fell at every contact in the cap, and at the contacts
+   on the observed part it fell on a float64 replay and rose in float32 by
+   at most the quad's error there; the cap's maximum variance fell over the
+   rounds; extract_surface(64) RMSE < 0.02, no NaN.  The crash: /save, the
+   node and its session dropped, a new node /loads the file: its 65,536-
+   point query equals the saved one to the bit, and after one pending
+   batch replayed there and on an uninterrupted copy they agree within
+   1e-6; save and load seconds and the file's bytes printed.  (b) Phase
+   10's joint (J = 21,504), out-of-core value and one-rank NCCL sharded
+   models: one next_best_path and one is_done each, timed; the target in
+   the cap, no NaN; the joint and sharded checkpoints restored to the bit;
+   the out-of-core save raises naming item 15.  Launches of (a) and (b):
+   A, B, C, D, E, F, A band and F band.  (c) Small float64 sessions on the
+   card held to the CPU path chart for chart at 1e-6 (value under both
+   strategies, joint, out of core; is_done), and a float64 checkpoint
+   saved without its factor refit on the card (Kernels A, B, C) within
+   1e-6 of the saved model.  (d) Kernel D at the planner's M = 1, 32, 256
+   and 2,048 (C = 17,408) held per query to its float64 twin (1e-4), twice
+   bit for bit, and timed beside the library's W kq^T and its bound.
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -2869,6 +2898,609 @@ def phase11(torch, launches, incore_value, incore_joint) -> list:
     return runs
 
 
+# ---------------------------------------------------------------- phase 12
+
+EXPLORE_ROUNDS = 4  # explore-and-touch rounds through the service
+CAP_TARGET_Z = 0.7  # the first path's target: its direction from the centre has z above this
+REPLAY_TOL = 1e-6  # the restored session against the uninterrupted one after a replayed batch
+PLANNER_M = (1, 32, 256, 2048)  # D at the planner's M: a chart, a disc, is_done, a frontier
+PARITY_CLOUD = 896  # phase 12's float64 parity sessions: C = 1,024 value, J = 2,048 + T joint
+
+
+class PlannerCounts:
+    """While open, counts what the planner does: each candidate-predict
+    round, each projection attempt and each one that did not converge (it
+    wraps `explore.planner._predict_var` and `explore.atlas
+    .project_and_chart`, which only count, and restores them on exit)."""
+
+    def __init__(self):
+        self.rounds = self.attempts = self.failed = 0
+
+    def __enter__(self):
+        from gpis_tpu_torch.explore import atlas, planner
+
+        self._saved = (planner._predict_var, atlas.project_and_chart)
+        predict_var, project_and_chart = self._saved
+
+        def counted_predict(model, points):
+            self.rounds += 1
+            return predict_var(model, points)
+
+        def counted_project(*args, **kw):
+            self.attempts += 1
+            chart = project_and_chart(*args, **kw)
+            self.failed += chart is None
+            return chart
+
+        planner._predict_var = counted_predict
+        atlas.project_and_chart = counted_project
+        return self
+
+    def __exit__(self, *exc):
+        from gpis_tpu_torch.explore import atlas, planner
+
+        planner._predict_var, atlas.project_and_chart = self._saved
+
+    def take(self) -> dict:
+        out = {"predicts": self.rounds, "attempts": self.attempts, "failed": self.failed}
+        self.rounds = self.attempts = self.failed = 0
+        return out
+
+
+class Client:
+    """A urllib client of one service: each call's status is gated (200
+    unless `expect` says otherwise) and its seconds are kept by route."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+        self.seconds: dict = {}
+
+    def __call__(self, path: str, payload=None, expect: int = 200):
+        import urllib.error
+        import urllib.request
+
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(self.base + path, data,
+                                     {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                code, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        self.seconds.setdefault(path.split("?")[0], []).append(time.perf_counter() - t0)
+        if code != expect:
+            fail(f"the service answered {path} with {code}, not {expect}: {str(body)[:300]}")
+        return body
+
+
+def serve_in_thread(session):
+    """make_server(session, port=0) on 127.0.0.1, served from a thread;
+    returns (server, thread, client)."""
+    import threading
+
+    from gpis_tpu_torch.api.service import make_server
+
+    srv = make_server(session, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return srv, thread, Client(srv.server_address[1])
+
+
+def stop_server(srv, thread) -> None:
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=30)
+    if thread.is_alive():
+        fail("the service thread did not stop")
+
+
+def path_contacts(path_world, center, radius: float, k: int = TOUCH_BATCH):
+    """A finger tracing a path: k contacts evenly spaced along its polyline
+    (its one pose, if it has one), moved radially onto the true sphere.
+    Returns (contacts (k, 3) float32, their unit directions from the
+    centre)."""
+    p = np.asarray(path_world, np.float64)
+    if len(p) > 1:
+        s = np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(p, axis=0), axis=1))])
+        t = np.linspace(0.0, s[-1], k)
+        p = np.stack([np.interp(t, s, p[:, i]) for i in range(3)], axis=1)
+    d = p - np.asarray(center, np.float64)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (np.asarray(center) + radius * d).astype(np.float32), d
+
+
+def direction_z(point, center) -> float:
+    d = np.asarray(point, np.float64) - np.asarray(center, np.float64)
+    return float(d[2] / np.linalg.norm(d))
+
+
+def profile_call(torch, fn) -> dict:
+    """One call of fn under torch.profiler: its wall seconds there, the card's
+    busy time (the kernels' own time) and the number of kernels.  A profiler
+    that records no device time reports "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    except Exception as e:  # noqa: BLE001 -- a measurement, not a gate
+        return {"busy_share": "not measured", "error": f"{type(e).__name__}: {e}"}
+    if not busy_us:
+        return {"busy_share": "not measured", "profiled_wall_s": wall}
+    return {"profiled_wall_s": wall, "device_busy_s": busy_us * 1e-6,
+            "busy_share": busy_us * 1e-6 / wall, "device_kernels": len(kernels)}
+
+
+def float64_replay(cfg, pts, rounds, observed):
+    """Phase 12's service session in float64 on the card, touched with the
+    same contacts: at each round's observed contacts (`observed[r]`, a
+    mask), the variance before and after the round's update."""
+    import dataclasses
+
+    from gpis_tpu_torch import ObjectModelSession
+
+    sess = ObjectModelSession(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+    sess.start(pts.astype(np.float64))
+    out = []
+    for contacts, seen in zip(rounds, observed):
+        c64 = contacts.astype(np.float64)
+        var0 = sess.query(c64[seen])[1]
+        sess.update(c64)
+        out.append((var0, sess.query(c64[seen])[1]))
+    return out
+
+
+def service_run(torch, launches, cfg, ecfg, pts, out: dict) -> dict:
+    """Phase 12 (a): the value session behind the HTTP service at full width
+    (C = 17,408), EXPLORE_ROUNDS explore-and-touch rounds, the closing
+    queries, then the crash: /save, the node and its session dropped, a new
+    node /load-ing the file, a pending batch replayed there and on an
+    uninterrupted copy."""
+    import copy
+    import gc
+    import os
+    import tempfile
+
+    from gpis_tpu_torch import ObjectModelSession
+
+    center, radius = np.zeros(3), 1.0
+    big = big_query(torch, pts)
+    cap_probe = capped_probes()
+    sess = ObjectModelSession(cfg, ecfg, device="cuda")
+    srv, thread, call = serve_in_thread(sess)
+    res: dict = {"card": card_line()}
+    if call("/health") != {"ok": True, "fitted": False}:
+        fail("/health before /start")
+    res["start"] = call("/start", {"points": pts.tolist()})
+    res["done_before"] = call("/done")["done"]
+    if res["done_before"]:
+        fail("/done answered true with the cap unseen")
+    cap_var0 = float(sess.query(cap_probe)[1].max())
+    rounds, calls, falls, observed = [], [], [], []
+    with PlannerCounts() as counts:
+        for r in range(EXPLORE_ROUNDS):
+            before = dict(launches)
+            got = call("/next_best_path")
+            n_calls = {k: launches.get(k, 0) - before.get(k, 0) for k in ("cov", "staged_quad",
+                                                                          "fused_quad")}
+            path = np.asarray(got["path"])
+            target_z = direction_z(path[-1], center) if len(path) else float("nan")
+            reached = got["target_variance"] >= ecfg.variance_threshold
+            calls.append({"s": call.seconds["/next_best_path"][-1], "poses": len(path),
+                          "target_variance": got["target_variance"], "target_z": target_z,
+                          "reached_threshold": got["reached_threshold"], "launches": n_calls,
+                          **counts.take()})
+            say(f"  round {r + 1}: next_best_path {calls[-1]} ({res['card']})")
+            if not len(path) or not np.isfinite(path).all():
+                fail(f"round {r + 1}: the path is empty or not finite")
+            if got["reached_threshold"] != reached:
+                fail(f"round {r + 1}: reached_threshold {got['reached_threshold']} but the "
+                     f"target's variance {got['target_variance']} against the threshold "
+                     f"{ecfg.variance_threshold} says {reached}")
+            if r == 0 and not target_z > CAP_TARGET_Z:
+                fail(f"the first path's target is not in the cap (direction z {target_z})")
+            contacts, dirs = path_contacts(path, center, radius)
+            in_cap = dirs[:, 2] > CAP_Z
+            var0 = sess.query(contacts)[1]
+            call("/update", {"points": contacts.tolist()})
+            var1 = sess.query(contacts)[1]
+            rounds.append(contacts)
+            observed.append(~in_cap)
+            falls.append((var0[~in_cap], var1[~in_cap]))
+            if in_cap.any():
+                touched_checks(f"round {r + 1}, {int(in_cap.sum())} contacts in the cap",
+                               var0[in_cap], None, var1[in_cap])
+        # Where the card's time goes in one call (a direct one: the same
+        # planner without the HTTP round trip), and the service's overhead.
+        t0 = time.perf_counter()
+        direct = sess.next_best_path()
+        direct_s = time.perf_counter() - t0
+        res["direct_next_best_path"] = {"s": direct_s, **counts.take()}
+        res["profile_next_best_path"] = profile_call(torch, sess.next_best_path)
+        res["profile_next_best_path"].update(counts.take())
+        t0 = time.perf_counter()
+        sess.is_done()
+        res["direct_is_done_s"] = time.perf_counter() - t0
+    call("/next_best_path")
+    res["http_next_best_path_s"] = call.seconds["/next_best_path"][-1]
+    res["direct_poses"] = len(direct.path)
+    cap_var1 = float(sess.query(cap_probe)[1].max())
+    res["cap_probe_var_max"] = [cap_var0, cap_var1]
+    if not cap_var1 < cap_var0:
+        fail(f"the cap's maximum variance did not fall over the rounds ({cap_var0} -> {cap_var1})")
+    res["done_after"] = call("/done")["done"]
+
+    # The closing queries: 65,536 points, the stats, a mesh, a malformed body.
+    big_list = big.tolist()
+    saved = call("/query", {"points": big_list})
+    t0 = time.perf_counter()
+    direct_q = sess.query(big)
+    res["query_65536_s"] = {"http": call.seconds["/query"][-1],
+                            "direct": time.perf_counter() - t0}
+    if not (np.array_equal(saved["mean"], direct_q[0]) and np.array_equal(saved["var"],
+                                                                         direct_q[1])):
+        fail("/query and the direct query differ")
+    res["stats"] = call("/stats")
+    mesh = call("/mesh?resolution=32")
+    res["mesh_32"] = {"verts": len(mesh["verts"]), "faces": len(mesh["faces"]),
+                      "s": call.seconds["/mesh"][-1]}
+    err = call("/query", {"wrong_key": 1}, expect=400)
+    if "error" not in err:
+        fail("the malformed /query's 400 carries no error")
+    verts, _, vvar = sess.extract_surface(64)
+    res["surface_rmse_64"] = surface_rmse(verts)
+    finite = [np.isfinite(saved["mean"]).all(), np.isfinite(saved["var"]).all(),
+              np.isfinite(verts).all(), np.isfinite(vvar).all()]
+
+    # The crash: save, then the node and its session go; an uninterrupted
+    # copy stays for the replay.
+    ck_dir = tempfile.mkdtemp(prefix="gpis_ckpt_")
+    path = os.path.join(ck_dir, "session.npz")
+    call("/save", {"path": path})
+    res["save_s"] = call.seconds["/save"][-1]
+    res["checkpoint_bytes"] = os.path.getsize(path) + os.path.getsize(path + ".frame.npz")
+    uninterrupted = copy.deepcopy(sess)
+    stop_server(srv, thread)
+    del srv, thread, sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    sess2 = ObjectModelSession(cfg, ecfg, device="cuda")
+    srv, thread, call2 = serve_in_thread(sess2)
+    loaded = call2("/load", {"path": path})
+    res["load_s"] = call2.seconds["/load"][-1]
+    res["load_answer"] = loaded
+    restored = call2("/query", {"points": big_list})
+    same = saved["mean"] == restored["mean"] and saved["var"] == restored["var"]
+    check("restored session's 65,536-point query against the saved session's (bits differ)",
+          float(not same), 0.0, err_name="bits differ")
+    pending = touch_batches(np.random.default_rng(13), 1, center, radius)[0]
+    call2("/update", {"points": pending.tolist()})
+    uninterrupted.update(pending)
+    replayed = call2("/query", {"points": big_list})
+    want = uninterrupted.query(big)
+    gap = max(float(np.abs(np.asarray(replayed["mean"]) - want[0]).max()),
+              float(np.abs(np.asarray(replayed["var"]) - want[1]).max()))
+    check("after the replayed batch, restored against uninterrupted (mean and var)", gap,
+          REPLAY_TOL)
+    res["seconds_by_route"] = {k: v for k, v in call.seconds.items()}
+    res["seconds_by_route_after_load"] = call2.seconds
+    res["next_best_path_calls"] = calls
+    stop_server(srv, thread)
+    model = sess2.model
+    del srv, thread, sess2, uninterrupted
+    # The deflate the JAX package's writer would add, timed on every eighth
+    # row of W (half of W is its zero upper triangle, as in the file; the
+    # port writes uncompressed).
+    import io
+
+    part = model.linv[::8].cpu().numpy()
+    for name, writer in (("savez", np.savez), ("savez_compressed", np.savez_compressed)):
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        writer(buf, w=part)
+        res[f"{name}_MB_per_s_on_W_rows"] = part.nbytes / 1e6 / (time.perf_counter() - t0)
+        res[f"{name}_bytes_ratio"] = buf.getbuffer().nbytes / part.nbytes
+    res["finite"] = bool(all(finite))
+
+    # The float64 replay of the rounds, after the counted run (see phase12).
+    out["service"] = res
+    out["_float64"] = (rounds, observed, falls)
+    out["_model"] = model
+    return res
+
+
+def capped_probes() -> np.ndarray:
+    """Probes of the unseen cap, on the true unit sphere (world frame)."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    p = fibonacci_sphere(2048)
+    return p[p[:, 2] > CAP_Z].astype(np.float32)
+
+
+def explore_kind(torch, what, next_best_path, is_done, frame_center) -> dict:
+    """One next_best_path and one is_done, timed; gates: the target in the
+    cap (its direction from `frame_center`, the sphere's centre in the
+    path's frame), the path not empty, no NaN."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = next_best_path()
+    nbp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done = is_done()
+    done_s = time.perf_counter() - t0
+    path = np.asarray(res.path)
+    if not len(path):
+        fail(f"{what}: empty path")
+    target_z = direction_z(path[-1], frame_center)
+    out = {"next_best_path_s": nbp_s, "is_done_s": done_s, "done": done, "charts":
+           len(res.charts), "poses": len(path), "target_variance": res.target_variance,
+           "target_z": target_z, "reached_threshold": res.reached_threshold}
+    say(f"  {what}: {out} ({card_line()})")
+    if not (np.isfinite(path).all() and np.isfinite(res.normals).all()
+            and np.isfinite(res.target_variance)):
+        fail(f"{what}: NaN in the path")
+    if not target_z > CAP_TARGET_Z:
+        fail(f"{what}: the target is not in the cap (direction z {target_z})")
+    return out
+
+
+def same_bits(torch, what: str, a, b) -> None:
+    same = all(torch.equal(x, y) if torch.is_tensor(x) else np.array_equal(x, y)
+               for x, y in zip(a, b))
+    check(f"{what}: restored query against the saved model's (bits differ)", float(not same),
+          0.0, err_name="bits differ")
+
+
+def other_kinds(torch, cfg, cfg4, ecfg, pts, jpts, normals, out: dict) -> None:
+    """Phase 12 (b): the joint, out-of-core and one-rank sharded models on
+    phase 10's cap-less clouds: one next_best_path and one is_done each; the
+    joint and sharded checkpoints round trip to the bit; the out-of-core
+    save raises naming its item."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.explore import planner
+    from gpis_tpu_torch.gp import regression
+    from gpis_tpu_torch.gp.sharded_model import fit_sharded
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.surface import projection
+    from gpis_tpu_torch.utils import checkpoint as ckpt
+
+    ck_dir = tempfile.mkdtemp(prefix="gpis_ckpt_")
+    _, radius, center = JOINT_SPHERE
+    sess = ObjectModelSession(cfg4, ecfg, device="cuda").start(jpts, normals=normals)
+    out["joint"] = explore_kind(torch, "joint J=21504", sess.next_best_path, sess.is_done,
+                                center)
+    out["joint"]["joint_size"] = sess.model.chol.shape[0]
+    q = big_query(torch, jpts)[:8192]
+    saved = sess.query(q)
+    path = os.path.join(ck_dir, "joint.npz")
+    t0 = time.perf_counter()
+    sess.save(path)
+    out["joint"]["save_s"] = time.perf_counter() - t0
+    del sess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored = ObjectModelSession.load(path, cfg4, device="cuda")
+    out["joint"]["load_s"] = time.perf_counter() - t0
+    same_bits(torch, "joint checkpoint", restored.query(q), saved)
+    del restored
+    torch.cuda.empty_cache()
+
+    sess = ObjectModelSession(cfg, ecfg, device="cuda").start(pts, out_of_core=True)
+    out["ooc_value"] = explore_kind(torch, "out-of-core value C=16384", sess.next_best_path,
+                                    sess.is_done, np.zeros(3))
+    try:
+        sess.save(os.path.join(ck_dir, "ooc.npz"))
+        fail("the out-of-core save did not raise")
+    except NotImplementedError as e:
+        if "item 15" not in str(e):
+            fail(f"the out-of-core save's error does not name item 15: {e}")
+        say(f"  out-of-core save raises: {e}")
+    del sess
+    torch.cuda.empty_cache()
+
+    store = tempfile.mkdtemp(prefix="gpis_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            rank=0, world_size=1)
+    try:
+        ts = gpis.build_training_set(pts, cfg, device="cuda")
+        params = kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
+        model = fit_sharded(cfg.kernel, ts.x, ts.y, ts.noise, params, n_devices=1, block=256,
+                            touch_capacity=TOUCH_CAPACITY, pad_noise=cfg.pad_noise)
+        probes = torch.as_tensor(gpis.fibonacci_sphere(256, 1.0).astype(np.float32),
+                                 device="cuda")
+        c_n = ts.frame.to_normalized(torch.zeros(3, device="cuda")).cpu().numpy()
+        out["sharded"] = explore_kind(
+            torch, "sharded P=1 nccl", lambda: planner.next_best_path(model, ecfg),
+            lambda: planner.is_done(model, ecfg, projection.project_points(model, probes)[0]),
+            c_n)
+        qn = ts.frame.to_normalized(torch.as_tensor(big_query(torch, pts)[:8192], device="cuda"))
+        saved = regression.predict(model, qn)
+        path = os.path.join(ck_dir, "sharded.npz")
+        t0 = time.perf_counter()
+        ckpt.save_model(path, model)
+        out["sharded"]["save_s"] = time.perf_counter() - t0
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = ckpt.load_model(path, device="cuda")
+        out["sharded"]["load_s"] = time.perf_counter() - t0
+        same_bits(torch, "sharded checkpoint", regression.predict(loaded, qn), saved)
+        del loaded
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def random_capped_cloud(n: int, seed: int) -> np.ndarray:
+    """n random points of the unit sphere below the cap (no symmetry for an
+    argmax to tie on)."""
+    d = np.random.default_rng(seed).normal(size=(4 * n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return d[d[:, 2] <= CAP_Z][:n]
+
+
+def parity_float64() -> None:
+    """Phase 12 (c): small float64 sessions on the card held to the CPU path
+    chart for chart (ids, parents, centres, radii, variances) at 1e-6: the
+    value session's next_best_path under both strategies, the joint and
+    out-of-core sessions' under single_path, and is_done on each; then a
+    float64 value checkpoint saved without its factor, loaded on the card
+    (Kernels A, B and C refit it), against the saved model."""
+    import os
+    import tempfile
+
+    from gpis_tpu_torch import ModelConfig, ObjectModelSession
+    from gpis_tpu_torch.config import ExploreConfig
+    from gpis_tpu_torch.utils import checkpoint as ckpt
+
+    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                        n_internal=1, block=128, touch_capacity=128, dtype="float64")
+    pts = random_capped_cloud(PARITY_CLOUD, 14)
+    for what, kw, strategies in (("value", {}, ("single_path", "multi_branch")),
+                                 ("joint", {"normals": pts}, ("single_path",)),
+                                 ("out-of-core value", {"out_of_core": True}, ("single_path",))):
+        for strategy in strategies:
+            ecfg = ExploreConfig(max_charts=12, n_disc_samples=16, variance_threshold=1.0,
+                                 strategy=strategy)
+            sessions = [ObjectModelSession(small, ecfg, device=d).start(pts, **kw)
+                        for d in ("cuda", "cpu")]
+            got, want = (s.next_best_path() for s in sessions)
+            if [(c.id, c.parent) for c in got.charts] != [(c.id, c.parent) for c in want.charts]:
+                fail(f"{what} {strategy} float64: the atlas differs between cuda and cpu")
+            err = max(max(float(np.abs(a.center - b.center).max()), abs(a.radius - b.radius),
+                          abs(a.variance - b.variance)) for a, b in zip(got.charts, want.charts))
+            check(f"{what} {strategy} float64 next_best_path, {len(got.charts)} charts, cuda vs "
+                  "cpu (centres, radii, variances)", err, 1e-6)
+            if sessions[0].is_done() != sessions[1].is_done():
+                fail(f"{what} float64 is_done differs between cuda and cpu")
+    cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
+                      n_internal=1, block=128, touch_capacity=0, dtype="float64")
+    sess = ObjectModelSession(cfg, device="cuda").start(random_capped_cloud(3968, 15))
+    if sess.model.capacity != 4096 or sess.model.linv is not sess.model.chol:
+        fail(f"the float64 checkpoint session is not a C=4096 fit_inference model "
+             f"(capacity {sess.model.capacity})")
+    path = os.path.join(tempfile.mkdtemp(prefix="gpis_ckpt_"), "nofactor.npz")
+    ckpt.save_model(path, sess.model, factor=False)
+    q = random_capped_cloud(512, 16) * 1.1
+    want = sess.query(q)
+    sess.model = ckpt.load_model(path, device="cuda")
+    got = sess.query(q)
+    check("float64 factor=False checkpoint, C=4096, refit on the card, against the saved "
+          "model (mean and var)", max(float(np.abs(a - b).max()) for a, b in zip(got, want)),
+          1e-6)
+
+
+def planner_quad(torch, model, out: dict) -> None:
+    """Phase 12 (d): Kernel D at the planner's query counts on the C = 17,408
+    model's training points: held per query to its float64 twin (the gate
+    of quad_kernel_checks, on a random lower W), twice bit for bit, and
+    timed beside the library's W kq^T and its bound."""
+    from gpis_tpu_torch.kernels import cuda_query
+    from gpis_tpu_torch.kernels import gram as kg
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    c = model.capacity
+    w = quad_test_w(torch, c, gen)
+    alpha = torch.randn((c,), generator=gen, device="cuda")
+    rows = {}
+    for m in PLANNER_M:
+        q = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen, device="cuda"),
+                                          dim=1).mul_(1.05)
+        kq = kg.cross_cov(model.kernel, q, model.x, model.params)
+        (mean, quad), again = cuda_query.staged_quad(kq, w, alpha), \
+            cuda_query.staged_quad(kq, w, alpha)
+        mean_r, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(),
+                                                          alpha.double())
+        check(f"staged_quad M={m} C={c}, per query (planner shape)",
+              quad_rel_err(torch, quad, quad_r), QUAD_REL_TOL, err_name="max_rel_err")
+        check(f"staged_quad M={m} C={c} mean (tol 1e-4 x sum|kq||alpha|)",
+              (mean.double() - mean_r).abs().max().item(),
+              1e-4 * (kq.abs() @ alpha.abs()).max().item())
+        check(f"staged_quad M={m} C={c} run twice", float(not (
+            torch.equal(mean, again[0]) and torch.equal(quad, again[1]))), 0.0,
+            err_name="bits differ")
+        reps = 20 if m <= 256 else 5
+        rows[m] = {"ms": time_ms(torch, lambda: cuda_query.staged_quad(kq, w, alpha), reps),
+                   "matmul_ms": time_ms(torch, lambda: torch.matmul(w, kq.T), reps),
+                   **bound(m * c * c + 4 * m * c, 4 * (m * c + c * c / 2 + c + 2 * m),
+                           SPLIT_TF32_FLOPS)}
+        del kq, mean_r, quad_r
+    out["staged_quad_at_planner_m"] = {"C": c, **rows}
+    say(json.dumps({"staged_quad_at_planner_m": out["staged_quad_at_planner_m"],
+                    "card": card_line()}))
+
+
+def phase12(torch, launches, cfg3, cfg4) -> dict:
+    """The exploration loop and its service on the card: (a) the value
+    session behind make_server at full width, four explore-and-touch rounds
+    and a crash recovery; (b) the joint, out-of-core and sharded models'
+    next_best_path and is_done, and their checkpoints; launches counted
+    over (a) and (b); then (c) float64 parity with the CPU path and (d)
+    Kernel D at the planner's query counts."""
+    import dataclasses
+
+    from gpis_tpu_torch.config import ExploreConfig
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(cfg3, touch_capacity=TOUCH_CAPACITY)
+    ecfg = ExploreConfig()
+    pts = capped_sphere(16256)
+    n_j, radius, center = JOINT_SPHERE
+    jpts = capped_sphere(n_j, radius, center)
+    normals = (jpts - np.asarray(center, np.float32)) / radius
+    out: dict = {"card": card_line()}
+    torch.cuda.synchronize()
+    launches.clear()
+    service_run(torch, launches, cfg, ecfg, pts, out)
+    torch.cuda.empty_cache()
+    other_kinds(torch, cfg, cfg4, ecfg, pts, jpts, normals, out)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+
+    # After the counted run: the observed contacts' float64 fall, and the
+    # float32 rise held to the quad's error there.
+    rounds, observed, falls = out.pop("_float64")
+    replay = float64_replay(cfg, pts, rounds, observed)
+    out["observed"] = []
+    for r, ((v0, v1), (v0_64, v1_64)) in enumerate(zip(falls, replay)):
+        if not len(v0):
+            continue
+        touched_checks(f"round {r + 1} float64, {len(v0)} observed contacts", v0_64, None, v1_64)
+        quad_err = float(np.abs(v0 - v0_64).max())
+        rise = float((v1 - v0).max())
+        out["observed"].append({"round": r + 1, "n": len(v0), "quad_err_float64": quad_err,
+                                "var_max_rise": rise})
+        check(f"round {r + 1}, observed contacts: float32 variance rise against the quad's error",
+              rise, quad_err, err_name="max_rise")
+    parity_float64()
+    planner_quad(torch, out.pop("_model"), out)
+    out["phase_s"] = time.perf_counter() - t_start
+    say(f"  launches in the exploration run: {counts}")
+    say(json.dumps({"exploration": out}, default=str))
+    service = out["service"]
+    if not service["finite"]:
+        fail("NaN or inf in the service's answers")
+    if not service["surface_rmse_64"] < RMSE_GATE:
+        fail(f"surface RMSE after the rounds {service['surface_rmse_64']} >= {RMSE_GATE}")
+    require_launches(counts, ("cov", "panel_update", "row_update", "staged_quad", "joint_cov",
+                              "fused_quad", "gram_band", "quad_band"), "exploration")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -2939,6 +3571,10 @@ def main() -> int:
 
     say("phase 11: marginal-likelihood hyperparameter optimization (config 3)")
     runs += phase11(torch, _build.LAUNCHES, incore_value, incore_joint)
+    torch.cuda.empty_cache()
+
+    say("phase 12: the exploration loop and its service through make_server")
+    runs.append(phase12(torch, _build.LAUNCHES, incore_value[0], incore_joint[0]))
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -16,9 +16,13 @@ with the same arguments, and `start` fits the row-sharded value model
 `query`, `evaluate_grid`, `extract_surface` and `surface_points` serve the
 fitted model; `update` borders tactile points into it (a joint model past
 its touch slots is refit with every touch folded into its core);
-`optimize_hyperparameters` maximizes the marginal likelihood (config 3) and
-refits with the optimum.  The verbs not yet ported raise
-NotImplementedError naming the ROADMAP.md §1 item that ports them.
+`next_best_path` grows the atlas toward high variance and `is_done` says
+when the surface is known (`explore.planner`, with the session's
+`ExploreConfig`); `optimize_hyperparameters` maximizes the marginal
+likelihood (config 3) and refits with the optimum; `save`, `load` and
+`restore` checkpoint the model and the frame (`utils.checkpoint`, the JAX
+package's layout).  The verbs not yet ported raise NotImplementedError
+naming the ROADMAP.md §1 item that ports them.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import numpy as np
 import torch
 
 from gpis_tpu_torch._build import not_ported, resolve_device
-from gpis_tpu_torch.config import MeshConfig, ModelConfig
+from gpis_tpu_torch.config import ExploreConfig, MeshConfig, ModelConfig
 from gpis_tpu_torch.data import gpis, voxel
+from gpis_tpu_torch.explore import planner
 from gpis_tpu_torch.gp import derivative as gpd
 from gpis_tpu_torch.gp import hyperopt as ho
 from gpis_tpu_torch.gp import ooc_hyperopt as oho
@@ -43,6 +48,7 @@ from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.parallel.mesh import make_row_mesh
 from gpis_tpu_torch.surface import grid as grid_mod
 from gpis_tpu_torch.surface import marching, projection
+from gpis_tpu_torch.utils import checkpoint as ckpt
 
 __all__ = ["ObjectModelSession"]
 
@@ -87,11 +93,10 @@ class ObjectModelSession:
     """Fit / query loop over one object model on one device, or on one rank
     of a row mesh."""
 
-    def __init__(self, config: ModelConfig | None = None, explore=None,
+    def __init__(self, config: ModelConfig | None = None, explore: ExploreConfig | None = None,
                  mesh: MeshConfig | None = None, *, device="cuda"):
-        if explore is not None:
-            not_ported("explore= (ExploreConfig)", 8, "explore/atlas.py and explore/planner.py")
         self.config = config or ModelConfig()
+        self.explore_config = explore or ExploreConfig()
         self.mesh_config = mesh
         self.mesh = None
         if mesh is not None and mesh.n_devices > 1:
@@ -269,6 +274,15 @@ class ObjectModelSession:
             self.model = gpd.update_joint(m, pts, y, self.config.noise_touch)
             return
         ts, cfg = self.training, self.config
+        if ts is None:
+            raise ValueError(
+                "joint touch slots overflowed in a restored session: the "
+                "original training set is not part of the checkpoint, so "
+                "accumulated touches cannot be folded into the core. "
+                "Restart from the original cloud (start()) or refit with "
+                "a larger touch_capacity; bordering updates within "
+                "capacity work fine after restore()."
+            )
         tx = torch.as_tensor(np.concatenate([t[0] for t in self._touches]), device=self.device)
         ty = torch.as_tensor(np.concatenate([t[1] for t in self._touches]), device=self.device)
         c0, dt = ts.x.shape[0], ts.x.dtype
@@ -291,10 +305,27 @@ class ObjectModelSession:
             self.model = gpd.with_linv_joint(self.model)
 
     def next_best_path(self, *, seed_world=None):
-        not_ported("next_best_path", 8, "explore/atlas.py and explore/planner.py")
+        """The next best tactile path (`explore.planner.next_best_path`) from
+        `seed_world` (default: the surface point of highest variance), as an
+        ExplorationResult whose path is in the world frame.  On a mesh every
+        rank calls it and gets the same path."""
+        self._require_model()
+        seed = None
+        if seed_world is not None:
+            seed = self.frame.to_normalized(torch.as_tensor(
+                np.asarray(seed_world, self.config.dtype), device=self.device))
+        res = planner.next_best_path(self.model, self.explore_config, seed_point=seed)
+        res.path = self.frame.to_world(torch.as_tensor(res.path, device=self.device)).cpu().numpy()
+        return res
 
     def is_done(self, n_probe: int = 256) -> bool:
-        not_ported("is_done", 8, "explore/planner.py")
+        """True when the posterior variance at `n_probe` points of the
+        estimated surface (the unit sphere's Fibonacci points, projected) is
+        below the ExploreConfig's threshold everywhere."""
+        self._require_model()
+        probes, _ = projection.project_points(self.model, torch.as_tensor(
+            gpis.fibonacci_sphere(n_probe, 1.0).astype(self.config.dtype), device=self.device))
+        return planner.is_done(self.model, self.explore_config, probes)
 
     def export_exploration(self, html_path: str, resolution: int = 32):
         not_ported("export_exploration", 16, "viz/export.py")
@@ -473,11 +504,33 @@ class ObjectModelSession:
         return res
 
     def save(self, path: str):
-        not_ported("save", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")
+        """Checkpoint the model (`utils.checkpoint.save_model`) and the frame
+        (`path + ".frame.npz"`).  On a mesh every rank calls it; rank 0
+        writes, and every rank returns once the files are written."""
+        self._require_model()
+        if self.mesh is None or self.mesh.rank == 0:
+            np.savez(path + ".frame.npz", centroid=self.frame.centroid.cpu().numpy(),
+                     scale=self.frame.scale.cpu().numpy())
+        ckpt.save_model(path, self.model)
+        return path
 
     @classmethod
     def load(cls, path: str, config: ModelConfig | None = None, **kw):
-        not_ported("load", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")
+        """A new session (`config` and the constructor's keywords) restored
+        from the checkpoint at `path`."""
+        return cls(config, **kw).restore(path)
 
     def restore(self, path: str):
-        not_ported("restore", 9, "utils/checkpoint.py (gpis_tpu_torch.convert reads JAX checkpoints)")
+        """Load a checkpoint into this session: the crash-recovery drill is
+        fit, touch, save, crash, load, then replay the pending touches
+        through `update`, which continues from the checkpointed factor and
+        W.  As in the JAX package the training set and the list of joint
+        touches are not part of the checkpoint: a restored joint session
+        borders touches while its slots last and raises past them."""
+        self.model = ckpt.load_model(path, device=self.device, mesh=self.mesh)
+        with np.load(path + ".frame.npz") as d:
+            self.frame = gpis.Frame(centroid=torch.as_tensor(d["centroid"], device=self.device),
+                                    scale=torch.as_tensor(d["scale"], device=self.device))
+        self.training = None
+        self._touches = []
+        return self

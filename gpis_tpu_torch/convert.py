@@ -1,18 +1,16 @@
-"""Carry a model fitted by the JAX package across to the port (reads the
-in-core value and joint layouts of gpis_tpu/utils/checkpoint.py:24-85, and
-builds an out-of-core model from its arrays and W panels, and a rank's
-sharded model from the whole arrays).
+"""Carry a model fitted by the JAX package across to the port (builds the
+in-core value and joint models from the arrays of the checkpoint layout,
+gpis_tpu/utils/checkpoint.py:24-85, an out-of-core model from its arrays
+and W panels, and a rank's sharded model from the whole arrays).
 
 A `gpis_tpu` checkpoint is an `.npz` of numpy arrays plus a JSON `meta`
-entry; it is read here with numpy alone.  Committee, sharded and
-out-of-core checkpoints raise NotImplementedError until their models are
-ported; an out-of-core model in memory crosses over through
-`ooc_model_from_arrays`, a sharded one through `sharded_model_from_arrays`.
+entry; `load_jax_checkpoint` reads it through the port's own
+`utils.checkpoint.load_model`, which writes the same layout.  An
+out-of-core model in memory crosses over through `ooc_model_from_arrays`,
+a sharded one through `sharded_model_from_arrays`.
 """
 
 from __future__ import annotations
-
-import json
 
 import numpy as np
 import torch
@@ -26,8 +24,7 @@ from gpis_tpu_torch.linalg.outofcore import DevicePanelStore, OOCJointModel, OOC
 __all__ = ["gp_model_from_arrays", "ooc_model_from_arrays", "sharded_model_from_arrays",
            "load_jax_checkpoint"]
 
-_FORMAT_VERSION = 1
-_UNPORTED_KINDS = ("experts", "sharded", "ooc")
+_NOT_IN_CORE = ("experts", "sharded", "ooc")
 
 
 def _joint_model(t, meta: dict, params: dict) -> DerivGPModel:
@@ -44,36 +41,41 @@ def _joint_model(t, meta: dict, params: dict) -> DerivGPModel:
     )
 
 
-def gp_model_from_arrays(arrays, meta: dict, device="cuda"):
+def gp_model_from_arrays(arrays, meta: dict, device="cuda", *, chol=None):
     """The port's model from a `gpis_tpu` model's numpy arrays, under the
     checkpoint's key names (x, y, noise, alpha, chol, linv,
     param_lengthscale, param_signal_variance, n_touch; a joint model's
     normals, noise_f, noise_g and touch_*) and metadata (kernel, n0,
-    pad_noise, linv_is_chol, joint): a GPModel or a DerivGPModel."""
-    for kind in _UNPORTED_KINDS:
+    pad_noise, linv_is_chol, joint): a GPModel or a DerivGPModel.  `chol`,
+    a tensor on `device`, stands in for arrays["chol"] (a factor refit on
+    loading a checkpoint saved without it)."""
+    for kind in _NOT_IN_CORE:
         if meta.get(kind):
-            raise NotImplementedError(f"{kind} checkpoints are not ported to gpis_tpu_torch yet")
-    if "chol" not in arrays:
+            raise ValueError(f"{kind} arrays are not an in-core model's "
+                             "(utils.checkpoint.load_model reads every kind of checkpoint)")
+    if chol is None and "chol" not in arrays:
         raise ValueError("checkpoint carries no factor (saved with factor=False)")
     dev = resolve_device(device)
 
     def t(key):
+        if key == "chol" and chol is not None:
+            return chol
         return torch.as_tensor(np.asarray(arrays[key]), device=dev)
 
     params = {"lengthscale": float(arrays["param_lengthscale"]),
               "signal_variance": float(arrays["param_signal_variance"])}
     if meta.get("joint"):
         return _joint_model(t, meta, params)
-    chol = t("chol")
+    factor = t("chol")
     if meta.get("linv_is_chol"):
-        linv = chol  # a fit_inference model: its chol field is W
+        linv = factor  # a fit_inference model: its chol field is W
     elif meta.get("has_linv"):
         linv = t("linv")
     else:
         linv = None
     return GPModel(
         x=t("x"), y=t("y"), noise=t("noise"), params=params,
-        chol=chol, alpha=t("alpha"), n_touch=int(arrays["n_touch"]),
+        chol=factor, alpha=t("alpha"), n_touch=int(arrays["n_touch"]),
         kernel=meta["kernel"], n0=int(meta["n0"]),
         pad_noise=float(meta.get("pad_noise", 1e10)), linv=linv,
     )
@@ -134,10 +136,8 @@ def sharded_model_from_arrays(arrays, mesh, *, kernel: str, params, block: int, 
 
 
 def load_jax_checkpoint(path: str, device="cuda"):
-    """Read a checkpoint written by `gpis_tpu.utils.checkpoint.save_model`."""
-    with np.load(path, allow_pickle=False) as d:
-        meta = json.loads(str(d["meta"]))
-        if meta["format"] != _FORMAT_VERSION:
-            raise ValueError(f"unsupported checkpoint format {meta['format']}")
-        arrays = {k: d[k] for k in d.files if k != "meta"}
-    return gp_model_from_arrays(arrays, meta, device)
+    """Read a checkpoint written by `gpis_tpu.utils.checkpoint.save_model`
+    (`utils.checkpoint.load_model`)."""
+    from gpis_tpu_torch.utils import checkpoint
+
+    return checkpoint.load_model(path, device=device)

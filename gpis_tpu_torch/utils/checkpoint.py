@@ -1,0 +1,189 @@
+"""Checkpoint / resume (port of gpis_tpu/utils/checkpoint.py): a session that
+crashes is rebuilt from its last checkpoint, and the touches that came after
+it are replayed through `update`.
+
+The file is the JAX package's NPZ layout, key for key, with the same JSON
+`meta` and format version, so a checkpoint written by either package loads
+in the other: in-core value models (`linv_is_chol` where the factor is W,
+`has_linv` where W is kept beside it), joint models with their touch slots,
+and sharded value models, whose (C / P, C) bands of L and W rank 0 gathers
+into the whole matrices.  The hyperparameters are written as float64
+scalars (the port holds Python floats, so its own round trip is exact); a
+float32 JAX checkpoint's are read as their float32 values.  The port writes
+its members uncompressed (`np.savez`): the factor and W of a large model
+are mostly mantissa noise, and deflating them costs the host seconds a
+gigabyte; `np.load` in both packages reads either form.
+
+`factor=False` leaves the factor out, and `load_model` refits it from the
+Gram: Kernel A (value) or E (joint), then the blocked Cholesky (Kernel B);
+where the saved factor was W (`linv_is_chol`) W is formed again (Kernel C).
+Out-of-core, committee and sharded joint checkpoints raise
+NotImplementedError naming the ROADMAP.md §1 item that ports them.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from gpis_tpu_torch import convert
+from gpis_tpu_torch._build import not_ported, resolve_device
+from gpis_tpu_torch.gp.kinds import model_kind
+from gpis_tpu_torch.gp.sharded_model import _all_gather
+from gpis_tpu_torch.kernels import derivative as kd
+from gpis_tpu_torch.kernels import gram as kg
+from gpis_tpu_torch.linalg import cholesky as lin
+from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
+from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+__all__ = ["save_model", "load_model"]
+
+_FORMAT_VERSION = 1
+_LINV_BLOCK = 256
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _param_arrays(params) -> dict:
+    return {"param_lengthscale": np.float64(params["lengthscale"]),
+            "param_signal_variance": np.float64(params["signal_variance"])}
+
+
+def save_model(path: str, model, *, factor: bool = True) -> None:
+    """Save an in-core GPModel or DerivGPModel, or a ShardedGPModel (every
+    rank calls it; rank 0 writes)."""
+    kind = model_kind(model)
+    if kind in ("ooc", "ooc_joint"):
+        not_ported("save_model of an out-of-core model (its W panels go under path + '.w/' "
+                   "in the panel store's manifest format)", 15, "out-of-core disk spill")
+    if kind == "sharded":
+        _save_sharded(path, model)
+        return
+    joint = kind == "joint"
+    meta = {"format": _FORMAT_VERSION, "kernel": model.kernel, "n0": model.n0,
+            "dtype": _dtype_name(model.dtype), "has_factor": bool(factor), "joint": joint}
+    arrays = {"x": _np(model.x), "y": _np(model.y), "alpha": _np(model.alpha),
+              **_param_arrays(model.params)}
+    if joint:
+        arrays.update(normals=_np(model.normals), noise_f=_np(model.noise_f),
+                      noise_g=_np(model.noise_g))
+        if model.linv is not None:
+            meta["has_linv"] = True
+            arrays["linv"] = _np(model.linv)
+        if model.touch_x is not None:
+            meta["joint_touch"] = True
+            meta["n_touch"] = int(model.n_touch)
+            arrays.update(touch_x=_np(model.touch_x), touch_y=_np(model.touch_y),
+                          touch_noise=_np(model.touch_noise))
+    else:
+        meta["pad_noise"] = float(model.pad_noise)
+        arrays["noise"] = _np(model.noise)
+        arrays["n_touch"] = np.asarray(model.n_touch, dtype=np.int32)
+        # A fit_inference model's chol IS W: stored once.
+        if model.linv is not None:
+            if model.linv is model.chol:
+                meta["linv_is_chol"] = True
+            else:
+                meta["has_linv"] = True
+                arrays["linv"] = _np(model.linv)
+    if factor:
+        arrays["chol"] = _np(model.chol)
+    np.savez(path, meta=json.dumps(meta), **arrays)
+
+
+def _rank0_done(mesh) -> None:
+    """Return on every rank only once rank 0 has reached this point (a
+    reduction the host waits for: NCCL's returns before it has run)."""
+    flag = torch.zeros(1, device=mesh.device)
+    dist.all_reduce(flag)
+    flag.item()
+
+
+def _save_sharded(path: str, model) -> None:
+    """Rank 0 gathers the bands of L and W into the whole (C, C) matrices and
+    writes the JAX package's sharded layout; every rank joins the gathers
+    and returns once the file is written."""
+    mesh = model.mesh
+    whole = {}
+    for key in ("l", "w"):
+        full = _all_gather(getattr(model, key), mesh.size)
+        if mesh.rank == 0:
+            whole[key] = _np(full)
+        del full
+    if mesh.rank == 0:
+        meta = {"format": _FORMAT_VERSION, "kernel": model.kernel, "n0": model.n0,
+                "dtype": _dtype_name(model.dtype), "sharded": True, "joint": False,
+                "n_devices": mesh.size, "block": int(model.block),
+                "n_touch": int(model.n_touch), "n_real": int(model.n_real)}
+        np.savez(path, meta=json.dumps(meta), x=_np(model.x), y=_np(model.y), **whole,
+                 alpha=_np(model.alpha), noise=_np(model.noise), **_param_arrays(model.params))
+    _rank0_done(mesh)
+
+
+def _refactor(arrays, meta: dict, dev: torch.device) -> torch.Tensor:
+    """The factor of a checkpoint saved without it, from its Gram: W where
+    the saved factor was W (`linv_is_chol`), else L."""
+
+    def t(key):
+        return torch.as_tensor(arrays[key], device=dev)
+
+    params = {"lengthscale": float(arrays["param_lengthscale"]),
+              "signal_variance": float(arrays["param_signal_variance"])}
+    if meta.get("joint"):
+        touch = {}
+        if meta.get("joint_touch"):
+            touch = {"touch_x": t("touch_x"), "touch_noise": t("touch_noise")}
+        return lin.cholesky(kd.joint_gram(meta["kernel"], t("x"), params, noise_f=t("noise_f"),
+                                          noise_g=t("noise_g"), **touch))
+    l = lin.cholesky(kg.gram(meta["kernel"], t("x"), params, noise=t("noise")))
+    if not meta.get("linv_is_chol"):
+        return l
+    c = l.shape[0]
+    return blocked_linv(l, _LINV_BLOCK if c % _LINV_BLOCK == 0 else c, inplace=True)
+
+
+def load_model(path: str, device="cuda", *, mesh=None):
+    """The model in the checkpoint at `path` on `device`.  A sharded
+    checkpoint loads on every rank of `mesh` (by default the row mesh of the
+    initialized process group, on `device`), whose size must be the
+    checkpoint's `n_devices`; each rank keeps its band."""
+    with np.load(path, allow_pickle=False) as d:
+        meta = json.loads(str(d["meta"]))
+        if meta["format"] != _FORMAT_VERSION:
+            raise ValueError(f"unsupported checkpoint format {meta['format']}")
+        if meta.get("ooc"):
+            not_ported("out-of-core checkpoints (W panels under path + '.w/')", 15,
+                       "out-of-core disk spill")
+        if meta.get("experts"):
+            not_ported("committee checkpoints", 13, "gp/experts.py")
+        if meta.get("sharded") and meta.get("joint"):
+            not_ported("sharded joint checkpoints", 14, "gp/sharded_joint.py")
+        arrays = {k: d[k] for k in d.files if k != "meta"}
+    if meta.get("sharded"):
+        return _load_sharded(arrays, meta, mesh, device)
+    dev = resolve_device(device)
+    chol = None if meta["has_factor"] else _refactor(arrays, meta, dev)
+    return convert.gp_model_from_arrays(arrays, meta, dev, chol=chol)
+
+
+def _load_sharded(arrays, meta: dict, mesh, device):
+    mesh = mesh or make_row_mesh(device=device)
+    n = int(meta["n_devices"])
+    if mesh.size != n:
+        raise RuntimeError(f"checkpoint was fit on {n} devices; the process group has "
+                           f"{mesh.size} ranks")
+    params = {"lengthscale": arrays["param_lengthscale"],
+              "signal_variance": arrays["param_signal_variance"]}
+    return convert.sharded_model_from_arrays(arrays, mesh, kernel=meta["kernel"], params=params,
+                                             block=int(meta["block"]),
+                                             n_real=int(meta.get("n_real", 0)),
+                                             n_touch=int(meta.get("n_touch", 0)))

@@ -6,17 +6,13 @@ spawned once (`tests/torch_sharded_rank.py`, which imports no jax) and its
 results are held, one quantity a test, to the same JAX functions on a
 `make_row_mesh(P)` of the suite's virtual CPU devices at 1e-6 (BASELINE.md
 row 2).  The ranks' collectives time out after 60 s and the spawn kills
-them after SPAWN_TIMEOUT, so a hung collective fails the tests of its P
+them after `tests/torch_ranks.py`'s SPAWN_TIMEOUT, so a hung collective fails the tests of its P
 instead of hanging the suite.  At P = 2 the ranks also run the distributed
 MLL objective (held to the JAX package's dense autodiff gradient) and the
 mesh session's two hyperopt methods (held to the JAX session's).  Kernel
 L's twin is held to
 `band_trail_update_pallas` in interpret mode, where `_dot3` is an exact dot.
 """
-
-import os
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,13 +32,12 @@ from gpis_tpu.linalg import sharded as jsh
 from gpis_tpu.linalg.pallas_chol import band_trail_update_pallas
 from gpis_tpu.parallel import mesh as jpm
 from gpis_tpu_torch.linalg import cuda_chol
+from torch_ranks import spawn_ranks
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C, B = 1024, 64
 LS, SV = 0.8, 1.2
 TOUCH = 64
 SESSION_LS, SESSION_BLOCK = 0.6, 64
-SPAWN_TIMEOUT = 180  # seconds for all ranks of one P; a rank alone takes a few
 MLL_N_REAL, MLL_SCALE = 1000, 1.3  # the distributed objective's padding and noise scale
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 (virtual) devices")
@@ -71,36 +66,6 @@ def problem():
                 mll_n_real=MLL_N_REAL, mll_scale=MLL_SCALE)
 
 
-def _spawn(p: int, inputs: dict, out_dir) -> list[dict]:
-    np.savez(out_dir / "inputs.npz", **inputs)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
-    env["OMP_NUM_THREADS"] = "1"
-    script = os.path.join(REPO, "tests", "torch_sharded_rank.py")
-    procs = []
-    for r in range(p):
-        log = open(out_dir / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen([sys.executable, script, str(out_dir), str(r), str(p)],
-                                       cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT),
-                      log))
-    try:
-        for proc, _ in procs:
-            proc.wait(timeout=SPAWN_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    failed = [r for r, (proc, _) in enumerate(procs) if proc.returncode != 0]
-    if failed:
-        logs = "\n".join((out_dir / f"rank{r}.log").read_text()[-3000:] for r in failed)
-        raise RuntimeError(f"ranks {failed} of {p} failed or were killed:\n{logs}")
-    return [dict(np.load(out_dir / f"out{r}.npz")) for r in range(p)]
-
-
 @pytest.fixture(scope="module")
 def ranks(problem, jax_fits, jax_touched, tmp_path_factory):
     """ranks(P): the P ranks' results, spawned once per P.  The inputs carry
@@ -115,7 +80,8 @@ def ranks(problem, jax_fits, jax_touched, tmp_path_factory):
             touched = jax_touched(p, 1)
             jm.update({f"jmt_{k}": np.asarray(getattr(touched, k)) for k in keys})
             inputs = {**problem, **jm, "jm_n_real": model.n_real, "jmt_n_touch": touched.n_touch}
-            done[p] = _spawn(p, inputs, tmp_path_factory.mktemp(f"sharded{p}"))
+            done[p] = spawn_ranks("torch_sharded_rank.py", [], p, inputs,
+                                  tmp_path_factory.mktemp(f"sharded{p}"))
         return done[p]
 
     return get

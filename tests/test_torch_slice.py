@@ -135,12 +135,21 @@ def test_session_extract_surface_matches_jax_session():
     np.testing.assert_allclose((qm, qv), jsess.query(pts[:20]), atol=1e-6)
 
 
-def test_session_verbs_not_yet_ported_raise():
+def test_session_verbs_not_yet_ported_raise(tmp_path):
+    # What stays unported behind the session's verbs: committee fits and
+    # checkpoints, an out-of-core session's save, sharded joint checkpoints.
     cfg = ModelConfig(touch_capacity=0, dtype="float64")
     sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
-    for call in (lambda: sess.start(pts, experts=4), lambda: sess.next_best_path(),
-                 lambda: sess.save("x"), lambda: sess.is_done()):
+    ooc = ObjectModelSession(cfg, device="cpu").start(pts, out_of_core=True)
+    paths = {}
+    for name, flags in (("committee", '"experts": true'),
+                        ("sharded_joint", '"sharded": true, "joint": true')):
+        paths[name] = str(tmp_path / f"{name}.npz")
+        np.savez(paths[name], meta=f'{{"format": 1, {flags}}}')
+    for call in (lambda: sess.start(pts, experts=4), lambda: ooc.save(str(tmp_path / "o.npz")),
+                 lambda: sess.restore(paths["committee"]),
+                 lambda: sess.restore(paths["sharded_joint"])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
@@ -191,6 +200,13 @@ def test_port_runs_without_importing_jax():
         "    o = ObjectModelSession(cfg, device='cpu').start(pts, out_of_core=True, **kw)\n"
         "    v, f, var = o.extract_surface(resolution=16, extent=1.5)\n"
         "    assert len(v) and np.isfinite(var).all()\n"
+        "import gpis_tpu_torch.api.service, tempfile, os\n"
+        "from gpis_tpu_torch.config import ExploreConfig\n"
+        "e = ObjectModelSession(cfg, ExploreConfig(max_charts=4), device='cpu').start(pts)\n"
+        "assert len(e.next_best_path().path) and e.is_done() in (True, False)\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'm.npz')\n"
+        "e.save(path)\n"
+        "assert ObjectModelSession.load(path, cfg, device='cpu').model.capacity\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "jax_pkg = [m for m in sys.modules if m == 'gpis_tpu' or m.startswith('gpis_tpu.')]\n"
         "assert not jax_pkg, f'the JAX package was imported: {jax_pkg}'\n"
