@@ -146,6 +146,40 @@ Phases, one printed line or more each; any failure exits nonzero:
    1e-6 of the saved model.  (d) Kernel D at the planner's M = 1, 32, 256
    and 2,048 (C = 17,408) held per query to its float64 twin (1e-4), twice
    bit for bit, and timed beside the library's W kq^T and its bound.
+13. The local-expert committee (`gp/experts.py`) at the JAX package's
+   committee scale, through ObjectModelSession.  (a) bench/experts_scale.py's
+   defaults: a 100,000-point sphere, rbf, lengthscale 1.0, noise 1e-4, 64
+   touch slots, float32, start(experts=16, expert_gate=8): E 16 x B 7,168,
+   W alone (the 4e9-byte rule drops L); the 64^3 grid (256 gated pairs of
+   A then D), extract_surface and a 65,536-point query; fit_s, query_s,
+   peak memory and W's bytes.  Gates: RMSE < 0.01 (that script's);
+   no NaN; every variance in [the committee floor, k0] (the floor: the
+   gated experts all clamped at eps max(16, 0.5 B) k0; a combine cannot go
+   below it); A, B, C and D launched.  (b) The same committee ungated at
+   4,096 surface points: the gate-8 mean within 5e-2 (the JAX tests' bar).
+   (c) The sphere with its cap z > 0.8 left out (phase 10's), the same
+   fit, four batches of 64 contacts into the cap: at every touched point
+   the variance fell (or sat at the committee floor already), |mean| <=
+   1e-3, and each routed expert's n_touch rose.  (d) One PoE objective step
+   timed, then optimize_hyperparameters(method="poe", steps=3) with its
+   refit replaying the 256 touches: the best MLL above the start's, the
+   refit's RMSE < 0.01.  (e) save, load, and the restored session's
+   65,536-point query equal to the bit; /start with experts through
+   make_server answering 200, and /update's summed n_touch.  (f)
+   BENCH_EXPERTS_JOINT.json's shape: a 32,768-point sphere with normals, E
+   16, gate 16 (C 2,304, J 10,240), the 64^3 grid, extract_surface and the
+   normals at 256 surface points: RMSE < 0.01, min cos(normal, radial) >
+   0.99, E launched.  Launches are counted over (a)-(f).  After the count,
+   expert 0 of (a) and of (f) is fit again split by CUDA events (Gram,
+   factor, W, the Newton step), and its refined W must lie within 8 ulps
+   of max|W| of its float32 factor's exact inverse (float64), which the raw
+   W misses by 30-36 and the step with a float32 residual by ~60
+   (scripts/torch_committee_newton.py): the step exists to remove that
+   error.  (g) Small float64 committees on the card (value with a touch
+   batch and a PoE step, joint with a touch batch) held to the CPU path at
+   1e-6; one gated pair of (a) and of (f), the cross (A or E) against its
+   twin and D per query against float64 (1e-4), timed beside the twin and
+   the library's W kq^T.  ~66 s.
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -3501,6 +3535,513 @@ def phase12(torch, launches, cfg3, cfg4) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 13
+
+COMMITTEE_N = 100_000  # bench/experts_scale.py's default cloud
+COMMITTEE_E, COMMITTEE_GATE = 16, 8  # its E and BENCH_EXPERTS.json's gate: B = 7,168
+COMMITTEE_RMSE = 0.01  # bench/experts_scale.py's gate
+GATE_GAP = 5e-2  # gated against ungated mean: tests/test_experts.py's bar
+JOINT_COMMITTEE_N = 32768  # BENCH_EXPERTS_JOINT.json: E 16, gate 16, C 2,304 (J 10,240)
+COMMITTEE_CHUNK = 8192  # a grid chunk: the gated (chunk, expert) pairs' M
+
+
+def committee_config(**kw):
+    """bench/experts_scale.py's configuration: rbf, lengthscale 1.0, surface
+    noise 1e-4, 64 touch slots, the 64^3 grid over +-1.5."""
+    from gpis_tpu_torch import ModelConfig
+
+    return ModelConfig(**{"kernel": "rbf", "lengthscale": 1.0, "noise_surface": 1e-4,
+                          "touch_capacity": 64, "grid_resolution": 64, "grid_extent": 1.5, **kw})
+
+
+def expert_floor(model) -> float:
+    """An expert variance's lower clamp in float32, eps max(16, scale B) k0
+    (`experts._beta_weights`): the quad noise the committee tolerates."""
+    from gpis_tpu_torch.gp import experts as ex
+
+    k0 = model.params["signal_variance"]
+    return k0 * F32_EPS * max(16.0, ex._FLOOR_SCALE * model.capacity)
+
+
+def committee_w_checks(torch, gen, results: dict) -> None:
+    """`expert_split`'s W checks on a two-expert committee of B = 7,168 (a 12,800-point
+    sphere at phase 13's configuration), standalone for the mutation
+    script."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.gp import experts as ex
+
+    cfg = committee_config()
+    ts = gpis.build_training_set(fibonacci_sphere(12800).astype(np.float32), cfg, device="cuda")
+    model = ex.fit_experts(cfg.kernel, ts.x, ts.y, ts.noise,
+                           {"lengthscale": cfg.lengthscale,
+                            "signal_variance": cfg.signal_variance}, n_experts=2,
+                           n_shared_tail=ts.n_internal + ts.n_external,
+                           touch_capacity=cfg.touch_capacity)
+    results["committee_w"] = expert_split(torch, model, f"two experts B={model.capacity}")
+
+
+def committee_floor(model, g: int) -> float:
+    """The least variance a combine of g experts can give: each expert's
+    variance clamped at the quad-noise floor eps max(16, scale B) k0 and
+    weighted by rBCM's beta there (the precision sum is largest when every
+    gated expert sits at the floor)."""
+    import math
+
+    from gpis_tpu_torch.gp import experts as ex
+
+    k0 = model.params["signal_variance"]
+    f = expert_floor(model)
+    beta = 0.5 * math.log(k0 / f) if model.beta == "rbcm" else 1.0
+    return 1.0 / (g * beta / f + (1.0 - g * beta) / k0)
+
+
+def variance_bounds(what: str, model, g: int, *variances) -> dict:
+    """Every committee variance in [committee_floor, k0], finite, with
+    float32's rounding of the combine beside each end (64 ulps below the
+    floor, where every gated expert sits near the surface; 4 above k0)."""
+    k0 = model.params["signal_variance"]
+    lo = committee_floor(model, g) * (1.0 - 64 * F32_EPS)
+    v = np.concatenate([np.ravel(x) for x in variances])
+    out = {"var_min": float(v.min()), "var_max": float(v.max()), "floor": lo, "k0": k0}
+    say(f"  {what}: {v.size} variances in [{out['var_min']:.3e}, {out['var_max']:.6e}], "
+        f"gate [{lo:.3e}, {k0}]")
+    if not (np.isfinite(v).all() and v.min() >= lo and v.max() <= k0 * (1.0 + 4 * F32_EPS)):
+        fail(f"{what}: a committee variance outside [{lo:.3e}, {k0}] or not finite")
+    return out
+
+
+def expert_split(torch, model, what: str) -> dict:
+    """One expert's fit again, step by step by CUDA events: the Gram
+    (Kernel A or E), the factor (Kernel B), the raw W (Kernel C) and the
+    Newton step; the refined W against the fit's (the same inputs: 0
+    expected, printed).  Then the W checks: the fit's W exactly
+    lower-triangular (Kernel D plans the lower triangle only), and the
+    refined W within 8 ulps (of max|W|) of the exact inverse of the float32
+    factor, formed in float64: the step exists to remove the explicit
+    inverse's error, and a step that does not (a float32 or TF32 residual)
+    leaves W dozens of ulps off.  Printed beside it: the raw W's error, and
+    the variance quad's error at a grid chunk (Kernel A or E, then D)
+    against float64 (the Gram factored by the library in float64, on the
+    same kq) for the refined and raw W and a float32 triangular solve, with
+    the expert floor that clamps the variances."""
+    from gpis_tpu_torch.gp import experts as ex
+    from gpis_tpu_torch.kernels import cuda_query
+    from gpis_tpu_torch.kernels import derivative as kd
+    from gpis_tpu_torch.kernels import gram as kg
+    from gpis_tpu_torch.linalg import cholesky as lin
+    from gpis_tpu_torch.surface import grid as grid_mod
+
+    j = model.linv.shape[-1]
+
+    def gram(dt):
+        x, noise = model.x[0].to(dt), model.noise[0].to(dt)
+        if model.joint:
+            return kd.joint_gram(model.kernel, x, model.params, noise_f=noise,
+                                 noise_g=model.noise_g[0].to(dt), touch_x=model.touch_x[0].to(dt),
+                                 touch_noise=model.touch_noise[0].to(dt))
+        return kg.gram(model.kernel, x, model.params, noise=noise)
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    k = gram(torch.float32)
+    ev[1].record()
+    l = lin.cholesky(k)
+    ev[2].record()
+    w = lin.blocked_linv(l, 512 if j % 512 == 0 else j)
+    ev[3].record()
+    refined = torch.empty_like(w)
+    ex._newton_w(l, w, refined)
+    ev[4].record()
+    torch.cuda.synchronize()
+    out = {name: ev[i].elapsed_time(ev[i + 1])
+           for i, name in enumerate(("gram_ms", "factor_ms", "w_ms", "newton_ms"))}
+    out["w_gap_to_fit"] = (refined - model.linv[0]).abs().max().item()
+    if not torch.equal(model.linv[0], torch.tril(model.linv[0])):
+        fail(f"{what}: expert 0's W has nonzeros above its diagonal")
+
+    q = grid_mod.make_grid(64, 1.5, device="cuda")[0][:COMMITTEE_CHUNK].contiguous()
+    kq = ex._expert_cross(model, 0, q)
+    alpha = model.alpha[0]
+    raw = torch.tril(w)
+    quads = {"refined": cuda_query.staged_quad(kq, refined, alpha)[1],
+             "raw": cuda_query.staged_quad(kq, raw, alpha)[1],
+             "solve": torch.sum(torch.linalg.solve_triangular(l, kq.T, upper=False) ** 2, dim=0)}
+    inv64 = torch.linalg.solve_triangular(l.double(), torch.eye(j, dtype=torch.float64,
+                                                                device=l.device), upper=False)
+    wmax = inv64.abs().max().item()
+    for name, mat in (("refined", refined), ("raw", raw)):
+        out[f"w_ulps_{name}"] = (mat.double() - inv64).abs().max().item() / (wmax * F32_EPS)
+    del k, l, w, raw, refined, inv64
+    l64, info = torch.linalg.cholesky_ex(gram(torch.float64))
+    quad64 = torch.sum(torch.linalg.solve_triangular(l64, kq.double().T, upper=False) ** 2, dim=0)
+    del l64, kq
+    for name, quad in quads.items():
+        out[f"quad_err_{name}"] = (quad.double() - quad64).abs().max().item()
+    out["expert_floor"] = expert_floor(model)
+    out["float64_factor_info"] = int(info)
+    say(f"  {what}: one expert's fit split, W's error in ulps of max|W| and the quad's "
+        f"against float64 at {COMMITTEE_CHUNK} grid points: {out}")
+    check(f"{what}: expert 0's refined W against the float32 factor's exact inverse "
+          "(ulps of max|W|)", out["w_ulps_refined"], 8.0, err_name="max_ulps")
+    return out
+
+
+def committee_value(torch, cfg, out: dict):
+    """(a) The value committee at full width through the session, and (b)
+    the same committee ungated at 4,096 surface points."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.gp import experts as ex
+
+    pts = fibonacci_sphere(COMMITTEE_N).astype(np.float32)
+    big = big_query(torch, pts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, experts=COMMITTEE_E,
+                                                        expert_gate=COMMITTEE_GATE)
+    m = sess.model
+    mean, var, _ = sess.evaluate_grid()
+    verts, faces, vvar = sess.extract_surface()
+    big_mean, big_var, big_s = timed_query(torch, sess, big)
+    torch.cuda.synchronize()
+    res = {"fit_s": sess.stats["fit_s"], "query_s": sess.stats["grid_s"], "big_query_s": big_s,
+           "n": COMMITTEE_N, "experts": m.n_experts, "capacity": m.capacity, "n0": m.n0,
+           "gate": m.gate, "retained_chol": m.chol is not None,
+           "w_stack_bytes": m.linv.numel() * m.linv.element_size(),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "surface_rmse": surface_rmse(verts), "n_verts": len(verts)}
+    finite = bool(np.isfinite(mean).all() and np.isfinite(big_mean).all()
+                  and np.isfinite(verts).all())
+    res.update(variance_bounds("(a) grid, vertices and the big query", m, COMMITTEE_GATE, var,
+                               vvar, big_var))
+    say(f"  (a) E {m.n_experts} x B {m.capacity} (n0 {m.n0}), W alone: "
+        f"{res['w_stack_bytes']} bytes; fit {res['fit_s']:.3f} s, 64^3 grid "
+        f"{res['query_s']:.3f} s, {BIG_QUERY} points {big_s:.3f} s, RMSE "
+        f"{res['surface_rmse']:.3e}")
+    if not finite:
+        fail("(a) NaN or inf in the committee's posterior")
+    if not res["surface_rmse"] < COMMITTEE_RMSE:
+        fail(f"(a) surface RMSE {res['surface_rmse']} >= {COMMITTEE_RMSE}")
+
+    # (b) Ungated (every expert) against gate 8 at 4,096 surface points.
+    q = sess.frame.to_normalized(torch.as_tensor(fibonacci_sphere(4096).astype(np.float32),
+                                                 device="cuda"))
+    times = {}
+    for g in (COMMITTEE_GATE, COMMITTEE_E):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        times[g] = ex.predict(m, q, gate=g)
+        torch.cuda.synchronize()
+        times[g] = (times[g], time.perf_counter() - t0)
+    gap = (times[COMMITTEE_GATE][0][0] - times[COMMITTEE_E][0][0]).abs().max().item()
+    res["gated_vs_ungated"] = {"mean_gap": gap, "gated_s": times[COMMITTEE_GATE][1],
+                               "ungated_s": times[COMMITTEE_E][1]}
+    check(f"(b) gate {COMMITTEE_GATE} against ungated mean at 4,096 surface points", gap,
+          GATE_GAP)
+    out["value"] = res
+    return sess
+
+
+def committee_touches(torch, cfg, out: dict):
+    """(c) Four batches of contacts into the unseen cap of a capped 100k
+    committee; (d) its PoE hyperopt and the refit replaying them."""
+    from gpis_tpu_torch import ObjectModelSession
+
+    pts = capped_sphere(COMMITTEE_N)
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, experts=COMMITTEE_E,
+                                                        expert_gate=COMMITTEE_GATE)
+    res = {"fit_s": sess.stats["fit_s"], "capacity": sess.model.capacity, "batches": []}
+    batches = touch_batches(np.random.default_rng(13), 4, (0.0, 0.0, 0.0), 1.0)
+    for i, b in enumerate(batches):
+        var0 = sess.query(b)[1]
+        before = sess.model.n_touch.copy()
+        cent = sess.model.centroids.cpu().numpy()
+        bn = sess.frame.to_normalized(torch.as_tensor(b, device="cuda")).cpu().numpy()
+        route = np.unique(((bn[:, None, :] - cent[None]) ** 2).sum(-1).argmin(1))
+        (dt,) = timed_updates(torch, sess.update, [b])
+        mean, var = sess.query(b)
+        after = sess.model.n_touch
+        # A point an earlier batch's contacts already brought to the
+        # committee floor (every gated expert clamped) cannot fall further.
+        at_floor = var0 <= committee_floor(sess.model, COMMITTEE_GATE) * (1.0 + 64 * F32_EPS)
+        entry = {"update_s": dt, "experts": route.tolist(), "at_floor": int(at_floor.sum()),
+                 **touched_checks(f"(c) batch {i + 1}, {int((~at_floor).sum())} points above "
+                                  "the committee floor", var0[~at_floor], mean[~at_floor],
+                                  var[~at_floor])}
+        if not (var[at_floor] <= var0[at_floor]).all():
+            fail(f"(c) batch {i + 1}: a variance at the committee floor rose")
+        if not ((after[route] > before[route]).all()
+                and after.sum() == before.sum() + len(b)):
+            fail(f"(c) batch {i + 1}: n_touch {before.tolist()} -> {after.tolist()} "
+                 f"does not rise at the routed experts {route.tolist()}")
+        res["batches"].append(entry)
+    res["n_touch"] = sess.model.n_touch.tolist()
+
+    # (d) One objective step alone (every expert's factor and backward),
+    # then the session's PoE hyperopt and the refit replaying the batches.
+    from gpis_tpu_torch.gp import experts as ex
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.optimize_experts(sess.model, steps=1)
+    torch.cuda.synchronize()
+    res["poe_step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyp = sess.optimize_hyperparameters(method="poe", steps=3)
+    res["optimize_s"] = time.perf_counter() - t0
+    verts, _, vvar = sess.extract_surface()
+    res.update(poe_history=hyp.history, poe_mll=hyp.mll, poe_params=hyp.params,
+               poe_noise_scale=hyp.noise_scale, refit_rmse=surface_rmse(verts),
+               refit_n_touch=int(sess.model.n_touch.sum()),
+               refit_grid_s=sess.stats["grid_s"])
+    say(f"  (d) PoE: one objective step (a factor and a backward of every expert) "
+        f"{res['poe_step_s']:.3f} s; optimize_hyperparameters(steps=3) with the refit and "
+        f"the replay {res['optimize_s']:.3f} s; MLL {hyp.history[0]:.2f} -> {hyp.mll:.2f}, "
+        f"{hyp.params}; refit RMSE {res['refit_rmse']:.3e} with {res['refit_n_touch']} "
+        "touches replayed")
+    variance_bounds("(d) the refit's vertices", sess.model, COMMITTEE_GATE, vvar)
+    if not hyp.mll > hyp.history[0]:
+        fail(f"(d) the PoE optimum {hyp.mll} is not above the start's {hyp.history[0]}")
+    if res["refit_n_touch"] != 4 * TOUCH_BATCH:
+        fail(f"(d) the refit holds {res['refit_n_touch']} touches, not {4 * TOUCH_BATCH}")
+    if not res["refit_rmse"] < COMMITTEE_RMSE:
+        fail(f"(d) the refit's surface RMSE {res['refit_rmse']} >= {COMMITTEE_RMSE}")
+    out["touches"] = res
+    return sess, pts
+
+
+def committee_checkpoint_and_service(torch, cfg, sess, pts, out: dict) -> None:
+    """(e) save, load and a 65,536-point query on the restored session, to
+    the bit; then /start with experts through make_server."""
+    import os
+    import shutil
+    import tempfile
+
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    big = big_query(torch, pts)
+    want = sess.query(big)
+    ck_dir = tempfile.mkdtemp(prefix="gpis_committee_")
+    try:
+        path = os.path.join(ck_dir, "committee.npz")
+        t0 = time.perf_counter()
+        sess.save(path)
+        res = {"save_s": time.perf_counter() - t0,
+               "checkpoint_bytes": os.path.getsize(path) + os.path.getsize(path + ".frame.npz")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ObjectModelSession.load(path, cfg, device="cuda")
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+        got = restored.query(big)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    say(f"  (e) checkpoint {res['checkpoint_bytes']} bytes, save {res['save_s']:.3f} s, load "
+        f"{res['load_s']:.3f} s; the restored {BIG_QUERY}-point query equal to the bit: {same}")
+    if not same:
+        fail("(e) the restored committee does not answer as the saved one")
+    del restored
+
+    node = ObjectModelSession(cfg, device="cuda")
+    srv, thread, call = serve_in_thread(node)
+    try:
+        sphere = fibonacci_sphere(16256)
+        started = call("/start", {"points": sphere.tolist(), "experts": 4, "expert_gate": 2})
+        answer = call("/query", {"points": (sphere[:8] * 1.1).tolist()})
+        touched = call("/update", {"points": [[0.0, 0.0, 1.0]]})
+    finally:
+        stop_server(srv, thread)
+    res["service"] = {"start": started, "start_s": call.seconds["/start"][0],
+                      "update": touched}
+    say(f"  (e) /start with experts: {started} in {res['service']['start_s']:.3f} s; "
+        f"/update {touched}")
+    if not (np.isfinite(answer["mean"]).all() and np.isfinite(answer["var"]).all()):
+        fail("(e) the service's committee answered NaN")
+    if touched != {"ok": True, "n_touch": 1}:
+        fail(f"(e) /update answered {touched}")
+    out["checkpoint"] = res
+
+
+def committee_joint(torch, cfg, out: dict):
+    """(f) The joint committee at BENCH_EXPERTS_JOINT.json's shape."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.surface import projection
+
+    pts = fibonacci_sphere(JOINT_COMMITTEE_N).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sess = ObjectModelSession(cfg, device="cuda").start(pts, normals=pts,
+                                                        experts=COMMITTEE_E,
+                                                        expert_gate=COMMITTEE_E)
+    m = sess.model
+    mean, var, _ = sess.evaluate_grid()
+    verts, _, vvar = sess.extract_surface()
+    surf = sess.frame.to_normalized(torch.as_tensor(fibonacci_sphere(256).astype(np.float32),
+                                                    device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nrm = projection.surface_normals(m, surf)
+    torch.cuda.synchronize()
+    normals_s = time.perf_counter() - t0
+    radial = surf - sess.frame.to_normalized(torch.zeros((1, 3), device="cuda"))
+    cos = torch.sum(nrm * radial, dim=1) / torch.linalg.vector_norm(radial, dim=1)
+    res = {"fit_s": sess.stats["fit_s"], "query_s": sess.stats["grid_s"], "normals_s": normals_s,
+           "n": JOINT_COMMITTEE_N, "experts": m.n_experts, "c": m.n0,
+           "j": m.linv.shape[-1], "w_stack_bytes": m.linv.numel() * m.linv.element_size(),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "surface_rmse": surface_rmse(verts), "min_cos": cos.min().item()}
+    res.update(variance_bounds("(f) grid and vertices", m, COMMITTEE_E, var, vvar))
+    say(f"  (f) joint E {m.n_experts} x J {res['j']} (C {m.n0}): fit {res['fit_s']:.3f} s, "
+        f"64^3 grid {res['query_s']:.3f} s, RMSE {res['surface_rmse']:.3e}, normals at 256 "
+        f"points {normals_s:.3f} s, min cos {res['min_cos']:.6f}")
+    if not (np.isfinite(mean).all() and np.isfinite(verts).all()):
+        fail("(f) NaN or inf in the joint committee's posterior")
+    if not res["surface_rmse"] < COMMITTEE_RMSE:
+        fail(f"(f) surface RMSE {res['surface_rmse']} >= {COMMITTEE_RMSE}")
+    if not res["min_cos"] > COS_GATE:
+        fail(f"(f) min cos(normal, radial) {res['min_cos']} <= {COS_GATE}")
+    out["joint"] = res
+    return sess
+
+
+def committee_float64() -> None:
+    """(g) Small float64 committees on the card held to the CPU path at
+    1e-6: value (B = 512, W formed) with a touch batch and one PoE step
+    with its refit, joint (J = 2,048 + T) with a touch batch."""
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+
+    small = committee_config(touch_capacity=128, dtype="float64")
+    batch = touch_batches(np.random.default_rng(17), 1, (0.0, 0.0, 0.0), 1.0)[0]
+    for what, n, normals, experts in (("value E=4", 896, False, 4),
+                                      ("joint E=2", 384, True, 2)):
+        pts = fibonacci_sphere(n)
+        kw = {"normals": pts} if normals else {}
+        sessions = [ObjectModelSession(small, device=d).start(pts, experts=experts,
+                                                              expert_gate=2, **kw)
+                    for d in ("cuda", "cpu")]
+        for s in sessions:
+            s.update(batch.astype(np.float64))
+            if not normals:
+                s.optimize_hyperparameters(method="poe", steps=1)
+        grids = [s.evaluate_grid(16, 1.5) for s in sessions]
+        err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
+        extra = "" if normals else ", after a PoE step and its refit"
+        check(f"{what} committee float64 (B {sessions[0].model.capacity}), touched{extra}, "
+              "16^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
+
+
+def committee_pair_kernels(torch, value_model, joint_model, out: dict) -> None:
+    """(g) One gated (chunk, expert) pair of (a) and of (f): the cross
+    (Kernel A, or E with the joint columns and touch slots) against its
+    twin, and Kernel D per query against its float64 twin (1e-4), each
+    timed beside its twin and the library's W kq^T."""
+    from gpis_tpu_torch.gp import experts as ex
+    from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
+    from gpis_tpu_torch.surface import grid as grid_mod
+
+    q = grid_mod.make_grid(64, 1.5, device="cuda")[0][:COMMITTEE_CHUNK].contiguous()
+    for what, model in (("value", value_model), ("joint", joint_model)):
+        w, alpha = model.linv[0], model.alpha[0]
+        j = w.shape[0]
+        if model.joint:
+            cols = cuda_joint.joint_meta(model.x[0], model.touch_x[0])
+            qmeta = cuda_joint.value_meta(q)
+            cross = lambda: cuda_joint.joint_rows(model.kernel, qmeta, cols,  # noqa: E731
+                                                  model.params)
+            twin = lambda: cuda_joint.joint_rows_reference(  # noqa: E731
+                model.kernel, qmeta, cols, model.params)
+            name = "joint_cov"
+        else:
+            cross = lambda: cuda_gram.cov(model.kernel, q, model.x[0],  # noqa: E731
+                                          model.params)
+            twin = lambda: cuda_gram.cov_reference(model.kernel, q, model.x[0],  # noqa: E731
+                                                   model.params)
+            name = "cov"
+        kq = cross()
+        want = twin()
+        err_x = (kq - want).abs().max().item()
+        tol_x = 1e-5 * max(1.0, want.abs().max().item())
+        del want
+        ms_x = time_ms(torch, cross, 5)
+        plain_x = time_ms(torch, twin, 1)
+        check(f"(g) {what} pair: {name} M={COMMITTEE_CHUNK} x {j}", err_x, tol_x, ms_x, plain_x)
+        mean, quad = cuda_query.staged_quad(kq, w, alpha)
+        mean_r, quad_r = cuda_query.staged_quad_reference(kq.double(), w.double(),
+                                                          alpha.double())
+        rel = quad_rel_err(torch, quad, quad_r)
+        err_mean = (mean.double() - mean_r).abs().max().item()
+        tol_mean = 1e-4 * (kq.abs() @ alpha.abs()).max().item()
+        del mean_r, quad_r
+        ms = time_ms(torch, lambda: cuda_query.staged_quad(kq, w, alpha), 3)
+        plain = time_ms(torch, lambda: cuda_query.staged_quad_reference(kq, w, alpha), 3)
+        lib = time_ms(torch, lambda: torch.matmul(w, kq.T), 3)
+        check(f"(g) {what} pair: staged_quad mean M={COMMITTEE_CHUNK} C={j}", err_mean, tol_mean)
+        check(f"(g) {what} pair: staged_quad quad M={COMMITTEE_CHUNK} C={j}, per query", rel,
+              QUAD_REL_TOL, ms, plain, err_name="max_rel_err")
+        m = COMMITTEE_CHUNK
+        out[f"{what}_pair"] = {
+            name: dict(max_abs_err=err_x, ms=ms_x, plain_ms=plain_x, library_ms=None,
+                       **(bound(30 * m * j, 4 * (m * j + 7 * j + 7 * m)) if model.joint
+                          else bound(10 * m * j, 4 * (m * j + 3 * m + 3 * j)))),
+            "staged_quad": dict(max_rel_err=rel, ms=ms, plain_ms=plain, library_ms=lib,
+                                **bound(m * j * j + 4 * m * j,
+                                        4 * (m * j + j * j / 2 + j + 2 * m),
+                                        SPLIT_TF32_FLOPS))}
+        say(f"  (g) {what} pair at M {m} x {j}: D {ms:.4f} ms, twin {plain:.4f} ms, "
+            f"matmul {lib:.4f} ms, bound {out[f'{what}_pair']['staged_quad']['bound_ms']:.4f} ms")
+        del kq
+
+
+def phase13(torch, launches) -> dict:
+    """The local-expert committee at the JAX package's committee scale:
+    (a)-(f) counted as the main path; then, outside the count, one expert
+    of (a) and of (f) refit step by step with its W checks
+    (`expert_split`), and (g)."""
+    import gc
+
+    t_start = time.perf_counter()
+    cfg = committee_config()
+    out: dict = {"card": card_line()}
+    torch.cuda.synchronize()
+    launches.clear()
+    sess = committee_value(torch, cfg, out)
+    after_a = dict(launches)
+    require_launches(after_a, ("cov", "panel_update", "row_update", "staged_quad"),
+                     "committee (a)")
+    value_model = sess.model
+    del sess
+    touched, capped = committee_touches(torch, cfg, out)
+    committee_checkpoint_and_service(torch, cfg, touched, capped, out)
+    del touched
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_f = dict(launches)
+    jsess = committee_joint(torch, cfg, out)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    joint_counts = {k: v - before_f.get(k, 0) for k, v in counts.items()}
+    require_launches(joint_counts, ("joint_cov", "panel_update", "row_update", "staged_quad"),
+                     "joint committee (f)")
+    out["launches"] = counts
+
+    # The checks after the count: one expert's fit again, step by step,
+    # with its W and quad against float64 (a and f), then (g).
+    out["value"]["split"] = expert_split(torch, value_model, "(a)")
+    out["joint"]["split"] = expert_split(torch, jsess.model, "(f)")
+    committee_float64()
+    committee_pair_kernels(torch, value_model, jsess.model, out)
+    out["phase_s"] = time.perf_counter() - t_start
+    say(f"  launches in the committee run: {counts}")
+    say(json.dumps({"committee": out}, default=str))
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -3575,6 +4116,10 @@ def main() -> int:
 
     say("phase 12: the exploration loop and its service through make_server")
     runs.append(phase12(torch, _build.LAUNCHES, incore_value[0], incore_joint[0]))
+    torch.cuda.empty_cache()
+
+    say("phase 13: the local-expert committee through ObjectModelSession")
+    runs.append(phase13(torch, _build.LAUNCHES))
 
     if "jax" in sys.modules:
         fail("jax was imported")

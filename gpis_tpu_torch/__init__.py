@@ -27,6 +27,7 @@ __all__ = [
     "ModelConfig",
     "ObjectModelSession",
     "fit",
+    "fit_experts",
     "fit_inference",
     "with_linv",
     "predict",
@@ -39,6 +40,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "ObjectModelSession": ("gpis_tpu_torch.api.session", "ObjectModelSession"),
     "fit": ("gpis_tpu_torch.gp.regression", "fit"),
+    "fit_experts": ("gpis_tpu_torch.gp.experts", "fit_experts"),
     "fit_inference": ("gpis_tpu_torch.gp.regression", "fit_inference"),
     "with_linv": ("gpis_tpu_torch.gp.regression", "with_linv"),
     "predict": ("gpis_tpu_torch.gp.regression", "predict"),

@@ -3,7 +3,8 @@ surface a robot stack drives, start-process / get-next-best-path / update,
 on the stdlib's ThreadingHTTPServer, one lock serializing the calls on one
 session, as the node's spin loop did.
 
-    POST /start     {"points": [[x,y,z],...], "normals"?, "out_of_core"?}  -> {"ok", "capacity"}
+    POST /start     {"points": [[x,y,z],...], "normals"?, "out_of_core"?, "experts"?,
+                     "expert_gate"?}                   -> {"ok", "capacity"}
     POST /query     {"points": [[x,y,z],...]}          -> {"mean": [...], "var": [...]}
     POST /update    {"points": [[x,y,z],...]}          -> {"ok": true, "n_touch": k}
     POST /save      {"path": p}                        -> {"ok": true, "path": p}
@@ -15,10 +16,11 @@ session, as the node's spin loop did.
     GET  /mesh?resolution=R  -> {"verts", "faces", "variance"}
     GET  /health          -> {"ok": true, "fitted": bool}
 
-A failing call answers 400 with {"error": message} (an unknown path 404):
-`/start` with `experts` answers the session's NotImplementedError, which
-names the ROADMAP.md item that ports the committee.  The service serves one
-session on one device; a session on a mesh is not served.
+A failing call answers 400 with {"error": message} (an unknown path 404).
+`/start` with `experts` fits a committee (gated to `expert_gate` nearest
+experts); `/update` and `/load` answer its touches summed over the experts.
+The service serves one session on one device; a session on a mesh is not
+served.
 """
 
 from __future__ import annotations
@@ -39,10 +41,10 @@ log = get_logger("service")
 
 
 def _n_touch(model) -> int:
-    """Touches held by the model: its touch slots' count, or an out-of-core
-    model's tail."""
+    """Touches held by the model: its touch slots' count (a committee's
+    summed over its experts), or an out-of-core model's tail."""
     n = getattr(model, "n_touch", None)
-    return int(getattr(model, "n_tail", 0) if n is None else n)
+    return int(np.sum(getattr(model, "n_tail", 0) if n is None else n))
 
 
 def make_server(session: ObjectModelSession, host: str = "127.0.0.1", port: int = 8731):

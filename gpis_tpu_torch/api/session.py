@@ -8,7 +8,10 @@ World frame in, world frame out: the session owns the normalization Frame.
 panels are then pinned on the card as far as it has room; with `normals=`
 the joint value + gradient model (`gp.derivative.fit_with_normals`, then W
 once 4C >= 1024); otherwise a session with `touch_capacity == 0` takes the
-one-matrix-peak `fit_inference`, any other `fit` + `with_linv`.  With
+one-matrix-peak `fit_inference`, any other `fit` + `with_linv`; with
+`experts=E` a committee of E local GPs (`gp.experts.fit_experts`, or
+`fit_experts_joint` with `normals=`), queried gated to `expert_gate`
+nearest experts.  With
 `mesh=MeshConfig(n_devices=P)`, P > 1, the session is one rank of a
 row mesh (`parallel.mesh`): every rank constructs it and calls each verb
 with the same arguments, and `start` fits the row-sharded value model
@@ -21,8 +24,10 @@ when the surface is known (`explore.planner`, with the session's
 `ExploreConfig`); `optimize_hyperparameters` maximizes the marginal
 likelihood (config 3) and refits with the optimum; `save`, `load` and
 `restore` checkpoint the model and the frame (`utils.checkpoint`, the JAX
-package's layout).  The verbs not yet ported raise NotImplementedError
-naming the ROADMAP.md §1 item that ports them.
+package's layout).  The committee takes every verb: its touches route to
+the nearest expert, and its hyperopt ("subsample" or "poe") refits the
+committee and replays the routed touches.  The verbs not yet ported raise
+NotImplementedError naming the ROADMAP.md §1 item that ports them.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from gpis_tpu_torch.config import ExploreConfig, MeshConfig, ModelConfig
 from gpis_tpu_torch.data import gpis, voxel
 from gpis_tpu_torch.explore import planner
 from gpis_tpu_torch.gp import derivative as gpd
+from gpis_tpu_torch.gp import experts as gpe
 from gpis_tpu_torch.gp import hyperopt as ho
 from gpis_tpu_torch.gp import ooc_hyperopt as oho
 from gpis_tpu_torch.gp import regression as gpr
@@ -122,15 +128,27 @@ class ObjectModelSession:
         `out_of_core=True` fits through the panel-streamed factorization
         (`linalg.outofcore`), for clouds whose one-matrix factor does not
         fit on the card.  On a mesh every rank fits rank 0's cloud.
-        `experts`, `expert_gate` and `expert_beta` (the committee fit) take
-        only their defaults until the committee is ported."""
-        if experts or expert_gate or expert_beta != "rbcm":
-            not_ported("experts=, expert_gate=, expert_beta= (committee fits)", 13,
-                       "gp/experts.py")
+        `experts=E` > 0 fits a committee of E local GPs sharing the label
+        rows (`gp.experts`; `expert_beta` "rbcm" or "bcm", queries gated to
+        the `expert_gate` nearest experts, 0 = all), with or without
+        normals; it composes with neither out_of_core= nor a mesh.  With
+        experts=0 the other two are unused, as in the JAX package."""
         t0 = time.perf_counter()
         points = np.asarray(points, dtype=self.config.dtype)
         if points.ndim != 2 or points.shape[1] != 3 or len(points) == 0:
             raise ValueError(f"expected a non-empty (N, 3) point cloud, got shape {points.shape}")
+        if experts and out_of_core:
+            raise ValueError(
+                "experts= is the in-core committee path; it does not "
+                "compose with out_of_core= (the committee exists so the "
+                "factor never exceeds HBM — use one or the other)"
+            )
+        if experts and self.mesh is not None:
+            raise ValueError(
+                "experts= and mesh= are separate scaling axes; shard an "
+                "expert model with gp.experts.shard_experts/"
+                "predict_sharded directly"
+            )
         if self.mesh is not None:
             if out_of_core:
                 raise ValueError("out_of_core is the single-card beyond-memory path; "
@@ -150,7 +168,20 @@ class ObjectModelSession:
         self.training = ts
         self.frame = ts.frame
         params = params or kf.kernel_params(cfg.lengthscale, cfg.signal_variance)
-        if out_of_core:
+        if experts:
+            kw = dict(n_experts=int(experts), n_shared_tail=ts.n_internal + ts.n_external,
+                      block=cfg.block, touch_capacity=cfg.touch_capacity,
+                      pad_noise=cfg.pad_noise, beta=expert_beta, gate=int(expert_gate))
+            if normals is not None:
+                nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
+                # Kept for the hyperopt refit: the stacked per-expert normals
+                # cannot be taken apart again.
+                self._joint_expert_obs = (nrm_full, noise_g)
+                self.model = gpe.fit_experts_joint(cfg.kernel, ts.x, ts.y, nrm_full, ts.noise,
+                                                   noise_g, params, **kw)
+            else:
+                self.model = gpe.fit_experts(cfg.kernel, ts.x, ts.y, ts.noise, params, **kw)
+        elif out_of_core:
             n = ts.x.shape[0]
             if normals is not None:
                 nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
@@ -244,7 +275,8 @@ class ObjectModelSession:
         gradients), the old model released first; an out-of-core model
         borders them into its in-core tail of max(touch_capacity, 64) slots
         (`linalg.outofcore.ooc_update`); a sharded one into its last band's
-        slots (`ShardedGPModel.update`)."""
+        slots (`ShardedGPModel.update`); a committee routes each point to
+        its nearest expert and borders it there (`gp.experts.update`)."""
         self._require_model()
         kind = model_kind(self.model)
         cfg = self.config
@@ -252,7 +284,9 @@ class ObjectModelSession:
             np.asarray(touch_points_world, cfg.dtype), device=self.device))
         y = (torch.zeros(pts.shape[0], dtype=pts.dtype, device=self.device) if targets is None
              else torch.as_tensor(targets, dtype=pts.dtype, device=self.device))
-        if kind in ("ooc", "ooc_joint"):
+        if kind == "experts":
+            self.model = gpe.update(self.model, pts, y, cfg.noise_touch)
+        elif kind in ("ooc", "ooc_joint"):
             self.model = self.model.update(pts, y, cfg.noise_touch,
                                            tail_capacity=max(int(cfg.touch_capacity), 64))
         elif kind == "sharded":
@@ -345,10 +379,16 @@ class ObjectModelSession:
           folds the touch tail in;
         * sharded: "subsample" (a single-device fit of `subsample=` 2,048
           points) or "distributed" (`gp.sharded_hyperopt`, one sharded fit
-          a step); every rank calls it alike."""
+          a step); every rank calls it alike;
+        * committee: "subsample" (default; the exact MLL of `subsample=`
+          4,096 training points) or "poe" (`gp.experts.optimize_experts`,
+          every expert's rows); the refit replays the routed touches."""
         self._require_model()
         m = self.model
         kind = model_kind(m)
+        if kind == "experts":
+            del m  # the refit releases the old committee first
+            return self._optimize_experts(kw)
         if kind in ("ooc", "ooc_joint"):
             return self._optimize_ooc(m, kind, kw)
         if kind == "sharded":
@@ -387,6 +427,77 @@ class ObjectModelSession:
             # as `start` attaches it.
             self.model = gpr.with_linv(gpr.fit_padded(m.kernel, m.x, m.y, res.noise, res.params,
                                                       n0=m.n0, pad_noise=m.pad_noise))
+        self._sync()
+        return res
+
+    def _optimize_experts(self, kw: dict):
+        """The committee branches of optimize_hyperparameters: the shared
+        hyperparameters, then a refit of the committee from the training
+        set and a replay of the old slots' touches (re-routed to the new
+        centroids; the bordering is exact either way)."""
+        m = self.model
+        method = kw.pop("method", "subsample")
+        joint_obs = getattr(self, "_joint_expert_obs", None)
+        ts = self.training
+        if method == "poe":
+            kw.pop("subsample", None)
+            res = gpe.optimize_experts(m, **kw)
+        elif method == "subsample":
+            if ts is None:
+                raise ValueError(
+                    "subsample hyperopt on a restored experts session "
+                    "needs the original training set (not part of the "
+                    "checkpoint); re-start() from the cloud, or use "
+                    "method='poe' (optimizes on the committee's own "
+                    "stored rows)"
+                )
+            step = max(1, ts.x.shape[0] // int(kw.pop("subsample", 4096)))
+            xs = ts.x[::step]
+            if m.joint:
+                nrm_full, noise_g = joint_obs
+                res = ho.optimize_joint(m.kernel, xs, ts.y[::step], nrm_full[::step],
+                                        ts.noise[::step], noise_g[::step], m.params,
+                                        n_real=xs.shape[0], **kw)
+            else:
+                res = ho.optimize(m.kernel, xs, ts.y[::step], ts.noise[::step], m.params,
+                                  n_real=xs.shape[0], **kw)
+        else:
+            raise ValueError(
+                f"unknown hyperopt method {method!r} for an expert "
+                "committee (use 'subsample' or 'poe')"
+            )
+        if ts is None or (m.joint and joint_obs is None):
+            raise ValueError(
+                "refitting a restored experts session needs the "
+                "original training set; re-start() from the cloud, or "
+                "optimize before saving"
+            )
+        cfg, scale = self.config, float(res.noise_scale)
+        ekw = dict(n_experts=m.n_experts, n_shared_tail=ts.n_internal + ts.n_external,
+                   block=cfg.block, touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise,
+                   beta=m.beta, gate=m.gate)
+        # The old stacks go before the refit builds new ones; the touches
+        # to replay are copied out of them first.
+        slots = []
+        for e, k in enumerate(m.n_touch):
+            if k and m.joint:
+                slots.append((m.touch_x[e, :k], m.touch_y[e, :k], m.touch_noise[e, :k]))
+            elif k:
+                n0 = m.n0
+                slots.append((m.x[e, n0:n0 + k], m.y[e, n0:n0 + k], m.noise[e, n0:n0 + k]))
+        replay = [torch.cat(parts) for parts in zip(*slots)] if slots else None
+        kernel, joint = m.kernel, m.joint
+        del m, slots
+        self.model = None
+        if joint:
+            nrm_full, noise_g = joint_obs
+            self.model = gpe.fit_experts_joint(
+                kernel, ts.x, ts.y, nrm_full, ts.noise * scale,
+                noise_g * float(res.get("noise_scale_g", 1.0) or 1.0), res.params, **ekw)
+        else:
+            self.model = gpe.fit_experts(kernel, ts.x, ts.y, ts.noise * scale, res.params, **ekw)
+        if replay is not None:
+            self.model = gpe.update(self.model, *replay)
         self._sync()
         return res
 

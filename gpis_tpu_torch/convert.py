@@ -5,7 +5,8 @@ and W panels, and a rank's sharded model from the whole arrays).
 
 A `gpis_tpu` checkpoint is an `.npz` of numpy arrays plus a JSON `meta`
 entry; `load_jax_checkpoint` reads it through the port's own
-`utils.checkpoint.load_model`, which writes the same layout.  An
+`utils.checkpoint.load_model`, which writes the same layout.  A committee
+(`ExpertGPModel`) crosses over through `experts_model_from_arrays`.  An
 out-of-core model in memory crosses over through `ooc_model_from_arrays`,
 a sharded one through `sharded_model_from_arrays`.
 """
@@ -17,14 +18,15 @@ import torch
 
 from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.gp.derivative import DerivGPModel
+from gpis_tpu_torch.gp.experts import ExpertGPModel
 from gpis_tpu_torch.gp.model import GPModel
 from gpis_tpu_torch.gp.sharded_model import ShardedGPModel
 from gpis_tpu_torch.linalg.outofcore import DevicePanelStore, OOCJointModel, OOCModel
 
-__all__ = ["gp_model_from_arrays", "ooc_model_from_arrays", "sharded_model_from_arrays",
-           "load_jax_checkpoint"]
+__all__ = ["gp_model_from_arrays", "experts_model_from_arrays", "ooc_model_from_arrays",
+           "sharded_model_from_arrays", "load_jax_checkpoint"]
 
-_NOT_IN_CORE = ("experts", "sharded", "ooc")
+_NOT_IN_CORE = ("sharded", "ooc")
 
 
 def _joint_model(t, meta: dict, params: dict) -> DerivGPModel:
@@ -46,9 +48,12 @@ def gp_model_from_arrays(arrays, meta: dict, device="cuda", *, chol=None):
     checkpoint's key names (x, y, noise, alpha, chol, linv,
     param_lengthscale, param_signal_variance, n_touch; a joint model's
     normals, noise_f, noise_g and touch_*) and metadata (kernel, n0,
-    pad_noise, linv_is_chol, joint): a GPModel or a DerivGPModel.  `chol`,
+    pad_noise, linv_is_chol, joint): a GPModel or a DerivGPModel, or with
+    meta "experts" the committee of `experts_model_from_arrays`.  `chol`,
     a tensor on `device`, stands in for arrays["chol"] (a factor refit on
     loading a checkpoint saved without it)."""
+    if meta.get("experts"):
+        return experts_model_from_arrays(arrays, meta, device)
     for kind in _NOT_IN_CORE:
         if meta.get(kind):
             raise ValueError(f"{kind} arrays are not an in-core model's "
@@ -79,6 +84,34 @@ def gp_model_from_arrays(arrays, meta: dict, device="cuda", *, chol=None):
         kernel=meta["kernel"], n0=int(meta["n0"]),
         pad_noise=float(meta.get("pad_noise", 1e10)), linv=linv,
     )
+
+
+def experts_model_from_arrays(arrays, meta: dict, device="cuda") -> ExpertGPModel:
+    """The port's ExpertGPModel from a `gpis_tpu` committee's numpy arrays
+    under the checkpoint's keys (x, y, noise, alpha, n_touch, centroids,
+    param_*, chol and linv where meta has_chol / has_linv says; a joint
+    committee's normals, noise_g and touch_*) and metadata (kernel, n0,
+    pad_noise, beta, gate, experts_joint).  Without chol, chol is None (the
+    committee serves from W; `experts.expert_chol` refactors on demand)."""
+    dev = resolve_device(device)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(arrays[key]), device=dev)
+
+    extra = {}
+    if meta.get("experts_joint"):
+        extra = {k: t(k) for k in ("normals", "noise_g", "touch_x", "touch_y", "touch_noise")
+                 if k in arrays}
+    has = meta["has_factor"]
+    return ExpertGPModel(
+        x=t("x"), y=t("y"), noise=t("noise"),
+        params={"lengthscale": float(arrays["param_lengthscale"]),
+                "signal_variance": float(arrays["param_signal_variance"])},
+        chol=t("chol") if has and meta.get("has_chol", True) and "chol" in arrays else None,
+        alpha=t("alpha"), linv=t("linv") if meta.get("has_linv") else None,
+        n_touch=np.asarray(arrays["n_touch"], np.int32).copy(), centroids=t("centroids"),
+        kernel=meta["kernel"], n0=int(meta["n0"]), pad_noise=float(meta["pad_noise"]),
+        beta=meta["beta"], gate=int(meta["gate"]), **extra)
 
 
 _OOC_TAIL = ("u", "alpha0", "tail_x", "tail_y", "tail_noise", "tail_v", "tail_a", "tail_chol",

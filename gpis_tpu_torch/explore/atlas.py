@@ -9,7 +9,9 @@ chart.  The device work is the port's own: normals from
 `surface.projection.surface_normals`, variances from one
 `gp.regression.predict` call, and a candidate's projection from
 `projection.project_point` with the mean's analytic gradient
-(`projection._gradient`) in place of JAX's `jax.grad`.
+(`projection._gradient`) in place of JAX's `jax.grad`.  That one-point
+predict runs inside `jax.jit` in the JAX package, where a committee answers
+from every expert: the port passes `gate=0`, which only a committee reads.
 
 On a sharded model every rank runs the same host loop, so every value it
 branches on must be the same on every rank: the predicts are (their output
@@ -106,7 +108,7 @@ def project_and_chart(model, x0, cfg: ExploreConfig, *, cid, parent):
     if not host[6]:
         return None
     n = host[3:6]
-    var = float(gpr.predict(model, both[None, :3])[1][0])
+    var = float(gpr.predict(model, both[None, :3], gate=0)[1][0])
     u, v = _tangent_basis(n)
     prior = float(kf.k_diag0(model.kernel, model.params))
     return Chart(id=int(cid), center=host[:3], normal=n, u=u, v=v,

@@ -10,9 +10,10 @@ reduce the model's uncertainty.  Strategies:
 
 Host tree logic around batched device queries: each round predicts at all
 of the frontier's disc candidates in one call.  The JAX package pads that
-call to a multiple of 256 rows so that XLA does not compile a new shape
-each round; the port predicts at exactly the candidates' rows (the padding
-rows were sliced away there, so the same candidates are chosen).  On a
+call with origin rows to a multiple of 256 so that XLA does not compile a
+new shape each round; the port pads it the same way.  The padding rows are
+sliced away after the predict, but a committee's gating reads every row of
+a chunk, so they choose which experts answer as they do in JAX.  On a
 sharded model every rank runs this loop and takes the same branches (see
 `explore.atlas`).
 """
@@ -111,7 +112,9 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
         # Every frontier chart's disc candidates in one predict.
         cand_blocks = [atlas_mod.disc_samples(c, cfg.n_disc_samples) for c in frontier]
         cands = np.concatenate(cand_blocks, axis=0)
-        var = _predict_var(model, cands)
+        qpad = np.zeros((-(-len(cands) // 256) * 256, 3), dtype=cands.dtype)
+        qpad[:len(cands)] = cands
+        var = _predict_var(model, qpad)[:len(cands)]
 
         # Candidates that fall back inside existing charts score -inf (the
         # tree explores instead of oscillating).

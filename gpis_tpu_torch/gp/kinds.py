@@ -16,6 +16,7 @@ MODEL_KINDS = {
     "ooc": ("OOCModel",),
     "ooc_joint": ("OOCJointModel",),
     "sharded": ("ShardedGPModel",),
+    "experts": ("ExpertGPModel",),
     "joint": ("DerivGPModel",),
     "dense": ("GPModel",),
 }
@@ -24,7 +25,8 @@ _BY_CLASS = {cls: kind for kind, classes in MODEL_KINDS.items() for cls in class
 
 
 def model_kind(model) -> str:
-    """"dense", "joint", "sharded", "ooc" or "ooc_joint" for a fitted model.  Anything else raises
+    """"dense", "joint", "sharded", "experts", "ooc" or "ooc_joint" for a
+    fitted model.  Anything else raises
     TypeError: an unknown model fails at the dispatch point rather than
     falling through to the dense path."""
     for cls in type(model).__mro__:

@@ -10,8 +10,9 @@
 * ``predict`` / ``predict_mean`` -- posterior mean and variance; a model
   carrying W goes through the dense query (Kernels A and D staged, or
   Kernel F on the fly); a joint model is dispatched to ``gp.derivative``,
-  an out-of-core one to ``linalg.outofcore`` and a sharded one to its own
-  ``predict`` through ``gp.kinds.model_kind``.
+  an out-of-core one to ``linalg.outofcore``, a sharded one to its own
+  ``predict`` and a committee to ``gp.experts`` through
+  ``gp.kinds.model_kind``.
 * ``update`` / ``reset_touches`` -- tactile points written into the touch
   slots [n0, C) and the factor's trailing rows re-formed by bordering
   (K21 through Kernel A), carrying W through when the model has it.
@@ -165,7 +166,7 @@ def with_linv(model: GPModel, *, block: int = _LINV_BLOCK) -> GPModel:
     return dataclasses.replace(model, linv=blocked_linv(model.chol, b))
 
 
-def predict(model, q: torch.Tensor, *, precision=None):
+def predict(model, q: torch.Tensor, *, precision=None, gate=None):
     """Posterior (mean, variance) at queries q (M,3).
 
     mean = K* alpha;  var = k(0) - |W K*^T|^2 column-wise with W = L^{-1}.
@@ -175,20 +176,27 @@ def predict(model, q: torch.Tensor, *, precision=None):
     triangular solve against the factor.  A joint model (`DerivGPModel`)
     goes to `gp.derivative.predict`, an out-of-core one to
     `outofcore.ooc_predict`, which streams each W panel once for all of q,
-    and a sharded one (`gp.sharded_model`) to its `predict`, which every
-    rank calls with the same q.
+    a sharded one (`gp.sharded_model`) to its `predict`, which every
+    rank calls with the same q, and a committee to `experts.predict`,
+    gated by `gate` (None: the model's own; 0: every expert, as the JAX
+    package's jitted callers answer).  The other kinds have no gate and
+    ignore it.
     precision=None takes those routes.  For a dense value model, any other
     value (the JAX package passes `jax.lax.Precision.HIGHEST`; any non-None
     value is read the same way) computes the mean and the quad as plain
     PyTorch products in exact FP32 (`cuda_query.exact_fp32`), with no
     split-TF32 tile: kq is staged and W kq^T materialized, so this route is
     slow and memory-hungry, for checking the fast one.  As in the JAX
-    package, the joint, out-of-core and sharded models ignore it here
+    package, the joint, out-of-core, sharded and committee models ignore it here
     (`ShardedGPModel.predict` takes its own).
     The variance is not clamped (the conditionally-PD thin plate
     legitimately goes negative), except by the out-of-core query, which
     clamps it to [0, k0] as the JAX package does."""
     kind = model_kind(model)
+    if kind == "experts":
+        from gpis_tpu_torch.gp import experts as gpe
+
+        return gpe.predict(model, q, gate=gate)
     if kind in ("ooc", "ooc_joint"):
         return ooc.ooc_predict(model, q)
     if kind == "sharded":
@@ -220,8 +228,13 @@ def predict(model, q: torch.Tensor, *, precision=None):
 
 def predict_mean(model, q: torch.Tensor) -> torch.Tensor:
     """Posterior mean only; a joint model's cross-covariance mirrors alpha's
-    layout [4C value + gradient columns | T touch columns]."""
+    layout [4C value + gradient columns | T touch columns]; a committee's
+    is `experts.predict_mean`."""
     kind = model_kind(model)
+    if kind == "experts":
+        from gpis_tpu_torch.gp import experts as gpe
+
+        return gpe.predict_mean(model, q)
     if kind in ("ooc", "ooc_joint"):
         return ooc.ooc_predict_mean(model, q)
     if kind == "joint":

@@ -8,7 +8,9 @@ and a joint one (`DerivGPModel`) are served alike, through
 rank walks the same chunks.  An out-of-core model takes all the points in one
 `outofcore.ooc_predict` call: its query chunks them itself and streams each
 W panel once for all chunks, where a call per chunk would stream W per
-chunk.  `want_var=False` takes the posterior mean alone.
+chunk.  A committee (`ExpertGPModel`) takes all the points in one
+`experts.predict(..., chunk=)` too, which gates each chunk to its nearest
+experts.  `want_var=False` takes the posterior mean alone.
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ def evaluate_points_chunked(model: GPModel, q: torch.Tensor, *, chunk: int = CHU
     if q.shape[0] == 0:
         return q.new_zeros((0,)), q.new_zeros((0,)) if want_var else None
     kind = model_kind(model)
+    if kind == "experts":
+        from gpis_tpu_torch.gp import experts as gpe
+
+        mean, var = gpe.predict(model, q, chunk=chunk)
+        return mean, var if want_var else None
     if kind in ("ooc", "ooc_joint"):
         if want_var:
             return ooc.ooc_predict(model, q, chunk=chunk)

@@ -11,7 +11,9 @@ runs through Kernels A and E, which have no backward pass, so g is the
 mean's analytic gradient: sum_i alpha_i 2 dk_dr2 (q - x_i) over the value
 columns (`kernels.derivative.cross_cov_grad_value`), the joint model's
 `predict_gradient` form over its value and gradient columns, and, after
-out-of-core updates, the same over the touch tail.  All seeds step as one
+out-of-core updates, the same over the touch tail; a committee's mean and
+gradient come together from `experts.mean_and_gradient` (through every
+expert's mean and variance).  All seeds step as one
 batch, and a mask keeps each on its own JAX loop: a seed that has converged
 or run out of steps is neither evaluated nor moved again.
 """
@@ -40,6 +42,10 @@ def _per_axis(g: torch.Tensor, m: int) -> torch.Tensor:
 def _gradient(model, q: torch.Tensor) -> torch.Tensor:
     """grad of the posterior mean at q (M, 3): (M, 3)."""
     kind = model_kind(model)
+    if kind == "experts":
+        from gpis_tpu_torch.gp import experts as gpe
+
+        return gpe.mean_and_gradient(model, q)[1]
     if kind == "joint":
         from gpis_tpu_torch.gp import derivative as gpd
 
@@ -53,8 +59,13 @@ def _gradient(model, q: torch.Tensor) -> torch.Tensor:
 
 
 def _mean_and_gradient(model, q: torch.Tensor):
-    parts = [(gpr.predict_mean(model, qc), _gradient(model, qc))
-             for qc in torch.split(q, _CHUNK)]
+    if model_kind(model) == "experts":
+        from gpis_tpu_torch.gp import experts as gpe
+
+        parts = [gpe.mean_and_gradient(model, qc) for qc in torch.split(q, _CHUNK)]
+    else:
+        parts = [(gpr.predict_mean(model, qc), _gradient(model, qc))
+                 for qc in torch.split(q, _CHUNK)]
     return torch.cat([f for f, _ in parts]), torch.cat([g for _, g in parts])
 
 

@@ -9,7 +9,9 @@ in the other: in-core value models (`linv_is_chol` where the factor is W,
 and sharded value models, whose (C / P, C) bands of L and W rank 0 gathers
 into the whole matrices.  The hyperparameters are written as float64
 scalars (the port holds Python floats, so its own round trip is exact); a
-float32 JAX checkpoint's are read as their float32 values.  The port writes
+float32 JAX checkpoint's are read as their float32 values.  Committees
+(`gp.experts`, value and joint, with or without their stacked L) keep the
+JAX package's stacked keys too.  The port writes
 its members uncompressed (`np.savez`): the factor and W of a large model
 are mostly mantissa noise, and deflating them costs the host seconds a
 gigabyte; `np.load` in both packages reads either form.
@@ -17,12 +19,15 @@ gigabyte; `np.load` in both packages reads either form.
 `factor=False` leaves the factor out, and `load_model` refits it from the
 Gram: Kernel A (value) or E (joint), then the blocked Cholesky (Kernel B);
 where the saved factor was W (`linv_is_chol`) W is formed again (Kernel C).
-Out-of-core, committee and sharded joint checkpoints raise
-NotImplementedError naming the ROADMAP.md §1 item that ports them.
+A committee saved without its factors refactors every expert
+(`experts.expert_chol`) and, as in the JAX package, carries no W.
+Out-of-core and sharded joint checkpoints raise NotImplementedError naming
+the ROADMAP.md §1 item that ports them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -31,6 +36,7 @@ import torch.distributed as dist
 
 from gpis_tpu_torch import convert
 from gpis_tpu_torch._build import not_ported, resolve_device
+from gpis_tpu_torch.gp.experts import expert_chol
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.gp.sharded_model import _all_gather
 from gpis_tpu_torch.kernels import derivative as kd
@@ -59,14 +65,17 @@ def _param_arrays(params) -> dict:
 
 
 def save_model(path: str, model, *, factor: bool = True) -> None:
-    """Save an in-core GPModel or DerivGPModel, or a ShardedGPModel (every
-    rank calls it; rank 0 writes)."""
+    """Save an in-core GPModel or DerivGPModel, an ExpertGPModel, or a
+    ShardedGPModel (every rank calls it; rank 0 writes)."""
     kind = model_kind(model)
     if kind in ("ooc", "ooc_joint"):
         not_ported("save_model of an out-of-core model (its W panels go under path + '.w/' "
                    "in the panel store's manifest format)", 15, "out-of-core disk spill")
     if kind == "sharded":
         _save_sharded(path, model)
+        return
+    if kind == "experts":
+        _save_experts(path, model, factor=factor)
         return
     joint = kind == "joint"
     meta = {"format": _FORMAT_VERSION, "kernel": model.kernel, "n0": model.n0,
@@ -97,6 +106,30 @@ def save_model(path: str, model, *, factor: bool = True) -> None:
                 arrays["linv"] = _np(model.linv)
     if factor:
         arrays["chol"] = _np(model.chol)
+    np.savez(path, meta=json.dumps(meta), **arrays)
+
+
+def _save_experts(path: str, model, *, factor: bool = True) -> None:
+    """A committee's stacked leaves, its L and W where it has them (and
+    `factor`), in the JAX package's keys and meta."""
+    meta = {"format": _FORMAT_VERSION, "kernel": model.kernel, "n0": model.n0,
+            "dtype": _dtype_name(model.dtype), "experts": True,
+            "pad_noise": float(model.pad_noise), "beta": model.beta, "gate": int(model.gate),
+            "has_factor": bool(factor), "has_linv": bool(factor) and model.linv is not None,
+            "has_chol": bool(factor) and model.chol is not None}
+    arrays = {"x": _np(model.x), "y": _np(model.y), "noise": _np(model.noise),
+              "alpha": _np(model.alpha), "n_touch": np.asarray(model.n_touch, np.int32),
+              "centroids": _np(model.centroids), **_param_arrays(model.params)}
+    if model.joint:
+        meta["experts_joint"] = True
+        arrays.update(normals=_np(model.normals), noise_g=_np(model.noise_g))
+        if model.touch_x is not None:
+            arrays.update(touch_x=_np(model.touch_x), touch_y=_np(model.touch_y),
+                          touch_noise=_np(model.touch_noise))
+    if meta["has_chol"]:
+        arrays["chol"] = _np(model.chol)
+    if meta["has_linv"]:
+        arrays["linv"] = _np(model.linv)
     np.savez(path, meta=json.dumps(meta), **arrays)
 
 
@@ -163,14 +196,18 @@ def load_model(path: str, device="cuda", *, mesh=None):
         if meta.get("ooc"):
             not_ported("out-of-core checkpoints (W panels under path + '.w/')", 15,
                        "out-of-core disk spill")
-        if meta.get("experts"):
-            not_ported("committee checkpoints", 13, "gp/experts.py")
         if meta.get("sharded") and meta.get("joint"):
             not_ported("sharded joint checkpoints", 14, "gp/sharded_joint.py")
         arrays = {k: d[k] for k in d.files if k != "meta"}
     if meta.get("sharded"):
         return _load_sharded(arrays, meta, mesh, device)
     dev = resolve_device(device)
+    if meta.get("experts"):
+        m = convert.experts_model_from_arrays(arrays, meta, dev)
+        if meta["has_factor"]:
+            return m
+        return dataclasses.replace(m, chol=torch.stack(
+            [expert_chol(m, e) for e in range(m.n_experts)]))
     chol = None if meta["has_factor"] else _refactor(arrays, meta, dev)
     return convert.gp_model_from_arrays(arrays, meta, dev, chol=chol)
 

@@ -29,8 +29,13 @@ L, the NN layout with SUB_FROM in place, with its bias gate and its
 untouched-region check, and L in float64, the SIMT tile, at the sharded
 TRSM's).
 The tactile-update mutations (the noise floor, W's upper block, alpha0,
-the out-of-core tail in the mean, a converged seed's steps) run the CPU
-tests that cover them instead, `JAX_PLATFORMS=cpu python -m pytest NODE`.
+the out-of-core tail in the mean, a converged seed's steps) and five of the
+committee's (`gp/experts.py`: W's tril, the rBCM weight, the floor scale,
+the touch route, PoE's real-row mask) run the CPU tests that cover them
+instead, `JAX_PLATFORMS=cpu python -m pytest NODE`; the committee's Newton
+residual in TF32 runs `chip_smoke.committee_w_checks` (a two-expert
+committee at B = 7,168, its refined W against the float32 factor's exact
+inverse) on the card.
 A mutation is caught when a check fails.  Prints
 one line per mutation with the failing check; exits nonzero if any mutation
 passed every check.  The repository itself is never modified.
@@ -48,6 +53,7 @@ import torch_turns
 OOC, NN, NT, INV, QUAD, JOINT = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
                                  "inv_and_trail_kernels", "quad_kernel_checks",
                                  "joint_kernel_checks")
+EXPERTS = "gpis_tpu_torch/gp/experts.py"
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
 MUTATIONS = [
@@ -193,6 +199,29 @@ MUTATIONS = [
      "active = torch.nonzero(f.abs() > tol).flatten()\n        if active.numel() == 0:",
      "active = torch.arange(f.shape[0], device=f.device)\n"
      "        if not bool((f.abs() > tol).any()):"),
+    ("the committee's W keeps the Newton step's entries above its diagonal",
+     "tests/test_torch_experts.py::test_newton_step_refines_w_and_keeps_it_lower_triangular",
+     EXPERTS,
+     "        torch.tril(r, out=out)", "        out.copy_(r)"),
+    ("the committee's Newton residual in TF32", "committee_w_checks", EXPERTS,
+     "                blk = l[r0:r1, c0:r1].to(torch.float64) @ w64[:r1 - c0]",
+     "                torch.backends.cuda.matmul.allow_tf32 = True\n"
+     "                blk = l[r0:r1, c0:r1] @ w[c0:r1, c0:c1]"),
+    ("rBCM weighs every expert 1 (BCM's beta)",
+     "tests/test_torch_experts.py::test_committee_tracks_exact_and_jax", EXPERTS,
+     "        return 0.5 * (math.log(k0) - torch.log(vc)), vc",
+     "        return torch.ones_like(vc), vc"),
+    ("the committee floor at scale 4 (the bound before the Newton step)",
+     "tests/test_torch_experts.py::test_combine_weights_and_floor_match_jax_in_float32", EXPERTS,
+     '"GPIS_EXPERT_FLOOR_SCALE", "0.5"', '"GPIS_EXPERT_FLOOR_SCALE", "4.0"'),
+    ("touches routed to the farthest expert",
+     "tests/test_torch_experts.py::test_touch_update_routes_and_matches_jax", EXPERTS,
+     "route = ((new_x[:, None, :] - cent[None, :, :]) ** 2).sum(-1).argmin(1)",
+     "route = ((new_x[:, None, :] - cent[None, :, :]) ** 2).sum(-1).argmax(1)"),
+    ("PoE scales the noise of every row (no real-row mask)",
+     "tests/test_torch_experts.py::test_poe_improves_and_matches_jax", EXPERTS,
+     "            noise = torch.where(real[e], ns[e] * scale, ns[e])",
+     "            noise = ns[e] * scale"),
 ]
 
 RUN = ("import torch, chip_smoke as cs; "

@@ -282,15 +282,19 @@ def test_restored_joint_overflow_raises_clearly(tmp_path):
 
 
 @pytest.mark.parametrize("what, item", [
-    ("ooc_save", 15), ("ooc_load", 15), ("committee", 13), ("sharded_joint", 14)])
+    ("ooc_save", 15), ("ooc_load", 15), ("ooc_joint_save", 15), ("sharded_joint", 14)])
 def test_unported_checkpoints_name_their_item(tmp_path, what, item):
+    # Committee checkpoints load since item 13 (tests/test_torch_experts.py).
     path = str(tmp_path / "m.npz")
-    if what == "ooc_save":
+    if what in ("ooc_save", "ooc_joint_save"):
         cfg = ModelConfig(kernel="rbf", lengthscale=0.7, touch_capacity=0, dtype="float64")
-        sess = ObjectModelSession(cfg, device="cpu").start(_cloud(), out_of_core=True)
+        pts = _cloud()
+        normals = pts / np.linalg.norm(pts, axis=1, keepdims=True) if what != "ooc_save" else None
+        sess = ObjectModelSession(cfg, device="cpu").start(pts, normals=normals,
+                                                           out_of_core=True)
         call = lambda: sess.save(path)  # noqa: E731
     else:
-        flag = {"ooc_load": {"ooc": True}, "committee": {"experts": True},
+        flag = {"ooc_load": {"ooc": True},
                 "sharded_joint": {"sharded": True, "joint": True}}[what]
         np.savez(path, meta=json.dumps({"format": 1, **flag}))
         call = lambda: ckpt.load_model(path, device="cpu")  # noqa: E731

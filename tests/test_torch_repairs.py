@@ -74,18 +74,18 @@ def test_session_has_every_public_name_of_the_jax_session():
 
 
 @pytest.mark.parametrize("verb, item", [("save", 15), ("export_exploration", 16),
-                                        ("restore", 13)])
+                                        ("restore", 14)])
 def test_session_verbs_added_as_stubs_name_their_item(verb, item, tmp_path):
     # What stays unported behind the session's verbs: an out-of-core
     # session's save (the disk spill), the HTML export, and restoring a
-    # committee checkpoint.
+    # sharded joint checkpoint (a committee's restores since item 13).
     cfg = ModelConfig(lengthscale=LS, touch_capacity=0, dtype="float64")
     sess = ObjectModelSession(cfg, device="cpu")
     path = str(tmp_path / "m.npz")
     if verb == "save":
         sess.start(_problem(100)[0], out_of_core=True)
     elif verb == "restore":
-        np.savez(path, meta='{"format": 1, "experts": true}')
+        np.savez(path, meta='{"format": 1, "sharded": true, "joint": true}')
     args = ("x.html",) if verb == "export_exploration" else (path,)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}:"):
         getattr(sess, verb)(*args)
@@ -511,9 +511,14 @@ def test_session_start_takes_expert_gate_and_beta():
     jsess = JaxSession(cfg).start(pts, experts=0, expert_gate=0, expert_beta="rbcm")
     q = np.random.default_rng(20).uniform(-1.5, 1.5, size=(64, 3))
     np.testing.assert_allclose(sess.query(q), jsess.query(q), atol=1e-6)
-    for kw in ({"expert_gate": 2}, {"expert_beta": "bcm"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 13:"):
-            ObjectModelSession(cfg, device="cpu").start(pts, **kw)
+    # Without experts= the JAX session leaves the gate and the rule unused;
+    # with it, they reach the committee (gp.experts).
+    for kw in ({"expert_gate": 2}, {"expert_beta": "bcm"},
+               {"experts": 3, "expert_gate": 2, "expert_beta": "bcm"}):
+        got = ObjectModelSession(cfg, device="cpu").start(pts, **kw)
+        want = JaxSession(cfg).start(pts, **kw)
+        assert type(got.model).__name__ == type(want.model).__name__
+        np.testing.assert_allclose(got.query(q), want.query(q), atol=1e-6)
 
 
 @pytest.mark.parametrize("fn", ["fit", "fit_padded"])
@@ -547,3 +552,22 @@ def test_fit_chol_impl_matches_jax(fn):
     jmean, jvar = jgpr.predict(jm, jnp.asarray(q))
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=1e-6)
     np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=1e-6)
+
+
+@pytest.mark.parametrize("mod, name", [
+    ("gp.experts", "ExpertGPModel.__init__"), ("gp.experts", "partition_cloud"),
+    ("gp.experts", "fit_experts"), ("gp.experts", "fit_experts_joint"),
+    ("gp.experts", "predict"), ("gp.experts", "predict_sharded"),
+    ("gp.experts", "shard_experts"), ("gp.experts", "optimize_experts"),
+    ("gp.experts", "update"), ("gp.batched", "fit_batch"), ("gp.batched", "predict_batch"),
+])
+def test_the_guard_compares_the_committee_signatures(mod, name):
+    """Items 12 and 13's public functions are among the pairs the signature
+    guard compares (their `axis` keywords are kept by name: unused on a
+    torch.distributed group, which has no mesh axis)."""
+    jmod = importlib.import_module(f"gpis_tpu.{mod}")
+    tmod = importlib.import_module(f"gpis_tpu_torch.{mod}")
+    pairs = {n: (j, t) for n, j, t in _public_pairs(jmod, tmod)}
+    assert name in pairs
+    jp, tp = _parameters(pairs[name][0]), _parameters(pairs[name][1])
+    assert jp is not None and tp is not None and set(jp) <= set(tp)

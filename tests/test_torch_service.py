@@ -169,13 +169,21 @@ def test_service_save_restart_load(tmp_path):
 
 
 def test_service_refusals(server, monkeypatch):
-    """Committee fits answer 400 with the item that ports them; a mesh
-    session is not served."""
-    pts = jgpis.fibonacci_sphere(60, radius=0.5).tolist()
-    code, body = server.error("/start", {"points": pts, "experts": 4})
-    assert code == 400 and "ROADMAP.md §1 item 13:" in body["error"]
+    """A call before any fit answers 400; /start with experts fits the
+    committee (a 200 held to the JAX session, its touches summed over the
+    experts, as the JAX node's np.sum does); a mesh session is not
+    served."""
     code, body = server.error("/next_best_path")
     assert code == 400 and "no model fitted" in body["error"]
+    pts = jgpis.fibonacci_sphere(60, radius=0.5)
+    out = server.call("/start", {"points": pts.tolist(), "experts": 4, "expert_gate": 2})
+    jsess = JaxSession(JaxModelConfig(**CFG)).start(pts, experts=4, expert_gate=2)
+    assert out == {"ok": True, "capacity": jsess.model.capacity}
+    probe = pts[:8] * 1.1
+    got = server.call("/query", {"points": probe.tolist()})
+    np.testing.assert_allclose((got["mean"], got["var"]), jsess.query(probe), atol=TOL)
+    touch = [[0.5, 0.0, 0.0], [0.0, 0.0, -0.5]]
+    assert server.call("/update", {"points": touch}) == {"ok": True, "n_touch": 2}
     sess = ObjectModelSession(ModelConfig(**CFG), device="cpu")
     monkeypatch.setattr(sess, "mesh", object())
     with pytest.raises(ValueError, match="not a rank of a mesh"):

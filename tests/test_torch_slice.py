@@ -136,19 +136,22 @@ def test_session_extract_surface_matches_jax_session():
 
 
 def test_session_verbs_not_yet_ported_raise(tmp_path):
-    # What stays unported behind the session's verbs: committee fits and
-    # checkpoints, an out-of-core session's save, sharded joint checkpoints.
+    # What stays unported behind the session's verbs (committees take every
+    # verb since item 13): an out-of-core session's save, value or joint,
+    # out-of-core and sharded joint checkpoints.
     cfg = ModelConfig(touch_capacity=0, dtype="float64")
     sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
     ooc = ObjectModelSession(cfg, device="cpu").start(pts, out_of_core=True)
+    ooc_joint = ObjectModelSession(cfg, device="cpu").start(pts, normals=pts, out_of_core=True)
     paths = {}
-    for name, flags in (("committee", '"experts": true'),
+    for name, flags in (("ooc", '"ooc": true'),
                         ("sharded_joint", '"sharded": true, "joint": true')):
         paths[name] = str(tmp_path / f"{name}.npz")
         np.savez(paths[name], meta=f'{{"format": 1, {flags}}}')
-    for call in (lambda: sess.start(pts, experts=4), lambda: ooc.save(str(tmp_path / "o.npz")),
-                 lambda: sess.restore(paths["committee"]),
+    for call in (lambda: ooc_joint.save(str(tmp_path / "j.npz")),
+                 lambda: ooc.save(str(tmp_path / "o.npz")),
+                 lambda: sess.restore(paths["ooc"]),
                  lambda: sess.restore(paths["sharded_joint"])):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -207,6 +210,14 @@ def test_port_runs_without_importing_jax():
         "path = os.path.join(tempfile.mkdtemp(), 'm.npz')\n"
         "e.save(path)\n"
         "assert ObjectModelSession.load(path, cfg, device='cpu').model.capacity\n"
+        "ct = ModelConfig(lengthscale=0.4, noise_surface=1e-3, touch_capacity=64)\n"
+        "c = ObjectModelSession(ct, ExploreConfig(max_charts=4), device='cpu')\n"
+        "c.start(pts, experts=2, expert_gate=1).update(pts[:1])\n"
+        "assert np.isfinite(c.extract_surface(resolution=16, extent=1.5)[2]).all()\n"
+        "assert len(c.next_best_path().path)\n"
+        "c.optimize_hyperparameters(method='poe', steps=1)\n"
+        "c.save(path)\n"
+        "assert ObjectModelSession.load(path, ct, device='cpu').model.n_experts == 2\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "jax_pkg = [m for m in sys.modules if m == 'gpis_tpu' or m.startswith('gpis_tpu.')]\n"
         "assert not jax_pkg, f'the JAX package was imported: {jax_pkg}'\n"

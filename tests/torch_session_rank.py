@@ -11,7 +11,11 @@ world seed and from the default seed, and is_done.  MODE "checkpoint": a
 mesh session touched, saved (rank 0 writes DIR/sharded.npz) and restored
 into a new session, queried before and after a replayed touch beside the
 uninterrupted session, and the JAX package's sharded checkpoint
-(inputs["jax_path"]) restored and queried.
+(inputs["jax_path"]) restored and queried.  MODE "experts": a committee
+fitted on every rank, this rank's share of it (`shard_experts`) queried by
+`predict_sharded`, and a mesh session's refusal of `start(experts=)`.
+MODE "batched": `fit_batch(mesh=)` of ragged clouds, this rank's share
+queried by `predict_batch`.
 
 Started by `tests/torch_ranks.spawn_ranks`.
 """
@@ -20,6 +24,7 @@ import datetime
 import sys
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from gpis_tpu_torch.api.session import ObjectModelSession
@@ -66,13 +71,44 @@ def checkpoint(inp, out_dir, rank, world, out) -> None:
     out["jax_mean"], out["jax_var"] = jax_sess.query(q)
 
 
+def experts(inp, out_dir, rank, world, out) -> None:
+    from gpis_tpu_torch.gp import experts as ex
+    from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+    mesh = make_row_mesh(world, device="cpu")
+    m = ex.fit_experts("rbf", torch.as_tensor(inp["x"]), torch.as_tensor(inp["y"]),
+                       torch.as_tensor(inp["noise"]), {"lengthscale": 1.0,
+                                                       "signal_variance": 1.0},
+                       n_experts=8, n_shared_tail=int(inp["shared"]))
+    local = ex.shard_experts(m, mesh)
+    out["n_local"] = np.array(local.n_experts)
+    out["sharded_mean"], out["sharded_var"] = (
+        t.numpy() for t in ex.predict_sharded(local, torch.as_tensor(inp["q"]), mesh))
+    try:
+        _session(inp, world).start(inp["pts"], experts=4)
+    except ValueError as e:
+        out["mesh_refusal"] = np.array(str(e))
+
+
+def batched(inp, out_dir, rank, world, out) -> None:
+    from gpis_tpu_torch.gp import batched as gpb
+    from gpis_tpu_torch.parallel.mesh import make_row_mesh
+
+    clouds = [inp[f"cloud{i}"] for i in range(int(inp["n_objects"]))]
+    model = gpb.fit_batch("rbf", clouds, [inp[f"y{i}"] for i in range(len(clouds))],
+                          [1e-3] * len(clouds), {"lengthscale": 0.8, "signal_variance": 1.0},
+                          block=32, dtype=torch.float64, mesh=make_row_mesh(world, device="cpu"))
+    out["mean"], out["var"] = (t.numpy() for t in gpb.predict_batch(model, inp["q"]))
+
+
 def main(mode: str, out_dir: str, rank: int, world: int) -> None:
     dist.init_process_group("gloo", init_method=f"file://{out_dir}/store", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
         inp = dict(np.load(f"{out_dir}/inputs.npz"))
         out = {}
-        {"explore": explore, "checkpoint": checkpoint}[mode](inp, out_dir, rank, world, out)
+        {"explore": explore, "checkpoint": checkpoint, "experts": experts,
+         "batched": batched}[mode](inp, out_dir, rank, world, out)
         jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                    or m == "gpis_tpu" or m.startswith("gpis_tpu.")]
         out["imported"] = np.array(" ".join(jax_pkg))
