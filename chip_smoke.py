@@ -138,7 +138,8 @@ Phases, one printed line or more each; any failure exits nonzero:
    10's joint (J = 21,504), out-of-core value and one-rank NCCL sharded
    models: one next_best_path and one is_done each, timed; the target in
    the cap, no NaN; the joint and sharded checkpoints restored to the bit;
-   the out-of-core save raises naming item 15.  Launches of (a) and (b):
+   the out-of-core checkpoint (its W panels under path + ".w/") too.
+   Launches of (a) and (b):
    A, B, C, D, E, F, A band and F band.  (c) Small float64 sessions on the
    card held to the CPU path chart for chart at 1e-6 (value under both
    strategies, joint, out of core; is_done), and a float64 checkpoint
@@ -180,6 +181,26 @@ Phases, one printed line or more each; any failure exits nonzero:
    1e-6; one gated pair of (a) and of (f), the cross (A or E) against its
    twin and D per query against float64 (1e-4), timed beside the twin and
    the library's W kq^T.  ~66 s.
+14. The command line, `gpis_tpu_torch.cli.main.main` in this process and
+   once `python -m gpis_tpu_torch.cli.main query` as a new one.  Phase 10's
+   cap-less sphere (16,256 points, 256 touch slots, C 17,408) written as a
+   binary PLY (`data.io.save_ply`, read back through the C++ extractor),
+   the configuration from a --config JSON: fit --profile (a Chrome trace
+   left in its directory), mesh --resolution 64 --html, query at 4,096
+   points, explore --json, update with 64 contacts in the cap, hyperopt
+   --steps 5, explore-viz; phase 4's cloud fit --normals; phase 13's
+   100,000 points fit --experts 16 --expert-gate 8; phase 7's cloud
+   (C 32,768) fit --out-of-core (W under path + ".w/"), then mesh
+   (48^3) and query.  Gates: every verb exits 0; the mesh PLY's surface
+   RMSE < 0.02 (both meshes), no NaN; each checkpoint (value, joint,
+   committee, out of core) loaded by a fresh session answers at 4,096
+   points as the session that saved it, to the bit, and the query verb's
+   lines (and the new process's) are that answer formatted; after update
+   the variance fell at every contact; hyperopt's history has no NaN and
+   its best MLL is above the start's; A, B, C, D or F, E, G, H and I
+   launched inside the verbs (the launches of the checks are left out).
+   Each verb's seconds, and the checkpoints' bytes with their save and
+   load seconds, printed beside the card.
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -3296,8 +3317,7 @@ def same_bits(torch, what: str, a, b) -> None:
 def other_kinds(torch, cfg, cfg4, ecfg, pts, jpts, normals, out: dict) -> None:
     """Phase 12 (b): the joint, out-of-core and one-rank sharded models on
     phase 10's cap-less clouds: one next_best_path and one is_done each; the
-    joint and sharded checkpoints round trip to the bit; the out-of-core
-    save raises naming its item."""
+    joint, out-of-core and sharded checkpoints round trip to the bit."""
     import os
     import tempfile
 
@@ -3336,14 +3356,19 @@ def other_kinds(torch, cfg, cfg4, ecfg, pts, jpts, normals, out: dict) -> None:
     sess = ObjectModelSession(cfg, ecfg, device="cuda").start(pts, out_of_core=True)
     out["ooc_value"] = explore_kind(torch, "out-of-core value C=16384", sess.next_best_path,
                                     sess.is_done, np.zeros(3))
-    try:
-        sess.save(os.path.join(ck_dir, "ooc.npz"))
-        fail("the out-of-core save did not raise")
-    except NotImplementedError as e:
-        if "item 15" not in str(e):
-            fail(f"the out-of-core save's error does not name item 15: {e}")
-        say(f"  out-of-core save raises: {e}")
+    q = big_query(torch, pts)[:8192]
+    saved = sess.query(q)
+    path = os.path.join(ck_dir, "ooc.npz")
+    t0 = time.perf_counter()
+    sess.save(path)
+    out["ooc_value"]["save_s"] = time.perf_counter() - t0
     del sess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    restored = ObjectModelSession.load(path, cfg, device="cuda")
+    out["ooc_value"]["load_s"] = time.perf_counter() - t0
+    same_bits(torch, "out-of-core checkpoint", restored.query(q), saved)
+    del restored
     torch.cuda.empty_cache()
 
     store = tempfile.mkdtemp(prefix="gpis_nccl_")
@@ -4042,6 +4067,351 @@ def phase13(torch, launches) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ phase 14
+
+CLI_QUERY_N = 4096  # the query verb's points
+CLI_FLAGS = ["--lengthscale", "0.4", "--noise", "1e-3"]  # phases 3-10's rbf
+
+
+def points_arg(q: np.ndarray) -> str:
+    """The query verb's --points, each coordinate as repr: it parses back to
+    the same float64, so the verb and the session query the same points."""
+    return ";".join(",".join(repr(float(v)) for v in p) for p in q)
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+class CliRun:
+    """Runs the port's CLI in this process, verb by verb: each call's exit
+    code (a SystemExit or an exception fails the phase) and seconds, and the
+    launches made inside the calls only.  While it runs, every session the
+    CLI saves records its query at that checkpoint's points first (outside
+    the count), so the loaded checkpoint can be held to it bit for bit."""
+
+    def __init__(self, torch, launches, workdir: str):
+        from gpis_tpu_torch.api.session import ObjectModelSession
+        from gpis_tpu_torch.cli.main import main
+
+        self.torch, self.launches, self.workdir, self.main = torch, launches, workdir, main
+        self.counts: dict = {}
+        self.seconds: dict = {}
+        # path -> (query points, the saving session's (mean, var) there, save s)
+        self.saved: dict = {}
+        self.probes: dict = {}  # path -> query points; and path + " extra" -> more points
+        self.extra: dict = {}  # path -> the saving session's (mean, var) at the extra points
+        self._cls = ObjectModelSession
+        self._save = ObjectModelSession.save
+        run = self
+
+        def save(sess, path):
+            snap = dict(run.launches)
+            q = run.probes.get(path)
+            answer = None if q is None else sess.query(q)
+            if path + " extra" in run.probes:
+                run.extra[path] = sess.query(run.probes[path + " extra"])
+            run.launches.clear()
+            run.launches.update(snap)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run._save(sess, path)
+            run.saved[path] = (q, answer, time.perf_counter() - t0)
+            return out
+
+        ObjectModelSession.save = save
+
+    def close(self) -> None:
+        self._cls.save = self._save
+
+    def __call__(self, label: str, argv: list) -> str:
+        import contextlib
+        import io
+
+        snap = dict(self.launches)
+        buf = io.StringIO()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = self.main(argv)
+        except SystemExit as e:
+            fail(f"CLI {label}: exited with {e.code}")
+        self.torch.cuda.synchronize()
+        self.seconds[label] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"CLI {label}: exit code {rc}")
+        for k, v in self.launches.items():
+            self.counts[k] = self.counts.get(k, 0) + v - snap.get(k, 0)
+        text = buf.getvalue()
+        say(f"  gpis-torch {label}: {self.seconds[label]:.3f} s; {text.strip().splitlines()[-1][:160]}"
+            if text.strip() else f"  gpis-torch {label}: {self.seconds[label]:.3f} s")
+        return text
+
+    def path(self, name: str) -> str:
+        import os
+
+        return os.path.join(self.workdir, name)
+
+
+def restored_bits(torch, run: CliRun, label: str, path: str) -> tuple:
+    """Load the checkpoint at `path` into a fresh session (timed) and hold
+    its query to the saving session's, to the bit."""
+    q, answer, save_s = run.saved[path]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = run._cls.load(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    got = sess.query(q)
+    same_bits(torch, f"CLI {label} checkpoint", got, answer)
+    if not all(np.isfinite(a).all() for a in got):
+        fail(f"CLI {label}: NaN in the restored query")
+    return sess, got, save_s, load_s
+
+
+def query_lines(mean, var, q) -> str:
+    return "".join(f"{p[0]:+.4f},{p[1]:+.4f},{p[2]:+.4f}  f={m:+.6f}  var={v:.6e}\n"
+                   for p, m, v in zip(q, mean, var))
+
+
+def phase14(torch, launches) -> dict:
+    """The command line on the card, through gpis_tpu_torch.cli.main.main
+    (and once as `python -m gpis_tpu_torch.cli.main`): phase 10's cap-less
+    sphere written as a binary PLY, fit with a --profile trace, mesh with
+    its HTML, query, explore --json, update with 64 contacts in the cap,
+    hyperopt, explore-viz; phase 4's cloud with --normals; phase 13's
+    100,000 points as a committee; phase 7's cloud out of core, then mesh
+    and query.  Launches are counted inside the verbs only."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    from gpis_tpu_torch.data import io as cloud_io
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.native import bindings
+
+    t_start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="gpis_cli_")
+    out: dict = {"card": card_line()}
+
+    # Inputs: binary PLYs (read back through the C++ extractor), configs.
+    if not bindings.available():
+        fail("the native host library could not be built")
+    pts = capped_sphere(16256)
+    n_j, radius, center = JOINT_SPHERE
+    jpts = (fibonacci_sphere(n_j, radius) + np.asarray(center)).astype(np.float32)
+    jnrm = ((jpts - np.asarray(center, np.float32)) / radius).astype(np.float32)
+    touches = touch_batches(np.random.default_rng(14), 1, (0.0, 0.0, 0.0), 1.0)[0]
+    files = {"cloud.ply": (pts, None), "joint.ply": (jpts, jnrm), "touch.ply": (touches, None),
+             "committee.ply": (fibonacci_sphere(COMMITTEE_N).astype(np.float32), None),
+             "spill.ply": (fibonacci_sphere(SPILL_N).astype(np.float32), None)}
+    for name, (p, n) in files.items():
+        cloud_io.save_ply(os.path.join(work, name), p, normals=n, binary=True)
+        back, back_n = cloud_io.load_cloud(os.path.join(work, name))
+        if not (np.array_equal(back, p.astype(np.float64))
+                and (n is None or np.array_equal(back_n, n.astype(np.float64)))):
+            fail(f"{name}: the binary PLY did not read back exactly")
+    model = {"n_external": 127, "n_internal": 1, "block": 128, "grid_resolution": 64,
+             "grid_extent": 1.5}
+    configs = {"value.json": {**model, "touch_capacity": TOUCH_CAPACITY},
+               "joint.json": {**model, "touch_capacity": 256},
+               "spill.json": {**model, "touch_capacity": 0},
+               "committee.json": {"touch_capacity": 64, "grid_resolution": 64,
+                                  "grid_extent": 1.5}}
+    for name, m in configs.items():
+        with open(os.path.join(work, name), "w") as f:
+            _json.dump({"model": m}, f)
+
+    run = CliRun(torch, launches, work)
+    try:
+        cli_verbs(torch, run, pts, jpts, files, out)
+    finally:
+        run.close()
+    counts = run.counts
+    out["verb_s"] = run.seconds
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_start
+    say(f"  launches in the CLI verbs: {counts}")
+    say(json.dumps({"cli": out}, default=str))
+    require_launches(counts, ("cov", "panel_update", "row_update", "joint_cov",
+                              "gemm_nt_masked", "gemm_nn_acc_masked", "stripe_write"), "CLI")
+    if not counts.get("staged_quad", 0) + counts.get("fused_quad", 0):
+        fail("neither staged_quad nor fused_quad was launched by the CLI run")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def console_entry(torch, run: CliRun, value: str, pts, out: dict) -> None:
+    """`python -m gpis_tpu_torch.cli.main query` on the checkpoint at
+    `value` as a real process: its lines are the restored session's
+    answer, formatted."""
+    import os
+    import subprocess
+
+    q16 = big_query(torch, pts)[:16].astype(np.float64)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gpis_tpu_torch.cli.main", "query", value,
+                           "--points", points_arg(q16)], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    out["subprocess_query_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"python -m gpis_tpu_torch.cli.main query exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    sess = run._cls.load(value, device="cuda")
+    if proc.stdout != query_lines(*sess.query(q16), q16):
+        fail("the console entry's query lines differ from the restored session's")
+    say(f"  python -m gpis_tpu_torch.cli.main query (16 points, a new process): "
+        f"{out['subprocess_query_s']:.3f} s")
+
+
+def cli_verbs(torch, run: CliRun, pts, jpts, files, out: dict) -> None:
+    import json as _json
+    import os
+
+    p = run.path
+    value, updated, tuned = p("value.npz"), p("updated.npz"), p("tuned.npz")
+    q = big_query(torch, pts)[:CLI_QUERY_N].astype(np.float64)
+    # The value family's sessions answer at the query points and the touches
+    # (one query each: a query's bits depend on its batch's shape).
+    run.probes[value] = run.probes[updated] = run.probes[tuned] = q
+    run.probes[value + " extra"] = run.probes[updated + " extra"] = files["touch.ply"][0]
+
+    # fit with a profiler trace, then the saving session held to the bit.
+    trace_dir = p("trace")
+    run("fit --profile", ["fit", p("cloud.ply"), "-o", value, "--config", p("value.json"),
+                          "--profile", trace_dir, *CLI_FLAGS])
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")] if os.path.isdir(
+        trace_dir) else []
+    if not traces or not os.path.getsize(os.path.join(trace_dir, traces[0])):
+        fail("fit --profile left no trace file")
+    out["trace_bytes"] = os.path.getsize(os.path.join(trace_dir, traces[0]))
+    sess, _, save_s, load_s = restored_bits(torch, run, "fit (value)", value)
+    del sess
+    out["value"] = {"save_s": save_s, "load_s": load_s, "bytes": os.path.getsize(value)}
+
+    # mesh at 64^3 with the HTML viewer; the PLY's surface.
+    text = run("mesh --html", ["mesh", value, "-o", p("surface.ply"), "--resolution", "64",
+                               "--html", p("surface.html")])
+    verts = read_ply_vertices(p("surface.ply"))
+    rmse = surface_rmse(verts[:, :3])
+    out["mesh"] = {"n_verts": len(verts), "surface_rmse": rmse,
+                   "html_bytes": os.path.getsize(p("surface.html"))}
+    if not (np.isfinite(verts).all() and len(verts)) or "viewer ->" not in text:
+        fail("mesh: NaN in the PLY, no vertex or no viewer")
+    if not rmse < RMSE_GATE:
+        fail(f"mesh: surface RMSE {rmse} >= {RMSE_GATE}")
+
+    # query: the verb's lines are the saving session's answer, formatted.
+    text = run(f"query ({len(q)} points)", ["query", value, "--points", points_arg(q)])
+    if text != query_lines(*run.saved[value][1], q):
+        fail("query: the verb's lines differ from the saving session's answer")
+
+    text = run("explore --json", ["explore", value, "--json"])
+    res = _json.loads(text)
+    path = np.asarray(res["path"])
+    out["explore"] = {"poses": len(path), "target_variance": res["target_variance"],
+                      "target_z": direction_z(path[-1], np.zeros(3)) if len(path) else None}
+    if not (len(path) and np.isfinite(path).all() and np.isfinite(res["target_variance"])):
+        fail("explore: empty path or NaN")
+
+    run("update (64 contacts)", ["update", value, p("touch.ply"), "-o", updated])
+    touched_var0, touched_var = run.extra[value][1], run.extra[updated][1]
+    os.remove(updated)
+    fell = touched_var < touched_var0
+    out["update"] = {"var_before_max": float(touched_var0.max()),
+                     "var_after_max": float(touched_var.max()), "fell": int(fell.sum())}
+    if not fell.all():
+        fail(f"update: the variance did not fall at {int((~fell).sum())} touched points")
+
+    hist = []
+    real_opt = run._cls.optimize_hyperparameters
+
+    def recording(sess, **kw):
+        res = real_opt(sess, **kw)
+        hist.append(res)
+        return res
+
+    run._cls.optimize_hyperparameters = recording
+    try:
+        text = run("hyperopt --steps 5", ["hyperopt", p("cloud.ply"), "-o", tuned, "--config",
+                                          p("value.json"), "--steps", "5", *CLI_FLAGS])
+    finally:
+        run._cls.optimize_hyperparameters = real_opt
+    h = np.asarray(hist[0].history)
+    out["hyperopt"] = {"history": h.tolist(), "mll": hist[0].mll, "printed": text.strip()}
+    if not (np.isfinite(h).all() and hist[0].mll > h[0]):
+        fail(f"hyperopt: NaN in the history or the best MLL {hist[0].mll} not above the "
+             f"start's {h[0]}")
+    os.remove(tuned)
+
+    run("explore-viz", ["explore-viz", value, "-o", p("viewer.html")])
+    if "gpis-tpu viewer" not in open(p("viewer.html")).read():
+        fail("explore-viz: no viewer")
+    os.remove(value)
+    torch.cuda.empty_cache()
+
+    # The joint fit (phase 4's cloud), the committee (phase 13's), out of core (phase 7's).
+    joint = p("joint.npz")
+    run.probes[joint] = big_query(torch, jpts)[:CLI_QUERY_N].astype(np.float64)
+    run("fit --normals", ["fit", p("joint.ply"), "-o", joint, "--normals", "--config",
+                          p("joint.json"), *CLI_FLAGS])
+    _, _, save_s, load_s = restored_bits(torch, run, "fit --normals", joint)
+    out["joint"] = {"save_s": save_s, "load_s": load_s, "bytes": os.path.getsize(joint)}
+    os.remove(joint)
+    torch.cuda.empty_cache()
+
+    committee = p("committee.npz")
+    run.probes[committee] = q
+    run("fit --experts 16 --expert-gate 8",
+        ["fit", p("committee.ply"), "-o", committee, "--experts", str(COMMITTEE_E),
+         "--expert-gate", str(COMMITTEE_GATE), "--config", p("committee.json"),
+         "--lengthscale", "1.0", "--noise", "1e-4"])
+    _, _, save_s, load_s = restored_bits(torch, run, "fit --experts", committee)
+    out["committee"] = {"save_s": save_s, "load_s": load_s, "bytes": os.path.getsize(committee)}
+    os.remove(committee)
+    torch.cuda.empty_cache()
+
+    spill = p("spill.npz")
+    run.probes[spill] = q
+    run("fit --out-of-core", ["fit", p("spill.ply"), "-o", spill, "--out-of-core", "--config",
+                              p("spill.json"), *CLI_FLAGS])
+    wdir = spill + ".w"
+    _, (mean_s, var_s), save_s, load_s = restored_bits(torch, run, "fit --out-of-core", spill)
+    torch.cuda.empty_cache()
+    text = run("mesh (out of core)", ["mesh", spill, "-o", p("spill_surface.ply"),
+                                      "--resolution", "48"])
+    sverts = read_ply_vertices(p("spill_surface.ply"))
+    text = run(f"query (out of core, {CLI_QUERY_N} points)", ["query", spill, "--points",
+                                                              points_arg(q)])
+    if text != query_lines(mean_s, var_s, q):
+        fail("query (out of core): the verb's lines differ from the saving session's answer")
+    console_entry(torch, run, spill, pts, out)
+    out["ooc"] = {"w_dir_bytes": dir_bytes(wdir), "w_panels": len(os.listdir(wdir)) - 1,
+                  "npz_bytes": os.path.getsize(spill), "save_s": save_s, "load_s": load_s,
+                  "surface_rmse": surface_rmse(sverts[:, :3])}
+    say(f"  out-of-core checkpoint: .w/ {out['ooc']['w_dir_bytes']} bytes in "
+        f"{out['ooc']['w_panels']} panels, save {save_s:.3f} s, load {load_s:.3f} s "
+        f"({card_line()})")
+    if not (np.isfinite(sverts).all() and out["ooc"]["surface_rmse"] < RMSE_GATE):
+        fail(f"mesh (out of core): NaN or surface RMSE {out['ooc']['surface_rmse']}")
+    torch.cuda.empty_cache()
+
+
+def read_ply_vertices(path: str) -> np.ndarray:
+    """The vertex rows of an ASCII PLY written by viz.export (x y z, colors)."""
+    with open(path) as f:
+        n = 0
+        for line in f:
+            if line.startswith("element vertex"):
+                n = int(line.split()[-1])
+            if line.strip() == "end_header":
+                break
+        return np.loadtxt(f, max_rows=n, ndmin=2)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4120,6 +4490,10 @@ def main() -> int:
 
     say("phase 13: the local-expert committee through ObjectModelSession")
     runs.append(phase13(torch, _build.LAUNCHES))
+    torch.cuda.empty_cache()
+
+    say("phase 14: the command line (gpis_tpu_torch.cli.main)")
+    runs.append(phase14(torch, _build.LAUNCHES))
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -24,7 +24,9 @@ when the surface is known (`explore.planner`, with the session's
 `ExploreConfig`); `optimize_hyperparameters` maximizes the marginal
 likelihood (config 3) and refits with the optimum; `save`, `load` and
 `restore` checkpoint the model and the frame (`utils.checkpoint`, the JAX
-package's layout).  The committee takes every verb: its touches route to
+package's layout; an out-of-core model's W panels under `path + ".w/"`);
+`export_exploration` writes the mesh, the charts and the next path into
+one HTML viewer (`viz.export`).  The committee takes every verb: its touches route to
 the nearest expert, and its hyperopt ("subsample" or "poe") refits the
 committee and replays the routed touches.  The verbs not yet ported raise
 NotImplementedError naming the ROADMAP.md §1 item that ports them.
@@ -55,6 +57,7 @@ from gpis_tpu_torch.parallel.mesh import make_row_mesh
 from gpis_tpu_torch.surface import grid as grid_mod
 from gpis_tpu_torch.surface import marching, projection
 from gpis_tpu_torch.utils import checkpoint as ckpt
+from gpis_tpu_torch.viz import export
 
 __all__ = ["ObjectModelSession"]
 
@@ -362,7 +365,23 @@ class ObjectModelSession:
         return planner.is_done(self.model, self.explore_config, probes)
 
     def export_exploration(self, html_path: str, resolution: int = 32):
-        not_ported("export_exploration", 16, "viz/export.py")
+        """One-stop visual: the isosurface mesh, the atlas charts and the
+        next-best path in one self-contained HTML viewer
+        (`viz.export.export_html`), in the world frame.  Returns the
+        ExplorationResult."""
+        res = self.next_best_path()
+        verts, faces, var = self.extract_surface(resolution=resolution)
+        scale = float(self.frame.scale)
+        charts = [
+            {"center": self.frame.to_world(torch.as_tensor(
+                c.center, dtype=self.dtype, device=self.device)).cpu().numpy().tolist(),
+             "normal": c.normal.tolist(), "u": c.u.tolist(), "v": c.v.tolist(),
+             "radius": float(c.radius * scale)}
+            for c in res.charts
+        ]
+        export.export_html(html_path, verts, faces, variance=var, charts=charts,
+                           best_path=res.path)
+        return res
 
     def optimize_hyperparameters(self, **kw):
         """MLL optimization (config 3) in place, then a refit with the
@@ -639,6 +658,10 @@ class ObjectModelSession:
         touches are not part of the checkpoint: a restored joint session
         borders touches while its slots last and raises past them."""
         self.model = ckpt.load_model(path, device=self.device, mesh=self.mesh)
+        # A restored out-of-core model's W panels are all on disk: pin them
+        # on the card as start() does (the checkpoint's files stay).
+        if model_kind(self.model) in ("ooc", "ooc_joint"):
+            self.model.promote_for_serving()
         with np.load(path + ".frame.npz") as d:
             self.frame = gpis.Frame(centroid=torch.as_tensor(d["centroid"], device=self.device),
                                     scale=torch.as_tensor(d["scale"], device=self.device))

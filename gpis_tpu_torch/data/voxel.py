@@ -3,13 +3,16 @@
 
 Host-side preprocessing, like in the reference (the cloud is downsampled
 before it ever reaches the GP).  The port's own copy of
-gpis_tpu/data/voxel.py, NumPy only: the JAX package's optional C++ drop-in
-is not used, so the port imports nothing of that package.
+gpis_tpu/data/voxel.py: `voxel_downsample` runs the port's C++ runtime
+(`native.bindings`), as the JAX package does where its library is built,
+so both keep the voxels in its first-seen order.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from gpis_tpu_torch.native import bindings as nb
 
 __all__ = ["voxel_downsample"]
 
@@ -28,8 +31,11 @@ def _voxel_downsample_numpy(points: np.ndarray, leaf: float) -> np.ndarray:
 
 
 def voxel_downsample(points, leaf: float):
-    """Centroid voxel-grid filter. leaf<=0 returns the input unchanged."""
-    return _voxel_downsample_numpy(points, leaf)
+    """Centroid voxel-grid filter, by the C++ runtime (voxels in first-seen
+    order; raises if the runtime cannot be built). leaf<=0 returns the
+    input unchanged.  `_voxel_downsample_numpy` is its NumPy twin (voxels
+    in sorted key order)."""
+    return nb.voxel_downsample(np.asarray(points, np.float64), leaf)
 
 
 def voxel_downsample_with_normals(points, normals, leaf: float):

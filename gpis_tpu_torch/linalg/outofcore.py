@@ -9,8 +9,12 @@ the only structurally nonzero part) in a panel store:
   instead of C^2, and W_j takes L_j's place as the TRSM consumes L);
 * `HostPanelStore` -- every panel in pinned host RAM, streamed per use;
 * `TieredPanelStore` -- device memory up to a byte budget (`DeviceBudget`,
-  shared by the L and W stores of one fit), host RAM beyond it;
-  `promote` pins spilled panels back on the card for serving.
+  shared by the L and W stores of one fit), host RAM beyond it, or with
+  `spill_dir` files on disk (`_DiskPanel`, read back through a memmap);
+  `promote` pins spilled panels back on the card for serving.  A store on
+  disk persists through `save_manifest` and reattaches in another process
+  through `open_dir`: `utils.checkpoint` writes an out-of-core model's W
+  this way (`put_host`, a zero-budget store) under `path + ".w/"`.
 
 Cholesky (`ooc_cholesky`) -- row-panel bordering.  A sweep of r row panels
 is one (rB, C) band `cur`, filled with the Gram rows (Kernel A band mode, or
@@ -65,8 +69,9 @@ What differs from the JAX package, and why:
   each way, nothing more.
 
 Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-§1 item 15): the disk spill, the f16 W spill, the int16 L codec with
-`ooc_residual_check`, the process-split phases and `plan_sweeps`.
+§1 item 15): the f16 W spill, the int16 L codec with `ooc_residual_check`
+(a manifest entry in either codec is refused by `open_dir`), the
+write-through mirror, the process-split phases and `plan_sweeps`.
 
 Functions take tensors and work on the device the tensors are on; on the
 CPU every kernel call takes its plain twin.
@@ -76,8 +81,11 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import math
+import os
 
+import numpy as np
 import torch
 
 from gpis_tpu_torch._build import not_ported
@@ -159,6 +167,33 @@ def _d2h(arr: torch.Tensor, stream):
     return host, done
 
 
+class _DiskPanel:
+    """A panel in a file of a store's spill directory, read back through a
+    memmap: file-backed pages sit in the page cache, evictable, not in the
+    process's anonymous memory."""
+
+    __slots__ = ("path", "shape", "dtype")
+
+    def __init__(self, path: str, shape, dtype):
+        self.path, self.shape, self.dtype = path, tuple(shape), np.dtype(dtype)
+
+    def read(self) -> np.memmap:
+        return np.memmap(self.path, dtype=self.dtype, mode="r", shape=self.shape)
+
+    def tensor(self) -> torch.Tensor:
+        """The panel as a CPU tensor over a private (copy-on-write) mapping
+        of its file."""
+        return torch.from_numpy(np.memmap(self.path, dtype=self.dtype, mode="c",
+                                          shape=self.shape))
+
+
+def _unlink(path: str) -> None:
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
+
+
 class _PanelStore:
     """Trimmed panels by index.  `ready_event(j)` is the event a host panel's
     pending device-to-host copy completes at (None once known complete)."""
@@ -209,31 +244,99 @@ class DevicePanelStore(_PanelStore):
 
 class TieredPanelStore(_PanelStore):
     """Panels stay on the card while the shared budget lasts, then spill to
-    pinned host RAM (budget first: the earliest panels, which the
-    left-looking loops read most, stay resident)."""
+    pinned host RAM, or with `spill_dir` to one file a panel,
+    `spill_dir/panel_<j>.bin` (budget first: the earliest panels, which the
+    left-looking loops read most, stay resident).  `tag` names the problem
+    the panels belong to; the manifest keeps it, and `open_dir` can demand
+    it."""
 
-    def __init__(self, budget: DeviceBudget, device):
+    def __init__(self, budget: DeviceBudget, device="cuda", *, spill_dir: str | None = None,
+                 tag: str | None = None):
         super().__init__(device)
         self._budget = budget
+        self._spill_dir = spill_dir
+        self.tag = tag
+        self.compute_dtype: torch.dtype | None = None
+        if spill_dir is not None:
+            os.makedirs(spill_dir, exist_ok=True)
         self._meta: dict[int, tuple[bool, int]] = {}  # j -> (on the card, bytes)
 
+    def _panel_path(self, j: int) -> str:
+        return os.path.join(self._spill_dir, f"panel_{j}.bin")
+
     def _store(self, j, arr, stream):
+        self.compute_dtype = arr.dtype
         size = _nbytes(arr)
         on_dev = self._budget.take(size)
         self._meta[j] = (on_dev, size)
         if on_dev:
             return _compact_copy(arr)
-        host, self._ready[j] = _d2h(arr, stream)
-        return host
+        if self._spill_dir is None:
+            host, self._ready[j] = _d2h(arr, stream)
+            return host
+        host, _ = _d2h(arr, None)
+        return self._write(j, host.numpy())
+
+    def _write(self, j: int, arr: np.ndarray) -> _DiskPanel:
+        path = self._panel_path(j)
+        mm = np.memmap(path, dtype=arr.dtype, mode="w+", shape=arr.shape)
+        mm[:] = arr
+        mm.flush()
+        del mm
+        return _DiskPanel(path, arr.shape, arr.dtype)
+
+    def put_host(self, j: int, arr) -> None:
+        """Write a host array (NumPy, or a CPU tensor) straight to the disk
+        tier at its own dtype, no device round trip: the checkpoint writer
+        persists W this way, leaving the file layout and the manifest to
+        this class."""
+        if self._spill_dir is None:
+            raise ValueError("put_host needs a spill_dir-backed store")
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
+        self.free(j)
+        self._p[j] = self._write(j, np.asarray(arr))
+        self._meta[j] = (False, 0)
 
     def free(self, j: int) -> None:
+        """Drop panel j; a panel on disk loses its file."""
         on_dev, size = self._meta.pop(j, (False, 0))
         if on_dev:
             self._budget.give(size)
+        v = self._p.get(j)
+        if isinstance(v, _DiskPanel):
+            _unlink(v.path)
         super().free(j)
 
+    def clear(self) -> None:
+        """Free every panel and the manifest: a manifest left behind would
+        make a later `open_dir` claim panels whose files are gone."""
+        super().clear()
+        if self._spill_dir is not None:
+            _unlink(os.path.join(self._spill_dir, "manifest.json"))
+
+    def save_manifest(self) -> None:
+        """Write the panels' shapes and dtypes, the compute dtype and the tag
+        beside the panel files, so that `open_dir` reattaches the store in
+        another process.  Every panel must be on disk.  The manifest is
+        replaced atomically: a kill mid-write leaves the old one whole."""
+        meta = {}
+        for j, v in self._p.items():
+            if not isinstance(v, _DiskPanel):
+                raise ValueError(f"panel {j} is not on disk")
+            meta[str(j)] = [list(v.shape), str(v.dtype)]
+        # The dtype's NumPy name ("float32"), which the JAX package writes.
+        doc = {"panels": meta, "compute_dtype": str(self.compute_dtype).removeprefix("torch.")}
+        if self.tag is not None:
+            doc["tag"] = self.tag
+        path = os.path.join(self._spill_dir, "manifest.json")
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+
     def spilled(self) -> list[int]:
-        """Indices of the panels held in host RAM."""
+        """Indices of the panels held off the card (host RAM or disk)."""
         return sorted(j for j, (on_dev, _) in self._meta.items() if not on_dev)
 
     def promote(self, limit_bonus: int = 0) -> int:
@@ -245,13 +348,17 @@ class TieredPanelStore(_PanelStore):
         self._budget.limit += int(limit_bonus)
         promoted = 0
         for j in self.spilled():
-            size = self._meta[j][1]
+            v = self._p[j]
+            disk = isinstance(v, _DiskPanel)
+            size = int(np.prod(v.shape)) * v.dtype.itemsize if disk else _nbytes(v)
             if not self._budget.take(size):
                 break
             done = self._ready.pop(j, None)
             if done is not None:
                 done.synchronize()
-            self._p[j] = self._p[j].to(self.device)
+            # A panel on disk is copied off its file, which stays: the
+            # files of a store reopened from a checkpoint are the checkpoint.
+            self._p[j] = v.tensor().to(self.device, copy=True) if disk else v.to(self.device)
             if self.device.type == "cuda":
                 TRAFFIC["h2d_bytes"] += size
             self._meta[j] = (True, size)
@@ -259,17 +366,46 @@ class TieredPanelStore(_PanelStore):
         return promoted
 
     @classmethod
-    def open_dir(cls, *args, **kwargs):
-        not_ported("TieredPanelStore.open_dir (the disk spill)", 15, "out-of-core")
+    def open_dir(cls, budget: DeviceBudget, spill_dir: str, expect_tag: str | None = None,
+                 **kw):
+        """Reattach a store that `save_manifest` persisted (a fresh process;
+        `kw` go to the constructor, `device` among them).  Entries whose
+        panel file is missing are skipped: `free` and `clear` unlink files,
+        and a manifest written before cannot serve what is gone.  With
+        `expect_tag`, a manifest of another tag raises ValueError: those
+        panels belong to another problem.  An entry in a spill codec (int16
+        blocks, or a dtype narrower than the compute dtype) raises
+        NotImplementedError: the codecs are not ported."""
+        st = cls(budget, spill_dir=spill_dir, **kw)
+        with open(os.path.join(spill_dir, "manifest.json")) as f:
+            doc = json.load(f)
+        if expect_tag is not None and doc.get("tag") != expect_tag:
+            raise ValueError(f"panel store at {spill_dir} was written for a different problem "
+                             f"(tag {doc.get('tag')!r} != expected {expect_tag!r})")
+        st.tag = doc.get("tag")
+        st.compute_dtype = getattr(torch, doc["compute_dtype"])
+        width = np.dtype(doc["compute_dtype"]).itemsize
+        for j, entry in doc["panels"].items():
+            shape, dt = entry[0], entry[1]
+            if (len(entry) > 2 and entry[2].get("codec")) or np.dtype(dt).itemsize < width:
+                not_ported(f"panel {j} of {spill_dir} in a spill codec ({dt}"
+                           f"{', ' + entry[2]['codec'] if len(entry) > 2 else ''})", 15,
+                           "out-of-core spill codecs")
+            path = st._panel_path(int(j))
+            if not os.path.exists(path):
+                continue
+            st._p[int(j)] = _DiskPanel(path, shape, dt)
+            st._meta[int(j)] = (False, 0)
+        return st
 
 
-def _make_store(kind: str, budget: DeviceBudget, device):
+def _make_store(kind: str, budget: DeviceBudget, device, spill_dir: str | None = None):
     if kind == "host":
         return HostPanelStore(device)
     if kind == "device":
         return DevicePanelStore(device)
     if kind == "tiered":
-        return TieredPanelStore(budget, device)
+        return TieredPanelStore(budget, device, spill_dir=spill_dir)
     raise ValueError(f"unknown panel store kind {kind!r}")
 
 
@@ -282,6 +418,8 @@ def _fetch(store: _PanelStore, j: int, stream=None):
     synchronous).  A host panel is copied on `stream` when one is given,
     after its own device-to-host copy, if still pending, has ended."""
     v = store.get(j)
+    if isinstance(v, _DiskPanel):
+        v = v.tensor()
     dev = store.device
     if v.device == dev:
         return v, None
@@ -960,9 +1098,13 @@ def _padded(v, fill: float, shape, like: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _pad_problem(kernel: str, x, y, noise, params, *, panel: int, pad_noise: float):
+def _pad_problem(kernel: str, x, y, noise, params, *, panel: int, pad_noise: float,
+                 dtype=None):
     """Pad (x, y, noise) to a panel multiple with inert high-noise rows at
-    the origin; returns (xp, yp, noisep, params, c, n, jitter)."""
+    the origin, in `dtype` (default x's); returns (xp, yp, noisep, params,
+    c, n, jitter)."""
+    if dtype is not None:
+        x = x.to(dtype)
     n = x.shape[0]
     c = round_up(n, panel)
     params = {k: float(v) for k, v in params.items()}
@@ -972,10 +1114,13 @@ def _pad_problem(kernel: str, x, y, noise, params, *, panel: int, pad_noise: flo
 
 
 def _pad_joint_problem(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel: int,
-                       pad_noise: float):
+                       pad_noise: float, dtype=None):
     """Pad a problem with normals so that J = 4C is a panel multiple (C to a
-    multiple of panel / 4) and pack its factor metadata.  Returns
-    (xp, yj, meta, nrm, nf, ng, params, c, n, jitter)."""
+    multiple of panel / 4) and pack its factor metadata, in `dtype`
+    (default x's).  Returns (xp, yj, meta, nrm, nf, ng, params, c, n,
+    jitter)."""
+    if dtype is not None:
+        x = x.to(dtype)
     if not kf.supports_derivatives(kernel):
         raise ValueError(f"kernel {kernel!r} does not support derivative observations")
     if panel % 4:
@@ -995,13 +1140,16 @@ def _pad_joint_problem(kernel: str, x, y, normals, noise_f, noise_g, params, *, 
 
 
 def _factor_with_jitter(kernel, cols, noise, params, budget, *, panel, block, store, y,
-                        jitter):
-    """The NaN-escalation jitter ladder around `ooc_cholesky`.  Returns
+                        jitter, initial_jitter: float | None = None,
+                        max_jitter_retries: int = MAX_JITTER_RETRIES,
+                        spill_dir: str | None = None):
+    """The NaN-escalation jitter ladder around `ooc_cholesky`, from
+    `initial_jitter` (default none) up `max_jitter_retries` rungs.  Returns
     (store, u, logdiag_sum, extra), extra the jitter added to the factor's
     diagonal, which the caller folds into its stored noises."""
-    extra = 0.0
-    for _ in range(MAX_JITTER_RETRIES + 1):
-        st = _make_store(store, budget, cols.device)
+    extra = initial_jitter if initial_jitter is not None else 0.0
+    for _ in range(max_jitter_retries + 1):
+        st = _make_store(store, budget, cols.device, spill_dir)
         stats: dict = {}
         ok, u = ooc_cholesky(kernel, cols, noise + extra, params, st, panel=panel, block=block,
                              sweep=SWEEP, y=y, stats=stats)
@@ -1013,11 +1161,9 @@ def _factor_with_jitter(kernel, cols, noise, params, budget, *, panel, block, st
     raise FloatingPointError(f"out-of-core Cholesky failed even with jitter {extra:.2e}")
 
 
-def _refuse_unported_spill(w_dtype, spill_dir, l_codec) -> None:
+def _refuse_unported_spill(w_dtype, l_codec) -> None:
     if w_dtype is not None:
         not_ported("w_dtype (the f16 W spill)", 15, "out-of-core")
-    if spill_dir is not None:
-        not_ported("spill_dir (the disk spill)", 15, "out-of-core")
     if l_codec is not None:
         not_ported("l_codec (the int16 L codec)", 15, "out-of-core")
 
@@ -1029,45 +1175,55 @@ def _fit_budget(device_budget, panel: int, j: int, x: torch.Tensor) -> DeviceBud
 
 
 def ooc_fit(kernel: str, x, y, noise, params, *, panel: int, block: int = 256,
-            store: str = "tiered", pad_noise: float = 1e10, device_budget: int | None = None,
-            w_dtype=None, spill_dir: str | None = None, l_codec: str | None = None) -> OOCModel:
-    """Out-of-core GP fit in x's dtype on x's device: pad to a panel
-    multiple, factor with the NaN-escalation jitter ladder, alpha by
-    substitution against L, then the TRSM.  `store` = "tiered" (the card up
-    to `device_budget` bytes, by default all the card can spare, then host
-    RAM), "host" or "device"."""
-    _refuse_unported_spill(w_dtype, spill_dir, l_codec)
+            store: str = "tiered", pad_noise: float = 1e10, dtype=None,
+            max_jitter_retries: int = MAX_JITTER_RETRIES, initial_jitter: float | None = None,
+            device_budget: int | None = None, w_dtype=None, spill_dir: str | None = None,
+            l_codec: str | None = None) -> OOCModel:
+    """Out-of-core GP fit in `dtype` (default x's) on x's device: pad to a
+    panel multiple, factor with the NaN-escalation jitter ladder (from
+    `initial_jitter`, `max_jitter_retries` rungs), alpha by substitution
+    against L, then the TRSM.  `store` = "tiered" (the card up to
+    `device_budget` bytes, by default all the card can spare, then host RAM,
+    or with `spill_dir` files there), "host" or "device"."""
+    _refuse_unported_spill(w_dtype, l_codec)
     xp, yp, noisep, params, c, n, jitter = _pad_problem(kernel, x, y, noise, params,
-                                                        panel=panel, pad_noise=pad_noise)
+                                                        panel=panel, pad_noise=pad_noise,
+                                                        dtype=dtype)
     budget = _fit_budget(device_budget, panel, c, xp)
-    st, u, logdiag, extra = _factor_with_jitter(kernel, xp, noisep, params, budget, panel=panel,
-                                                block=block, store=store, y=yp, jitter=jitter)
+    st, u, logdiag, extra = _factor_with_jitter(
+        kernel, xp, noisep, params, budget, panel=panel, block=block, store=store, y=yp,
+        jitter=jitter, initial_jitter=initial_jitter, max_jitter_retries=max_jitter_retries,
+        spill_dir=spill_dir)
     alpha = ooc_alpha_backward(st, u, panel=panel)
-    wstore = _make_store(store, budget, xp.device)
+    wstore = _make_store(store, budget, xp.device, spill_dir)
     ooc_trsm(st, wstore, yp, panel=panel, block=block, accumulate_alpha=False, sweep=TRSM_SWEEP)
     return OOCModel(kernel=kernel, x=xp, y=yp, noise=noisep + extra, params=params, alpha=alpha,
                     wstore=wstore, panel=panel, n_real=n, u=u, logdiag_sum=logdiag)
 
 
 def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel: int,
-                  block: int = 256, store: str = "tiered", pad_noise: float = 1e10,
-                  device_budget: int | None = None, w_dtype=None, spill_dir: str | None = None,
+                  block: int = 256, store: str = "tiered", pad_noise: float = 1e10, dtype=None,
+                  max_jitter_retries: int = MAX_JITTER_RETRIES,
+                  initial_jitter: float | None = None, device_budget: int | None = None,
+                  w_dtype=None, spill_dir: str | None = None,
                   l_codec: str | None = None) -> OOCJointModel:
     """Out-of-core joint (value + gradient) fit: J = 4C factor rows for C
     padded points, in the dimension-major layout [f | d1 | d2 | d3]; the
-    same factor, TRSM and alpha as `ooc_fit`, on packed joint metadata."""
-    _refuse_unported_spill(w_dtype, spill_dir, l_codec)
+    same factor, TRSM and alpha as `ooc_fit` (and its options), on packed
+    joint metadata."""
+    _refuse_unported_spill(w_dtype, l_codec)
     (xp, yj, meta, nrm, nf, ng, params, c, n,
      jitter) = _pad_joint_problem(kernel, x, y, normals, noise_f, noise_g, params, panel=panel,
-                                  pad_noise=pad_noise)
+                                  pad_noise=pad_noise, dtype=dtype)
     j_tot = 4 * c
     budget = _fit_budget(device_budget, panel, j_tot, xp)
     noisej = cuda_joint.joint_noise(c, nf, ng, None, xp)
-    st, u, logdiag, extra = _factor_with_jitter(kernel, meta, noisej, params, budget,
-                                                panel=panel, block=block, store=store, y=yj,
-                                                jitter=jitter)
+    st, u, logdiag, extra = _factor_with_jitter(
+        kernel, meta, noisej, params, budget, panel=panel, block=block, store=store, y=yj,
+        jitter=jitter, initial_jitter=initial_jitter, max_jitter_retries=max_jitter_retries,
+        spill_dir=spill_dir)
     alpha = ooc_alpha_backward(st, u, panel=panel)
-    wstore = _make_store(store, budget, xp.device)
+    wstore = _make_store(store, budget, xp.device, spill_dir)
     ooc_trsm(st, wstore, yj, panel=panel, block=block, accumulate_alpha=False, sweep=TRSM_SWEEP)
     return OOCJointModel(kernel=kernel, x=xp, y=yj, noise=nf + extra, params=params,
                          alpha=alpha, wstore=wstore, panel=panel, n_real=n, u=u,

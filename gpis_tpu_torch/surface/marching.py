@@ -12,15 +12,19 @@ watertight triangulation of the f=0 level set.
 This is deliberately *host-side* NumPy: the output size is data-dependent
 (anathema to XLA static shapes) and the work is O(cells), negligible next to
 the device-side GP evaluation that produced the field.  The port's own copy of
-gpis_tpu/surface/marching.py, NumPy only.  It emits the triangles in the
-order of the JAX package's C++ drop-in (by cell, then tetrahedron, then
-triangle), which that package takes whenever its library is built, so both
-packages return the same soup element for element.
+gpis_tpu/surface/marching.py.  By default the port's C++ runtime
+(`native.bindings.marching_tets`, built at first use) extracts the soup;
+`native=False` takes the NumPy path, which emits the same triangles in the
+same order (by cell, then tetrahedron, then triangle), so both packages
+return one soup element for element whichever path each takes where the
+JAX package's library is built.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from gpis_tpu_torch.native import bindings as nb
 
 __all__ = ["marching_tetrahedra", "weld_vertices"]
 
@@ -65,12 +69,17 @@ def _build_case_table():
 _CASES = _build_case_table()
 
 
-def marching_tetrahedra(field, axis_x, axis_y=None, axis_z=None, iso: float = 0.0):
+def marching_tetrahedra(field, axis_x, axis_y=None, axis_z=None, iso: float = 0.0,
+                        *, native: bool = True):
     """Extract the `field == iso` surface.
 
     field: (RX, RY, RZ) scalar grid; axis_*: coordinate vectors (axis_x reused
     for all axes if the others are omitted).  Returns (verts (K, 3),
-    faces (K//3, 3)) as a triangle soup (use `weld_vertices` to index-share)."""
+    faces (K//3, 3)) as a triangle soup (use `weld_vertices` to index-share).
+    `native=True` runs the C++ runtime and raises if it cannot be built;
+    `native=False` the NumPy path (the same soup)."""
+    if native:
+        return nb.marching_tets(field, axis_x, axis_y, axis_z, iso)
     f = np.asarray(field, np.float64) - iso
     ax = np.asarray(axis_x, np.float64)
     ay = ax if axis_y is None else np.asarray(axis_y, np.float64)

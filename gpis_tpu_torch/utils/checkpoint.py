@@ -21,8 +21,14 @@ Gram: Kernel A (value) or E (joint), then the blocked Cholesky (Kernel B);
 where the saved factor was W (`linv_is_chol`) W is formed again (Kernel C).
 A committee saved without its factors refactors every expert
 (`experts.expert_chol`) and, as in the JAX package, carries no W.
-Out-of-core and sharded joint checkpoints raise NotImplementedError naming
-the ROADMAP.md §1 item that ports them.
+
+An out-of-core model (value or joint, with its touch tail) keeps its small
+state in the NPZ and its W = L^{-1} panels, at their stored dtype, as one
+raw file each under `path + ".w/"` with the panel store's manifest
+(`TieredPanelStore.put_host` and `save_manifest` write them,
+`TieredPanelStore.open_dir` reattaches them): the loaded model's panels
+stay on disk until the session promotes them.  Sharded joint checkpoints
+raise NotImplementedError naming the ROADMAP.md §1 item that ports them.
 """
 
 from __future__ import annotations
@@ -39,9 +45,11 @@ from gpis_tpu_torch._build import not_ported, resolve_device
 from gpis_tpu_torch.gp.experts import expert_chol
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.gp.sharded_model import _all_gather
+from gpis_tpu_torch.kernels import cuda_joint
 from gpis_tpu_torch.kernels import derivative as kd
 from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.linalg import cholesky as lin
+from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
 from gpis_tpu_torch.parallel.mesh import make_row_mesh
 
@@ -65,12 +73,13 @@ def _param_arrays(params) -> dict:
 
 
 def save_model(path: str, model, *, factor: bool = True) -> None:
-    """Save an in-core GPModel or DerivGPModel, an ExpertGPModel, or a
-    ShardedGPModel (every rank calls it; rank 0 writes)."""
+    """Save an in-core GPModel or DerivGPModel, an ExpertGPModel, an
+    OOCModel or OOCJointModel (W panels beside the NPZ in `path + ".w/"`),
+    or a ShardedGPModel (every rank calls it; rank 0 writes)."""
     kind = model_kind(model)
     if kind in ("ooc", "ooc_joint"):
-        not_ported("save_model of an out-of-core model (its W panels go under path + '.w/' "
-                   "in the panel store's manifest format)", 15, "out-of-core disk spill")
+        _save_ooc(path, model)
+        return
     if kind == "sharded":
         _save_sharded(path, model)
         return
@@ -133,6 +142,73 @@ def _save_experts(path: str, model, *, factor: bool = True) -> None:
     np.savez(path, meta=json.dumps(meta), **arrays)
 
 
+_OOC_TAIL_KEYS = ("tail_x", "tail_y", "tail_noise", "tail_v", "tail_a", "tail_chol",
+                  "tail_alpha")
+
+
+def _save_ooc(path: str, model) -> None:
+    """The NPZ of the replicated state (x, y, noise, alpha, u, the touch
+    tail; a joint model's normals and noise_g), and W's panels, at their
+    stored dtype, through a zero-budget store's `put_host` into
+    `path + ".w/"` with its manifest."""
+    nb = model.alpha.shape[0] // model.panel  # the factor size: C, or J = 4C
+    out = ooc.TieredPanelStore(ooc.DeviceBudget(0), "cpu", spill_dir=path + ".w")
+    for j in range(nb):
+        v = model.wstore.get(j)
+        # A materialized copy, never a view of the file: a restored model
+        # saved back to its own path reads each panel from the file that
+        # put_host is about to truncate.
+        out.put_host(j, np.array(v.read()) if isinstance(v, ooc._DiskPanel) else _np(v))
+    out.compute_dtype = model.dtype
+    out.save_manifest()
+    meta = {"format": _FORMAT_VERSION, "kernel": model.kernel, "dtype": _dtype_name(model.dtype),
+            "ooc": True, "panel": int(model.panel), "n_real": int(model.n_real),
+            "n_tail": int(model.n_tail), "has_u": model.u is not None,
+            "logdiag_sum": None if model.logdiag_sum is None else float(model.logdiag_sum)}
+    arrays = {"x": _np(model.x), "y": _np(model.y), "noise": _np(model.noise),
+              "alpha": _np(model.alpha), **_param_arrays(model.params)}
+    if model.u is not None:
+        arrays["u"] = _np(model.u)
+    if model.n_tail:
+        arrays["alpha0"] = _np(model.alpha0)
+        arrays.update({k: _np(getattr(model, k)) for k in _OOC_TAIL_KEYS})
+    if getattr(model, "meta", None) is not None:
+        # The packed (J, 7) factor metadata is rebuilt from x at load.
+        meta["joint"] = True
+        arrays.update(normals=_np(model.normals), noise_g=_np(model.noise_g))
+    np.savez(path, meta=json.dumps(meta), **arrays)
+
+
+def _load_ooc(arrays, meta: dict, path: str, dev: torch.device):
+    """The out-of-core model of an NPZ and its `.w/` panels, the panels
+    left on disk in a tiered store with the fit's device budget."""
+    panel = int(meta["panel"])
+    budget = ooc.DeviceBudget(ooc._hbm_budget(panel, arrays["alpha"].shape[0],
+                                              arrays["x"].dtype.itemsize, dev))
+    wstore = ooc.TieredPanelStore.open_dir(budget, path + ".w", device=dev)
+
+    def t(key):
+        return torch.as_tensor(arrays[key], device=dev)
+
+    tail = {}
+    if meta.get("n_tail"):
+        tail = {k: t(k) for k in (*_OOC_TAIL_KEYS, "alpha0")}
+    common = dict(kernel=meta["kernel"], x=t("x"), y=t("y"), noise=t("noise"), alpha=t("alpha"),
+                  params={"lengthscale": float(arrays["param_lengthscale"]),
+                          "signal_variance": float(arrays["param_signal_variance"])},
+                  wstore=wstore, panel=panel, n_real=int(meta["n_real"]),
+                  u=t("u") if meta.get("has_u") else None,
+                  logdiag_sum=(None if meta.get("logdiag_sum") is None
+                               else float(meta["logdiag_sum"])),
+                  n_tail=int(meta.get("n_tail", 0)), **tail)
+    if meta.get("joint"):
+        xp = common["x"]
+        return ooc.OOCJointModel(meta=cuda_joint.pack_meta(cuda_joint.joint_meta(xp)),
+                                 normals=t("normals"), noise_g=t("noise_g"), n0=xp.shape[0],
+                                 **common)
+    return ooc.OOCModel(**common)
+
+
 def _rank0_done(mesh) -> None:
     """Return on every rank only once rank 0 has reached this point (a
     reduction the host waits for: NCCL's returns before it has run)."""
@@ -188,20 +264,20 @@ def load_model(path: str, device="cuda", *, mesh=None):
     """The model in the checkpoint at `path` on `device`.  A sharded
     checkpoint loads on every rank of `mesh` (by default the row mesh of the
     initialized process group, on `device`), whose size must be the
-    checkpoint's `n_devices`; each rank keeps its band."""
+    checkpoint's `n_devices`; each rank keeps its band.  An out-of-core
+    checkpoint's W panels stay in their files (`path + ".w/"`)."""
     with np.load(path, allow_pickle=False) as d:
         meta = json.loads(str(d["meta"]))
         if meta["format"] != _FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint format {meta['format']}")
-        if meta.get("ooc"):
-            not_ported("out-of-core checkpoints (W panels under path + '.w/')", 15,
-                       "out-of-core disk spill")
         if meta.get("sharded") and meta.get("joint"):
             not_ported("sharded joint checkpoints", 14, "gp/sharded_joint.py")
         arrays = {k: d[k] for k in d.files if k != "meta"}
     if meta.get("sharded"):
         return _load_sharded(arrays, meta, mesh, device)
     dev = resolve_device(device)
+    if meta.get("ooc"):
+        return _load_ooc(arrays, meta, path, dev)
     if meta.get("experts"):
         m = convert.experts_model_from_arrays(arrays, meta, dev)
         if meta["has_factor"]:

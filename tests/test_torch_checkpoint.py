@@ -282,24 +282,29 @@ def test_restored_joint_overflow_raises_clearly(tmp_path):
 
 
 @pytest.mark.parametrize("what, item", [
-    ("ooc_save", 15), ("ooc_load", 15), ("ooc_joint_save", 15), ("sharded_joint", 14)])
+    ("ooc_int16", 15), ("ooc_float16", 15), ("ooc_joint_int16", 15), ("sharded_joint", 14)])
 def test_unported_checkpoints_name_their_item(tmp_path, what, item):
-    # Committee checkpoints load since item 13 (tests/test_torch_experts.py).
+    # Committee checkpoints load since item 13 (tests/test_torch_experts.py),
+    # out-of-core ones since item 15's first half
+    # (tests/test_torch_ooc_checkpoint.py); W panels in a spill codec (its
+    # second half) do not.
     path = str(tmp_path / "m.npz")
-    if what in ("ooc_save", "ooc_joint_save"):
+    if what.startswith("ooc"):
         cfg = ModelConfig(kernel="rbf", lengthscale=0.7, touch_capacity=0, dtype="float64")
         pts = _cloud()
-        normals = pts / np.linalg.norm(pts, axis=1, keepdims=True) if what != "ooc_save" else None
-        sess = ObjectModelSession(cfg, device="cpu").start(pts, normals=normals,
-                                                           out_of_core=True)
-        call = lambda: sess.save(path)  # noqa: E731
+        normals = pts / np.linalg.norm(pts, axis=1, keepdims=True) if "joint" in what else None
+        ObjectModelSession(cfg, device="cpu").start(pts, normals=normals,
+                                                    out_of_core=True).save(path)
+        manifest = tmp_path / "m.npz.w" / "manifest.json"
+        doc = json.loads(manifest.read_text())
+        shape = doc["panels"]["1"][0]
+        doc["panels"]["1"] = ([shape, "float16"] if what == "ooc_float16"
+                              else [shape, "int16", {"codec": "int16"}])
+        manifest.write_text(json.dumps(doc))
     else:
-        flag = {"ooc_load": {"ooc": True},
-                "sharded_joint": {"sharded": True, "joint": True}}[what]
-        np.savez(path, meta=json.dumps({"format": 1, **flag}))
-        call = lambda: ckpt.load_model(path, device="cpu")  # noqa: E731
+        np.savez(path, meta=json.dumps({"format": 1, "sharded": True, "joint": True}))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}:"):
-        call()
+        ckpt.load_model(path, device="cpu")
 
 
 # --------------------------------------------------------- two gloo ranks

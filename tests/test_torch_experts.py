@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
+import torch_jax_native
 
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
 from gpis_tpu.config import ExploreConfig as JaxExploreConfig
@@ -546,6 +547,7 @@ def test_session_experts_end_to_end():
     mean, var = sess.query(pts[:10])
     _close((mean, var), jsess.query(pts[:10]))
     assert np.abs(mean).max() < 0.05
+    torch_jax_native.require()  # the JAX soup in its native order
     verts, faces, vvar = sess.extract_surface(resolution=24)
     jverts, jfaces, jvvar = jsess.extract_surface(resolution=24)
     np.testing.assert_array_equal(faces, jfaces)
@@ -599,6 +601,7 @@ def test_session_joint_experts_end_to_end():
     sess = ObjectModelSession(ModelConfig(**cfg), device="cpu").start(
         pts, normals=nrm, experts=4, expert_gate=2)
     assert sess.model.joint and sess.model.n_experts == 4
+    torch_jax_native.require()  # the JAX soup in its native order
     verts, faces, _ = sess.extract_surface(resolution=24)
     jverts, jfaces, _ = jsess.extract_surface(resolution=24)
     np.testing.assert_array_equal(faces, jfaces)

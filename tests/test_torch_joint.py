@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
+import torch_jax_native
 
 import oracle
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
@@ -243,6 +244,7 @@ def test_session_with_normals_matches_jax_session(monkeypatch, touch):
     jmean, jvar, _ = jsess.evaluate_grid(16, 1.3)
     np.testing.assert_allclose(mean, jmean, atol=1e-6)
     np.testing.assert_allclose(var, jvar, atol=1e-6)
+    torch_jax_native.require()  # the JAX soup in its native order
     verts, faces, vvar = sess.extract_surface(resolution=16, extent=1.3)
     jverts, jfaces, jvvar = jsess.extract_surface(resolution=16, extent=1.3)
     np.testing.assert_array_equal(faces, jfaces)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
+import torch_jax_native
 
 from gpis_tpu import config as jconfig
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
@@ -424,6 +425,7 @@ def test_ooc_session_matches_jax_session(normals):
                                                                         **kw)
     assert type(sess.model).__name__ == type(jsess.model).__name__
     assert sess.model.panel == jsess.model.panel and sess.model.capacity == jsess.model.capacity
+    torch_jax_native.require()  # the JAX soup in its native order
     verts, faces, vvar = sess.extract_surface(resolution=16, extent=1.3)
     jverts, jfaces, jvvar = jsess.extract_surface(resolution=16, extent=1.3)
     np.testing.assert_array_equal(faces, jfaces)

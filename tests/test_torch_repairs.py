@@ -10,6 +10,7 @@ A guard compares every public signature of the two packages.  The bar is
 BASELINE.md row 2: 1e-6."""
 
 import importlib
+import json
 import inspect
 import pkgutil
 import re
@@ -73,22 +74,28 @@ def test_session_has_every_public_name_of_the_jax_session():
     assert not missing, missing
 
 
-@pytest.mark.parametrize("verb, item", [("save", 15), ("export_exploration", 16),
+@pytest.mark.parametrize("verb, item", [("restore_int16", 15), ("restore_float16", 15),
                                         ("restore", 14)])
 def test_session_verbs_added_as_stubs_name_their_item(verb, item, tmp_path):
-    # What stays unported behind the session's verbs: an out-of-core
-    # session's save (the disk spill), the HTML export, and restoring a
-    # sharded joint checkpoint (a committee's restores since item 13).
+    # What stays unported behind the session's verbs (an out-of-core save
+    # and the HTML export work since items 15 and 16): restoring an
+    # out-of-core checkpoint whose W panels are in a spill codec (int16
+    # blocks, float16), and a sharded joint checkpoint.
     cfg = ModelConfig(lengthscale=LS, touch_capacity=0, dtype="float64")
     sess = ObjectModelSession(cfg, device="cpu")
     path = str(tmp_path / "m.npz")
-    if verb == "save":
-        sess.start(_problem(100)[0], out_of_core=True)
-    elif verb == "restore":
+    if verb == "restore":
         np.savez(path, meta='{"format": 1, "sharded": true, "joint": true}')
-    args = ("x.html",) if verb == "export_exploration" else (path,)
+    else:
+        ObjectModelSession(cfg, device="cpu").start(_problem(100)[0], out_of_core=True).save(path)
+        manifest = tmp_path / "m.npz.w" / "manifest.json"
+        doc = json.loads(manifest.read_text())
+        entry = doc["panels"]["0"]
+        doc["panels"]["0"] = ([entry[0], "int16", {"codec": "int16"}] if verb == "restore_int16"
+                              else [entry[0], "float16"])
+        manifest.write_text(json.dumps(doc))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}:"):
-        getattr(sess, verb)(*args)
+        sess.restore(path)
 
 
 @pytest.mark.parametrize("verb", ["surface_points", "update"])
@@ -118,20 +125,38 @@ def test_session_constructor_takes_the_jax_positional_order():
     np.testing.assert_allclose(sess.query(q), jsess.query(q), atol=1e-6)
 
 
-def test_session_explore_config_names_its_item():
+def test_session_explore_config_names_its_item(tmp_path):
     # The JAX caller's ExploreConfig, second positionally or by keyword, is
-    # kept as explore_config; the one explore verb still unported, the HTML
-    # export, names its item.
+    # kept as explore_config, and the HTML export (ported with item 16)
+    # plans with it: at most max_charts charts in the viewer.
     from gpis_tpu_torch.config import ExploreConfig
 
     ecfg = ExploreConfig(max_charts=7)
-    for make in (lambda: ObjectModelSession(None, ecfg, device="cpu"),
-                 lambda: ObjectModelSession(explore=ecfg, device="cpu")):
+    cfg = ModelConfig(lengthscale=LS, touch_capacity=0, dtype="float64")
+    for i, make in enumerate((lambda: ObjectModelSession(cfg, ecfg, device="cpu"),
+                              lambda: ObjectModelSession(cfg, explore=ecfg, device="cpu"))):
         sess = make()
         assert sess.explore_config is ecfg
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 16:"):
-            sess.export_exploration("x.html")
+        html = str(tmp_path / f"x{i}.html")
+        res = sess.start(_problem(100)[0]).export_exploration(html, resolution=12)
+        assert 1 <= len(res.charts) <= 7 and "gpis-tpu viewer" in open(html).read()
     assert ObjectModelSession(device="cpu").explore_config == ExploreConfig()
+
+
+def test_every_jax_root_name_resolves_on_the_port():
+    """`from gpis_tpu_torch import X` for every X of gpis_tpu.__all__ but
+    fit_sharded_joint (ROADMAP §1 item 14), each the port's function or
+    class of the same name, at the JAX _LAZY path with the package renamed."""
+    missing = [n for n in gpis_tpu.__all__
+               if n != "fit_sharded_joint" and not hasattr(gpis_tpu_torch, n)]
+    assert not missing, missing
+    for name, (mod, attr) in gpis_tpu._LAZY.items():
+        if name == "fit_sharded_joint":
+            continue
+        assert gpis_tpu_torch._LAZY[name] == (mod.replace("gpis_tpu", "gpis_tpu_torch", 1), attr)
+        obj = getattr(gpis_tpu_torch, name)
+        assert obj.__name__ == attr and obj.__module__.startswith("gpis_tpu_torch."), name
+    assert set(gpis_tpu.__all__) - {"fit_sharded_joint"} <= set(gpis_tpu_torch.__all__)
 
 
 @pytest.fixture(scope="module")
@@ -268,13 +293,12 @@ _ALLOWED_GAPS = {
     ("linalg.sharded", "sharded_update_tail"): {"l", "w", "axis"},
     ("parallel.mesh", "make_row_mesh"): {"axis_name"},
     # ROADMAP §1 item 15: the out-of-core knobs kept as module constants or
-    # refused until their features are ported (spill codecs, disk spill,
-    # process-split phases).
-    ("linalg.outofcore", "TieredPanelStore"): {"spill_dtype", "device_dtype", "spill_dir",
-                                               "write_through", "tag", "spill_codec"},
+    # refused until their features are ported (spill codecs, the
+    # write-through mirror, process-split phases).
+    ("linalg.outofcore", "TieredPanelStore"): {"spill_dtype", "device_dtype", "write_through",
+                                               "spill_codec"},
     ("linalg.outofcore", "TieredPanelStore.__init__"): {"spill_dtype", "device_dtype",
-                                                        "spill_dir", "write_through", "tag",
-                                                        "spill_codec"},
+                                                        "write_through", "spill_codec"},
     ("linalg.outofcore", "ooc_trsm"): {"width_quant", "start_panel", "end_panel",
                                        "progress_cb"},
     ("linalg.outofcore", "ooc_cholesky"): {"x", "noisep", "width_quant", "start_panel", "u0",
@@ -282,8 +306,7 @@ _ALLOWED_GAPS = {
     ("linalg.outofcore", "ooc_residual_check"): {"n_blocks", "block", "tol", "tol_y"},
     ("linalg.outofcore", "plan_sweeps"): {"c", "panel", "itemsize", "limit", "w_itemsize",
                                           "l_itemsize", "width_quant", "max_sweep"},
-    ("linalg.outofcore", "ooc_fit"): {"dtype", "max_jitter_retries", "initial_jitter",
-                                      "width_quant", "sweep", "trsm_sweep"},
+    ("linalg.outofcore", "ooc_fit"): {"width_quant", "sweep", "trsm_sweep"},
     ("linalg.outofcore", "ooc_factor_phase"): {
         "kernel", "x", "y", "noise", "params", "panel", "spill_dir", "block", "sweep",
         "width_quant", "pad_noise", "dtype", "max_jitter_retries", "initial_jitter",
@@ -291,8 +314,6 @@ _ALLOWED_GAPS = {
     ("linalg.outofcore", "ooc_solve_phase"): {"spill_dir", "w_dtype", "trsm_sweep",
                                               "device_budget", "resume", "stop_after",
                                               "fused_query", "keep_w"},
-    # ROADMAP §1 item 16: the native marching library.
-    ("surface.marching", "marching_tetrahedra"): {"native"},
 }
 _ALLOWED_GAPS[("linalg.outofcore", "ooc_fit_joint")] = _ALLOWED_GAPS[("linalg.outofcore",
                                                                       "ooc_fit")]

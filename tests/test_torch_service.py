@@ -14,6 +14,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
+import torch_jax_native
 
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
 from gpis_tpu.config import ExploreConfig as JaxExploreConfig
@@ -98,6 +99,7 @@ def test_service_extended_endpoints(tmp_path):
         mesh = srv.call("/mesh?resolution=16")
         jsess = JaxSession(JaxModelConfig(**{**CFG, "n_external": 16, "block": 32,
                                              "touch_capacity": 256})).start(pts)
+        torch_jax_native.require()  # the JAX soup in its native order
         verts, faces, var = jsess.extract_surface(resolution=16)
         assert len(mesh["verts"]) > 50 and len(mesh["faces"]) > 20
         assert mesh["faces"] == np.asarray(faces).tolist()
