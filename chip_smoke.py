@@ -201,6 +201,46 @@ Phases, one printed line or more each; any failure exits nonzero:
    launched inside the verbs (the launches of the checks are left out).
    Each verb's seconds, and the checkpoints' bytes with their save and
    load seconds, printed beside the card.
+15. The sharded joint fit (`gp/sharded_joint.py`) on a one-rank NCCL
+   group (phase 9's set-up, the communicator warmed and timed apart):
+   phase 4's cloud and configuration, float32, J = 4 x 5,120 + 256 touch
+   slots = 20,736, block 256, its model in a session (a one-rank mesh
+   session keeps the single-card path, as phase 11's sharded run does):
+   the 64^3 grid, extract_surface, the normals at 256 surface points, one
+   update of 64 contacts at 1.3 x the radius, three method="distributed"
+   hyperopt steps with their refit (the touches replayed), save and load.
+   Gates: the grid within 1e-4 of phase 4's in-core joint grid (float32,
+   two factor orders), RMSE < 0.02, min cos(normal, radial) > 0.99, no
+   NaN, at every contact the variance fell and the mean moved toward its
+   target, the best MLL above the start's, the restored query equal to the
+   bit; E (in band mode), G, L and F band (joint columns) launched.  Fit,
+   grid, update, hyperopt, save and load seconds, peak memory and the E,
+   F band and L launches printed.
+16. The two-phase out-of-core fit on phase 7's problem (C 32,768, panel
+   4,096, the 1 GB budget: panels 4-7 of L and of W on disk).  (a)
+   `ooc_factor_phase` in a fresh `python` process, `ooc_solve_phase(
+   stop_after=4)` in a second and the resumed solve phase in a third (its
+   TRSM starting at panel 4, after W panels 0-3 and with L panels 0-3
+   gone), then the 65,536-point query, within 1e-5 of phase 7's
+   in-process fit (the same kernels in the same order).  (b) On the same
+   factor (its L panels hard-linked), `ooc_solve_phase(fused_query=...,
+   keep_w=False)`: the TRSM-fused query within 1e-4 of (a)'s post-hoc
+   query and the last sweep's W panels not written.  (c) `l_codec=
+   "int16"` with `defer_alpha`: `ooc_residual_check` passes on the clean
+   fit and refuses each fit whose L codes were halved on disk: in a
+   sampled block's own rows, in a 256-row block of the panel farthest from
+   the sampled rows, and in all of that panel (alpha carries the damage to
+   the sampled rows).  (d) `w_dtype=
+   float16` on (a)'s factor: the mean within 1e-4 of (a)'s (alpha never
+   reads W), the variance's gap to (a)'s within 0.2 (root mean square) and
+   0.7 (99th percentile), from the JAX package's float32 readings on the
+   CPU, and an update refused.  (e) One split stream-objective step
+   (`ooc_factor_phase(defer_alpha=True)`, `ooc_mll_and_grad_solve_phase`)
+   on phase 3's training set (panel 1,024) within 1e-4 (MLL, relative)
+   and each gradient component within 1e-3 of itself in the one-call
+   `ooc_mll_and_grad`.  Each process's seconds, the bytes on disk and the
+   residuals printed; a failed process fails the run.  Launches: the
+   processes' (each prints its own), (b)'s and (e)'s.
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -252,6 +292,9 @@ QUAD_REL_TOL = 1e-4  # Kernels D and F: quad against the float64 twin, per query
 BIG_QUERY = 65536  # a 256 x 256 depth image: its staged kq exceeds the cap
 JOINT_SPHERE = (4992, 0.35, (0.2, -0.1, 0.05))  # bench/session_scenario.py --normals 4992
 OOC_GRID_GAP = 1e-2  # out-of-core grid against the in-core one: float32, two factor orders
+# Phase 15's one-rank sharded joint grid against phase 4's in-core joint
+# grid: float32, the same covariance, two factor orders (read 9.6e-6).
+SHARDED_JOINT_GRID_GAP = 1e-4
 SPILL_N = 32640  # phase 7's sphere: with 127 external points and 1 internal, C = 32,768
 SPILL_PANEL = 4096
 SPILL_BUDGET = 1_000_000_000  # holds trimmed W panels 0-3 (0.81 GB); 4-7 spill
@@ -1913,7 +1956,9 @@ def phase7(torch, launches) -> dict:
           OOC_GRID_GAP)
     check("host spill: query against in-core float64 fit_inference: var", gap_var, OOC_GRID_GAP)
     require_launches(counts, ("gram_band", "panel_update") + OOC_KERNELS, "host spill")
-    return counts
+    spill = {"x": ts.x.cpu().numpy(), "y": ts.y.cpu().numpy(), "noise": ts.noise.cpu().numpy(),
+             "q": q.cpu().numpy(), "mean": mean, "var": var, "cfg": cfg, "params": params}
+    return counts, spill
 
 
 def surface_rmse(verts_world: np.ndarray) -> float:
@@ -4412,6 +4457,464 @@ def read_ply_vertices(path: str) -> np.ndarray:
         return np.loadtxt(f, max_rows=n, ndmin=2)
 
 
+# ------------------------------------------------------------ phase 15
+
+SHARDED_JOINT_BLOCK = 256  # MeshConfig's default block: J = 4 x 5,120 + 256 touch slots
+TOUCH_RADIUS = 1.3  # phase 15's contacts: 1.3 x phase 4's radius, off the cloud
+
+
+def phase15(torch, launches, incore_joint) -> dict:
+    """The sharded joint fit on a one-rank NCCL group: phase 4's cloud and
+    configuration (C 5,120, J 20,736 with 256 touch slots), float32, its
+    model in a session (a one-rank mesh session keeps the single-card path,
+    as phase 11's sharded run does): the 64^3 grid, extract_surface, the
+    normals at 256 surface points, one 64-contact update, three
+    method="distributed" hyperopt steps with their refit, save and load."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from gpis_tpu_torch import ObjectModelSession
+    from gpis_tpu_torch.api.session import _joint_obs
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.gp.sharded_joint import fit_sharded_joint
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.surface import projection
+
+    cfg, pts, normals, in_mean, in_var = incore_joint
+    _, radius, center = JOINT_SPHERE
+    center = np.asarray(center, np.float32)
+    contacts = (fibonacci_sphere(TOUCH_BATCH, TOUCH_RADIUS * radius) + center).astype(np.float32)
+    store = tempfile.mkdtemp(prefix="gpis_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            rank=0, world_size=1)
+    try:
+        t_init = time.perf_counter()
+        dist.all_reduce(torch.zeros((1,), device="cuda"))
+        torch.cuda.synchronize()
+        nccl_init_s = time.perf_counter() - t_init
+        sess = ObjectModelSession(cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.clear()
+        t0 = time.perf_counter()
+        ts = gpis.build_training_set(pts, cfg, device="cuda")
+        nrm_full, noise_g = _joint_obs(ts, normals, pts, cfg)
+        sess.training, sess.frame = ts, ts.frame
+        sess.model = fit_sharded_joint(cfg.kernel, ts.x, ts.y, nrm_full, ts.noise, noise_g,
+                                       kf.kernel_params(cfg.lengthscale, cfg.signal_variance),
+                                       n_devices=1, block=SHARDED_JOINT_BLOCK,
+                                       pad_noise=cfg.pad_noise,
+                                       touch_capacity=cfg.touch_capacity)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        model = sess.model
+        mean, var, _ = sess.evaluate_grid()
+        grid_s = sess.stats["grid_s"]
+        verts, faces, vvar = sess.extract_surface(world_frame=False)
+        c_n = sess.frame.to_normalized(torch.as_tensor(center, device="cuda"))
+        sel = torch.as_tensor(verts[np.linspace(0, len(verts) - 1, 256).astype(int)],
+                              dtype=sess.dtype, device="cuda")
+        grad = projection.surface_normals(model, sel)
+        mean0, var0 = sess.query(contacts)
+        t0 = time.perf_counter()
+        sess.update(contacts)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        t_mean, t_var = sess.query(contacts)
+        t0 = time.perf_counter()
+        res = sess.optimize_hyperparameters(method="distributed", steps=3)
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()
+        big = big_query(torch, pts)
+        want = sess.query(big)
+        path = os.path.join(store, "sharded_joint.npz")
+        t0 = time.perf_counter()
+        sess.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = ObjectModelSession.load(path, cfg, device="cuda")
+        load_s = time.perf_counter() - t0
+        got = restored.query(big)
+        ckpt_bytes = os.path.getsize(path)
+        joint_size, touched = model.l.shape[1], restored.model.n_touch
+        del sess, restored, model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    radial = sel - c_n
+    min_cos = (torch.sum(grad * radial, dim=1) / radial.norm(dim=1)).min().item()
+    rad = np.linalg.norm(verts - c_n.cpu().numpy(), axis=1) - radius / float(ts.frame.scale)
+    rmse = float(np.sqrt(np.mean(rad**2))) if len(verts) else float("nan")
+    finite = bool(np.isfinite(mean).all() and np.isfinite(var).all() and np.isfinite(vvar).all()
+                  and torch.isfinite(grad).all().item() and np.isfinite(t_var).all()
+                  and np.isfinite(res.history).all())
+    say(f"  sharded joint P=1: J {joint_size} (C {ts.x.shape[0]}), launches {counts}")
+    say(json.dumps({
+        "sharded_joint": "P=1 nccl", "nccl_init_s": nccl_init_s, "fit_s": fit_s,
+        "grid_s": grid_s, "update_s": update_s, "optimize_s": opt_s, "save_s": save_s,
+        "load_s": load_s, "checkpoint_bytes": ckpt_bytes, "joint_size": joint_size,
+        "contact_var": [float(var0.min()), float(t_var.max())],
+        "contact_abs_mean": [float(np.abs(mean0).min()), float(np.abs(t_mean).max())],
+        "surface_rmse": rmse, "min_normal_cos": min_cos, "history": res.history,
+        "params": res.params, "max_memory_allocated_bytes": peak,
+        "touches_after_refit": touched, "launches_E": counts.get("joint_cov", 0),
+        "launches_F_band": counts.get("quad_band", 0),
+        "launches_L": counts.get("band_trail", 0), "card": card_line(),
+    }))
+    if not finite:
+        fail("NaN or inf in the sharded joint posterior")
+    for name, a, b in (("mean", mean, in_mean), ("var", var, in_var)):
+        check(f"sharded joint P=1 64^3 grid against phase 4's in-core joint grid: {name}",
+              float(np.abs(a - b).max()), SHARDED_JOINT_GRID_GAP)
+    if not rmse < RMSE_GATE:
+        fail(f"sharded joint surface RMSE {rmse} >= {RMSE_GATE}")
+    if not min_cos > COS_GATE:
+        fail(f"sharded joint min cos(normal, radial) {min_cos} <= {COS_GATE}")
+    # Off the cloud, where the prior field is far from 0 and the touch noise
+    # is floored at 4 eps J k(0) ~ 1e-2 in float32: the variance falls and
+    # the mean moves toward the contacts' target 0 at every contact.
+    if not (np.all(t_var < var0) and np.all(np.abs(t_mean) < np.abs(mean0))):
+        fail("sharded joint update: at a contact the variance did not fall or the mean did "
+             "not move toward 0")
+    if not max(res.history) > res.history[0]:
+        fail(f"sharded joint distributed hyperopt: no MLL above the start's {res.history}")
+    if touched != TOUCH_BATCH:
+        fail(f"the hyperopt refit kept {touched} touches, not {TOUCH_BATCH}")
+    same_bits(torch, "sharded joint checkpoint", got, want)
+    require_launches(counts, ("joint_cov", "gemm_nt_masked", "band_trail", "quad_band"),
+                     "sharded joint P=1")
+    return counts
+
+
+# ------------------------------------------------------------ phase 16
+
+# The TRSM-fused query against the post-hoc one: the same W and the same
+# per-tile products, the float32 sums of 256 row tiles' partials grouped
+# by sweep instead of by panel (a few ulps of the quad, ~1).
+FUSED_GAP = 1e-4
+# The three-process fit against phase 7's in-process one: the same kernels
+# on the same panels in the same order (read 0.0), so a few float32 ulps.
+PHASE_SPLIT_GAP = 1e-5
+# A float16 W's variance against the float32 W's on phase 7's problem.  Its
+# gap grows with C at phase 7's density, lengthscale and noise; the JAX
+# package's own, on the CPU in float32 (`scripts/torch_f16_w_gap.py`, polar
+# caps of phase 7's set): rms 0.0235, 0.0481, 0.0635 and 99th percentile
+# 0.070, 0.216, 0.281 at C 2,048, 4,096, 8,192, growing ~1.3x a doubling
+# at the last, so ~0.11 and ~0.47 at C 32,768.  The gates are ~2x and
+# ~1.5x those: a misread narrowed panel drives the clamped variance to its
+# bounds over most of the box.
+F16_VAR_RMS = 0.2
+F16_VAR_P99 = 0.7
+SPLIT_MLL_REL = 1e-4  # the split stream step against the one-call one: relative MLL
+SPLIT_GRAD_REL = 1e-3  # and each gradient component, relative to itself (read <= 1.2e-5)
+
+# One phase of the two-phase out-of-core fit, in a process of its own:
+#   python -c PHASE_WORKER ROOT WHAT SPILL_DIR
+# WHAT is "factor" (ooc_factor_phase on SPILL_DIR/problem.npz), "stop"
+# (ooc_solve_phase(stop_after=4)) or "resume" (the rest, then the query of
+# problem.npz's q into SPILL_DIR/answer.npz).  The last line printed is its
+# seconds and the kernels it launched, as JSON.
+PHASE_WORKER = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from gpis_tpu_torch import _build
+from gpis_tpu_torch.linalg import outofcore as ooc
+
+what, sd = sys.argv[2], sys.argv[3]
+d = np.load(sd + "/problem.npz")
+budget = int(d["budget"])
+seen = {}
+trsm = ooc.ooc_trsm
+
+
+def spying(*a, **kw):
+    seen["start_panel"] = kw.get("start_panel", 0)
+    return trsm(*a, **kw)
+
+
+ooc.ooc_trsm = spying
+t0 = time.perf_counter()
+if what == "factor":
+    x, y, noise = (torch.as_tensor(d[k], device="cuda") for k in ("x", "y", "noise"))
+    ooc.ooc_factor_phase(str(d["kernel"]), x, y, noise,
+                         {"lengthscale": float(d["ls"]), "signal_variance": float(d["sv"])},
+                         panel=int(d["panel"]), spill_dir=sd, device_budget=budget,
+                         pad_noise=float(d["pad_noise"]))
+elif what == "stop":
+    if ooc.ooc_solve_phase(sd, stop_after=4, device_budget=budget, trsm_sweep=2) is not None:
+        sys.exit("the stopped solve phase returned a model")
+else:
+    m = ooc.ooc_solve_phase(sd, device_budget=budget, trsm_sweep=2)
+    mean, var = ooc.ooc_predict(m, torch.as_tensor(d["q"], device="cuda"))
+    np.savez(sd + "/answer.npz", mean=mean.cpu().numpy(), var=var.cpu().numpy())
+torch.cuda.synchronize()
+print(json.dumps({"what": what, "s": time.perf_counter() - t0, "start_panel": seen.get(
+    "start_panel"), "launches": dict(_build.LAUNCHES)}))
+"""
+
+
+def run_phase_worker(what: str, sd: str) -> dict:
+    """One PHASE_WORKER process; its JSON line.  A failed process fails the
+    run."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PHASE_WORKER, root, what, sd], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        say(proc.stdout[-3000:])
+        say(proc.stderr[-3000:])
+        fail(f"the {what} phase's process exited {proc.returncode}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = wall
+    return out
+
+
+def dir_size(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def link_store(src_dir: str, dst_dir: str, copy: tuple = ()) -> None:
+    """dst_dir/L as hard links to src_dir's L panel files (`copy` names the
+    files copied instead), with state.npz copied: a second solve phase on
+    the same factor without a second factor phase."""
+    import os
+    import shutil
+
+    os.makedirs(os.path.join(dst_dir, "L"))
+    shutil.copyfile(os.path.join(src_dir, "state.npz"), os.path.join(dst_dir, "state.npz"))
+    for f in os.listdir(os.path.join(src_dir, "L")):
+        a, b = os.path.join(src_dir, "L", f), os.path.join(dst_dir, "L", f)
+        if f == "manifest.json" or f in copy:
+            shutil.copyfile(a, b)
+        else:
+            os.link(a, b)
+
+
+def phase16(torch, launches, spill, incore_value) -> list:
+    """The two-phase out-of-core fit on phase 7's problem (C 32,768, panel
+    4,096, a 1 GB device budget: L and W panels 4-7 spill to disk): (a) the
+    factor phase, a stopped solve phase and its resume, each in a fresh
+    process, the resumed model's 65,536-point query held to phase 7's
+    in-process fit; (b) the TRSM-fused query held to (a)'s post-hoc one;
+    (c) the int16 L codec passing ooc_residual_check, and failing it with
+    one L panel damaged on disk; (d) a float16 W, whose update is refused;
+    (e) one split stream-objective step on phase 3's training set held to
+    the one-call objective."""
+    import os
+    import shutil
+    import tempfile
+
+    from gpis_tpu_torch.data import gpis
+    from gpis_tpu_torch.gp import ooc_hyperopt as oho
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.linalg import outofcore as ooc
+
+    cfg, params = spill["cfg"], spill["params"]
+    root = tempfile.mkdtemp(prefix="gpis_phases_")
+    runs, report = [], {"card": card_line()}
+    try:
+        # (a) three processes.
+        sd = os.path.join(root, "a")
+        os.makedirs(sd)
+        np.savez(os.path.join(sd, "problem.npz"), x=spill["x"], y=spill["y"],
+                 noise=spill["noise"], q=spill["q"], kernel=cfg.kernel,
+                 ls=params["lengthscale"], sv=params["signal_variance"], panel=SPILL_PANEL,
+                 budget=SPILL_BUDGET, pad_noise=cfg.pad_noise)
+        procs = [run_phase_worker("factor", sd)]
+        report["l_bytes_on_disk"] = dir_size(os.path.join(sd, "L"))
+        backup = os.path.join(root, "a_factor")
+        link_store(sd, backup)
+        procs.append(run_phase_worker("stop", sd))
+        w_stop = sorted(f for f in os.listdir(os.path.join(sd, "W")) if f.endswith(".bin"))
+        l_left = sorted(f for f in os.listdir(os.path.join(sd, "L")) if f.endswith(".bin"))
+        procs.append(run_phase_worker("resume", sd))
+        report["w_bytes_on_disk"] = dir_size(os.path.join(sd, "W"))
+        report["processes"] = [{k: p[k] for k in ("what", "s", "process_s", "start_panel")}
+                               for p in procs]
+        runs += [p["launches"] for p in procs]
+        with np.load(os.path.join(sd, "answer.npz")) as d:
+            a_mean, a_var = d["mean"], d["var"]
+        shutil.rmtree(sd)
+        if w_stop != [f"panel_{j}.bin" for j in range(4)] or "panel_0.bin" in l_left:
+            fail(f"the stopped solve left W {w_stop} and L {l_left}")
+        if procs[2]["start_panel"] != 4:
+            fail(f"the resumed TRSM started at panel {procs[2]['start_panel']}, not 4")
+        gaps = (float(np.abs(a_mean - spill["mean"]).max()),
+                float(np.abs(a_var - spill["var"]).max()))
+        report["a_gap_to_phase7"] = gaps
+        check("two-phase fit (three processes) against phase 7's in-process fit: mean",
+              gaps[0], PHASE_SPLIT_GAP)
+        check("two-phase fit (three processes) against phase 7's in-process fit: var",
+              gaps[1], PHASE_SPLIT_GAP)
+
+        # (b) the TRSM-fused query, in this process, on the same factor.
+        sd = os.path.join(root, "b")
+        link_store(backup, sd)
+        torch.cuda.synchronize()
+        launches.clear()
+        t0 = time.perf_counter()
+        model, pair = ooc.ooc_solve_phase(sd, device_budget=SPILL_BUDGET, trsm_sweep=2,
+                                          fused_query=spill["q"], keep_w=False)
+        torch.cuda.synchronize()
+        report["fused_solve_s"] = time.perf_counter() - t0
+        runs.append(dict(launches))
+        report["fused_w_panels_kept"] = sorted(j for j in range(8) if j in model.wstore)
+        f_mean, f_var = (t.cpu().numpy() for t in pair)
+        del model, pair
+        shutil.rmtree(sd)
+        gaps = float(np.abs(f_mean - a_mean).max()), float(np.abs(f_var - a_var).max())
+        report["fused_gap"] = gaps
+        check("TRSM-fused query against (a)'s post-hoc query: mean", gaps[0], FUSED_GAP)
+        check("TRSM-fused query against (a)'s post-hoc query: var", gaps[1], FUSED_GAP)
+        if report["fused_w_panels_kept"] != list(range(6)):
+            fail(f"keep_w=False kept W panels {report['fused_w_panels_kept']}")
+        require_launches(runs[-1], ("quad_band", "gemm_nn_acc_masked", "stripe_write"),
+                         "TRSM-fused solve")
+
+        # (d) a float16 W on the same factor: the update is refused.
+        sd = os.path.join(root, "d")
+        link_store(backup, sd)
+        model = ooc.ooc_solve_phase(sd, device_budget=SPILL_BUDGET, trsm_sweep=2,
+                                    w_dtype=torch.float16)
+        h_mean, h_var = (t.cpu().numpy() for t in ooc.ooc_predict(
+            model, torch.as_tensor(spill["q"], device="cuda")))
+        try:
+            model.update(torch.zeros((1, 3), device="cuda"), 0.0, 1e-6)
+        except ValueError as e:
+            report["f16_update_refused"] = str(e)[:60]
+        else:
+            fail("an update on a float16-spilled W was not refused")
+        del model
+        shutil.rmtree(sd)
+        shutil.rmtree(backup)
+        dv = np.abs(h_var.astype(np.float64) - a_var)
+        gaps = float(np.abs(h_mean - a_mean).max()), float(dv.max())
+        report["f16_w_gap"] = gaps
+        report["f16_w_var_gap"] = {"max": gaps[1], "p99": float(np.quantile(dv, 0.99)),
+                                   "rms": float(np.sqrt(np.mean(dv**2)))}
+        check("float16 W against (a): mean (alpha never reads W)", gaps[0], FUSED_GAP)
+        if not np.isfinite(h_var).all():
+            fail("NaN or inf in the float16 W's variance")
+        check("float16 W against (a): variance, root mean square",
+              report["f16_w_var_gap"]["rms"], F16_VAR_RMS)
+        check("float16 W against (a): variance, 99th percentile",
+              report["f16_w_var_gap"]["p99"], F16_VAR_P99)
+
+        # (c) the int16 L codec and its guard.
+        sd = os.path.join(root, "c")
+        x, y, noise = (torch.as_tensor(spill[k], device="cuda") for k in ("x", "y", "noise"))
+        t0 = time.perf_counter()
+        ooc.ooc_factor_phase(cfg.kernel, x, y, noise, params, panel=SPILL_PANEL, spill_dir=sd,
+                             device_budget=SPILL_BUDGET, pad_noise=cfg.pad_noise,
+                             l_codec="int16", defer_alpha=True)
+        report["int16_factor_s"] = time.perf_counter() - t0
+        report["int16_l_bytes_on_disk"] = dir_size(os.path.join(sd, "L"))
+        pristine = os.path.join(root, "c_factor")
+        link_store(sd, pristine)  # the solve phase unlinks L panels as W replaces them
+        model = ooc.ooc_solve_phase(sd, device_budget=SPILL_BUDGET, trsm_sweep=2)
+        clean = ooc.ooc_residual_check(model)
+        del model
+        # Three damages, each in its own copy of the coded factor (the damaged
+        # panel copied, the rest hard-linked), each solved and checked: the
+        # codes halved in (i) the second sampled block's own rows, (ii) a
+        # 256-row block in the middle of the L panel farthest from every
+        # sampled block, and (iii) the whole of that panel.  The check reads
+        # no panel: (ii) and (iii) reach its sampled rows through alpha.
+        block, nb = clean["block"], len(spill["x"]) // SPILL_PANEL
+        sampled = [(r, r + block) for r in clean["rows"]]
+        far = max((j for j in range(nb)
+                   if all(b <= j * SPILL_PANEL or a >= (j + 1) * SPILL_PANEL for a, b in sampled)),
+                  key=lambda j: min(abs((j + 0.5) * SPILL_PANEL - (a + b) / 2) for a, b in sampled))
+        mid = far * SPILL_PANEL + (SPILL_PANEL - block) // 2
+        damages = {"sampled_block": (clean["rows"][1], block),
+                   "unsampled_block": (mid, block),
+                   "unsampled_panel": (far * SPILL_PANEL, SPILL_PANEL)}
+        checked = {}
+        for what, (r0, n) in damages.items():
+            j = r0 // SPILL_PANEL
+            bad = os.path.join(root, f"c_{what}")
+            link_store(pristine, bad, copy=(f"panel_{j}.bin",))
+            with open(os.path.join(bad, "L", "manifest.json")) as f:
+                shape = json.load(f)["panels"][str(j)][0]
+            codes = np.memmap(os.path.join(bad, "L", f"panel_{j}.bin"), dtype=np.int16,
+                              mode="r+", shape=tuple(shape))
+            lo = r0 - j * SPILL_PANEL
+            codes[lo:lo + n] //= 2
+            codes.flush()
+            del codes
+            model = ooc.ooc_solve_phase(bad, device_budget=SPILL_BUDGET, trsm_sweep=2)
+            checked[what] = ooc.ooc_residual_check(model)
+            checked[what]["damaged_rows"] = [int(r0), int(r0 + n)]
+            del model
+            shutil.rmtree(bad)
+        shutil.rmtree(sd)
+        shutil.rmtree(pristine)
+        report["int16_residual_clean"] = clean
+        report["int16_residual_damaged"] = checked
+        for what, res in checked.items():
+            say(f"  int16 L, codes halved in rows {res['damaged_rows']} ({what}): rel_bw "
+                f"{res['rel_bw']:.3e}, rel_y {res['rel_y']:.3e}: "
+                f"{'passed' if res['ok'] else 'refused'}")
+        if not clean["ok"]:
+            fail(f"ooc_residual_check refused the clean int16-coded fit: {clean}")
+        passed = [what for what, res in checked.items() if res["ok"]]
+        if passed:
+            fail(f"ooc_residual_check passed a fit with a damaged L panel ({passed}): {checked}")
+
+        # (e) the split stream-objective step on phase 3's training set.
+        cfg3, pts3 = incore_value[0], incore_value[1]
+        ts = gpis.build_training_set(pts3, cfg3, device="cuda")
+        p3 = kf.kernel_params(cfg3.lengthscale, cfg3.signal_variance)
+        mll, g = oho.ooc_mll_and_grad(cfg3.kernel, ts.x, ts.y, ts.noise, p3, panel=1024,
+                                      pad_noise=cfg3.pad_noise)
+        sd = os.path.join(root, "e")
+        torch.cuda.synchronize()
+        launches.clear()
+        t0 = time.perf_counter()
+        ooc.ooc_factor_phase(cfg3.kernel, ts.x, ts.y, ts.noise, p3, panel=1024, spill_dir=sd,
+                             pad_noise=cfg3.pad_noise, defer_alpha=True)
+        mll2, g2 = oho.ooc_mll_and_grad_solve_phase(sd, noise_base=ts.noise)
+        torch.cuda.synchronize()
+        report["split_step_s"] = time.perf_counter() - t0
+        runs.append(dict(launches))
+        shutil.rmtree(sd)
+        keys = ("log_ls", "log_noise_scale", "log_sv")
+        g, g2 = np.array([float(g[k]) for k in keys]), np.array([float(g2[k]) for k in keys])
+        report["split_step"] = {"mll": float(mll2), "mll_one_call": float(mll),
+                                "grad": g2.tolist(), "grad_one_call": g.tolist()}
+        check("split stream step against the one-call objective: MLL (relative)",
+              abs(float(mll2) - float(mll)) / abs(float(mll)), SPLIT_MLL_REL, err_name="rel_err")
+        for k, a, b in zip(keys, g2, g):
+            check(f"split stream step against the one-call objective: d/d{k} (relative)",
+                  abs(a - b) / max(abs(b), 1e-30), SPLIT_GRAD_REL, err_name="rel_err")
+        require_launches(runs[-1], ("gram_band", "gemm_nt_masked", "gemm_nn_acc_masked",
+                                    "stripe_write"), "split stream step")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(json.dumps({"two_phase_out_of_core": report}))
+    total = {}
+    for run in runs:
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    require_launches(total, ("gram_band", "gemm_nt_masked", "gemm_nn_acc_masked",
+                             "stripe_write", "quad_band", "panel_update"), "two-phase fit")
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4465,7 +4968,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     say("phase 7: the out-of-core host spill")
-    runs.append(phase7(torch, _build.LAUNCHES))
+    counts, spill = phase7(torch, _build.LAUNCHES)
+    runs.append(counts)
     torch.cuda.empty_cache()
 
     say('phase 8: the panel_solve="inv" option through ObjectModelSession')
@@ -4494,6 +4998,14 @@ def main() -> int:
 
     say("phase 14: the command line (gpis_tpu_torch.cli.main)")
     runs.append(phase14(torch, _build.LAUNCHES))
+    torch.cuda.empty_cache()
+
+    say("phase 15: the sharded joint fit on a one-rank NCCL group")
+    runs.append(phase15(torch, _build.LAUNCHES, incore_joint))
+    torch.cuda.empty_cache()
+
+    say("phase 16: the two-phase out-of-core fit, its phases in fresh processes")
+    runs += phase16(torch, _build.LAUNCHES, spill, incore_value)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -23,8 +23,7 @@ from gpis_tpu_torch.config import ExploreConfig, MeshConfig, ModelConfig, load_c
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# The JAX package's public names (but `fit_sharded_joint`, ROADMAP.md §1
-# item 14) and the port's own.
+# The JAX package's public names and the port's own.
 __all__ = [
     "ModelConfig",
     "ExploreConfig",
@@ -38,6 +37,7 @@ __all__ = [
     "fit_with_normals",
     "fit_experts",
     "fit_sharded",
+    "fit_sharded_joint",
     "optimize_sharded",
     "optimize_ooc",
     "optimize_ooc_joint",
@@ -62,6 +62,7 @@ _LAZY = {
     "fit_with_normals": ("gpis_tpu_torch.gp.derivative", "fit_with_normals"),
     "fit_experts": ("gpis_tpu_torch.gp.experts", "fit_experts"),
     "fit_sharded": ("gpis_tpu_torch.gp.sharded_model", "fit_sharded"),
+    "fit_sharded_joint": ("gpis_tpu_torch.gp.sharded_joint", "fit_sharded_joint"),
     "optimize_sharded": ("gpis_tpu_torch.gp.sharded_hyperopt", "optimize_sharded"),
     "optimize_ooc": ("gpis_tpu_torch.gp.ooc_hyperopt", "optimize_ooc"),
     "optimize_ooc_joint": ("gpis_tpu_torch.gp.ooc_hyperopt", "optimize_ooc_joint"),

@@ -1,6 +1,7 @@
 """ObjectModelSession, the user-facing orchestrator (port of
-gpis_tpu/api/session.py:62-469 and 506-930 for the in-core value and joint
-models, the out-of-core ones and the row-sharded value model).
+gpis_tpu/api/session.py: the in-core value and joint models, the
+out-of-core ones, the committee and the row-sharded value and joint
+models).
 
 World frame in, world frame out: the session owns the normalization Frame.
 `start` fits: with `out_of_core=True` the panel-streamed fit
@@ -15,7 +16,9 @@ nearest experts.  With
 `mesh=MeshConfig(n_devices=P)`, P > 1, the session is one rank of a
 row mesh (`parallel.mesh`): every rank constructs it and calls each verb
 with the same arguments, and `start` fits the row-sharded value model
-(`gp.sharded_model.fit_sharded`) on rank 0's cloud, which it broadcasts.
+(`gp.sharded_model.fit_sharded`), or with `normals=` the sharded joint
+model (`gp.sharded_joint.fit_sharded_joint`), on rank 0's cloud, which it
+broadcasts.
 `query`, `evaluate_grid`, `extract_surface` and `surface_points` serve the
 fitted model; `update` borders tactile points into it (a joint model past
 its touch slots is refit with every touch folded into its core);
@@ -28,8 +31,7 @@ package's layout; an out-of-core model's W panels under `path + ".w/"`);
 `export_exploration` writes the mesh, the charts and the next path into
 one HTML viewer (`viz.export`).  The committee takes every verb: its touches route to
 the nearest expert, and its hyperopt ("subsample" or "poe") refits the
-committee and replays the routed touches.  The verbs not yet ported raise
-NotImplementedError naming the ROADMAP.md §1 item that ports them.
+committee and replays the routed touches.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from gpis_tpu_torch._build import not_ported, resolve_device
+from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.config import ExploreConfig, MeshConfig, ModelConfig
 from gpis_tpu_torch.data import gpis, voxel
 from gpis_tpu_torch.explore import planner
@@ -49,6 +51,7 @@ from gpis_tpu_torch.gp import hyperopt as ho
 from gpis_tpu_torch.gp import ooc_hyperopt as oho
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.gp import sharded_hyperopt as sho
+from gpis_tpu_torch.gp import sharded_joint as gsj
 from gpis_tpu_torch.gp import sharded_model as gsm
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.kernels import functions as kf
@@ -86,13 +89,14 @@ def _ooc_panel(rows: int) -> int:
 
 
 def _broadcast_cloud(points: np.ndarray, mesh) -> np.ndarray:
-    """Rank 0's cloud on every rank: its length, then its points."""
+    """Rank 0's cloud (N, 3), or (N, 6) with its normals, on every rank: its
+    length, then its rows."""
     n = torch.tensor([len(points)], dtype=torch.int64, device=mesh.device)
     torch.distributed.broadcast(n, src=0)
     if mesh.rank == 0:
         buf = torch.as_tensor(np.ascontiguousarray(points), device=mesh.device)
     else:
-        buf = torch.empty((int(n.item()), 3), dtype=getattr(torch, str(points.dtype)),
+        buf = torch.empty((int(n.item()), points.shape[1]), dtype=getattr(torch, str(points.dtype)),
                           device=mesh.device)
     torch.distributed.broadcast(buf, src=0)
     return buf.cpu().numpy()
@@ -157,8 +161,11 @@ class ObjectModelSession:
                 raise ValueError("out_of_core is the single-card beyond-memory path; "
                                  "use the sharded pipeline (config 5) on a mesh")
             if normals is not None:
-                not_ported("normals= on a mesh (sharded joint fits)", 14, "gp/sharded_joint.py")
-            points = _broadcast_cloud(points, self.mesh)
+                both = _broadcast_cloud(np.concatenate([points, np.asarray(
+                    normals, dtype=points.dtype)], axis=1), self.mesh)
+                points, normals = both[:, :3], both[:, 3:]
+            else:
+                points = _broadcast_cloud(points, self.mesh)
         cfg = self.config
         if cfg.voxel_leaf > 0:
             if normals is not None:
@@ -197,6 +204,13 @@ class ObjectModelSession:
             # Queries outnumber fits in a session: pin spilled W panels on
             # the card the fit's working set has freed.
             self.model.promote_for_serving()
+        elif normals is not None and self.mesh is not None:
+            # Config 2 x config 5: the distributed joint fit.
+            nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
+            self.model = gsj.fit_sharded_joint(
+                cfg.kernel, ts.x, ts.y, nrm_full, ts.noise, noise_g, params, self.mesh,
+                block=self.mesh_config.block, pad_noise=cfg.pad_noise,
+                touch_capacity=cfg.touch_capacity)
         elif normals is not None:
             nrm_full, noise_g = _joint_obs(ts, normals, points, cfg)
             self.model = gpd.fit_with_normals(
@@ -292,7 +306,7 @@ class ObjectModelSession:
         elif kind in ("ooc", "ooc_joint"):
             self.model = self.model.update(pts, y, cfg.noise_touch,
                                            tail_capacity=max(int(cfg.touch_capacity), 64))
-        elif kind == "sharded":
+        elif kind in ("sharded", "sharded_joint"):
             self.model = self.model.update(pts, y, cfg.noise_touch)
         elif kind == "joint":
             self._update_joint(pts, y)
@@ -412,6 +426,8 @@ class ObjectModelSession:
             return self._optimize_ooc(m, kind, kw)
         if kind == "sharded":
             return self._optimize_sharded(m, kw)
+        if kind == "sharded_joint":
+            return self._optimize_sharded_joint(m, kw)
         bad = kw.pop("method", "subsample")
         if bad != "subsample":
             raise ValueError(
@@ -630,6 +646,50 @@ class ObjectModelSession:
                                      m.noise[:n] * float(res.noise_scale), res.params,
                                      mesh=m.mesh, block=m.block,
                                      touch_capacity=cfg.touch_capacity, pad_noise=cfg.pad_noise)
+        self._sync()
+        return res
+
+    def _optimize_sharded_joint(self, m, kw: dict):
+        """The sharded joint branches of optimize_hyperparameters (every
+        rank): "subsample" optimizes the joint MLL of a core-point
+        subsample (`subsample=` 1,024) on one device, "distributed" the
+        whole system over the mesh (`optimize_sharded_joint`); either way
+        the refit replays the touches the old model held."""
+        method = kw.pop("method", "subsample")
+        cfg, n = self.config, m.n_real
+        if method == "distributed":
+            res_d = sho.optimize_sharded_joint(m.kernel, m.x, m.y, m.noise_f, m.noise_g,
+                                               m.params, m.mesh, c=m.n0, block=m.block,
+                                               n_real=n, n_touch=m.n_touch, **kw)
+            scale = float(res_d["noise_scale"])
+            res = ho.HyperoptResult(params=res_d["params"], noise=m.noise_f[:n] * scale,
+                                    noise_scale=res_d["noise_scale"],
+                                    history=res_d["history"], mll=res_d["mll"])
+            scale_g = 1.0
+        elif method == "subsample":
+            step = max(1, n // int(kw.pop("subsample", 1024)))
+            res = ho.optimize_joint(m.kernel, m.x[:n:step], m.y[:n:step], m.normals[:n:step],
+                                    m.noise_f[:n:step], m.noise_g[:n:step], m.params,
+                                    n_real=m.x[:n:step].shape[0], **kw)
+            scale, scale_g = float(res.noise_scale), float(res.noise_scale_g)
+        else:
+            raise ValueError(
+                f"unknown hyperopt method {method!r} for a sharded joint "
+                "model (use 'subsample' or 'distributed')"
+            )
+        c, occ = m.n0, m.n_touch
+        touches = (m.x[c:c + occ], m.y[4 * c:4 * c + occ], m.noise_f[c:c + occ])
+        x, yv, nrm = m.x[:n], m.y[:n], m.normals[:n]
+        nf, ng = m.noise_f[:n] * scale, m.noise_g[:n] * scale_g
+        kernel, mesh, block, pad_noise = m.kernel, m.mesh, m.block, m.pad_noise
+        # The old bands go before the refit builds new ones.
+        del m
+        self.model = None
+        self.model = gsj.fit_sharded_joint(kernel, x, yv, nrm, nf, ng, res.params, mesh,
+                                           block=block, touch_capacity=cfg.touch_capacity,
+                                           pad_noise=pad_noise)
+        if occ:
+            self.model = self.model.update(*touches)
         self._sync()
         return res
 

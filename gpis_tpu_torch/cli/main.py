@@ -60,14 +60,6 @@ def _config_from_args(args):
     return model_cfg, explore_cfg, mesh_cfg
 
 
-def _refuse_mesh_normals(args, mesh_cfg) -> None:
-    if args.normals and mesh_cfg.n_devices > 1:
-        from gpis_tpu_torch._build import not_ported
-
-        not_ported("--normals with a mesh config (sharded joint fits)", 14,
-                   "gp/sharded_joint.py")
-
-
 def _load_session(args):
     from gpis_tpu_torch.api.session import ObjectModelSession
 
@@ -178,7 +170,6 @@ def main(argv=None):
         from gpis_tpu_torch.utils.profiling import trace
 
         model_cfg, explore_cfg, mesh_cfg = _config_from_args(args)
-        _refuse_mesh_normals(args, mesh_cfg)
         pts, nrm = load_cloud(args.cloud)
         if args.normals and nrm is None:
             raise SystemExit(f"--normals given but {args.cloud} has no normals")
@@ -235,7 +226,6 @@ def main(argv=None):
 
     elif args.cmd == "hyperopt":
         model_cfg, explore_cfg, mesh_cfg = _config_from_args(args)
-        _refuse_mesh_normals(args, mesh_cfg)
         pts, nrm = load_cloud(args.cloud)
         if args.normals and nrm is None:
             raise SystemExit(f"--normals given but {args.cloud} has no normals")

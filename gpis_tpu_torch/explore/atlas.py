@@ -71,7 +71,7 @@ def chart_radius(variance: float, prior_var: float, cfg: ExploreConfig) -> float
 def _agree(model, t: torch.Tensor) -> torch.Tensor:
     """Rank 0's values of t on every rank of a sharded model's mesh (t
     itself for any other model)."""
-    if model_kind(model) == "sharded":
+    if model_kind(model) in ("sharded", "sharded_joint"):
         t = t.contiguous()
         torch.distributed.broadcast(t, src=0)
     return t

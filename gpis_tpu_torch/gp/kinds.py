@@ -3,8 +3,6 @@ gpis_tpu/gp/kinds.py).
 
 Matched on class names, not attributes, so a model that grows a stray
 attribute cannot be mis-routed, and classifying a model imports nothing.
-Only the kinds the port has are listed; the others join as they are
-ported (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -16,6 +14,7 @@ MODEL_KINDS = {
     "ooc": ("OOCModel",),
     "ooc_joint": ("OOCJointModel",),
     "sharded": ("ShardedGPModel",),
+    "sharded_joint": ("ShardedJointModel",),
     "experts": ("ExpertGPModel",),
     "joint": ("DerivGPModel",),
     "dense": ("GPModel",),
@@ -25,8 +24,8 @@ _BY_CLASS = {cls: kind for kind, classes in MODEL_KINDS.items() for cls in class
 
 
 def model_kind(model) -> str:
-    """"dense", "joint", "sharded", "experts", "ooc" or "ooc_joint" for a
-    fitted model.  Anything else raises
+    """"dense", "joint", "sharded", "sharded_joint", "experts", "ooc" or
+    "ooc_joint" for a fitted model.  Anything else raises
     TypeError: an unknown model fails at the dispatch point rather than
     falling through to the dense path."""
     for cls in type(model).__mro__:

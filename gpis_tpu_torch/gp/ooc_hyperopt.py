@@ -23,19 +23,22 @@ assembled from pieces that fall out of that pipeline:
   kernel (linear in sv): alpha^T (K - D) alpha = y.alpha - sum(alpha^2 n)
   and tr(K^{-1} (K - D)) = C - diag(K^{-1}).n.
 
-`optimize_ooc` / `optimize_ooc_joint` run the shared Adam ascent
-(`sharded_hyperopt._mll_ascent`).  Not in this slice: the process-split
-objective `ooc_mll_and_grad_solve_phase`, which needs the disk spill
-(ROADMAP.md §1 item 15).
+`ooc_mll_and_grad_solve_phase` is the same objective split at the factor:
+it reattaches the L store of an `ooc_factor_phase(defer_alpha=True)` and
+rides the column norms and the trace on its TRSM; alpha is summed on the
+same pass, so the quad takes one W-free band sweep after it
+(`_band_quad_only`).  `optimize_ooc` / `optimize_ooc_joint` run the shared
+Adam ascent (`sharded_hyperopt._mll_ascent`).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
-from gpis_tpu_torch._build import not_ported
+from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.kernels import cuda_joint
 from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.linalg import outofcore as ooc
@@ -122,20 +125,22 @@ class _GradPass:
 
 
 def _objective(kernel, cols, y, noise_eff, dn, params, *, panel, block, store, budget, jitter,
-               pad_rows):
+               pad_rows, sweep, trsm_sweep, width_quant, max_jitter_retries):
     """The MLL and its (log ls, log noise scale, log sv) gradient of the
     system K(cols) + diag(noise_eff), dn = d noise / d(log noise scale),
     pad_rows the mask of rows whose 0.5 log(2 pi noise) constant comes out."""
-    st, u, logdet, extra = ooc._factor_with_jitter(kernel, cols, noise_eff, params, budget,
-                                                   panel=panel, block=block, store=store, y=y,
-                                                   jitter=jitter)
+    st, u, logdet, extra = ooc._factor_with_jitter(
+        kernel, cols, noise_eff, params, budget, panel=panel, block=block, store=store, y=y,
+        jitter=jitter, width_quant=width_quant, sweep=sweep,
+        max_jitter_retries=max_jitter_retries)
     n_tot = noise_eff + extra  # the diagonal the factor represents
     alpha = ooc.ooc_alpha_backward(st, u, panel=panel)
     grad = _GradPass(kernel, cols, params, alpha, panel)
     wstore = ooc._make_store(store, budget, cols.device)
     try:
         ooc.ooc_trsm(st, wstore, y, panel=panel, block=block, accumulate_alpha=False,
-                     sweep=ooc.TRSM_SWEEP, on_panel=grad, store_final=False)
+                     width_quant=width_quant, sweep=ooc._trsm_sweep(sweep, trsm_sweep),
+                     on_panel=grad, store_final=False)
     finally:
         wstore.clear()
         st.clear()
@@ -152,48 +157,117 @@ def _objective(kernel, cols, y, noise_eff, dn, params, *, panel, block, store, b
 
 def ooc_mll_and_grad(kernel, x, y, noise, params, *, panel: int, block: int = 256,
                      noise_scale=1.0, pad_noise: float = 1e10, store: str = "tiered",
-                     device_budget: int | None = None):
+                     sweep: int = 2, trsm_sweep: int | None = None, width_quant: int = 2,
+                     device_budget: int | None = None,
+                     max_jitter_retries: int = ooc.MAX_JITTER_RETRIES, dtype=None):
     """Exact MLL and gradients w.r.t. (log lengthscale, log noise scale, log
     signal variance) of the out-of-core system K(x) + diag(noise * scale on
     the real rows), from the RAW (unpadded) problem, padded as `ooc_fit`
-    pads it: one factor with its jitter ladder, alpha, and one TRSM with the
-    gradient pass on its sweeps.  The stores are cleared before returning.
+    pads it (in `dtype`, with its sweep and width knobs): one factor with
+    its jitter ladder, alpha, and one TRSM with the gradient pass on its
+    sweeps.  The stores are cleared before returning.
     Returns (mll, {"log_ls", "log_noise_scale", "log_sv"}), 0-d tensors."""
     xp, yp, np_, params, c, n, jitter = ooc._pad_problem(kernel, x, y, noise, params,
-                                                         panel=panel, pad_noise=pad_noise)
+                                                         panel=panel, pad_noise=pad_noise,
+                                                         dtype=dtype)
     real = torch.arange(c, device=xp.device) < n
     scale = torch.as_tensor(noise_scale, dtype=xp.dtype, device=xp.device)
     noise_eff = torch.where(real, np_ * scale, np_)
-    budget = ooc._fit_budget(device_budget, panel, c, xp)
+    tsw = ooc._trsm_sweep(sweep, trsm_sweep)
+    budget = ooc._fit_budget(device_budget, panel, c, xp, max(sweep, tsw + 1))
     return _objective(kernel, xp, yp, noise_eff, real * np_ * scale, params, panel=panel,
-                      block=block, store=store, budget=budget, jitter=jitter, pad_rows=~real)
+                      block=block, store=store, budget=budget, jitter=jitter, pad_rows=~real,
+                      sweep=sweep, trsm_sweep=trsm_sweep, width_quant=width_quant,
+                      max_jitter_retries=max_jitter_retries)
 
 
 def ooc_joint_mll_and_grad(kernel, x, y, normals, noise_f, noise_g, params, *, panel: int,
                            block: int = 256, noise_scale=1.0, pad_noise: float = 1e10,
-                           store: str = "tiered", device_budget: int | None = None):
+                           store: str = "tiered", sweep: int = 2, trsm_sweep: int | None = None,
+                           width_quant: int = 2, device_budget: int | None = None,
+                           max_jitter_retries: int = ooc.MAX_JITTER_RETRIES, dtype=None):
     """The same for the JOINT (value + gradient) system, J = 4C rows in the
     dimension-major layout [f | d1 | d2 | d3]: the noise scale multiplies
     the value noise of the real rows only (the gradient family stays fixed),
     and the dK bands are the joint twin's."""
     (xp, yj, meta, _nrm, nf, ng, params, c, n,
      jitter) = ooc._pad_joint_problem(kernel, x, y, normals, noise_f, noise_g, params,
-                                      panel=panel, pad_noise=pad_noise)
+                                      panel=panel, pad_noise=pad_noise, dtype=dtype)
     j_tot = 4 * c
     real = torch.arange(c, device=xp.device) < n
     scale = torch.as_tensor(noise_scale, dtype=xp.dtype, device=xp.device)
     noisej = cuda_joint.joint_noise(c, torch.where(real, nf * scale, nf), ng, None, xp)
     dn = torch.cat([real * nf * scale, torch.zeros((3 * c,), dtype=xp.dtype, device=xp.device)])
-    budget = ooc._fit_budget(device_budget, panel, j_tot, xp)
+    tsw = ooc._trsm_sweep(sweep, trsm_sweep)
+    budget = ooc._fit_budget(device_budget, panel, j_tot, xp, max(sweep, tsw + 1))
     return _objective(kernel, meta, yj, noisej, dn, params, panel=panel, block=block,
-                      store=store, budget=budget, jitter=jitter, pad_rows=~real.repeat(4))
+                      store=store, budget=budget, jitter=jitter, pad_rows=~real.repeat(4),
+                      sweep=sweep, trsm_sweep=trsm_sweep, width_quant=width_quant,
+                      max_jitter_retries=max_jitter_retries)
+
+
+def _band_quad_only(name, cols, log_ls, sv, alpha, q0: int, rows: int) -> torch.Tensor:
+    """alpha_q . (dK_q alpha) of one value column band q: the W-free half
+    of the lengthscale gradient, run after a TRSM whose alpha was summed on
+    the same pass (and so was not known while the W bands were on the
+    card)."""
+    kdot = _value_band_tangent(name, cols, log_ls, sv, q0, rows)
+    return alpha[q0:q0 + rows] @ (kdot @ alpha)
 
 
 def ooc_mll_and_grad_solve_phase(spill_dir: str, *, noise_base, noise_scale=1.0,
                                  trsm_sweep: int = 1, device_budget: int | None = None,
-                                 w_dtype=None):
-    not_ported("ooc_mll_and_grad_solve_phase (the process-split stream objective)", 15,
-               "out-of-core")
+                                 w_dtype=None, device="cuda"):
+    """The second phase of a split stream-objective step: reattach the L
+    store that `ooc_factor_phase(..., defer_alpha=True)` persisted under
+    `spill_dir` and give the exact (mll, grads) of `ooc_mll_and_grad`, in
+    whatever process the caller runs it.  The column norms and the
+    lengthscale trace ride the TRSM (`ooc_trsm(on_panel=...)`), alpha is
+    summed on the same pass, and the quad takes one W-free band sweep
+    after it.  `noise_base` is the raw (unpadded, unscaled, jitter-free)
+    noise of the problem, for d noise / d(log scale): the state keeps only
+    the effective diagonal.  The stores are cleared before returning.
+    Returns (mll, {"log_ls", "log_noise_scale", "log_sv"})."""
+    dev = resolve_device(device)
+    d = ooc._load_state(spill_dir)
+    if "logdiag_sum" not in d:
+        raise ValueError("the factor phase predates the log-diagonal sum; run it again")
+    kernel, panel, block = str(d["kernel"]), int(d["panel"]), int(d["block"])
+    n = int(d["n_real"])
+    xp, yp = (torch.as_tensor(d[k], device=dev) for k in ("x", "y"))
+    n_tot = torch.as_tensor(d["noise"], device=dev)  # scaled noise + the fit's jitter
+    logdet = float(d["logdiag_sum"])
+    params = {k[len("param_"):]: float(d[k]) for k in d if k.startswith("param_")}
+    dt = xp.dtype
+    c = xp.shape[0]
+    budget = ooc._fit_budget(device_budget, panel, c, xp, trsm_sweep + 1)
+    lst = ooc.TieredPanelStore.open_dir(budget, os.path.join(spill_dir, "L"), device=dev)
+    wstore = ooc._make_store("tiered", budget, dev, spill_dtype=w_dtype, device_dtype=w_dtype)
+    # The pass's quad term needs alpha, which this TRSM is still summing: a
+    # zero alpha leaves it out, and `_band_quad_only` takes it after.
+    grad = _GradPass(kernel, xp, params, torch.zeros((c,), dtype=dt, device=dev), panel)
+    try:
+        alpha = ooc.ooc_trsm(lst, wstore, yp, panel=panel, block=block, accumulate_alpha=True,
+                             width_quant=int(d["width_quant"]), sweep=trsm_sweep,
+                             on_panel=grad, store_final=True)
+        quad_ls = sum(_band_quad_only(kernel, xp, grad.log_ls, grad.sv, alpha, q * panel, panel)
+                      for q in range(c // panel))
+    finally:
+        wstore.clear()
+        lst.clear()
+    real = torch.arange(c, device=dev) < n
+    ya = yp @ alpha
+    mll = (-0.5 * ya - logdet - 0.5 * c * math.log(2.0 * math.pi)
+           + torch.sum(torch.where(real, 0.0, 0.5 * torch.log(2.0 * math.pi * n_tot))))
+    scale = torch.as_tensor(noise_scale, dtype=dt, device=dev)
+    nb_pad = torch.zeros((c,), dtype=dt, device=dev)
+    nb_pad[:n] = torch.as_tensor(noise_base, dtype=dt, device=dev)[:n]
+    dn = real * nb_pad * scale
+    a2 = alpha * alpha
+    g_ns = 0.5 * (a2 @ dn - grad.colnorms @ dn)
+    g_sv = 0.5 * ((ya - a2 @ n_tot) - (c - grad.colnorms @ n_tot))
+    g_ls = 0.5 * (quad_ls - grad.tr)
+    return mll, {"log_ls": g_ls, "log_noise_scale": g_ns, "log_sv": g_sv}
 
 
 def optimize_ooc(kernel, x, y, noise, init_params, *, panel: int, block: int = 256,

@@ -199,7 +199,7 @@ def predict(model, q: torch.Tensor, *, precision=None, gate=None):
         return gpe.predict(model, q, gate=gate)
     if kind in ("ooc", "ooc_joint"):
         return ooc.ooc_predict(model, q)
-    if kind == "sharded":
+    if kind in ("sharded", "sharded_joint"):
         return model.predict(q)
     if kind == "joint":
         from gpis_tpu_torch.gp import derivative as gpd
@@ -241,6 +241,12 @@ def predict_mean(model, q: torch.Tensor) -> torch.Tensor:
         from gpis_tpu_torch.gp import derivative as gpd
 
         return gpd.joint_cross_value(model, q.contiguous()) @ model.alpha
+    if kind == "sharded_joint":
+        # x and alpha are replicated: a local product, no collective.
+        from gpis_tpu_torch.gp.sharded_joint import joint_cross
+
+        return joint_cross(model.kernel, q.contiguous(), model.x, model.params,
+                           model.n0) @ model.alpha
     return kg.cross_cov(model.kernel, q.contiguous(), model.x, model.params) @ model.alpha
 
 

@@ -21,10 +21,12 @@ with every term split over the row bands:
 * the signal variance, free: dK/d(log sv) = K - D (every built-in kernel is
   linear in sv).
 
-`_mll_ascent` is the Adam ascent shared with `gp.ooc_hyperopt`.  Not in
-this slice: the joint objective (`sharded_joint_mll_and_grad`,
-`optimize_sharded_joint`), which needs `gp/sharded_joint.py` (ROADMAP.md §1
-item 14).
+The JOINT system (value + gradient, `gp.sharded_joint`) takes the same
+identities: `sharded_joint_mll_and_grad` swaps the band jvp target for the
+joint twin and the noise directions for the joint layout [f(C) | d1..d3(C)
+| touch(T)]; the ring trace and diag(K^{-1}) carry over.
+
+`_mll_ascent` is the Adam ascent shared with `gp.ooc_hyperopt`.
 """
 
 from __future__ import annotations
@@ -34,9 +36,10 @@ import math
 import torch
 import torch.distributed as dist
 
-from gpis_tpu_torch._build import not_ported
+from gpis_tpu_torch.gp.sharded_joint import _joint_meta, sharded_joint_gram
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels import gram as kg
+from gpis_tpu_torch.kernels.cuda_joint import joint_rows_reference
 from gpis_tpu_torch.linalg import sharded as sh
 from gpis_tpu_torch.parallel.mesh import RowMesh
 
@@ -187,16 +190,130 @@ def optimize_sharded(kernel, xp, yp, noisep, init_params, mesh: RowMesh, *, bloc
                        learn_signal=learn_signal)
 
 
-def sharded_joint_mll_and_grad(kernel, x_all, yj, nf_all, ng, params, mesh, *, c: int,
+# ------------------------------------------------------ joint (config 2)
+
+# Columns of the joint dK band formed at once: its jvp holds (band, this, 3)
+# temporaries, not (band, J, 3).
+_JOINT_COL_CHUNK = 4096
+
+
+def _joint_dk_band(kernel, x_all, c: int, row0: int, rows: int, log_ls, sv) -> torch.Tensor:
+    """Rows [row0, row0 + rows) of dK / d(log ls) of the joint system: the
+    jvp of the blended joint twin (`joint_rows_reference`, whose gradient-
+    block diagonals do depend on the lengthscale), by column chunks; the
+    observation noise is theta-independent and left out."""
+    meta = _joint_meta(x_all, c)
+    rmeta = tuple(m[row0:row0 + rows] for m in meta)
+    j_tot = meta[0].shape[0]
+    out = torch.empty((rows, j_tot), dtype=x_all.dtype, device=x_all.device)
+    for s0 in range(0, j_tot, _JOINT_COL_CHUNK):
+        cmeta = tuple(m[s0:s0 + _JOINT_COL_CHUNK] for m in meta)
+
+        def band(lls, cmeta=cmeta):
+            return joint_rows_reference(kernel, rmeta, cmeta, {
+                "lengthscale": torch.exp(lls), "signal_variance": sv})
+
+        out[:, s0:s0 + _JOINT_COL_CHUNK] = torch.func.jvp(band, (log_ls,),
+                                                          (torch.ones_like(log_ls),))[1]
+    return out
+
+
+def _joint_collective(kernel, x_all, yj, dn, n_eff, alpha, l_loc, w_loc, mesh: RowMesh, *,
+                      c: int, lengthscale, signal_variance):
+    """The gradient pass of the JOINT system (J = 4C + T): the value pass's
+    identities with the band jvp of the joint twin (`_joint_dk_band`) and
+    the joint-layout noise directions: dn = d(noise diagonal) / d(log
+    value-noise scale), n_eff the effective noise diagonal.  Returns
+    (mll_core, g_log_ls, g_log_noise_scale, g_log_sv)."""
+    j_tot = 3 * c + x_all.shape[0]
+    row0, band = mesh.band(j_tot)
+    dt, dev = x_all.dtype, x_all.device
+    sv = torch.as_tensor(signal_variance, dtype=dt, device=dev)
+    log_ls = torch.log(torch.as_tensor(lengthscale, dtype=dt, device=dev))
+    alpha_loc = alpha[row0:row0 + band]
+
+    logdet = sh._psum(torch.sum(torch.log(l_loc[:, row0:row0 + band].diagonal())).reshape(1))[0]
+    dk_loc = _joint_dk_band(kernel, x_all, c, row0, band, log_ls, sv)
+    quad_ls = sh._psum((alpha_loc @ (dk_loc @ alpha)).reshape(1))[0]
+    tr_ls = _ring_trace(dk_loc, w_loc, mesh)
+    del dk_loc
+
+    diag_kinv = sh._psum(torch.sum(w_loc * w_loc, dim=0))
+    a2 = alpha * alpha
+    ya = yj @ alpha
+    mll_core = -0.5 * ya - logdet
+    g_logls = 0.5 * (quad_ls - tr_ls)
+    g_lognoise = 0.5 * (a2 @ dn - diag_kinv @ dn)
+    g_logsv = 0.5 * ((ya - a2 @ n_eff) - (j_tot - diag_kinv @ n_eff))
+    return mll_core, g_logls, g_lognoise, g_logsv
+
+
+def _joint_noise_vectors(nf_all, ng, c: int, n_real: int, n_touch: int, scale, dt):
+    """(dn, n_eff, real_mask) over the joint layout [f(C) | d1 d2 d3 (C) |
+    touch(T)].  The value-noise scale multiplies the REAL core value rows
+    only (the gradient-noise family stays fixed, and the touches keep their
+    own noise)."""
+    ct = nf_all.shape[0]
+    t = ct - c
+    dev = nf_all.device
+    core_real = (torch.arange(c, device=dev) < n_real).to(dt)
+    nf_core = nf_all[:c]
+    parts_dn = [core_real * nf_core * scale, torch.zeros((3 * c,), dtype=dt, device=dev)]
+    parts_ne = [torch.where(core_real > 0, nf_core * scale, nf_core), ng, ng, ng]
+    parts_real = [core_real] * 4
+    if t:
+        parts_dn.append(torch.zeros((t,), dtype=dt, device=dev))
+        parts_ne.append(nf_all[c:])
+        parts_real.append((torch.arange(t, device=dev) < n_touch).to(dt))
+    return torch.cat(parts_dn), torch.cat(parts_ne), torch.cat(parts_real)
+
+
+def sharded_joint_mll_and_grad(kernel, x_all, yj, nf_all, ng, params, mesh: RowMesh, *, c: int,
                                block: int = 128, n_real: int | None = None, n_touch: int = 0,
                                noise_scale=1.0):
-    not_ported("sharded_joint_mll_and_grad (the joint objective on a mesh)", 14,
-               "gp/sharded_joint.py")
+    """Joint-system MLL and exact gradients w.r.t. (log lengthscale, log
+    value-noise scale, log signal variance) over the mesh: one sharded joint
+    fit at theta (Kernels E band, G and L on a card), then one gradient
+    pass.  x_all (C + T, 3), yj (J,), nf_all (C + T,) and ng (C,) are the
+    `ShardedJointModel` fields; every rank passes the same.  Returns (mll,
+    {"log_ls", "log_noise_scale", "log_sv"}), 0-d tensors."""
+    dt, dev = x_all.dtype, x_all.device
+    j_tot = 3 * c + x_all.shape[0]
+    scale = torch.as_tensor(noise_scale, dtype=dt, device=dev)
+    nr = n_real if n_real is not None else c
+    dn, n_eff, real_j = _joint_noise_vectors(nf_all, ng, c, nr, n_touch, scale, dt)
+    nf_eff = torch.cat([n_eff[:c], nf_all[c:]])
+    params = {k: float(v) for k, v in params.items()}
+
+    cuda = dev.type == "cuda"
+    a = sharded_joint_gram(kernel, x_all, params, nf_eff, ng, mesh, c=c)
+    l_loc = sh.sharded_cholesky(a, mesh, block=block, use_kernels=cuda)
+    w_loc = sh.sharded_linv(l_loc, mesh, block=block, use_kernel=cuda)
+    alpha = sh.sharded_alpha_from_linv(w_loc, yj, mesh)
+    mll_core, g_ls, g_ns, g_sv = _joint_collective(
+        kernel, x_all, yj, dn, n_eff, alpha, l_loc, w_loc, mesh, c=c,
+        lengthscale=params["lengthscale"], signal_variance=params["signal_variance"])
+    # The inert rows (padded core rows, empty touch slots) each add a
+    # theta-independent -1/2 log(2 pi n): taken back out.
+    mll = (mll_core - 0.5 * j_tot * math.log(2.0 * math.pi)
+           + torch.sum(torch.where(real_j > 0, 0.0, 0.5 * torch.log(2.0 * math.pi * n_eff))))
+    return mll, {"log_ls": g_ls, "log_noise_scale": g_ns, "log_sv": g_sv}
 
 
-def optimize_sharded_joint(kernel, x_all, yj, nf_all, ng, init_params, mesh, *, c: int,
+def optimize_sharded_joint(kernel, x_all, yj, nf_all, ng, init_params, mesh: RowMesh, *, c: int,
                            block: int = 128, n_real: int | None = None, n_touch: int = 0,
                            steps: int = 25, learning_rate: float = 0.1,
                            learn_noise: bool = True, learn_signal: bool = False):
-    not_ported("optimize_sharded_joint (the joint objective on a mesh)", 14,
-               "gp/sharded_joint.py")
+    """Distributed joint MLL ascent (config 3 on config 2 at config 5's
+    scale): exact gradients, one sharded joint fit and one gradient pass a
+    step.  The value-noise scale multiplies the real core rows; the
+    gradient-noise family stays fixed.  Returns a dict: params (the best,
+    Python floats), noise_scale, mll, history."""
+    def eval_fn(prm, scale):
+        return sharded_joint_mll_and_grad(kernel, x_all, yj, nf_all, ng, prm, mesh, c=c,
+                                          block=block, n_real=n_real, n_touch=n_touch,
+                                          noise_scale=scale)
+
+    return _mll_ascent(eval_fn, kernel, init_params, x_all.dtype, steps=steps,
+                       learning_rate=learning_rate, learn_noise=learn_noise,
+                       learn_signal=learn_signal)

@@ -14,7 +14,10 @@ the only structurally nonzero part) in a panel store:
   `promote` pins spilled panels back on the card for serving.  A store on
   disk persists through `save_manifest` and reattaches in another process
   through `open_dir`: `utils.checkpoint` writes an out-of-core model's W
-  this way (`put_host`, a zero-budget store) under `path + ".w/"`.
+  this way (`put_host`, a zero-budget store) under `path + ".w/"`.  Its
+  options: a float16 W (`spill_dtype`, `device_dtype`; `ooc_update`
+  refuses such a model), the blockwise int16 L codec (`spill_codec`,
+  guarded by `ooc_residual_check`) and the `write_through` mirror.
 
 Cholesky (`ooc_cholesky`) -- row-panel bordering.  A sweep of r row panels
 is one (rB, C) band `cur`, filled with the Gram rows (Kernel A band mode, or
@@ -65,13 +68,16 @@ What differs from the JAX package, and why:
   a second stream is marked with `record_stream`, so the caching allocator
   never hands out memory that a copy still reads or writes.
 * The tunnel machinery is not ported: the link accounting, the 16 MB h2d
-  slices and the CPU-device d2h staging.  `TRAFFIC` counts the bytes moved
-  each way, nothing more.
+  slices, the CPU-device d2h staging and the warm-up of the link's first
+  d2h.  `TRAFFIC` counts the bytes moved each way, nothing more.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP.md
-§1 item 15): the f16 W spill, the int16 L codec with `ooc_residual_check`
-(a manifest entry in either codec is refused by `open_dir`), the
-write-through mirror, the process-split phases and `plan_sweeps`.
+Two phases (`ooc_factor_phase`, `ooc_solve_phase`) split a fit at the
+factor: each runs in its own process if the caller wants, and each resumes
+after a crash from its last stored sweep (the factor from a progress
+checkpoint over a write-through L store, the TRSM from its W prefix).  The
+solve phase can fuse a grid query into the TRSM (Kernel F's band mode on
+each W band while it is on the card).  `plan_sweeps` picks the sweeps that
+minimize the modelled refetch traffic.
 
 Functions take tensors and work on the device the tensors are on; on the
 CPU every kernel call takes its plain twin.
@@ -81,6 +87,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -88,7 +95,7 @@ import os
 import numpy as np
 import torch
 
-from gpis_tpu_torch._build import not_ported
+from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.gp.model import round_up
 from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
 from gpis_tpu_torch.kernels import derivative as kd
@@ -100,20 +107,91 @@ from gpis_tpu_torch.linalg import cuda_chol
 __all__ = ["TRAFFIC", "DeviceBudget", "HostPanelStore", "DevicePanelStore", "TieredPanelStore",
            "ooc_cholesky", "ooc_alpha_backward", "ooc_trsm", "ooc_predict", "ooc_predict_mean",
            "ooc_fit", "ooc_fit_joint", "OOCModel", "OOCJointModel", "ooc_update",
-           "tail_cross", "ooc_residual_check", "ooc_factor_phase", "ooc_solve_phase", "plan_sweeps"]
+           "tail_cross", "ooc_solve_alpha", "ooc_residual_check", "ooc_factor_phase",
+           "ooc_solve_phase", "plan_sweeps"]
 
 # Bytes moved between host RAM and the card by the panel stores, each way
 # ("h2d_bytes", "d2h_bytes").
 TRAFFIC: collections.Counter = collections.Counter()
 
-# A stored panel's width is its true width rounded up to a multiple of
-# WIDTH_QUANT panels (the JAX package's default, so both store the same shapes).
-WIDTH_QUANT = 2
-# Row panels per band in the factor (SWEEP) and per outer step of the TRSM.
-SWEEP = 2
-TRSM_SWEEP = 2
 # Retries of the NaN-escalation jitter ladder before a fit gives up.
 MAX_JITTER_RETRIES = 3
+
+
+# ------------------------------------------------- int16 panel codec
+#
+# Stored L panels are most of an out-of-core fit's host traffic (each is
+# fetched once a sweep by the factor, once more by the TRSM).  float16 is
+# unsafe for L: its RELATIVE rounding (~5e-4) feeds later Schur complements,
+# amplified by cond(K), and the JAX package measured it breaking the
+# posterior mean.  Blockwise int16 moves the same 2 bytes an element with
+# an ABSOLUTE bound: q = round(x / s), one float32 scale s per (row,
+# 512-column block), so |L~ - L| <= blockmax * 2^-15.  Every consumer reads
+# the panels through the store, so the factor in play is one consistent
+# perturbed L~; `ooc_residual_check` guards the fits that use it.
+
+_QBLOCK = 512
+
+
+def _qpack(arr: torch.Tensor, *, block: int = _QBLOCK):
+    """(B, W) float -> (q int16 (B, W padded to a block multiple), scales
+    float32 (B, ceil(W / block))), on arr's device, so the device-to-host
+    copy already moves 2-byte elements."""
+    b, w = arr.shape
+    nb = -(-w // block)
+    ap = torch.nn.functional.pad(arr, (0, nb * block - w)).reshape(b, nb, block)
+    amax = ap.abs().amax(dim=2)
+    scale = torch.clamp(amax, min=torch.finfo(arr.dtype).tiny) / 32767.0
+    q = torch.round(ap / scale[:, :, None]).to(torch.int16)
+    return q.reshape(b, nb * block), scale.to(torch.float32)
+
+
+def _qunpack(q: torch.Tensor, scale: torch.Tensor, *, w: int, dtype) -> torch.Tensor:
+    """The inverse of `_qpack`, on q's device after the 2-byte copy."""
+    b, wp = q.shape
+    nb = scale.shape[1]
+    x = q.to(dtype).reshape(b, nb, wp // nb) * scale[:, :, None].to(dtype)
+    return x.reshape(b, wp)[:, :w]
+
+
+class _QuantDisk:
+    """An int16-coded panel on disk: `path` holds q (int16, the width padded
+    to a _QBLOCK multiple), `path + ".scale"` the float32 scales.  Its
+    `dtype` is int16, which `has_compressed_panels` counts."""
+
+    __slots__ = ("path", "shape", "scale_shape", "width", "orig_dtype")
+    codec = "int16"
+
+    def __init__(self, path: str, shape, scale_shape, width: int, orig_dtype):
+        self.path, self.shape, self.scale_shape = path, tuple(shape), tuple(scale_shape)
+        self.width, self.orig_dtype = int(width), np.dtype(orig_dtype)
+
+    @property
+    def dtype(self):
+        return np.dtype(np.int16)
+
+    def read(self):
+        q = np.memmap(self.path, dtype=np.int16, mode="r", shape=self.shape)
+        s = np.memmap(self.path + ".scale", dtype=np.float32, mode="r", shape=self.scale_shape)
+        return q, s
+
+
+class _QuantHost:
+    """Host-RAM twin of `_QuantDisk` (a tiered store without a spill_dir)."""
+
+    __slots__ = ("q", "scale", "width", "orig_dtype")
+    codec = "int16"
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, width: int, orig_dtype):
+        self.q, self.scale, self.width = q, scale, int(width)
+        self.orig_dtype = orig_dtype
+
+    @property
+    def dtype(self):
+        return np.dtype(np.int16)
+
+    def read(self):
+        return self.q, self.scale
 
 
 # ------------------------------------------------------------ panel stores
@@ -242,19 +320,60 @@ class DevicePanelStore(_PanelStore):
         return _compact_copy(arr)
 
 
+def _np_dtype(dtype) -> np.dtype:
+    """NumPy dtype of a torch dtype, a NumPy dtype or a name."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(str(dtype).removeprefix("torch."))
+    return np.dtype(dtype)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, _np_dtype(dtype).name)
+
+
+def _unlink_panel(path: str) -> None:
+    """A panel file and its codec scales, where there are."""
+    _unlink(path)
+    _unlink(path + ".scale")
+
+
 class TieredPanelStore(_PanelStore):
     """Panels stay on the card while the shared budget lasts, then spill to
     pinned host RAM, or with `spill_dir` to one file a panel,
     `spill_dir/panel_<j>.bin` (budget first: the earliest panels, which the
     left-looking loops read most, stay resident).  `tag` names the problem
     the panels belong to; the manifest keeps it, and `open_dir` can demand
-    it."""
+    it.
 
-    def __init__(self, budget: DeviceBudget, device="cuda", *, spill_dir: str | None = None,
-                 tag: str | None = None):
+    * `spill_dtype` (float16) narrows SPILLED panels, on the card before
+      their copy; `device_dtype` narrows the resident ones.  For W only:
+      the narrowing touches the variance quad, which `ooc_fit` keeps away
+      from the mean by solving alpha against L.  Never for L: its relative
+      rounding is amplified by cond(K) through later Schur complements.
+    * `spill_codec="int16"` spills panels in the blockwise int16 codec
+      (`_qpack`, the measured-safe 2-byte form for L).
+    * `write_through` mirrors every panel, resident ones included, to its
+      file when it is stored, so that the store is durable at any moment
+      (the resumable factor and solve phases checkpoint on it); a resident
+      panel costs one more device-to-host copy.
+
+    A fetch (`_fetch`) widens a narrowed panel back to `compute_dtype` and
+    decodes a coded one."""
+
+    def __init__(self, budget: DeviceBudget, device="cuda", *, spill_dtype=None,
+                 device_dtype=None, spill_dir: str | None = None, write_through: bool = False,
+                 tag: str | None = None, spill_codec: str | None = None):
         super().__init__(device)
+        if spill_codec not in (None, "int16"):
+            raise ValueError(f"unknown spill_codec {spill_codec!r}")
+        if spill_codec is not None and spill_dtype is not None:
+            raise ValueError("spill_codec and spill_dtype are exclusive")
         self._budget = budget
         self._spill_dir = spill_dir
+        self._spill_dtype = None if spill_dtype is None else _torch_dtype(spill_dtype)
+        self._device_dtype = None if device_dtype is None else _torch_dtype(device_dtype)
+        self._spill_codec = spill_codec
+        self._write_through = bool(write_through and spill_dir)
         self.tag = tag
         self.compute_dtype: torch.dtype | None = None
         if spill_dir is not None:
@@ -264,25 +383,46 @@ class TieredPanelStore(_PanelStore):
     def _panel_path(self, j: int) -> str:
         return os.path.join(self._spill_dir, f"panel_{j}.bin")
 
+    def _coded(self, arr: torch.Tensor) -> bool:
+        return self._spill_codec == "int16" and arr.is_floating_point()
+
+    def _narrow(self, arr: torch.Tensor) -> torch.Tensor:
+        sd = self._spill_dtype
+        return arr.to(sd) if sd is not None and arr.dtype != sd else arr
+
+    def _to_disk(self, j: int, arr: torch.Tensor):
+        """Write panel j to its file, coded or narrowed on the card first."""
+        if self._coded(arr):
+            q, sc = _qpack(arr)
+            qh, sh = _d2h(q, None)[0].numpy(), _d2h(sc, None)[0].numpy()
+            path = self._panel_path(j)
+            _write_file(path, qh)
+            _write_file(path + ".scale", sh)
+            return _QuantDisk(path, qh.shape, sh.shape, arr.shape[1], _np_dtype(arr.dtype))
+        return self._write(j, _d2h(self._narrow(arr), None)[0].numpy())
+
     def _store(self, j, arr, stream):
         self.compute_dtype = arr.dtype
+        if self._device_dtype is not None and arr.dtype != self._device_dtype:
+            arr = arr.to(self._device_dtype)
         size = _nbytes(arr)
         on_dev = self._budget.take(size)
         self._meta[j] = (on_dev, size)
         if on_dev:
+            if self._write_through:
+                self._to_disk(j, arr)
             return _compact_copy(arr)
-        if self._spill_dir is None:
-            host, self._ready[j] = _d2h(arr, stream)
-            return host
-        host, _ = _d2h(arr, None)
-        return self._write(j, host.numpy())
+        if self._spill_dir is not None:
+            return self._to_disk(j, arr)
+        if self._coded(arr):
+            q, sc = _qpack(arr)
+            return _QuantHost(_d2h(q, None)[0], _d2h(sc, None)[0], arr.shape[1], arr.dtype)
+        host, self._ready[j] = _d2h(self._narrow(arr), stream)
+        return host
 
     def _write(self, j: int, arr: np.ndarray) -> _DiskPanel:
         path = self._panel_path(j)
-        mm = np.memmap(path, dtype=arr.dtype, mode="w+", shape=arr.shape)
-        mm[:] = arr
-        mm.flush()
-        del mm
+        _write_file(path, arr)
         return _DiskPanel(path, arr.shape, arr.dtype)
 
     def put_host(self, j: int, arr) -> None:
@@ -299,13 +439,16 @@ class TieredPanelStore(_PanelStore):
         self._meta[j] = (False, 0)
 
     def free(self, j: int) -> None:
-        """Drop panel j; a panel on disk loses its file."""
+        """Drop panel j; a panel on disk, or a resident one mirrored there,
+        loses its file."""
         on_dev, size = self._meta.pop(j, (False, 0))
         if on_dev:
             self._budget.give(size)
         v = self._p.get(j)
-        if isinstance(v, _DiskPanel):
-            _unlink(v.path)
+        if isinstance(v, (_DiskPanel, _QuantDisk)):
+            _unlink_panel(v.path)
+        elif on_dev and self._write_through:
+            _unlink_panel(self._panel_path(j))
         super().free(j)
 
     def clear(self) -> None:
@@ -315,18 +458,69 @@ class TieredPanelStore(_PanelStore):
         if self._spill_dir is not None:
             _unlink(os.path.join(self._spill_dir, "manifest.json"))
 
+    def has_compressed_panels(self) -> bool:
+        """Whether a stored panel is narrower than the compute dtype: the
+        configured spill dtype is not enough, since a store reattached by
+        `open_dir` serves whatever its manifest holds, and `promote` pins
+        panels at their stored dtype (`ooc_update` refuses both)."""
+        if self.compute_dtype is None:
+            return False
+        width = torch.finfo(self.compute_dtype).bits // 8
+        return any(np.dtype(v.dtype).itemsize < width if not isinstance(v, torch.Tensor)
+                   else v.element_size() < width for v in self._p.values())
+
+    def _mirror(self, j: int, arr: torch.Tensor):
+        """The disk handle of resident panel j's write-through file."""
+        path = self._panel_path(j)
+        if self._coded(arr):
+            b, w = arr.shape
+            nblk = -(-w // _QBLOCK)
+            return _QuantDisk(path, (b, nblk * _QBLOCK), (b, nblk), w, _np_dtype(arr.dtype))
+        return _DiskPanel(path, arr.shape, _np_dtype(self._narrow(arr[:0]).dtype))
+
+    def evict_all(self) -> None:
+        """Move every resident panel to the spill tier (its file when the
+        store has a spill_dir), so that the store persists across a process
+        boundary (`save_manifest`, `open_dir`).  A write-through panel's
+        file exists already: only its handle changes."""
+        keys = [j for j, (on_dev, _) in self._meta.items() if on_dev]
+        old_limit, self._budget.limit = self._budget.limit, 0
+        cd = self.compute_dtype
+        try:
+            for j in keys:
+                arr = self._p.pop(j)
+                self._budget.give(self._meta.pop(j)[1])
+                if self._write_through:
+                    self._p[j] = self._mirror(j, arr)
+                    self._meta[j] = (False, 0)
+                else:
+                    self.put(j, arr)  # limit 0: to the spill tier, synchronously
+                    self.compute_dtype = cd  # put() read a narrowed panel's dtype
+                del arr
+        finally:
+            self._budget.limit = old_limit
+
     def save_manifest(self) -> None:
-        """Write the panels' shapes and dtypes, the compute dtype and the tag
-        beside the panel files, so that `open_dir` reattaches the store in
-        another process.  Every panel must be on disk.  The manifest is
-        replaced atomically: a kill mid-write leaves the old one whole."""
+        """Write the panels' shapes and dtypes (and a coded panel's codec
+        entry), the compute dtype and the tag beside the panel files, so
+        that `open_dir` reattaches the store in another process.  Every
+        panel must be on disk, or mirrored there by write_through.  The
+        manifest is replaced atomically: a kill mid-write leaves the old one
+        whole."""
         meta = {}
         for j, v in self._p.items():
-            if not isinstance(v, _DiskPanel):
+            if self._write_through and self._meta.get(j, (False, 0))[0]:
+                v = self._mirror(j, v)
+            if isinstance(v, _QuantDisk):
+                meta[str(j)] = [list(v.shape), "int16", {
+                    "codec": "int16", "scale_shape": list(v.scale_shape), "width": v.width,
+                    "orig_dtype": str(v.orig_dtype)}]
+            elif isinstance(v, _DiskPanel):
+                meta[str(j)] = [list(v.shape), str(v.dtype)]
+            else:
                 raise ValueError(f"panel {j} is not on disk")
-            meta[str(j)] = [list(v.shape), str(v.dtype)]
         # The dtype's NumPy name ("float32"), which the JAX package writes.
-        doc = {"panels": meta, "compute_dtype": str(self.compute_dtype).removeprefix("torch.")}
+        doc = {"panels": meta, "compute_dtype": str(_np_dtype(self.compute_dtype))}
         if self.tag is not None:
             doc["tag"] = self.tag
         path = os.path.join(self._spill_dir, "manifest.json")
@@ -344,11 +538,15 @@ class TieredPanelStore(_PanelStore):
         ascending order, until the budget (raised by `limit_bonus`) refuses;
         returns the bytes promoted.  After a fit its working set is gone, and
         a session that queries again and again would otherwise stream every
-        spilled panel on every query."""
+        spilled panel on every query.  Panels keep their stored dtype (a
+        narrowed W stays narrow on the card, widened at each fetch); coded
+        panels, an L-store form that no serving model holds, stay put."""
         self._budget.limit += int(limit_bonus)
         promoted = 0
         for j in self.spilled():
             v = self._p[j]
+            if isinstance(v, (_QuantDisk, _QuantHost)):
+                continue
             disk = isinstance(v, _DiskPanel)
             size = int(np.prod(v.shape)) * v.dtype.itemsize if disk else _nbytes(v)
             if not self._budget.take(size):
@@ -362,6 +560,8 @@ class TieredPanelStore(_PanelStore):
             if self.device.type == "cuda":
                 TRAFFIC["h2d_bytes"] += size
             self._meta[j] = (True, size)
+            if not disk and self._write_through:
+                self._write(j, v.numpy())
             promoted += size
         return promoted
 
@@ -370,12 +570,10 @@ class TieredPanelStore(_PanelStore):
                  **kw):
         """Reattach a store that `save_manifest` persisted (a fresh process;
         `kw` go to the constructor, `device` among them).  Entries whose
-        panel file is missing are skipped: `free` and `clear` unlink files,
-        and a manifest written before cannot serve what is gone.  With
-        `expect_tag`, a manifest of another tag raises ValueError: those
-        panels belong to another problem.  An entry in a spill codec (int16
-        blocks, or a dtype narrower than the compute dtype) raises
-        NotImplementedError: the codecs are not ported."""
+        panel file (or a coded panel's scales) is missing are skipped:
+        `free` and `clear` unlink files, and a manifest written before
+        cannot serve what is gone.  With `expect_tag`, a manifest of another
+        tag raises ValueError: those panels belong to another problem."""
         st = cls(budget, spill_dir=spill_dir, **kw)
         with open(os.path.join(spill_dir, "manifest.json")) as f:
             doc = json.load(f)
@@ -384,28 +582,39 @@ class TieredPanelStore(_PanelStore):
                              f"(tag {doc.get('tag')!r} != expected {expect_tag!r})")
         st.tag = doc.get("tag")
         st.compute_dtype = getattr(torch, doc["compute_dtype"])
-        width = np.dtype(doc["compute_dtype"]).itemsize
         for j, entry in doc["panels"].items():
             shape, dt = entry[0], entry[1]
-            if (len(entry) > 2 and entry[2].get("codec")) or np.dtype(dt).itemsize < width:
-                not_ported(f"panel {j} of {spill_dir} in a spill codec ({dt}"
-                           f"{', ' + entry[2]['codec'] if len(entry) > 2 else ''})", 15,
-                           "out-of-core spill codecs")
             path = st._panel_path(int(j))
             if not os.path.exists(path):
                 continue
-            st._p[int(j)] = _DiskPanel(path, shape, dt)
+            if len(entry) > 2 and entry[2].get("codec") == "int16":
+                if not os.path.exists(path + ".scale"):
+                    continue
+                q = entry[2]
+                st._p[int(j)] = _QuantDisk(path, shape, q["scale_shape"], q["width"],
+                                           q["orig_dtype"])
+            else:
+                st._p[int(j)] = _DiskPanel(path, shape, dt)
             st._meta[int(j)] = (False, 0)
         return st
 
 
-def _make_store(kind: str, budget: DeviceBudget, device, spill_dir: str | None = None):
+def _write_file(path: str, arr: np.ndarray) -> None:
+    mm = np.memmap(path, dtype=arr.dtype, mode="w+", shape=arr.shape)
+    mm[:] = arr
+    mm.flush()
+    del mm
+
+
+def _make_store(kind: str, budget: DeviceBudget, device, spill_dir: str | None = None, *,
+                spill_dtype=None, device_dtype=None, spill_codec: str | None = None):
     if kind == "host":
         return HostPanelStore(device)
     if kind == "device":
         return DevicePanelStore(device)
     if kind == "tiered":
-        return TieredPanelStore(budget, device, spill_dir=spill_dir)
+        return TieredPanelStore(budget, device, spill_dir=spill_dir, spill_dtype=spill_dtype,
+                                device_dtype=device_dtype, spill_codec=spill_codec)
     raise ValueError(f"unknown panel store kind {kind!r}")
 
 
@@ -413,26 +622,40 @@ def _make_store(kind: str, budget: DeviceBudget, device, spill_dir: str | None =
 
 
 def _fetch(store: _PanelStore, j: int, stream=None):
-    """Stored panel j on the store's device, at its trimmed width, and the
-    event its copy ends at (None when no copy was made, or the copy was
-    synchronous).  A host panel is copied on `stream` when one is given,
-    after its own device-to-host copy, if still pending, has ended."""
+    """Stored panel j on the store's device, at its trimmed width and the
+    store's compute dtype (a narrowed panel widened, a coded one decoded,
+    both on the card after the narrow copy), and the event its copy ends at
+    (None when no copy was made, or the copy was synchronous).  A host panel
+    is copied on `stream` when one is given, after its own device-to-host
+    copy, if still pending, has ended."""
     v = store.get(j)
-    if isinstance(v, _DiskPanel):
-        v = v.tensor()
+    cd = getattr(store, "compute_dtype", None)
     dev = store.device
-    if v.device == dev:
-        return v, None
-    TRAFFIC["h2d_bytes"] += _nbytes(v)
+    if isinstance(v, (_QuantDisk, _QuantHost)):
+        q, sc = v.read()
+        parts = [a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+                 for a in (q, sc)]
+        width, dtype = v.width, cd or _torch_dtype(v.orig_dtype)
+    else:
+        parts = [v.tensor() if isinstance(v, _DiskPanel) else v]
+        width, dtype = None, cd
+
+    def finish(ts):
+        out = _qunpack(*ts, w=width, dtype=dtype) if width is not None else ts[0]
+        return out if dtype is None or out.dtype == dtype else out.to(dtype)
+
+    if parts[0].device == dev:
+        return finish(parts), None
+    TRAFFIC["h2d_bytes"] += sum(_nbytes(t) for t in parts)
     pending = store.ready_event(j)
     if stream is None:
         if pending is not None:
             pending.synchronize()
-        return v.to(dev), None
+        return finish([t.to(dev) for t in parts]), None
     with torch.cuda.stream(stream):
         if pending is not None:
             stream.wait_event(pending)
-        out = v.to(dev, non_blocking=True)
+        out = finish([t.to(dev, non_blocking=True) for t in parts])
         done = torch.cuda.Event()
         done.record(stream)
     return out, done
@@ -622,38 +845,53 @@ def _trsm_finish(ljj: torch.Tensor, u: torch.Tensor, j0: int, *, block: int) -> 
                                                upper=False))
 
 
-def _store_width(j: int, panel: int, c: int) -> int:
+def _store_width(j: int, panel: int, c: int, quant: int = 2) -> int:
     """Trimmed width of stored panel j: its true width (j+1)B rounded up to
-    a multiple of WIDTH_QUANT panels, at most C."""
-    return min(((j + WIDTH_QUANT) // WIDTH_QUANT) * WIDTH_QUANT * panel, c)
+    a multiple of `quant` panels, at most C (the JAX package's rule, so both
+    store the same shapes)."""
+    return min(((j + quant) // quant) * quant * panel, c)
 
 
 # ----------------------------------------------------------------- phases
 
 
-def ooc_cholesky(kernel: str, cols: torch.Tensor, noise: torch.Tensor, params, store, *,
-                 panel: int, block: int = 256, sweep: int = 1, y: torch.Tensor | None = None,
-                 logdiag0: float = 0.0, stats: dict | None = None):
-    """Row-panel bordering Cholesky of K(cols) + diag(noise) into `store`
-    (trimmed panels, zero past their true width).  cols is (C, 3) points or
-    (J, 7) packed joint metadata.  Returns (ok, u): ok False if the factor
-    came back NaN (the caller escalates jitter); with y, u = L^{-1} y, taken
-    inline from each band while it is on the card.  `sweep` row panels form
-    one band, so each stored panel is fetched once a sweep.  With `stats`,
+def ooc_cholesky(kernel: str, x: torch.Tensor, noisep: torch.Tensor, params, store, *,
+                 panel: int, block: int = 256, width_quant: int = 2, sweep: int = 1,
+                 y: torch.Tensor | None = None, start_panel: int = 0, u0=None, progress_cb=None,
+                 end_panel: int | None = None, logdiag0: float = 0.0,
+                 stats: dict | None = None):
+    """Row-panel bordering Cholesky of K(x) + diag(noisep) into `store`
+    (trimmed panels at widths quantized to `width_quant` panels, zero past
+    their true width).  x is (C, 3) points or (J, 7) packed joint metadata.
+    Returns (ok, u): ok False if the factor came back NaN (the caller
+    escalates jitter); with y, u = L^{-1} y, taken inline from each band
+    while it is on the card.  `sweep` row panels form one band, so each
+    stored panel is fetched once a sweep.  With `stats`,
     stats["logdiag_sum"] holds logdiag0 + sum(log diag L) over the panels
-    factored so far, after every sweep."""
-    c = cols.shape[0]
+    factored so far, after every sweep.
+
+    Resumable: `start_panel` and `u0` continue a factor whose panels
+    [0, start_panel) are in the store already (a write-through store
+    reattached by `open_dir`); `progress_cb(next_j, u)` is called after each
+    sweep once its panels are stored, for the caller to checkpoint;
+    `end_panel` stops after panels [start_panel, end_panel), and u then
+    covers the rows below end_panel * panel only."""
+    c = x.shape[0]
     if c % panel:
         raise ValueError(f"capacity {c} must be a multiple of panel {panel}")
     nb = c // panel
+    nb_stop = nb if end_panel is None else min(int(end_panel), nb)
     writer = _AsyncWriter(store)
-    u = None if y is None else torch.zeros_like(y)
+    if u0 is not None:
+        u = torch.as_tensor(u0, dtype=x.dtype, device=x.device).clone()
+    else:
+        u = None if y is None else torch.zeros_like(y)
     logdiag = float(logdiag0)
-    j = 0
-    while j < nb:
-        r = min(max(int(sweep), 1), nb - j)
+    j = int(start_panel)
+    while j < nb_stop:
+        r = min(max(int(sweep), 1), nb_stop - j)
         j0, rows = j * panel, r * panel
-        cur = _gram_band(kernel, cols, noise, params, j0, rows)
+        cur = _gram_band(kernel, x, noisep, params, j0, rows)
         for k, lk in _Prefetcher(store, range(j)):
             _chol_kstep(cur, lk, k * panel, block=block)
         _chol_diag(cur, j0, block=block)
@@ -667,9 +905,12 @@ def ooc_cholesky(kernel: str, cols: torch.Tensor, noise: torch.Tensor, params, s
         if u is not None:
             _fwd_sub_step(u, cur, y, j0)
         for rr in range(r):
-            w = _store_width(j + rr, panel, c)
+            w = _store_width(j + rr, panel, c, width_quant)
             writer.put(j + rr, cur[rr * panel:(rr + 1) * panel, :w])
         j += r
+        if progress_cb is not None:
+            writer.drain()  # every panel below j is stored
+            progress_cb(j, u)
     writer.drain()
     return True, u
 
@@ -685,9 +926,22 @@ def ooc_alpha_backward(lstore, u: torch.Tensor, *, panel: int) -> torch.Tensor:
     return alpha
 
 
+def ooc_solve_alpha(lstore, y: torch.Tensor, *, panel: int, block: int = 256) -> torch.Tensor:
+    """alpha = (L L^T)^{-1} y by a forward and a backward substitution, each
+    one pass over the stored L panels: W never enters, so a narrowed W
+    store cannot reach the posterior mean."""
+    del block  # the substitutions solve whole diagonal blocks
+    nb = y.shape[0] // panel
+    u = torch.zeros_like(y)
+    for j, lj in _Prefetcher(lstore, range(nb)):
+        _fwd_sub_step(u, lj, y, j * panel)
+    return ooc_alpha_backward(lstore, u, panel=panel)
+
+
 def ooc_trsm(lstore, wstore, y: torch.Tensor, *, panel: int, block: int = 256,
-             accumulate_alpha: bool = True, sweep: int = 1, on_panel=None,
-             store_final: bool = True):
+             accumulate_alpha: bool = True, width_quant: int = 2, sweep: int = 1,
+             start_panel: int = 0, end_panel: int | None = None, progress_cb=None,
+             on_panel=None, store_final: bool = True):
     """W = L^{-1} by left-looking row panels into `wstore`, consuming the L
     panels as it goes (L panel j is freed before W panel j is stored, so W_j
     takes its budget).  `sweep` W row panels are solved per outer step, so
@@ -698,17 +952,29 @@ def ooc_trsm(lstore, wstore, y: torch.Tensor, *, panel: int, block: int = 256,
     past column j0 + R, while they are on the card.  store_final=False
     leaves the last sweep's panels out of `wstore`: the TRSM never reads
     them again, so a caller whose consumer rode on `on_panel` saves their
-    write."""
+    write.
+
+    Resumable: the TRSM carries no vector state without accumulate_alpha,
+    so the W panels [0, start_panel) in `wstore` (reattached by `open_dir`)
+    are its whole checkpoint, and a resumed run needs L panels
+    [start_panel, nb) only.  `progress_cb(next_j)` is called after each
+    sweep once its W panels are stored; `end_panel` stops after panels
+    [start_panel, end_panel)."""
+    if accumulate_alpha and (start_panel or end_panel is not None):
+        raise ValueError("alpha accumulation cannot run over a panel sub-range (the partial "
+                         "sum would pose as the full alpha); use accumulate_alpha=False "
+                         "(substitution alpha)")
     if panel % block:
         raise ValueError(f"panel ({panel}) must be a multiple of block ({block})")
     c = y.shape[0]
     nb = c // panel
+    nb_stop = nb if end_panel is None else min(int(end_panel), nb)
     alpha = torch.zeros_like(y) if accumulate_alpha else None
     dev = lstore.device
     writer = _AsyncWriter(wstore)
-    j = 0
-    while j < nb:
-        r = min(max(int(sweep), 1), nb - j)
+    j = int(start_panel)
+    while j < nb_stop:
+        r = min(max(int(sweep), 1), nb_stop - j)
         j0, rows = j * panel, r * panel
         parts = [_fetch(lstore, j + rr)[0] for rr in range(r)]
         if r == 1:
@@ -724,6 +990,7 @@ def ooc_trsm(lstore, wstore, y: torch.Tensor, *, panel: int, block: int = 256,
             _trsm_kstep(u, lj, wk, k * panel, (k + 1) * panel)
         ljj = lj[:, j0:j0 + rows].clone()  # only the diagonal block survives
         del lj
+        writer.drain()  # the previous sweep is stored before L goes
         for rr in range(r):
             lstore.free(j + rr)
         _trsm_finish(ljj, u, j0, block=block)
@@ -732,12 +999,15 @@ def ooc_trsm(lstore, wstore, y: torch.Tensor, *, panel: int, block: int = 256,
             alpha += (u @ y) @ u
         if on_panel is not None:
             on_panel(j0, u)
-        if store_final or j + r < nb:
+        if store_final or j + r < nb_stop:
             for rr in range(r):
-                w = _store_width(j + rr, panel, c)
+                w = _store_width(j + rr, panel, c, width_quant)
                 writer.put(j + rr, u[rr * panel:(rr + 1) * panel, :w])
         del u
         j += r
+        if progress_cb is not None:
+            writer.drain()  # the panels are stored before the checkpoint says so
+            progress_cb(j)
     writer.drain()
     return alpha
 
@@ -978,9 +1248,22 @@ def ooc_update(model: OOCModel, new_x, new_y, new_noise, *,
              * abs(float(kf.k_diag0(model.kernel, model.params))))
     new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev).broadcast_to((t,)),
                             min=floor)
-    # The JAX package refuses here a W store with spill-compressed (f16)
-    # panels, whose rounding the mean's correction would amplify.  The port
-    # has no such store: ooc_fit refuses w_dtype (ROADMAP.md §1 item 15).
+    # A narrowed (float16) W panel's rounding is ~1e-1 ABSOLUTE where W is
+    # large (~1/sqrt(noise)): tolerable in the variance's squares, but V =
+    # W K(X, X_new) and A = W^T V feed the mean's correction directly (the
+    # JAX package measured 0.7 off on a 1,024-point problem with one spilled
+    # panel).  The configured spill dtype misses panels that a reattached
+    # store inherited, so what is stored is checked too.
+    sd = getattr(model.wstore, "_spill_dtype", None)
+    checker = getattr(model.wstore, "has_compressed_panels", None)
+    if ((sd is not None and torch.finfo(sd).bits < torch.finfo(dt).bits)
+            or (checker is not None and checker())):
+        raise ValueError(
+            "tactile updates need the uncompressed W factor: this fit's W "
+            "store holds spill-compressed panels, whose rounding is "
+            "amplified into the posterior-mean correction (fine for "
+            "variance-only queries).  Refit with w_dtype=None to update."
+        )
     occ = int(model.n_tail)
     cap = int(tail_capacity if model.tail_v is None else model.tail_v.shape[1])
     if occ + t > cap:
@@ -1051,20 +1334,122 @@ def ooc_update(model: OOCModel, new_x, new_y, new_noise, *,
         tail_chol=tail_chol, tail_alpha=tail_alpha)
 
 
-def ooc_residual_check(model, **kwargs):
-    not_ported("ooc_residual_check (the int16 L codec's guard)", 15, "out-of-core")
+def ooc_residual_check(model: OOCModel, *, n_blocks: int = 4, block: int = 256,
+                       tol: float = 3e-3, tol_y: float = 3e-2) -> dict:
+    """The guard of a fit whose stored panels were compressed (the int16 L
+    codec): sampled rows of the system the factor claims to have solved,
+    r_S = (K + diag(noise))_S alpha - y_S, rebuilt from the coordinates
+    (`n_blocks` bands of `block` rows, Kernel A's band mode or Kernel E; no
+    panel is read).  alpha flows through every decoded L panel, so a codec
+    error the problem cannot absorb shows in r by the factor it would move
+    the posterior mean.  Two ratios:
+
+    * rel_bw = max_i |r_i| / (sum_j |K_ij| |alpha_j| + |y_i|), the
+      componentwise backward error: it fires on corrupted storage (a damaged
+      panel file, a stale panel) that no quantizer produced;
+    * rel_y = max_i |r_i| / ||y||_inf, the residual in observation units,
+      which tracks the damage to the mean.
+
+    ok needs rel_bw <= tol and rel_y <= tol_y (the JAX package's
+    calibration).  The rows come from the real value rows [0, n_real)
+    (padded rows' noise would drown the scale); a touch tail is left out
+    (check the fresh fit)."""
+    dt = model.dtype
+    cols = _factor_cols(model)
+    if getattr(model, "meta", None) is not None:
+        noise_full = cuda_joint.joint_noise(model.n0, model.noise, model.noise_g, None, model.x)
+    else:
+        noise_full = model.noise
+    nr = int(model.n_real)
+    b = min(block, nr)
+    n_blocks = max(1, min(n_blocks, nr // max(b, 1)))
+    if n_blocks == 1:
+        starts = [0]
+    else:  # evenly spread, deduplicated block starts inside the real rows
+        starts = sorted({round(k * (nr - b) / (n_blocks - 1)) for k in range(n_blocks)})
+    alpha = model.alpha
+    aabs = alpha.abs()
+    # The scale of the whole target (pad rows are zero): a joint system's
+    # value targets are all 0 on the surface, its signal in the normals.
+    y_scale = float(model.y.abs().max()) or 1.0
+    tiny = torch.finfo(dt).tiny
+    worst_abs, worst_bw = 0.0, 0.0
+    for r0 in starts:
+        band = _gram_band(model.kernel, cols, noise_full, model.params, r0, b)
+        yb = model.y[r0:r0 + b]
+        r = band @ alpha - yb
+        scale = band.abs() @ aabs + yb.abs()
+        worst_abs = max(worst_abs, float(r.abs().max()))
+        worst_bw = max(worst_bw, float((r.abs() / torch.clamp(scale, min=tiny)).max()))
+    rel_y = worst_abs / max(y_scale, tiny)
+    ok = worst_bw <= tol and rel_y <= tol_y
+    return {"residual": worst_abs, "rel_bw": worst_bw, "rel_y": rel_y, "ok": bool(ok),
+            "tol": tol, "tol_y": tol_y, "rows": [int(v) for v in starts], "block": int(b)}
 
 
-def ooc_factor_phase(*args, **kwargs):
-    not_ported("ooc_factor_phase (the process-split fit)", 15, "out-of-core")
+def plan_sweeps(c: int, panel: int, itemsize: int = 4, *, limit: int | None = None,
+                w_itemsize: int | None = None, l_itemsize: int | None = None,
+                width_quant: int = 2, max_sweep: int = 32, device="cuda") -> dict:
+    """The factor's and the TRSM's sweep widths that minimize the modelled
+    host-to-device refetch traffic, and the device budgets that go with
+    them (the JAX package's planner, arithmetic alone).  For sweep s over
+    nb = c / panel stored panels, each group of s rows refetches the stored
+    prefix [0, j) but for the budget-first resident panels:
 
+        traffic(s) = sum over groups of max(0, cum(j) - cum(tier(s))),
 
-def ooc_solve_phase(*args, **kwargs):
-    not_ported("ooc_solve_phase (the process-split fit)", 15, "out-of-core")
+    cum the cumulative trimmed panel bytes (`_store_width`), tier(s) the
+    longest resident prefix under the phase's budget,
 
+        factor: limit - ((s + 4.5) B C i + 2 (s B)^2 i + 0.5 GB),
+        TRSM:   limit - ((2 s + 3.5) B C i + 2 (s B)^2 i + 0.5 GB).
 
-def plan_sweeps(*args, **kwargs):
-    not_ported("plan_sweeps", 15, "out-of-core")
+    Raising s divides the groups but shrinks the tier; ties take the
+    smaller s.  Spilled L panels refetch at `l_itemsize` (the int16 codec:
+    2), W panels at `w_itemsize` both spilled and resident (device_dtype).
+    `limit` defaults to what `device`'s allocator can hold.  Returns {"nb",
+    "factor_sweep", "factor_budget", "factor_traffic", "trsm_sweep",
+    "trsm_budget", "trsm_traffic"}: pass the budgets on with the sweeps."""
+    if limit is None:
+        limit = _device_limit(resolve_device(device))
+    nb = c // panel
+    if nb * panel != c:
+        raise ValueError(f"c ({c}) must be a multiple of panel ({panel})")
+    pb = panel * c * itemsize
+    cum = [0]
+    for k in range(nb):
+        cum.append(cum[-1] + panel * _store_width(k, panel, c, width_quant) * itemsize)
+
+    def tier_panels(budget: int) -> int:
+        t = 0
+        while t < nb and cum[t + 1] <= budget:
+            t += 1
+        return t
+
+    def traffic(s: int, budget: int, refetch_scale: float) -> float:
+        t = tier_panels(budget)
+        return sum(max(0, cum[j] - cum[min(t, j)]) * refetch_scale for j in range(0, nb, s))
+
+    def pick(rows_per_sweep: float, fixed_rows: float, refetch_scale: float,
+             tier_scale: float = 1.0):
+        slack = int(fixed_rows * pb) + 500_000_000
+        best = None
+        for s in range(1, min(max_sweep, nb) + 1):
+            diag = 2 * (s * panel) ** 2 * itemsize
+            budget = limit - int(rows_per_sweep * s * pb) - diag - slack
+            if budget < 0:
+                break
+            vol = traffic(s, int(budget / tier_scale), refetch_scale)
+            if best is None or vol < best[2]:
+                best = (s, budget, vol)
+        return best or (1, 0, traffic(1, 0, refetch_scale))
+
+    fs, fbudget, fvol = pick(1.0, 4.5, (l_itemsize / itemsize) if l_itemsize else 1.0)
+    wscale = (w_itemsize / itemsize) if w_itemsize else 1.0
+    ts, tbudget, tvol = pick(2.0, 3.5, wscale, tier_scale=wscale)
+    return {"nb": nb, "factor_sweep": fs, "factor_budget": fbudget,
+            "factor_traffic": int(fvol), "trsm_sweep": ts, "trsm_budget": tbudget,
+            "trsm_traffic": int(tvol)}
 
 
 # ------------------------------------------------------------------- fits
@@ -1080,12 +1465,11 @@ def _device_limit(device, default: int = 15_500_000_000) -> int:
     return free + torch.cuda.memory_reserved(device)
 
 
-def _hbm_budget(panel: int, c: int, itemsize: int, device) -> int:
+def _hbm_budget(panel: int, c: int, itemsize: int, device, sweep: int = 1) -> int:
     """Device bytes left to the tiered stores: the limit minus the row-band
     working set -- the widest (sweep B, C) band of the factor or the TRSM's
-    (its band and U), two prefetched panels, the transients of a step -- and
-    0.5 GB (the JAX package's reserve)."""
-    sweep = max(SWEEP, TRSM_SWEEP + 1)
+    (its band and U, `sweep` the larger), two prefetched panels, the
+    transients of a step -- and 0.5 GB (the JAX package's reserve)."""
     reserve = int((sweep + 4.5) * panel * c * itemsize) + 500_000_000
     return max(_device_limit(device) - reserve, 0)
 
@@ -1140,19 +1524,20 @@ def _pad_joint_problem(kernel: str, x, y, normals, noise_f, noise_g, params, *, 
 
 
 def _factor_with_jitter(kernel, cols, noise, params, budget, *, panel, block, store, y,
-                        jitter, initial_jitter: float | None = None,
+                        jitter, width_quant: int = 2, sweep: int = 2,
+                        initial_jitter: float | None = None,
                         max_jitter_retries: int = MAX_JITTER_RETRIES,
-                        spill_dir: str | None = None):
+                        spill_dir: str | None = None, l_codec: str | None = None):
     """The NaN-escalation jitter ladder around `ooc_cholesky`, from
     `initial_jitter` (default none) up `max_jitter_retries` rungs.  Returns
     (store, u, logdiag_sum, extra), extra the jitter added to the factor's
     diagonal, which the caller folds into its stored noises."""
     extra = initial_jitter if initial_jitter is not None else 0.0
     for _ in range(max_jitter_retries + 1):
-        st = _make_store(store, budget, cols.device, spill_dir)
+        st = _make_store(store, budget, cols.device, spill_dir, spill_codec=l_codec)
         stats: dict = {}
         ok, u = ooc_cholesky(kernel, cols, noise + extra, params, st, panel=panel, block=block,
-                             sweep=SWEEP, y=y, stats=stats)
+                             width_quant=width_quant, sweep=sweep, y=y, stats=stats)
         if ok:
             return st, u, stats["logdiag_sum"], extra
         st.clear()
@@ -1161,42 +1546,50 @@ def _factor_with_jitter(kernel, cols, noise, params, budget, *, panel, block, st
     raise FloatingPointError(f"out-of-core Cholesky failed even with jitter {extra:.2e}")
 
 
-def _refuse_unported_spill(w_dtype, l_codec) -> None:
-    if w_dtype is not None:
-        not_ported("w_dtype (the f16 W spill)", 15, "out-of-core")
-    if l_codec is not None:
-        not_ported("l_codec (the int16 L codec)", 15, "out-of-core")
-
-
-def _fit_budget(device_budget, panel: int, j: int, x: torch.Tensor) -> DeviceBudget:
+def _fit_budget(device_budget, panel: int, j: int, x: torch.Tensor, sweep: int) -> DeviceBudget:
     if device_budget is not None:
         return DeviceBudget(device_budget)
-    return DeviceBudget(_hbm_budget(panel, j, x.element_size(), x.device))
+    return DeviceBudget(_hbm_budget(panel, j, x.element_size(), x.device, sweep=sweep))
+
+
+def _trsm_sweep(sweep: int, trsm_sweep: int | None) -> int:
+    return min(sweep, 2) if trsm_sweep is None else trsm_sweep
 
 
 def ooc_fit(kernel: str, x, y, noise, params, *, panel: int, block: int = 256,
             store: str = "tiered", pad_noise: float = 1e10, dtype=None,
             max_jitter_retries: int = MAX_JITTER_RETRIES, initial_jitter: float | None = None,
-            device_budget: int | None = None, w_dtype=None, spill_dir: str | None = None,
+            device_budget: int | None = None, w_dtype=None, width_quant: int = 2,
+            sweep: int = 2, trsm_sweep: int | None = None, spill_dir: str | None = None,
             l_codec: str | None = None) -> OOCModel:
     """Out-of-core GP fit in `dtype` (default x's) on x's device: pad to a
     panel multiple, factor with the NaN-escalation jitter ladder (from
     `initial_jitter`, `max_jitter_retries` rungs), alpha by substitution
     against L, then the TRSM.  `store` = "tiered" (the card up to
     `device_budget` bytes, by default all the card can spare, then host RAM,
-    or with `spill_dir` files there), "host" or "device"."""
-    _refuse_unported_spill(w_dtype, l_codec)
+    or with `spill_dir` files there), "host" or "device".  `sweep` row
+    panels form a factor band and `trsm_sweep` (default min(sweep, 2)) a
+    TRSM step; stored widths round up to `width_quant` panels.
+
+    `w_dtype` (float16) narrows the SPILLED W panels: alpha comes from L,
+    so only the variance sees the rounding (~1e-3), and `ooc_update`
+    refuses such a model.  `l_codec="int16"` spills the L panels in the
+    blockwise int16 codec (absolute error <= blockmax * 3e-5; check the fit
+    with `ooc_residual_check`); a narrower L DTYPE is never offered, its
+    relative rounding breaks the mean."""
     xp, yp, noisep, params, c, n, jitter = _pad_problem(kernel, x, y, noise, params,
                                                         panel=panel, pad_noise=pad_noise,
                                                         dtype=dtype)
-    budget = _fit_budget(device_budget, panel, c, xp)
+    tsw = _trsm_sweep(sweep, trsm_sweep)
+    budget = _fit_budget(device_budget, panel, c, xp, max(sweep, tsw + 1))
     st, u, logdiag, extra = _factor_with_jitter(
         kernel, xp, noisep, params, budget, panel=panel, block=block, store=store, y=yp,
-        jitter=jitter, initial_jitter=initial_jitter, max_jitter_retries=max_jitter_retries,
-        spill_dir=spill_dir)
+        jitter=jitter, width_quant=width_quant, sweep=sweep, initial_jitter=initial_jitter,
+        max_jitter_retries=max_jitter_retries, spill_dir=spill_dir, l_codec=l_codec)
     alpha = ooc_alpha_backward(st, u, panel=panel)
-    wstore = _make_store(store, budget, xp.device, spill_dir)
-    ooc_trsm(st, wstore, yp, panel=panel, block=block, accumulate_alpha=False, sweep=TRSM_SWEEP)
+    wstore = _make_store(store, budget, xp.device, spill_dir, spill_dtype=w_dtype)
+    ooc_trsm(st, wstore, yp, panel=panel, block=block, accumulate_alpha=False,
+             width_quant=width_quant, sweep=tsw)
     return OOCModel(kernel=kernel, x=xp, y=yp, noise=noisep + extra, params=params, alpha=alpha,
                     wstore=wstore, panel=panel, n_real=n, u=u, logdiag_sum=logdiag)
 
@@ -1205,26 +1598,310 @@ def ooc_fit_joint(kernel: str, x, y, normals, noise_f, noise_g, params, *, panel
                   block: int = 256, store: str = "tiered", pad_noise: float = 1e10, dtype=None,
                   max_jitter_retries: int = MAX_JITTER_RETRIES,
                   initial_jitter: float | None = None, device_budget: int | None = None,
-                  w_dtype=None, spill_dir: str | None = None,
+                  w_dtype=None, width_quant: int = 2, sweep: int = 2,
+                  trsm_sweep: int | None = None, spill_dir: str | None = None,
                   l_codec: str | None = None) -> OOCJointModel:
     """Out-of-core joint (value + gradient) fit: J = 4C factor rows for C
     padded points, in the dimension-major layout [f | d1 | d2 | d3]; the
     same factor, TRSM and alpha as `ooc_fit` (and its options), on packed
     joint metadata."""
-    _refuse_unported_spill(w_dtype, l_codec)
     (xp, yj, meta, nrm, nf, ng, params, c, n,
      jitter) = _pad_joint_problem(kernel, x, y, normals, noise_f, noise_g, params, panel=panel,
                                   pad_noise=pad_noise, dtype=dtype)
     j_tot = 4 * c
-    budget = _fit_budget(device_budget, panel, j_tot, xp)
+    tsw = _trsm_sweep(sweep, trsm_sweep)
+    budget = _fit_budget(device_budget, panel, j_tot, xp, max(sweep, tsw + 1))
     noisej = cuda_joint.joint_noise(c, nf, ng, None, xp)
     st, u, logdiag, extra = _factor_with_jitter(
         kernel, meta, noisej, params, budget, panel=panel, block=block, store=store, y=yj,
-        jitter=jitter, initial_jitter=initial_jitter, max_jitter_retries=max_jitter_retries,
-        spill_dir=spill_dir)
+        jitter=jitter, width_quant=width_quant, sweep=sweep, initial_jitter=initial_jitter,
+        max_jitter_retries=max_jitter_retries, spill_dir=spill_dir, l_codec=l_codec)
     alpha = ooc_alpha_backward(st, u, panel=panel)
-    wstore = _make_store(store, budget, xp.device, spill_dir)
-    ooc_trsm(st, wstore, yj, panel=panel, block=block, accumulate_alpha=False, sweep=TRSM_SWEEP)
+    wstore = _make_store(store, budget, xp.device, spill_dir, spill_dtype=w_dtype)
+    ooc_trsm(st, wstore, yj, panel=panel, block=block, accumulate_alpha=False,
+             width_quant=width_quant, sweep=tsw)
     return OOCJointModel(kernel=kernel, x=xp, y=yj, noise=nf + extra, params=params,
                          alpha=alpha, wstore=wstore, panel=panel, n_real=n, u=u,
                          logdiag_sum=logdiag, meta=meta, normals=nrm, noise_g=ng + extra, n0=c)
+
+
+# ------------------------------------------------- process-split phases
+
+
+def _problem_tag(arrays, params, dtype) -> str:
+    """sha1 of a padded problem: its arrays' bytes and the hyperparameters at
+    the fit's dtype (as the JAX package hashes its jnp scalars)."""
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(a.detach().cpu().numpy().tobytes())
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(np.asarray(params[k], dtype=_np_dtype(dtype)).tobytes())
+    return h.hexdigest()
+
+
+def _save_npz_atomic(path: str, **arrays) -> None:
+    """np.savez through a temporary file and a rename: a kill mid-write
+    leaves the old file whole."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def ooc_factor_phase(kernel: str, x, y, noise, params, *, panel: int, spill_dir: str,
+                     block: int = 256, sweep: int = 2, width_quant: int = 2,
+                     pad_noise: float = 1e10, dtype=None,
+                     max_jitter_retries: int = MAX_JITTER_RETRIES,
+                     initial_jitter: float | None = None, device_budget: int | None = None,
+                     resume: bool = True, normals=None, noise_g=None,
+                     l_codec: str | None = None, defer_alpha: bool = False) -> None:
+    """Phase 1 of the two-phase out-of-core fit: factor, solve alpha, and
+    persist the L store and the problem's state under `spill_dir` (`L/`,
+    `state.npz`), for `ooc_solve_phase` to finish in another process.
+
+    The factor survives a crash: the L store is write-through (every panel
+    mirrored to its file as it is stored) and a progress checkpoint (u =
+    L^{-1} y so far, the next panel, the jitter, sum(log diag L)) lands after
+    every stored sweep, so with `resume` a rerun reattaches the store and
+    continues from the last finished sweep, provided the checkpoint's
+    problem hash (the padded coordinates, targets, noise, normals and
+    hyperparameters) is this problem's.  A NaN factor restarts from scratch
+    one jitter rung up.
+
+    `normals` (and `noise_g`) switch to the joint layout: the factor's
+    columns are packed joint metadata and the state carries normals,
+    noise_f and noise_g.  `defer_alpha` (value fits) skips the backward
+    substitution's stream of the L panels: the solve phase sums alpha =
+    W^T (W y) from its W bands instead.  `l_codec="int16"` codes the L
+    panels on disk."""
+    joint = normals is not None
+    if joint:
+        (xp, yp, cols, nrm, nf, ng, params, c0, n,
+         jitter) = _pad_joint_problem(kernel, x, y, normals, noise, noise_g, params, panel=panel,
+                                      pad_noise=pad_noise, dtype=dtype)
+        np_ = cuda_joint.joint_noise(c0, nf, ng, None, xp)
+        c = 4 * c0
+    else:
+        xp, yp, np_, params, c, n, jitter = _pad_problem(kernel, x, y, noise, params,
+                                                         panel=panel, pad_noise=pad_noise,
+                                                         dtype=dtype)
+        cols = xp
+    dt, dev = xp.dtype, xp.device
+    budget = _fit_budget(device_budget, panel, c, xp, sweep)
+    extra = initial_jitter if initial_jitter is not None else 0.0
+    ldir = os.path.join(spill_dir, "L")
+    prog_path = os.path.join(spill_dir, "progress.npz")
+    # Same shapes are not enough to resume: a rerun with other
+    # hyperparameters or another cloud of the same size would splice two
+    # factors into one.
+    problem_tag = _problem_tag([xp, yp, np_] + ([nrm] if joint else []), params, dt)
+
+    start_panel, u0, st0, ld0 = 0, None, None, 0.0
+    if resume and os.path.exists(prog_path) and os.path.exists(os.path.join(ldir,
+                                                                            "manifest.json")):
+        try:
+            with np.load(prog_path) as d:
+                prog = {k: d[k] for k in d.files}
+            match = (int(prog["c"]) == c and int(prog["panel"]) == panel
+                     and str(prog["kernel"]) == kernel and str(prog["problem"]) == problem_tag)
+        except (OSError, ValueError, KeyError):
+            match = False  # a damaged checkpoint: factor from scratch
+        if match:
+            start_panel = int(prog["next_panel"])
+            u0 = torch.as_tensor(prog["u"], dtype=dt, device=dev)
+            extra = float(prog["extra"])
+            # A checkpoint without the log-diagonal sum has lost the
+            # prefix's share: the sum stays unknown rather than wrong.
+            ld0 = (float(prog["logdiag"]) if "logdiag" in prog
+                   else (0.0 if start_panel == 0 else None))
+            st0 = TieredPanelStore.open_dir(budget, ldir, device=dev, write_through=True,
+                                            spill_codec=l_codec)
+
+    stats: dict = {}
+    st_cur = None
+
+    def checkpoint(next_j, u_now):
+        st_cur.save_manifest()
+        logdiag = ({"logdiag": stats["logdiag_sum"]}
+                   if stats.get("logdiag_sum") is not None and ld0 is not None else {})
+        _save_npz_atomic(prog_path, next_panel=next_j, u=u_now.detach().cpu().numpy(),
+                         extra=extra, c=c, panel=panel, kernel=kernel, problem=problem_tag,
+                         **logdiag)
+
+    for _ in range(max_jitter_retries + 1):
+        st_cur = st0 if st0 is not None else TieredPanelStore(
+            budget, dev, spill_dir=ldir, write_through=True, spill_codec=l_codec)
+        st0 = None
+        stats.clear()
+        ok, u = ooc_cholesky(kernel, cols, np_ + extra, params, st_cur, panel=panel,
+                             block=block, width_quant=width_quant, sweep=sweep, y=yp,
+                             start_panel=start_panel, u0=u0, progress_cb=checkpoint,
+                             logdiag0=ld0 or 0.0, stats=stats if ld0 is not None else None)
+        if ok:
+            np_ = np_ + extra
+            st = st_cur
+            break
+        st_cur.clear()
+        start_panel, u0, ld0 = 0, None, 0.0  # a NaN factor starts afresh
+        _unlink(prog_path)
+        extra = max(extra * 10.0, jitter)
+    else:
+        raise FloatingPointError(f"out-of-core Cholesky failed even with jitter {extra:.2e}")
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    state = {"x": host(xp), "y": host(yp), "noise": host(np_), "u": host(u), "kernel": kernel,
+             "panel": panel, "n_real": n, "block": block, "width_quant": width_quant}
+    if not (defer_alpha and not joint):
+        state["alpha"] = host(ooc_alpha_backward(st, u, panel=panel))
+    st.evict_all()
+    st.save_manifest()
+    if joint:
+        # The jitter was added to the whole joint diagonal: both noise
+        # families carry it, so that later borderings rebuild K as L has it.
+        state.update(normals=host(nrm), noise_f=host(nf) + extra, noise_g=host(ng) + extra)
+    if stats.get("logdiag_sum") is not None:
+        state["logdiag_sum"] = stats["logdiag_sum"]
+    for k, v in params.items():
+        state[f"param_{k}"] = np.asarray(v, dtype=_np_dtype(dt))
+    np.savez(os.path.join(spill_dir, "state.npz"), **state)
+    _unlink(prog_path)
+
+
+def _load_state(spill_dir: str) -> dict:
+    with np.load(os.path.join(spill_dir, "state.npz"), allow_pickle=False) as d:
+        return {k: d[k] for k in d.files}
+
+
+def _solve_tag(d: dict) -> str:
+    """The W store's tag: a hash of the solved state (u, else alpha), which
+    pins the whole upstream problem, and stays put when a deferred alpha is
+    written into the state after the TRSM."""
+    h = hashlib.sha1()
+    for a in (d["x"], d["y"], d["noise"], d["u"] if "u" in d else d["alpha"]):
+        h.update(np.asarray(a).tobytes())
+    h.update(f"{d['kernel']}:{int(d['panel'])}".encode())
+    return h.hexdigest()
+
+
+def _missing_l(lst, lo: int, hi: int, spill_dir: str, what: str):
+    missing = [j for j in range(lo, hi) if j not in lst]
+    if missing:
+        raise FileNotFoundError(
+            f"{what} needs L panels {missing[:5]}{'...' if len(missing) > 5 else ''} "
+            f"of [{lo}, {hi}) but they are not in the L store at {spill_dir}/L: an "
+            "earlier TRSM consumed them and its W store was cleared afterwards.  Restore "
+            "the panels or run the factor phase again.")
+
+
+def ooc_solve_phase(spill_dir: str, *, w_dtype=None, trsm_sweep: int = 1,
+                    device_budget: int | None = None, resume: bool = True,
+                    stop_after: int | None = None, fused_query=None, keep_w: bool = True,
+                    device="cuda"):
+    """Phase 2 of the two-phase out-of-core fit: reattach the L store that
+    `ooc_factor_phase` persisted under `spill_dir`, run the panel-consuming
+    TRSM (W replaces L on disk, under `W/`) on `device`, and return the
+    query-ready OOCModel (or OOCJointModel).
+
+    The TRSM survives a crash: the W store is write-through with its
+    manifest saved after every stored sweep, and, the TRSM carrying no
+    vector state, the W prefix on disk is its checkpoint.  With `resume` a
+    rerun reattaches W (its tag must be this factor's) and continues at the
+    first missing panel; the L panels from there on must be on disk again
+    (a missing one raises FileNotFoundError at once).  `stop_after` ends the
+    run after that many W panels and returns None; a later call finishes.
+
+    `fused_query` (M, 3): the TRSM-fused query.  Each sweep's W rows add
+    their share of every query's quad (Kernel F's band mode, value or joint
+    columns) while they are on the card, so no W panel is read back for
+    it; with `keep_w=False` the last sweep's panels, never read again, are
+    not written.  Returns (model, (mean, var)) then, or (model, None) when
+    a resumed TRSM has lost earlier bands' shares and the caller must query
+    the model.  A deferred alpha is summed from the fresh TRSM's W bands
+    (and written into the state), else solved against the restored L."""
+    dev = resolve_device(device)
+    d = _load_state(spill_dir)
+    kernel, panel, block = str(d["kernel"]), int(d["panel"]), int(d["block"])
+    width_quant = int(d["width_quant"])
+
+    def t(key):
+        return torch.as_tensor(d[key], device=dev)
+
+    xp, yp, np_ = t("x"), t("y"), t("noise")
+    alpha = t("alpha") if "alpha" in d else None
+    params = {k[len("param_"):]: float(d[k]) for k in d if k.startswith("param_")}
+    c = yp.shape[0]  # the factor's size, C or J = 4C
+    nb = c // panel
+    budget = _fit_budget(device_budget, panel, c, xp, trsm_sweep + 1)
+    lst = TieredPanelStore.open_dir(budget, os.path.join(spill_dir, "L"), device=dev)
+    wdir = os.path.join(spill_dir, "W")
+    w_tag = _solve_tag(d)
+    wkw = dict(spill_dtype=w_dtype, device_dtype=w_dtype, write_through=True, tag=w_tag)
+
+    start, wstore = 0, None
+    if resume and os.path.exists(os.path.join(wdir, "manifest.json")):
+        try:
+            wstore = TieredPanelStore.open_dir(budget, wdir, expect_tag=w_tag, device=dev, **wkw)
+        except ValueError:
+            wstore = None  # a stale W store: the TRSM starts afresh
+        else:
+            while start in wstore:
+                start += 1
+    if wstore is None:
+        # device_dtype too: narrow resident W panels double the tier, and
+        # alpha is summed from the full-precision bands before they are
+        # stored either way.
+        wstore = TieredPanelStore(budget, dev, spill_dir=wdir, **wkw)
+    joint = "normals" in d
+    cols = cuda_joint.pack_meta(cuda_joint.joint_meta(xp)) if joint else xp
+    fused_pair = None
+    if start < nb:
+        end = nb if stop_after is None else min(nb, stop_after)
+        _missing_l(lst, start, end, spill_dir, "the TRSM")
+        on_panel = None
+        fused_ok = fused_query is not None and start == 0 and stop_after is None
+        if fused_ok:
+            q = torch.as_tensor(fused_query).to(dtype=xp.dtype, device=dev).contiguous()
+            chunks = _chunks(q, 8192)
+            quads = [torch.zeros((ch.shape[0],), dtype=xp.dtype, device=dev) for ch in chunks]
+
+            def on_panel(j0, w_band):
+                for quad, ch in zip(quads, chunks):
+                    quad += _quad_band(kernel, ch, cols, params, w_band, j0)
+
+        want_accum = alpha is None and start == 0 and stop_after is None
+        if alpha is None and not want_accum:
+            alpha = ooc_solve_alpha(lst, yp, panel=panel, block=block)
+        out_alpha = ooc_trsm(lst, wstore, yp, panel=panel, block=block,
+                             accumulate_alpha=want_accum, width_quant=width_quant,
+                             sweep=trsm_sweep, start_panel=start, end_panel=stop_after,
+                             progress_cb=lambda _j: wstore.save_manifest(), on_panel=on_panel,
+                             store_final=keep_w or not fused_ok)
+        if want_accum:
+            # The L panels that could give alpha again are consumed: a later
+            # reattach of the finished fit reads it from the state.
+            alpha = out_alpha
+            d["alpha"] = alpha.cpu().numpy()
+            _save_npz_atomic(os.path.join(spill_dir, "state.npz"), **d)
+        if fused_ok:
+            mean = torch.cat([_value_cross(kernel, ch, cols, params) @ alpha for ch in chunks])
+            k0 = float(kf.k_diag0(kernel, params))
+            fused_pair = (mean, torch.clamp(k0 - torch.cat(quads), 0.0, k0))
+    if alpha is None:
+        # A deferred alpha whose TRSM had nothing left to do.
+        _missing_l(lst, 0, nb, spill_dir, "the deferred alpha")
+        alpha = ooc_solve_alpha(lst, yp, panel=panel, block=block)
+    if stop_after is not None and stop_after < nb:
+        return None
+    common = dict(kernel=kernel, x=xp, y=yp, params=params, alpha=alpha, wstore=wstore,
+                  panel=panel, n_real=int(d["n_real"]), u=t("u") if "u" in d else None,
+                  logdiag_sum=float(d["logdiag_sum"]) if "logdiag_sum" in d else None)
+    if joint:
+        model = OOCJointModel(noise=t("noise_f"), meta=cols, normals=t("normals"),
+                              noise_g=t("noise_g"), n0=xp.shape[0], **common)
+    else:
+        model = OOCModel(noise=np_, **common)
+    if fused_query is not None:
+        return model, fused_pair
+    return model

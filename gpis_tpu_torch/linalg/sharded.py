@@ -22,7 +22,8 @@ its row panel from its own square buffer and so cannot take a band whose
 panel row lives on another rank; the right-looking TRSM's trailing update
 is Kernel L (`band_trail`) when asked for, else its plain masked product;
 the query is Kernel A for the mean and Kernel F's band mode for each ring
-hop's quad; the tactile update's tail rows are Kernel A.  The B x B potrf
+hop's quad (Kernel E and F's joint generator for the joint layout of
+`gp.sharded_joint`); the tactile update's tail rows are Kernel A.  The B x B potrf
 and the triangular solves stay library calls, as the JAX package leaves
 them to XLA.
 """
@@ -308,31 +309,42 @@ def _ring_shift(q: torch.Tensor, quad: torch.Tensor, mesh: RowMesh):
 
 def sharded_predict_linv(name: str, q: torch.Tensor, x: torch.Tensor, params,
                          alpha: torch.Tensor, w_loc: torch.Tensor, mesh: RowMesh, *,
-                         precision=None):
+                         precision=None, cross_fn=None, band=None):
     """Posterior (mean, variance) at this rank's shard of the replicated
     queries q (M, 3), M a multiple of P: rows [r M / P, (r + 1) M / P).  The
     mean is kq @ alpha (kq through Kernel A); the variance's ||W kq^T||^2
     pairs every W band with every query shard, so the shards ride a ring
     and each hop adds this band's partial quad (Kernel F's band mode, kq
     generated on chip against the band's live columns).  After P hops every
-    shard is home with all P bands' share.  precision other than None takes
-    each hop's kq through Kernel A and its product as exact FP32 plain
-    PyTorch (`cuda_query.exact_fp32`; slow, for checking the fast route)."""
+    shard is home with all P bands' share.
+
+    `cross_fn(name, q, x, params)` replaces the value cross-covariance for
+    another column layout (the joint model's, `gp.sharded_joint.
+    joint_cross`) and comes with `band = (generator, columns)`, what Kernel
+    F's band mode needs for that layout (`gp.sharded_joint.joint_band`):
+    one without the other raises TypeError.  precision other than None
+    takes each hop's kq through `cross_fn` (or Kernel A) and its product as
+    exact FP32 plain PyTorch (`cuda_query.exact_fp32`; slow, for checking
+    the fast route)."""
+    if (cross_fn is None) != (band is None):
+        raise TypeError("sharded_predict_linv: cross_fn and band go together")
     m = q.shape[0]
     if m % mesh.size:
         raise ValueError(f"query count {m} not divisible by mesh size {mesh.size}")
     per = m // mesh.size
     q_loc = q[mesh.rank * per:(mesh.rank + 1) * per].contiguous()
-    row0 = mesh.band(x.shape[0])[0]
-    mean = kg.cross_cov(name, q_loc, x, params) @ alpha
+    row0 = mesh.band(w_loc.shape[1])[0]
+    cross = cross_fn or kg.cross_cov
+    gen, cols = band or ("value", x)
+    mean = cross(name, q_loc, x, params) @ alpha
     quad = torch.zeros((per,), dtype=q.dtype, device=q.device)
     qv = q_loc
     for _ in range(mesh.size):
         if precision is None:
-            quad = quad + cuda_query.quad_band("value", name, qv, x, params, w_loc, row0)
+            quad = quad + cuda_query.quad_band(gen, name, qv, cols, params, w_loc, row0)
         else:
             with cuda_query.exact_fp32():
-                v = w_loc @ kg.cross_cov(name, qv, x, params).T
+                v = w_loc @ cross(name, qv, x, params).T
             quad = quad + torch.sum(v * v, dim=0)
         if mesh.size > 1:
             qv, quad = _ring_shift(qv, quad, mesh)

@@ -51,6 +51,12 @@ def _gradient(model, q: torch.Tensor) -> torch.Tensor:
 
         return gpd.predict_gradient(model, q)
     m = q.shape[0]
+    if kind == "sharded_joint":
+        c = model.n0
+        kq = torch.cat([kd.cross_cov_grad(model.kernel, q, model.x[:c], model.params),
+                        kd.cross_cov_grad_value(model.kernel, q, model.x[c:], model.params)],
+                       dim=1)
+        return _per_axis(kq @ model.alpha, m)
     cross = kd.cross_cov_grad if kind == "ooc_joint" else kd.cross_cov_grad_value
     g = _per_axis(cross(model.kernel, q, model.x, model.params) @ model.alpha, m)
     if kind in ("ooc", "ooc_joint") and model.n_tail:

@@ -6,8 +6,8 @@ The file is the JAX package's NPZ layout, key for key, with the same JSON
 `meta` and format version, so a checkpoint written by either package loads
 in the other: in-core value models (`linv_is_chol` where the factor is W,
 `has_linv` where W is kept beside it), joint models with their touch slots,
-and sharded value models, whose (C / P, C) bands of L and W rank 0 gathers
-into the whole matrices.  The hyperparameters are written as float64
+and sharded value and joint models, whose row bands of L and W rank 0
+gathers into the whole matrices (each rank keeps its band at load).  The hyperparameters are written as float64
 scalars (the port holds Python floats, so its own round trip is exact); a
 float32 JAX checkpoint's are read as their float32 values.  Committees
 (`gp.experts`, value and joint, with or without their stacked L) keep the
@@ -27,8 +27,7 @@ state in the NPZ and its W = L^{-1} panels, at their stored dtype, as one
 raw file each under `path + ".w/"` with the panel store's manifest
 (`TieredPanelStore.put_host` and `save_manifest` write them,
 `TieredPanelStore.open_dir` reattaches them): the loaded model's panels
-stay on disk until the session promotes them.  Sharded joint checkpoints
-raise NotImplementedError naming the ROADMAP.md §1 item that ports them.
+stay on disk until the session promotes them.
 """
 
 from __future__ import annotations
@@ -41,9 +40,10 @@ import torch
 import torch.distributed as dist
 
 from gpis_tpu_torch import convert
-from gpis_tpu_torch._build import not_ported, resolve_device
+from gpis_tpu_torch._build import resolve_device
 from gpis_tpu_torch.gp.experts import expert_chol
 from gpis_tpu_torch.gp.kinds import model_kind
+from gpis_tpu_torch.gp.sharded_joint import ShardedJointModel
 from gpis_tpu_torch.gp.sharded_model import _all_gather
 from gpis_tpu_torch.kernels import cuda_joint
 from gpis_tpu_torch.kernels import derivative as kd
@@ -75,12 +75,13 @@ def _param_arrays(params) -> dict:
 def save_model(path: str, model, *, factor: bool = True) -> None:
     """Save an in-core GPModel or DerivGPModel, an ExpertGPModel, an
     OOCModel or OOCJointModel (W panels beside the NPZ in `path + ".w/"`),
-    or a ShardedGPModel (every rank calls it; rank 0 writes)."""
+    or a ShardedGPModel or ShardedJointModel (every rank calls it; rank 0
+    writes)."""
     kind = model_kind(model)
     if kind in ("ooc", "ooc_joint"):
         _save_ooc(path, model)
         return
-    if kind == "sharded":
+    if kind in ("sharded", "sharded_joint"):
         _save_sharded(path, model)
         return
     if kind == "experts":
@@ -229,12 +230,19 @@ def _save_sharded(path: str, model) -> None:
             whole[key] = _np(full)
         del full
     if mesh.rank == 0:
+        joint = model_kind(model) == "sharded_joint"
         meta = {"format": _FORMAT_VERSION, "kernel": model.kernel, "n0": model.n0,
-                "dtype": _dtype_name(model.dtype), "sharded": True, "joint": False,
+                "dtype": _dtype_name(model.dtype), "sharded": True, "joint": joint,
                 "n_devices": mesh.size, "block": int(model.block),
                 "n_touch": int(model.n_touch), "n_real": int(model.n_real)}
+        if joint:
+            meta["pad_noise"] = float(model.pad_noise)
+            extra = {"normals": _np(model.normals), "noise_f": _np(model.noise_f),
+                     "noise_g": _np(model.noise_g)}
+        else:
+            extra = {"noise": _np(model.noise)}
         np.savez(path, meta=json.dumps(meta), x=_np(model.x), y=_np(model.y), **whole,
-                 alpha=_np(model.alpha), noise=_np(model.noise), **_param_arrays(model.params))
+                 alpha=_np(model.alpha), **extra, **_param_arrays(model.params))
     _rank0_done(mesh)
 
 
@@ -270,8 +278,6 @@ def load_model(path: str, device="cuda", *, mesh=None):
         meta = json.loads(str(d["meta"]))
         if meta["format"] != _FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint format {meta['format']}")
-        if meta.get("sharded") and meta.get("joint"):
-            not_ported("sharded joint checkpoints", 14, "gp/sharded_joint.py")
         arrays = {k: d[k] for k in d.files if k != "meta"}
     if meta.get("sharded"):
         return _load_sharded(arrays, meta, mesh, device)
@@ -296,6 +302,19 @@ def _load_sharded(arrays, meta: dict, mesh, device):
                            f"{mesh.size} ranks")
     params = {"lengthscale": arrays["param_lengthscale"],
               "signal_variance": arrays["param_signal_variance"]}
+    if meta.get("joint"):
+        row0, rows = mesh.band(arrays["l"].shape[0])
+
+        def t(key, band=False):
+            a = arrays[key][row0:row0 + rows] if band else arrays[key]
+            return torch.as_tensor(np.array(a), device=mesh.device)
+
+        return ShardedJointModel(
+            kernel=meta["kernel"], x=t("x"), params={k: float(v) for k, v in params.items()},
+            l=t("l", True), w=t("w", True), alpha=t("alpha"), mesh=mesh,
+            block=int(meta["block"]), n0=int(meta["n0"]), normals=t("normals"), y=t("y"),
+            noise_f=t("noise_f"), noise_g=t("noise_g"), n_touch=int(meta.get("n_touch", 0)),
+            n_real=int(meta.get("n_real", 0)), pad_noise=float(meta.get("pad_noise", 1e10)))
     return convert.sharded_model_from_arrays(arrays, mesh, kernel=meta["kernel"], params=params,
                                              block=int(meta["block"]),
                                              n_real=int(meta.get("n_real", 0)),

@@ -33,6 +33,7 @@ from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.parallel.mesh import RowMesh
 from gpis_tpu_torch.utils import checkpoint as ckpt
+from torch_codec_ckpt import code_panel, one_rank_group
 from torch_ranks import spawn_ranks
 
 TOL = 1e-6
@@ -284,27 +285,39 @@ def test_restored_joint_overflow_raises_clearly(tmp_path):
 @pytest.mark.parametrize("what, item", [
     ("ooc_int16", 15), ("ooc_float16", 15), ("ooc_joint_int16", 15), ("sharded_joint", 14)])
 def test_unported_checkpoints_name_their_item(tmp_path, what, item):
-    # Committee checkpoints load since item 13 (tests/test_torch_experts.py),
-    # out-of-core ones since item 15's first half
-    # (tests/test_torch_ooc_checkpoint.py); W panels in a spill codec (its
-    # second half) do not.
+    # The checkpoints that raised naming their ROADMAP item until items 15
+    # and 14 were ported (the name is kept): W panels in a spill codec (an
+    # int16-coded one, or a float16 one, as the JAX package's store writes
+    # them), and a sharded joint model; the port's load answers as JAX's
+    # within 1e-6.
     path = str(tmp_path / "m.npz")
+    q = _probe()
     if what.startswith("ooc"):
         cfg = ModelConfig(kernel="rbf", lengthscale=0.7, touch_capacity=0, dtype="float64")
         pts = _cloud()
         normals = pts / np.linalg.norm(pts, axis=1, keepdims=True) if "joint" in what else None
         ObjectModelSession(cfg, device="cpu").start(pts, normals=normals,
                                                     out_of_core=True).save(path)
-        manifest = tmp_path / "m.npz.w" / "manifest.json"
-        doc = json.loads(manifest.read_text())
-        shape = doc["panels"]["1"][0]
-        doc["panels"]["1"] = ([shape, "float16"] if what == "ooc_float16"
-                              else [shape, "int16", {"codec": "int16"}])
-        manifest.write_text(json.dumps(doc))
+        code_panel(path + ".w", 1, what.split("_")[-1])
+        got = ckpt.load_model(path, device="cpu").predict(torch.as_tensor(q))
     else:
-        np.savez(path, meta=json.dumps({"format": 1, "sharded": True, "joint": True}))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}:"):
-        ckpt.load_model(path, device="cpu")
+        from gpis_tpu.gp import sharded_joint as jgsj
+        from gpis_tpu.parallel import mesh as jpm
+
+        pts = _cloud()
+        nrm = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+        jm = jgsj.fit_sharded_joint("rbf", jnp.asarray(pts[:60]), jnp.zeros(60),
+                                    jnp.asarray(nrm[:60]), 1e-4, 1e-3,
+                                    jkf.kernel_params(0.7, 1.0), mesh=jpm.make_row_mesh(1),
+                                    block=16, touch_capacity=8)
+        jckpt.save_model(path, jm)
+        with one_rank_group(tmp_path):
+            m = ckpt.load_model(path, device="cpu")
+            assert type(m).__name__ == "ShardedJointModel"
+            got = m.predict(torch.as_tensor(q))
+    want = jckpt.load_model(path).predict(jnp.asarray(q))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
 
 
 # --------------------------------------------------------- two gloo ranks

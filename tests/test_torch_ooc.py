@@ -455,16 +455,60 @@ def test_model_config_matches_jax():
     assert dataclasses.asdict(config.MeshConfig()) == dataclasses.asdict(jconfig.MeshConfig())
 
 
+def _split_objective(m, tmp_path):
+    """(port, JAX) of the split stream step on the problem m was fit to."""
+    from gpis_tpu.gp import ooc_hyperopt as joho
+
+    p, jp = _params()
+    outs = []
+    for pkg, conv in ((ooc, _t), (jooc, _j)):
+        sd = str(tmp_path / pkg.__name__.split(".")[0])
+        pkg.ooc_factor_phase("rbf", conv(m.x), conv(m.y), conv(m.noise), p if pkg is ooc else jp,
+                             panel=PANEL, block=BLOCK, spill_dir=sd, defer_alpha=True)
+        if pkg is ooc:
+            mll, g = oho.ooc_mll_and_grad_solve_phase(sd, noise_base=m.noise, device="cpu")
+        else:
+            mll, g = joho.ooc_mll_and_grad_solve_phase(sd, noise_base=_j(m.noise))
+        outs.append([float(mll)] + [float(g[k]) for k in ("log_ls", "log_noise_scale",
+                                                          "log_sv")])
+    return outs
+
+
+def _f16_fit(m):
+    p, jp = _params()
+    kw = dict(panel=PANEL, block=BLOCK, device_budget=2 * PANEL * C * 8)
+    q = np.random.default_rng(3).normal(size=(40, 3))
+    got = ooc.ooc_fit("rbf", m.x, m.y, m.noise, p, w_dtype=torch.float16, **kw)
+    want = jooc.ooc_fit("rbf", _j(m.x), _j(m.y), _j(m.noise), jp, w_dtype=jnp.float16, **kw)
+    return got.predict(_t(q))[0].numpy(), np.asarray(want.predict(_j(q))[0])
+
+
+_PLAN_LIMIT = 2 * C * PANEL * 8 + 600_000_000
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda m: oho.ooc_mll_and_grad_solve_phase("spill", noise_base=m.noise), "item 15"),
-    (lambda m: ooc.ooc_residual_check(m), "item 15"),
-    (lambda m: ooc.plan_sweeps(m.capacity, m.panel), "item 15"),
-    (lambda m: ooc.ooc_fit("rbf", m.x, m.y, m.noise, m.params, panel=128, w_dtype="float16"),
-     "item 15"),
+    (lambda m, jm, tmp: _split_objective(m, tmp), "item 15"),
+    (lambda m, jm, tmp: (ooc.ooc_residual_check(m)["residual"],
+                         jooc.ooc_residual_check(jm)["residual"]), "item 15"),
+    (lambda m, jm, tmp: (ooc.plan_sweeps(m.capacity, m.panel, 8, limit=_PLAN_LIMIT),
+                         jooc.plan_sweeps(m.capacity, m.panel, 8, limit=_PLAN_LIMIT)), "item 15"),
+    (lambda m, jm, tmp: _f16_fit(m), "item 15"),
 ])
-def test_unported_out_of_core_parts_raise(call, item):
-    x = torch.as_tensor(fibonacci_sphere(100))
-    m = ooc.ooc_fit("rbf", x, torch.zeros(100, dtype=torch.float64), 1e-3, _params()[0],
+def test_unported_out_of_core_parts_raise(call, item, tmp_path):
+    """The parts of item 15's second half that raised here until they were
+    ported (the name is kept): the split stream objective, the residual
+    check, `plan_sweeps` and `ooc_fit(w_dtype=float16)`, each on a value
+    fit of 100 sphere points against JAX's (tests/test_torch_ooc_phases.py
+    holds them in depth)."""
+    x = fibonacci_sphere(100)
+    p, jp = _params()
+    m = ooc.ooc_fit("rbf", torch.as_tensor(x), torch.zeros(100, dtype=torch.float64), 1e-3, p,
                     panel=PANEL, block=BLOCK)
-    with pytest.raises(NotImplementedError, match=item):
-        call(m)
+    jm = jooc.ooc_fit("rbf", _j(x), jnp.zeros(100), 1e-3, jp, panel=PANEL, block=BLOCK)
+    got, want = call(m, jm, tmp_path)
+    if isinstance(got, dict):
+        assert got == want
+    elif np.ndim(got) == 0:
+        assert max(got, want) < 1e-9  # both residuals float64 rounding
+    else:
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-7, atol=1e-6)

@@ -4,7 +4,8 @@ JAX package, on the CPU in float64: checkpoints written by either package
 load in the other (in-core value and joint, out-of-core value and joint
 with a touch tail and their `.w/` panel directories); a restored model
 saved back to its own path; `open_dir` skipping a missing panel, refusing
-another problem's tag and a codec's entry; `ooc_fit` spilling to disk,
+another problem's tag, reading JAX's int16-coded panels, and a JAX
+checkpoint with float16 W panels; `ooc_fit` spilling to disk,
 and its `dtype`, `initial_jitter` and `max_jitter_retries`, as JAX's.
 
 Tolerance: 1e-6 across the packages (BASELINE.md row 2); a package's own
@@ -176,15 +177,47 @@ def test_open_dir_refuses_another_problems_panels(tmp_path):
 
 
 def test_open_dir_refuses_an_int16_entry(tmp_path):
-    _store_dir(tmp_path)
-    manifest = tmp_path / "w" / "manifest.json"
-    doc = json.loads(manifest.read_text())
-    doc["panels"]["0"] = [[4, 512], "int16", {"codec": "int16", "scale_shape": [4, 1],
-                                              "width": 4, "orig_dtype": "float64"}]
-    manifest.write_text(json.dumps(doc))
-    (tmp_path / "w" / "panel_0.bin.scale").write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 15:"):
-        ooc.TieredPanelStore.open_dir(ooc.DeviceBudget(0), str(tmp_path / "w"), device="cpu")
+    """A store of int16-coded panels written by the JAX package (its L
+    codec), which `open_dir` refused until the codec was ported (the name
+    is kept), reopens in the port, whose fetch decodes each panel to
+    JAX's."""
+    rng = np.random.default_rng(3)
+    jst = jooc.TieredPanelStore(jooc.DeviceBudget(0), spill_dir=str(tmp_path / "q"),
+                                spill_codec="int16")
+    panels = [rng.normal(size=(8, 600 * (j + 1))) for j in range(2)]
+    for j, p in enumerate(panels):
+        jst.put(j, jnp.asarray(p))
+    jst.save_manifest()
+    st = ooc.TieredPanelStore.open_dir(ooc.DeviceBudget(0), str(tmp_path / "q"), device="cpu")
+    dev = jooc._compute_device()
+    for j, p in enumerate(panels):
+        got = ooc._fetch(st, j)[0].numpy()
+        np.testing.assert_array_equal(got, np.asarray(jooc._fetch(jst, j, dev)))
+        assert got.shape == p.shape and np.abs(got - p).max() < np.abs(p).max() / 32767
+
+
+def test_a_jax_checkpoint_with_float16_w_panels_answers_as_jax(tmp_path):
+    """An out-of-core JAX model fit with w_dtype=float16, checkpointed:
+    its narrowed W panels load in the port and answer within 1e-6."""
+    x, y, noise = _problem()
+    jm = jooc.ooc_fit("rbf", jnp.asarray(x), jnp.asarray(y), jnp.asarray(noise),
+                      jkf.kernel_params(0.7, 1.1), panel=128, block=64,
+                      device_budget=2 * 128 * 384 * 8, w_dtype=jnp.float16)
+    path = str(tmp_path / "f16.npz")
+    from gpis_tpu.utils import checkpoint as jckpt
+
+    jckpt.save_model(path, jm)
+    with open(path + ".w/manifest.json") as f:
+        assert "float16" in [e[1] for e in json.load(f)["panels"].values()]
+    m = ckpt.load_model(path, device="cpu")
+    assert m.wstore.has_compressed_panels()
+    q = _probe()
+    want = jm.predict(jnp.asarray(q), chunk=80)
+    for got, w in zip(m.predict(torch.as_tensor(q)), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=TOL)
+    # Reattached with no spill dtype configured, it still refuses an update.
+    with pytest.raises(ValueError, match="w_dtype=None"):
+        m.update(torch.tensor([[0.8, 0.0, 0.0]], dtype=torch.float64), 0.0, 1e-6)
 
 
 def _problem(n=300, seed=4):

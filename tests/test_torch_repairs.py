@@ -35,6 +35,7 @@ from gpis_tpu.kernels import functions as jkf
 from gpis_tpu.linalg import outofcore as jooc
 from gpis_tpu.parallel import mesh as jpm
 from gpis_tpu.surface import grid as jgrid
+from gpis_tpu.utils import checkpoint as jckpt
 from gpis_tpu_torch.api.session import ObjectModelSession
 from gpis_tpu_torch.config import ModelConfig
 from gpis_tpu_torch.data import gpis
@@ -45,6 +46,7 @@ from gpis_tpu_torch.gp.model import align_capacity, round_up
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.surface import grid
+from torch_codec_ckpt import code_panel, one_rank_group
 
 LS = 0.7
 
@@ -77,25 +79,33 @@ def test_session_has_every_public_name_of_the_jax_session():
 @pytest.mark.parametrize("verb, item", [("restore_int16", 15), ("restore_float16", 15),
                                         ("restore", 14)])
 def test_session_verbs_added_as_stubs_name_their_item(verb, item, tmp_path):
-    # What stays unported behind the session's verbs (an out-of-core save
-    # and the HTML export work since items 15 and 16): restoring an
-    # out-of-core checkpoint whose W panels are in a spill codec (int16
-    # blocks, float16), and a sharded joint checkpoint.
+    # What the session's restore refused, naming its ROADMAP item, until
+    # items 15 and 14 were ported (the name is kept): an out-of-core
+    # checkpoint whose W panels are in a spill codec (int16 blocks,
+    # float16), and a sharded joint checkpoint (on a one-rank group); each
+    # answers as the JAX session restored from the same files.
     cfg = ModelConfig(lengthscale=LS, touch_capacity=0, dtype="float64")
-    sess = ObjectModelSession(cfg, device="cpu")
+    jcfg = JaxModelConfig(lengthscale=LS, touch_capacity=0, dtype="float64")
     path = str(tmp_path / "m.npz")
+    q = _problem(40, seed=8)[0] * 1.1
     if verb == "restore":
-        np.savez(path, meta='{"format": 1, "sharded": true, "joint": true}')
+        from gpis_tpu.gp import sharded_joint as jgsj
+
+        x = _problem(60)[0]
+        jm = jgsj.fit_sharded_joint("rbf", jnp.asarray(x), jnp.zeros(60), jnp.asarray(x), 1e-4,
+                                    1e-3, jkf.kernel_params(LS, 1.0), mesh=jpm.make_row_mesh(1),
+                                    block=16, touch_capacity=8)
+        jckpt.save_model(path, jm)
+        np.savez(path + ".frame.npz", centroid=np.zeros(3), scale=np.ones(()))
+        with one_rank_group(tmp_path):
+            got = ObjectModelSession(cfg, device="cpu").restore(path).query(q)
     else:
         ObjectModelSession(cfg, device="cpu").start(_problem(100)[0], out_of_core=True).save(path)
-        manifest = tmp_path / "m.npz.w" / "manifest.json"
-        doc = json.loads(manifest.read_text())
-        entry = doc["panels"]["0"]
-        doc["panels"]["0"] = ([entry[0], "int16", {"codec": "int16"}] if verb == "restore_int16"
-                              else [entry[0], "float16"])
-        manifest.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}:"):
-        sess.restore(path)
+        code_panel(path + ".w", 0, verb.split("_")[1])
+        got = ObjectModelSession(cfg, device="cpu").restore(path).query(q)
+    want = JaxSession(jcfg).restore(path).query(q)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-6)
 
 
 @pytest.mark.parametrize("verb", ["surface_points", "update"])
@@ -144,19 +154,16 @@ def test_session_explore_config_names_its_item(tmp_path):
 
 
 def test_every_jax_root_name_resolves_on_the_port():
-    """`from gpis_tpu_torch import X` for every X of gpis_tpu.__all__ but
-    fit_sharded_joint (ROADMAP §1 item 14), each the port's function or
-    class of the same name, at the JAX _LAZY path with the package renamed."""
-    missing = [n for n in gpis_tpu.__all__
-               if n != "fit_sharded_joint" and not hasattr(gpis_tpu_torch, n)]
+    """`from gpis_tpu_torch import X` for every X of gpis_tpu.__all__, each
+    the port's function or class of the same name, at the JAX _LAZY path
+    with the package renamed."""
+    missing = [n for n in gpis_tpu.__all__ if not hasattr(gpis_tpu_torch, n)]
     assert not missing, missing
     for name, (mod, attr) in gpis_tpu._LAZY.items():
-        if name == "fit_sharded_joint":
-            continue
         assert gpis_tpu_torch._LAZY[name] == (mod.replace("gpis_tpu", "gpis_tpu_torch", 1), attr)
         obj = getattr(gpis_tpu_torch, name)
         assert obj.__name__ == attr and obj.__module__.startswith("gpis_tpu_torch."), name
-    assert set(gpis_tpu.__all__) - {"fit_sharded_joint"} <= set(gpis_tpu_torch.__all__)
+    assert set(gpis_tpu.__all__) <= set(gpis_tpu_torch.__all__)
 
 
 @pytest.fixture(scope="module")
@@ -287,40 +294,12 @@ _ALLOWED_GAPS = {
     ("linalg.sharded", "sharded_cho_solve_vec"): {"l", "axis"},
     ("linalg.sharded", "sharded_linv"): {"l", "axis", "precision", "use_pallas"},
     ("linalg.sharded", "sharded_alpha_from_linv"): {"w", "axis"},
-    # cross_fn: joint models on a mesh, ROADMAP §1 item 14.
-    ("linalg.sharded", "sharded_predict_linv"): {"w", "axis", "cross_fn"},
+    ("linalg.sharded", "sharded_predict_linv"): {"w", "axis"},
     ("linalg.sharded", "sharded_linv_ll"): {"l", "axis", "precision"},
     ("linalg.sharded", "sharded_update_tail"): {"l", "w", "axis"},
     ("parallel.mesh", "make_row_mesh"): {"axis_name"},
-    # ROADMAP §1 item 15: the out-of-core knobs kept as module constants or
-    # refused until their features are ported (spill codecs, the
-    # write-through mirror, process-split phases).
-    ("linalg.outofcore", "TieredPanelStore"): {"spill_dtype", "device_dtype", "write_through",
-                                               "spill_codec"},
-    ("linalg.outofcore", "TieredPanelStore.__init__"): {"spill_dtype", "device_dtype",
-                                                        "write_through", "spill_codec"},
-    ("linalg.outofcore", "ooc_trsm"): {"width_quant", "start_panel", "end_panel",
-                                       "progress_cb"},
-    ("linalg.outofcore", "ooc_cholesky"): {"x", "noisep", "width_quant", "start_panel", "u0",
-                                           "progress_cb", "end_panel"},
-    ("linalg.outofcore", "ooc_residual_check"): {"n_blocks", "block", "tol", "tol_y"},
-    ("linalg.outofcore", "plan_sweeps"): {"c", "panel", "itemsize", "limit", "w_itemsize",
-                                          "l_itemsize", "width_quant", "max_sweep"},
-    ("linalg.outofcore", "ooc_fit"): {"width_quant", "sweep", "trsm_sweep"},
-    ("linalg.outofcore", "ooc_factor_phase"): {
-        "kernel", "x", "y", "noise", "params", "panel", "spill_dir", "block", "sweep",
-        "width_quant", "pad_noise", "dtype", "max_jitter_retries", "initial_jitter",
-        "device_budget", "resume", "normals", "noise_g", "l_codec", "defer_alpha"},
-    ("linalg.outofcore", "ooc_solve_phase"): {"spill_dir", "w_dtype", "trsm_sweep",
-                                              "device_budget", "resume", "stop_after",
-                                              "fused_query", "keep_w"},
+    ("gp.sharded_joint", "sharded_joint_gram"): {"axis"},
 }
-_ALLOWED_GAPS[("linalg.outofcore", "ooc_fit_joint")] = _ALLOWED_GAPS[("linalg.outofcore",
-                                                                      "ooc_fit")]
-# The stream objectives factor through ooc_fit's path: the same knobs.
-for _fn in ("ooc_mll_and_grad", "ooc_joint_mll_and_grad"):
-    _ALLOWED_GAPS[("gp.ooc_hyperopt", _fn)] = {"dtype", "max_jitter_retries", "width_quant",
-                                               "sweep", "trsm_sweep"}
 
 
 def _modules(pkg) -> dict:

@@ -355,14 +355,27 @@ def test_mesh_session_hyperopt_refuses_an_unknown_method_as_jax(ranks):
 @pytest.mark.parametrize("key, want", [
     ("err_world", "ValueError: requested 3 devices, the process group has 2 ranks"),
     ("err_out_of_core", "ValueError: out_of_core is the single-card"),
-    ("err_normals", "NotImplementedError: normals= on a mesh"),
 ])
 def test_sharded_refusals(key, want, ranks):
     for out in ranks(2):
         msg = str(out[key])
         assert msg.startswith(want), msg
-        if key == "err_normals":
-            assert "item 14" in msg, msg
+
+
+@P
+def test_mesh_session_start_with_normals_matches_jax(p, problem, ranks):
+    """`start(normals=)` on a mesh session fits the sharded joint model
+    (tests/test_torch_sharded_joint.py holds it in depth)."""
+    cfg = JaxModelConfig(kernel="rbf", lengthscale=SESSION_LS, noise_surface=1e-4,
+                         n_external=32, n_internal=1, dtype="float64")
+    jsess = JaxSession(cfg, mesh=JaxMeshConfig(n_devices=p, block=SESSION_BLOCK))
+    pts = problem["session_pts"]
+    jsess.start(pts, normals=(pts - np.array([1.0, 0.0, 0.0])) / 0.5)
+    mean, var = jsess.query(problem["session_q"])
+    for out in ranks(p):
+        assert str(out["normals_kind"]) == type(jsess.model).__name__ == "ShardedJointModel"
+        np.testing.assert_allclose(out["normals_mean"], mean, atol=1e-6)
+        np.testing.assert_allclose(out["normals_var"], var, atol=1e-6)
 
 
 @P

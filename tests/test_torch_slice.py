@@ -138,9 +138,10 @@ def test_session_extract_surface_matches_jax_session():
 
 
 def test_session_verbs_not_yet_ported_raise(tmp_path):
-    # What stays unported behind the session's verbs (committees take every
-    # verb since item 13, out-of-core checkpoints since item 15's first
-    # half, which round trip here to the bit): sharded joint checkpoints.
+    # What stayed unported behind the session's verbs until item 14 (the
+    # name is kept): out-of-core checkpoints round trip here to the bit, and
+    # a JAX sharded joint checkpoint restores (on a one-rank group) and
+    # answers as the JAX session restored from it.
     cfg = ModelConfig(touch_capacity=0, dtype="float64")
     sess = ObjectModelSession(cfg, device="cpu")
     pts = gpis.fibonacci_sphere(50)
@@ -150,10 +151,20 @@ def test_session_verbs_not_yet_ported_raise(tmp_path):
         path = str(tmp_path / f"{name}.npz")
         s.save(path)
         np.testing.assert_array_equal(sess.restore(path).query(pts), s.query(pts))
+    from gpis_tpu.gp import sharded_joint as jgsj
+    from gpis_tpu.parallel import mesh as jpm
+    from torch_codec_ckpt import one_rank_group
+
     path = str(tmp_path / "sharded_joint.npz")
-    np.savez(path, meta='{"format": 1, "sharded": true, "joint": true}')
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sess.restore(path)
+    jm = jgsj.fit_sharded_joint("rbf", jnp.asarray(pts), jnp.zeros(50), jnp.asarray(pts), 1e-4,
+                                1e-3, jkf.kernel_params(0.5, 1.0), mesh=jpm.make_row_mesh(1),
+                                block=16, touch_capacity=8)
+    jckpt.save_model(path, jm)
+    np.savez(path + ".frame.npz", centroid=np.zeros(3), scale=np.ones(()))
+    with one_rank_group(tmp_path):
+        got = sess.restore(path).query(pts * 1.1)
+    np.testing.assert_allclose(got, JaxSession(ModelConfig(dtype="float64")).restore(path)
+                               .query(pts * 1.1), atol=1e-6)
 
 
 def test_cuda_device_raises_without_a_card():

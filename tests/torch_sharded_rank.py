@@ -10,8 +10,9 @@ at P = 2 the distributed MLL objective and the session's hyperopt methods
 (and predicts from the JAX model's arrays, the `jm_*` inputs, and from
 those of the JAX model after an update, `jmt_*`, through `convert`) and
 writes its results to DIR/out<RANK>.npz: its bands of the sharded outputs, the replicated ones
-whole, the messages of the calls that must raise, and whether jax or any
-gpis_tpu module was imported.
+whole, the messages of the calls that must raise, the mesh session's
+answers after a start with normals (the sharded joint model), and whether
+jax or any gpis_tpu module was imported.
 """
 
 import datetime
@@ -126,7 +127,10 @@ def run(out_dir: str, rank: int, world: int) -> None:
     out["err_world"] = np.array(_raises(lambda: ObjectModelSession(
         cfg, mesh=MeshConfig(n_devices=world + 1), device="cpu")))
     out["err_out_of_core"] = np.array(_raises(lambda: sess.start(pts, out_of_core=True)))
-    out["err_normals"] = np.array(_raises(lambda: sess.start(pts, normals=pts)))
+    # The session's cloud is a sphere of radius 0.5 about (1, 0, 0).
+    sess.start(pts, normals=(pts - np.array([1.0, 0.0, 0.0])) / 0.5)
+    out["normals_kind"] = np.array(type(sess.model).__name__)
+    out["normals_mean"], out["normals_var"] = sess.query(inp["session_q"])
 
     jax_pkg = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "gpis_tpu" or m.startswith("gpis_tpu.")]
