@@ -241,6 +241,21 @@ Phases, one printed line or more each; any failure exits nonzero:
    `ooc_mll_and_grad`.  Each process's seconds, the bytes on disk and the
    residuals printed; a failed process fails the run.  Launches: the
    processes' (each prints its own), (b)'s and (e)'s.
+17. The headline bench: `python -m gpis_tpu_torch.cli.main bench` in a
+   fresh process (`gpis_tpu_torch/cli/bench.py`, the root bench.py's
+   in-core path): a 16,256-point sphere, rbf, lengthscale 0.4, noise 1e-3,
+   C 16,384, float32; an untimed warm-up round with its noise ladder, then
+   one timed fit (Gram, in-place factor, in-place W, alpha = W^T (W y))
+   and one timed 64^3 grid in 32 chunks of 8,192, saved with `--save-grid`.
+   Its stdout JSON line is printed with the card's line and the grid's
+   gaps to a float64 plain PyTorch fit of the same inputs at 8,192 grid
+   points (`bench_reference`).  Gates: the process exits 0 with one stdout
+   line; ok true; surface RMSE < 1.2e-3; n_train 16,384 and n_query
+   262,144; value = fit_s + query_s to rounding; no recorded BENCH_* key;
+   the process's peak memory at most one C x C matrix and one chunk's kq
+   plus 0.5 GB (2.11 GB); the mean's and the variance's gaps within
+   BENCH_MEAN_GAP and BENCH_VAR_GAP; A, B, C and D launched (its stderr's
+   launches line, both rounds).
 
 Kernel E is held to its twin in float32 (1e-5 x max|K|) and float64 (1e-10)
 for the three covariances with coincident points, at an aligned and a
@@ -323,13 +338,12 @@ def say(msg: str) -> None:
 
 
 def card_line() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if proc.returncode != 0:
-        fail(f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
+    from gpis_tpu_torch.utils.provenance import card_line as line
+
+    try:
+        return line()
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -2617,7 +2631,7 @@ def config3_bar(torch, launches) -> dict:
                           noise=CFG3_NOISE)
     y = torch.linalg.cholesky(k) @ torch.tensor(rng.normal(size=CFG3_N), device="cuda")
     del k
-    xp, yp, noisep = gpr._pad_training(x, y, CFG3_NOISE, CFG3_C, 1e10)
+    xp, yp, noisep = gpr.pad_training(x, y, CFG3_NOISE, CFG3_C, 1e10)
     torch.cuda.synchronize()
     launches.clear()
     t0 = time.perf_counter()
@@ -2722,7 +2736,7 @@ def value_hyperopt(torch, launches, incore) -> tuple[dict, dict]:
     c = sess.model.capacity
     del sess
     torch.cuda.empty_cache()
-    xp, yp, noisep = gpr._pad_training(ts.x, ts.y, ts.noise, c, cfg.pad_noise)
+    xp, yp, noisep = gpr.pad_training(ts.x, ts.y, ts.noise, c, cfg.pad_noise)
     theta0 = [np.log(cfg.lengthscale), 0.0]
     g32 = mll_and_grad(torch, xp, yp, noisep, c, theta0)[1]
     g64 = mll_and_grad(torch, xp.double(), yp.double(), noisep.double(), c, theta0)[1]
@@ -4915,6 +4929,110 @@ def phase16(torch, launches, spill, incore_value) -> list:
     return runs
 
 
+BENCH_C = 16384  # `gpis-torch bench`'s default: 16,256 + 127 + 1 points
+BENCH_CHUNK = 8192
+# One C x C float32 matrix (W formed in place over L over the Gram) and one
+# chunk's staged kq, plus 0.5 GB: 2.11 GB.
+BENCH_PEAK_GB = (BENCH_C**2 * 4 + BENCH_CHUNK * BENCH_C * 4) / 1e9 + 0.5
+BENCH_KEYS = {"metric", "hbm_peak_gb", "value", "unit", "vs_baseline", "fit_s", "query_s",
+              "surface_rmse", "n_train", "n_query", "ok"}
+# Three times the surface RMSE read on the card (4.0e-4); bench.py's own
+# `ok` keeps its 0.02.
+BENCH_RMSE_GATE = 1.2e-3
+# The bench's float32 grid against a float64 plain PyTorch fit of the same
+# inputs (library Cholesky and triangular solve on the card), at
+# BENCH_REF_POINTS grid points drawn with seed 0: max |mean gap| and max
+# |variance gap|, about five times the 2.04e-6 and 2.13e-5 read on an H100.
+BENCH_REF_POINTS = 8192
+BENCH_MEAN_GAP = 1e-5
+BENCH_VAR_GAP = 1e-4
+
+
+def bench_reference(torch, grid: dict, steps: int) -> dict:
+    """The bench's saved grid (mean, var) against float64 plain PyTorch on
+    the same inputs, the noise below 1 raised by the warm-up ladder's
+    `steps`: a Gram by the covariance's plain twin, `torch.linalg.cholesky`,
+    alpha by cho_solve and the variance by a triangular solve, at
+    BENCH_REF_POINTS grid points.  Returns the max absolute gaps."""
+    from gpis_tpu_torch.cli import bench
+    from gpis_tpu_torch.kernels import functions as kf
+    from gpis_tpu_torch.kernels import gram as kg
+    from gpis_tpu_torch.kernels.cuda_gram import cov_reference
+    from gpis_tpu_torch.surface.grid import make_grid
+
+    name = bench.CONFIG.kernel
+    x, y, noise, params, _ = bench.workload(bench.N_SURFACE, dtype=torch.float64, device="cuda")
+    noise = torch.where(noise < 1.0, noise * 10.0**steps, noise)
+    l = torch.linalg.cholesky(kg.gram_reference(name, x, params, noise=noise))
+    alpha = torch.cholesky_solve(y[:, None], l)[:, 0]
+    coords, _ = make_grid(bench.RES, bench.EXTENT, dtype=torch.float64, device="cuda")
+    idx = np.random.default_rng(0).choice(coords.shape[0], BENCH_REF_POINTS, replace=False)
+    kq = cov_reference(name, coords[torch.as_tensor(idx, device="cuda")], x, params)
+    v = torch.linalg.solve_triangular(l, kq.T, upper=False)
+    mean = (kq @ alpha).cpu().numpy()
+    var = (kf.k_diag0(name, params) - (v * v).sum(0)).cpu().numpy()
+    del x, l, kq, v
+    torch.cuda.empty_cache()
+    return {"mean_gap": float(np.abs(grid["mean"].ravel()[idx] - mean).max()),
+            "var_gap": float(np.abs(grid["var"].ravel()[idx] - var).max())}
+
+
+def phase17(torch) -> dict:
+    """`python -m gpis_tpu_torch.cli.main bench` in a fresh process: bench.py's
+    headline fit and 64^3 grid through the port's CLI.  Its stdout JSON line
+    is printed with the card's line and gated, its saved grid is held to a
+    float64 reference (`bench_reference`), and its launches are read from
+    the `launches` line of its stderr."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gpis_tpu_torch.cli.main", "bench", "--save-grid", path],
+            cwd=root, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        err = proc.stderr.strip().splitlines()
+        for line in err[-40:]:
+            say(f"  bench: {line}")
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(lines) != 1:
+            say(proc.stdout[-3000:])
+            fail(f"gpis-torch bench exited {proc.returncode} with {len(lines)} stdout lines")
+        with np.load(path) as f:
+            grid = {k: f[k] for k in ("mean", "var")}
+    result = json.loads(lines[0])
+    launch_lines = [line for line in err if line.startswith("launches ")]
+    if len(launch_lines) != 1:
+        fail("gpis-torch bench printed no launches line")
+    counts = json.loads(launch_lines[0][len("launches "):])
+    steps = sum(line.startswith("NaN factor") for line in err)
+    gaps = bench_reference(torch, grid, steps)
+    say(json.dumps({"bench": result, "ladder_steps": steps, "float64_gaps": gaps,
+                    "card": card_line(), "process_s": wall}))
+    if not BENCH_KEYS <= set(result):
+        fail(f"bench: keys {sorted(BENCH_KEYS - set(result))} missing")
+    recorded = [k for k in result if k.endswith("_recorded") or k.startswith("BENCH")]
+    if recorded:
+        fail(f"bench: recorded results attached: {recorded}")
+    if result["ok"] is not True:
+        fail("bench: ok is not true")
+    if not result["surface_rmse"] < BENCH_RMSE_GATE:
+        fail(f"bench: surface RMSE {result['surface_rmse']} >= {BENCH_RMSE_GATE}")
+    if (result["n_train"], result["n_query"]) != (BENCH_C, 64**3):
+        fail(f"bench: n_train {result['n_train']}, n_query {result['n_query']}")
+    if abs(result["value"] - (result["fit_s"] + result["query_s"])) > 1.5e-3:
+        fail("bench: value is not fit_s + query_s")
+    if result["hbm_peak_gb"] is None or result["hbm_peak_gb"] > BENCH_PEAK_GB:
+        fail(f"bench: peak {result['hbm_peak_gb']} GB above {BENCH_PEAK_GB:.2f}")
+    check("bench grid's mean against float64, max |gap|", gaps["mean_gap"], BENCH_MEAN_GAP)
+    check("bench grid's variance against float64, max |gap|", gaps["var_gap"], BENCH_VAR_GAP)
+    require_launches(counts, ("cov", "panel_update", "row_update", "staged_quad"), "bench")
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4923,13 +5041,13 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
-    say("phase 0: card")
-    card = card_line()
-    say(card)
     try:
         from gpis_tpu_torch import _build
     except ImportError as e:
         fail(f"gpis_tpu_torch is not importable from here ({e})")
+    say("phase 0: card")
+    card = card_line()
+    say(card)
 
     say("phase 1: build")
     lib_path, build_s, log = _build.build()
@@ -5006,6 +5124,10 @@ def main() -> int:
 
     say("phase 16: the two-phase out-of-core fit, its phases in fresh processes")
     runs += phase16(torch, _build.LAUNCHES, spill, incore_value)
+    torch.cuda.empty_cache()
+
+    say("phase 17: the headline bench, `gpis-torch bench`, in a fresh process")
+    runs.append(phase17(torch))
 
     if "jax" in sys.modules:
         fail("jax was imported")

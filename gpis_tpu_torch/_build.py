@@ -32,7 +32,7 @@ import time
 import torch
 
 __all__ = ["LAUNCHES", "build", "library", "call", "check_cuda_args", "check_cuda_rows",
-           "resolve_device", "not_ported"]
+           "resolve_device"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -96,14 +96,6 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' explicitly to run the plain PyTorch path"
         )
     return dev
-
-
-def not_ported(what: str, item: int, name: str):
-    """Raise for a part of the JAX package that the port does not have yet,
-    naming the ROADMAP.md §1 item that ports it."""
-    raise NotImplementedError(
-        f"{what} is not ported to gpis_tpu_torch yet (ROADMAP.md §1 item {item}: {name})"
-    )
 
 
 def _sources() -> list[str]:

@@ -9,7 +9,7 @@ verbs and flags, run on the card unless `--device cpu` is given.
     gpis-torch hyperopt cloud.ply -o model.npz
     gpis-torch explore-viz model.npz -o viewer.html
     gpis-torch serve model.npz --port 8731
-    gpis-torch bench [n_surface]   (not ported yet: ROADMAP.md §1 item 6)
+    gpis-torch bench [n_surface]   (the headline fit and 64^3 grid: cli/bench.py)
 
 `python -m gpis_tpu_torch.cli.main ...` is the same command.  Checkpoints
 are the JAX package's layout, so either CLI reads the other's models.
@@ -25,6 +25,8 @@ import sys
 
 import numpy as np
 
+from gpis_tpu_torch.cli import add_device_arg
+
 
 def _add_model_args(p):
     p.add_argument("--kernel", default="rbf",
@@ -34,12 +36,6 @@ def _add_model_args(p):
     p.add_argument("--noise", type=float, default=1e-4)
     p.add_argument("--voxel-leaf", type=float, default=0.0)
     p.add_argument("--config", help="YAML/JSON config file (overridden by flags)")
-
-
-def _add_device_arg(p):
-    p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; 'cpu' for the plain PyTorch "
-                        "path)")
 
 
 def _config_from_args(args):
@@ -139,8 +135,10 @@ def _parser():
     p.add_argument("-o", "--output", required=True)
     p.add_argument("--resolution", type=int, default=32)
 
-    p = sub.add_parser("bench", help="the headline benchmark (not ported yet)")
+    p = sub.add_parser("bench", help="run the headline benchmark (one JSON line)")
     p.add_argument("n_surface", nargs="?", type=int, default=None)
+    p.add_argument("--save-grid", metavar="PATH",
+                   help="also write the timed round's 64^3 mean and variance to PATH (.npz)")
 
     p = sub.add_parser("serve", help="serve the JSON API")
     p.add_argument("model", nargs="?", help="optional checkpoint to preload")
@@ -149,7 +147,7 @@ def _parser():
     _add_model_args(p)
 
     for p in sub.choices.values():
-        _add_device_arg(p)
+        add_device_arg(p)
     return ap
 
 
@@ -251,9 +249,12 @@ def main(argv=None):
               f"-> {args.output}")
 
     elif args.cmd == "bench":
-        from gpis_tpu_torch._build import not_ported
+        from gpis_tpu_torch.cli import bench
 
-        not_ported("the bench verb", 6, "the torch headline bench")
+        argv = [] if args.n_surface is None else [str(args.n_surface)]
+        if args.save_grid:
+            argv += ["--save-grid", args.save_grid]
+        return bench.main(argv + ["--device", args.device])
 
     elif args.cmd == "serve":
         from gpis_tpu_torch.api.service import serve

@@ -48,7 +48,7 @@ def fit_batch(kernel, clouds, ys, noises, params, *, block: int = 128,
         n = x.shape[0]
         y = torch.as_tensor(ys[i]).to(dtype=dt, device=x.device).broadcast_to((n,))
         nz = torch.as_tensor(noises[i]).to(dtype=dt, device=x.device).broadcast_to((n,))
-        xp, yp, np_ = gpr._pad_training(x, y, nz, cap, pad_noise, dt)
+        xp, yp, np_ = gpr.pad_training(x, y, nz, cap, pad_noise, dt)
         fits.append(gpr.fit_padded(kernel, xp, yp, np_, params, n0=cap, pad_noise=pad_noise))
     first = fits[0]
     return dataclasses.replace(first, **{k: torch.stack([getattr(f, k) for f in fits])

@@ -323,7 +323,7 @@ def fit_experts(kernel: str, x, y, noise, params, *, n_experts: int, n_shared_ta
     dev, e = x.device, len(groups)
     n0 = round_up(max(len(g) for g in groups) + n_shared_tail, block)
     b_tot = align_capacity(n0 + round_up(touch_capacity, block))
-    padded = [gpr._pad_training(x[i], y[i], noise[i], b_tot, pad_noise, dtype) for i in idx]
+    padded = [gpr.pad_training(x[i], y[i], noise[i], b_tot, pad_noise, dtype) for i in idx]
     xs, ys, ns = (torch.stack(v) for v in zip(*padded))
     del padded
     params = gpr._float_params(params)

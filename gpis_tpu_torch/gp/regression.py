@@ -4,7 +4,8 @@
   ladder.
 * ``fit_inference`` -- the one-matrix-peak pipeline of query-only sessions:
   Gram (Kernel A) -> in-place blocked Cholesky (Kernel B) -> in-place
-  W = L^{-1} (Kernel C) -> alpha = W^T (W y).
+  W = L^{-1} (Kernel C) -> alpha = W^T (W y); ``model_from_factor`` is its
+  step after the factor, shared with the `bench` verb.
 * ``with_linv`` -- attach W = L^{-1} (Kernel C) to a fitted model;
   ``with_inverse`` -- attach (K + diag(noise))^{-1}.
 * ``predict`` / ``predict_mean`` -- posterior mean and variance; a model
@@ -43,8 +44,9 @@ from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
 
-__all__ = ["fit", "fit_padded", "fit_inference", "with_inverse", "with_linv", "predict",
-           "predict_mean", "update", "reset_touches", "log_marginal_likelihood"]
+__all__ = ["pad_training", "fit", "fit_padded", "fit_inference", "model_from_factor",
+           "with_inverse", "with_linv", "predict", "predict_mean", "update", "reset_touches",
+           "log_marginal_likelihood"]
 
 _LINV_BLOCK = 256
 _MAX_JITTER_RETRIES = 6
@@ -54,7 +56,7 @@ def _float_params(params) -> dict:
     return {k: float(v) for k, v in params.items()}
 
 
-def _pad_training(x, y, noise, capacity: int, pad_noise: float, dtype=None):
+def pad_training(x, y, noise, capacity: int, pad_noise: float, dtype=None):
     """Pad to `capacity` with origin points, zero targets and `pad_noise`
     (see gp.model for why that is exact), in `dtype` (x's when None)."""
     n, dev = x.shape[0], x.device
@@ -88,7 +90,7 @@ def fit(kernel: str, x, y, noise, params, *, block: int = 128, touch_capacity: i
     dtype = as_dtype(dtype, x)
     n0 = round_up(x.shape[0], block)
     capacity = align_capacity(n0 + round_up(touch_capacity, block))
-    xp, yp, noisep = _pad_training(x, y, noise, capacity, pad_noise, dtype)
+    xp, yp, noisep = pad_training(x, y, noise, capacity, pad_noise, dtype)
     jitter = _first_jitter(kernel, params, dtype, capacity)
     extra = 0.0
     for attempt in range(max_jitter_retries + 1):
@@ -133,7 +135,7 @@ def fit_inference(kernel: str, x, y, noise, params, *, block: int = 128,
         m = fit(kernel, x, y, noise, params, block=block, touch_capacity=0, pad_noise=pad_noise,
                 dtype=dtype, max_jitter_retries=max_jitter_retries)
         return with_linv(m)
-    xp, yp, noisep = _pad_training(x, y, noise, n0, pad_noise, dtype)
+    xp, yp, noisep = pad_training(x, y, noise, n0, pad_noise, dtype)
     jitter = _first_jitter(kernel, params, dtype, n0)
     extra = 0.0
     for attempt in range(max_jitter_retries + 1):
@@ -144,11 +146,24 @@ def fit_inference(kernel: str, x, y, noise, params, *, block: int = 128,
         extra = jitter * (10.0**attempt)
     else:
         raise FloatingPointError(f"Cholesky failed even with jitter {extra:.2e} (fit_inference)")
-    w = blocked_linv(l, _LINV_BLOCK, inplace=True)
-    del l
-    alpha = w.T @ (w @ yp)
-    return GPModel(x=xp, y=yp, noise=noisep + extra, params=params, chol=w, alpha=alpha,
-                   n_touch=0, kernel=kernel, n0=n0, pad_noise=pad_noise, linv=w)
+    return model_from_factor(kernel, xp, yp, noisep + extra, params, l, n0=n0,
+                             pad_noise=pad_noise)
+
+
+def model_from_factor(kernel: str, xp, yp, noisep, params, l, *, n0: int,
+                      pad_noise: float = 1e10) -> GPModel:
+    """The query model from padded capacity-C arrays and the lower factor L
+    of their Gram, at a peak of one C x C matrix.  When C % 256 == 0, W =
+    L^{-1} is formed in place over L (Kernel C) and alpha = W^T (W y); the
+    model's `chol` and `linv` are both W, so it serves queries only.
+    Otherwise alpha comes from cho_solve and W is attached by `with_linv`."""
+    params = _float_params(params)
+    fields = dict(x=xp, y=yp, noise=noisep, params=params, n_touch=0, kernel=kernel, n0=n0,
+                  pad_noise=pad_noise)
+    if xp.shape[0] % _LINV_BLOCK:
+        return with_linv(GPModel(chol=l, alpha=lin.cho_solve(l, yp), **fields))
+    w = blocked_linv(l, _LINV_BLOCK, inplace=True)  # W overwrites L
+    return GPModel(chol=w, alpha=w.T @ (w @ yp), linv=w, **fields)
 
 
 def with_inverse(model: GPModel) -> GPModel:

@@ -57,7 +57,7 @@ def test_predict_batch_matches_jax_and_single_fits(fits):
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), atol=TOL)
     np.testing.assert_allclose(var.numpy(), np.asarray(jvar), atol=TOL)
     for b, (x, y, nz) in enumerate(zip(clouds, ys, noises)):
-        xp, yp, np_ = gpr._pad_training(torch.as_tensor(x), torch.as_tensor(y),
+        xp, yp, np_ = gpr.pad_training(torch.as_tensor(x), torch.as_tensor(y),
                                         torch.as_tensor(nz), 96, 1e10)
         one = gpr.fit_padded("rbf", xp, yp, np_, kf.kernel_params(0.8, 1.0), n0=96)
         m1, v1 = gpr.predict(one, torch.as_tensor(q))

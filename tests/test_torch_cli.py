@@ -4,9 +4,9 @@ against the JAX package's (`gpis_tpu.cli.main`), verb for verb on the same
 tests/test_viz_cli.py's end-to-end drive: the `query` lines, the
 `explore --json` path, the `mesh` PLY's vertices in order, `hyperopt`'s
 `mll=` and its saved hyperparameters, each checkpoint loaded by the other
-package's CLI; then the refusals (`bench`, item 6; a mesh config without a process
-group), the console entry as a subprocess, and the
-out-of-core and committee fits.
+package's CLI; then the refusals (a mesh config without a process
+group), the console entry as a subprocess, and the out-of-core and
+committee fits.
 
 Tolerance: 1e-6 (BASELINE.md row 2) on the numbers as printed, each
 rounded to its last printed digit (six decimals; `mll=` four, so its
@@ -155,8 +155,6 @@ def test_cli_hyperopt_both_ways(workdir, capsys, monkeypatch):
 
 def test_cli_refusals(workdir, capsys, monkeypatch):
     monkeypatch.chdir(workdir)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        torch_main(["bench", "--device", "cpu"])
     # A mesh config needs the caller's process group (the fit itself,
     # --normals too, is tests/test_torch_sharded_joint.py's, on two ranks).
     with pytest.raises(RuntimeError, match="torch.distributed is not initialized"):
