@@ -11,7 +11,13 @@ Phases, one printed line or more each; any failure exits nonzero:
 2. Each kernel against its plain PyTorch twin on the card, at the slices'
    shapes (C = 4,096 and 16,384, 8,192-query chunks; the joint J = 21,504),
    with the tolerance stated beside the error, and the kernel's and the
-   twin's time (CUDA events).  The quads of Kernels D and F (in float32
+   twin's time (CUDA events).  Kernel A in float32 and float64, its four
+   covariances in cross, Gram and band mode at ragged shapes, its pinned
+   diagonal bit for bit (`cov_kernel_checks`), timed also at the
+   committee's cross and the planner's M = 1 and M = 256 against C = 17,408
+   (`cov_small_shapes`); A's line keeps the main path's Gram error as its
+   max_abs_err and those checks' worst error over max(1, max|K|), per
+   dtype, as cov_checks_rel.  The quads of Kernels D and F (in float32
    the split-TF32 tensor-core tile with the QUAD epilogue, F's kq
    generated in the tile) are held per query against the twin run in
    float64, at ragged shapes, twice bit for bit, in float64 too, and to the
@@ -1543,6 +1549,96 @@ def quad_kernel_checks(torch, gen, results: dict) -> None:
                     err_name="bits differ")
 
 
+COV_LENGTHSCALE = {"rbf": 0.8, "laplace": 0.8, "inverse_multiquadric": 0.8, "thin_plate": 2.5}
+
+
+def cov_kernel_checks(torch, gen, results: dict) -> None:
+    """Kernel A against its twin at its edges, in float32 and float64, for
+    the four covariances: the cross of m in {1, 130, 8,192} query rows
+    against n in {17, 131, 16,383, 16,384} columns (n % 4 != 0 takes the
+    scalar stores; 17, 131 and 16,383 end mid-tile), the Gram with noise at
+    each n, and each band of m < n rows at row0 = (n - m) - (n - m) // 3
+    (off every tile: the diagonal enters tiles mid-tile) with noise.  The
+    columns are n points of the Fibonacci sphere with 8 of them repeated at
+    other indices (coincident points off the diagonal), the queries
+    uniform in [-1.5, 1.5]^3.  Every output is allocated over NaN (a missed
+    element shows), a second call must repeat the first bit for bit, and
+    where the diagonal is pinned (Gram and band) it must equal the twin's
+    bit for bit (k(0) + noise[i], the same two roundings).  Tolerance:
+    1e-5 x max(1, max|K|) in float32, 1e-12 x max(1, max|K|) in float64
+    (only the rounding of r2 and k differs)."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_gram
+
+    dev = gen.device
+    worst = {"float32": 0.0, "float64": 0.0}  # err / max(1, max|K|)
+    for dt in (torch.float32, torch.float64):
+        q = torch.rand((8192, 3), generator=gen, device=dev, dtype=dt) * 3.0 - 1.5
+        for n in (17, 131, 16383, 16384):
+            x = torch.as_tensor(fibonacci_sphere(n), dtype=dt, device=dev)
+            x[n // 2:n // 2 + 8] = x[:8]  # distinct indices, coincident points
+            noise = torch.rand((n,), generator=gen, device=dev, dtype=dt) * 9e-3 + 1e-3
+            cases = [(f"cross {m}x{n}", q[:m], None, False, None) for m in (1, 130, 8192)]
+            cases.append((f"gram {n}x{n}+noise", x, noise, True, None))
+            for m in (1, 130, 8192):
+                if m < n:
+                    row0 = (n - m) - (n - m) // 3
+                    cases.append((f"band {m}x{n} at row0 {row0}+noise", x[row0:row0 + m],
+                                  noise[row0:row0 + m], True, row0))
+            for name, ls in COV_LENGTHSCALE.items():
+                p = {"lengthscale": ls, "signal_variance": 1.1}
+                for mode, a, nz, sym, row0 in cases:
+                    want = cuda_gram.cov_reference(name, a, x, p, noise=nz, sym=sym,
+                                                   row0=row0 or 0)
+                    poisoned_empty(torch, want.shape, dev, dt)
+                    got = cuda_gram.cov(name, a, x, p, noise=nz, sym=sym, row0=row0)
+                    poisoned_empty(torch, want.shape, dev, dt)
+                    again = cuda_gram.cov(name, a, x, p, noise=nz, sym=sym, row0=row0)
+                    err = (got - want).abs().max().item()
+                    scale = max(1.0, want.abs().max().item())
+                    tol = (1e-5 if dt == torch.float32 else 1e-12) * scale
+                    what = f"cov {name} {mode} {str(dt)[6:]}"
+                    if not err <= tol:
+                        check(f"{what} (tol {tol / scale:.0e} x max(1, max|K|))", err, tol)
+                    if not torch.equal(got, again):
+                        check(f"{what} run twice", 1.0, 0.0, err_name="bits differ")
+                    r0 = row0 or 0
+                    diag = (slice(None), slice(r0, r0 + a.shape[0]))
+                    if sym and not torch.equal(got[diag].diagonal(), want[diag].diagonal()):
+                        check(f"{what} pinned diagonal against the twin's", 1.0, 0.0,
+                              err_name="bits differ")
+                    worst[str(dt)[6:]] = max(worst[str(dt)[6:]], err / scale)
+                    del want, got, again
+            say(f"  cov {str(dt)[6:]} n={n}: {len(cases)} shapes x {len(COV_LENGTHSCALE)} "
+                f"covariances within tol, diagonals bit-equal, repeated bit for bit")
+        del q, x, noise
+    say(f"  cov_kernel_checks: worst err / max(1, max|K|) {worst['float32']:.3e} in float32, "
+        f"{worst['float64']:.3e} in float64")
+    results["cov_checks_rel"] = worst
+
+
+def cov_small_shapes(torch, q, params) -> dict:
+    """Kernel A timed (the card's time, behind a spin) at the committee's
+    cross (8,192 queries against an expert's 7,168 points) and the
+    planner's chart predict (M = 1) and padded round (M = 256) against
+    C = 17,408 points, each held to the twin at 1e-5."""
+    from gpis_tpu_torch.data.gpis import fibonacci_sphere
+    from gpis_tpu_torch.kernels import cuda_gram
+
+    out = {}
+    for key, m, c in (("cov_committee", 8192, 7168), ("cov_m1", 1, 17408),
+                      ("cov_m256", 256, 17408)):
+        x = torch.as_tensor(fibonacci_sphere(c), dtype=torch.float32, device=q.device)
+        a = q[:m]
+        err = (cuda_gram.cov("rbf", a, x, params)
+               - cuda_gram.cov_reference("rbf", a, x, params)).abs().max().item()
+        ms = device_ms(torch, lambda: cuda_gram.cov("rbf", a, x, params), 20)
+        plain = device_ms(torch, lambda: cuda_gram.cov_reference("rbf", a, x, params), 5)
+        check(f"cov cross M={m} C={c}", err, 1e-5, ms, plain)
+        out[key] = dict(ms=ms, plain_ms=plain, **bound(10 * m * c, 4 * (m * c + 3 * m + 3 * c)))
+    return out
+
+
 def phase2(torch, results: dict) -> None:
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_gram, cuda_joint, cuda_query
@@ -1556,8 +1652,10 @@ def phase2(torch, results: dict) -> None:
     q = (torch.rand((m, 3), generator=gen, device=dev) * 3.0 - 1.5).contiguous()
     noise = torch.full((c,), 1e-3, device=dev)
 
-    # A: covariance tile.  Values are <= k(0) + noise ~ 1; the two sides
+    # A: covariance tile, at its edges (`cov_kernel_checks`), then timed at
+    # the slices' shapes.  Values are <= k(0) + noise ~ 1; the two sides
     # differ only by the rounding of r2 and exp (a few ulp): tol 1e-5.
+    cov_kernel_checks(torch, gen, results)
     got = kg.gram("rbf", x, params, noise)
     want = cuda_gram.cov_reference("rbf", x, x, params, noise=noise, sym=True)
     err = (got - want).abs().max().item()
@@ -1567,7 +1665,8 @@ def phase2(torch, results: dict) -> None:
                                                            sym=True), 3)
     check(f"cov gram C={c}", err, 1e-5, ms, plain)
     # About ten operations (and one exp) an element; one store an element.
-    results["cov"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+    results["cov"] = dict(max_abs_err=err, cov_checks_rel=results["cov_checks_rel"], ms=ms,
+                          plain_ms=plain, library_ms=None,
                           **bound(10 * c * c, 4 * (c * c + 7 * c)))
     kq = kg.cross_cov("rbf", q, x, params)
     err_x = (kq - cuda_gram.cov_reference("rbf", q, x, params)).abs().max().item()
@@ -1576,14 +1675,7 @@ def phase2(torch, results: dict) -> None:
     check(f"cov cross M={m} C={c}", err_x, 1e-5, ms_x, plain_x)
     instances = {"cov_cross": dict(ms=ms_x, plain_ms=plain_x,
                                    **bound(10 * m * c, 4 * (m * c + 3 * m + 3 * c)))}
-    for name, ls in (("rbf", 0.8), ("laplace", 0.8), ("inverse_multiquadric", 0.8),
-                     ("thin_plate", 2.5)):
-        p = {"lengthscale": ls, "signal_variance": 1.1}
-        a, b = q[:1024], x[:4096]
-        want = cuda_gram.cov_reference(name, a, b, p)
-        err_k = (kg.cross_cov(name, a, b, p) - want).abs().max().item()
-        check(f"cov {name} 1024x4096 (tol 1e-5 x max|k|)", err_k,
-              1e-5 * max(1.0, want.abs().max().item()))
+    instances.update(cov_small_shapes(torch, q, params))
 
     # D, F and F band checked at their edges (`quad_kernel_checks`: C = 4,096
     # on a real kq, the `_QSPLIT` regime, the bias gate, float64), then D

@@ -5,12 +5,16 @@ Replaces the Pallas calls `gram_pallas` (gpis_tpu/kernels/pallas_gram.py:197),
 :294), which share one body, and in band mode `gram_band_pallas`
 (pallas_gram.py:173): the (R, C) row band of the Gram at global rows
 [row0, row0 + R), the out-of-core factor's row band.  The kernel is
-write-bound (one store per element); csrc/cov.cu says how its tiling keeps
-the stores coalesced and why r2 is formed per dimension.
+write-bound (one store per element): a CTA writes a tile of up to 64 rows
+by 128 columns, each thread 4 columns of a row as one 16-byte store where
+N % 4 == 0 (scalars otherwise), the covariance a template parameter and the
+diagonal tested only in tiles it crosses; csrc/cov.cu says why, and why r2
+is formed per dimension.
 
 `cov(name, a, b, params, noise=..., sym=..., row0=...)` takes a CPU tensor to
 the twin `cov_reference` and a CUDA tensor to the kernel; anything the
-kernel does not take raises.  There is no fallback from one to the other.
+kernel does not take raises (a grid of more than 2^31 - 1 tiles is refused
+by the launch itself).  There is no fallback from one to the other.
 A launch counts as "gram_band" in band mode (row0 given), else as "cov".
 """
 
@@ -25,9 +29,6 @@ __all__ = ["KERNEL_IDS", "pairwise_r2", "cov_reference", "cov"]
 
 # csrc/common.cuh `KernelId`.
 KERNEL_IDS = {"rbf": 0, "laplace": 1, "inverse_multiquadric": 2, "thin_plate": 3}
-
-# One launch is one 1-D grid of 64 x 32 tiles.
-_MAX_BLOCKS = 2**31 - 1
 
 
 def pairwise_r2(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -73,8 +74,6 @@ def cov(name: str, a: torch.Tensor, b: torch.Tensor, params, *, noise=None,
     tensors = (a, b) if noise is None else (a, b, noise)
     _build.check_cuda_args("cov", *tensors)
     m, n = a.shape[0], b.shape[0]
-    if -(-m // 64) * -(-n // 32) > _MAX_BLOCKS:
-        raise ValueError(f"cov: {m} x {n} exceeds one launch")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     _build.call(
         "gpis_cov", a, a.data_ptr(), m, b.data_ptr(), n,

@@ -22,20 +22,15 @@ the plain twin (max error over max|K|).  One JSON line a run, then for
 each other tree the per-shape ratio of its two runs' mean to this tree's
 (OTHER / this), the card's name and power limit, each shape's byte bound,
 and each tree's SASS counts: for every
-function of joint.cu (nvcc -cubin for sm_90a, cuobjdump -sass), its
-instructions, MUFU.EX2 and other MUFU operations, and those of its longest
-loop (the largest backward branch), beside ptxas's registers and spills.
+function of joint.cu (`torch_turns.sass_counts`), its instructions, MUFU.EX2
+and other MUFU operations, and those of each of its loops (the spans of its
+backward branches), beside ptxas's registers and spills.
 """
 
 from __future__ import annotations
 
 import json
-import os
-import re
-import shutil
-import subprocess
 import sys
-import tempfile
 
 import torch_turns
 
@@ -98,108 +93,20 @@ def bounds_ms() -> dict:
             for name, r, _, nz in shapes()}
 
 
-def _tool(name: str) -> str:
-    found = shutil.which(name)
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
-
-
-def sass_counts(tree: str) -> dict:
-    """Per function of the tree's joint.cu: SASS instructions, MUFU.EX2 and
-    other MUFU operations, the same within its longest loop, and ptxas's
-    registers and spill bytes."""
-    src = os.path.join(tree, SOURCE)
-    with tempfile.TemporaryDirectory() as tmp:
-        cubin = os.path.join(tmp, "joint.cubin")
-        proc = subprocess.run([_tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
-                               "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v", src, "-o", cubin],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode:
-            return {"error": proc.stderr[-2000:]}
-        ptxas, fn = {}, None
-        for line in proc.stderr.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                ptxas.setdefault(fn, {})["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if m and fn:
-                ptxas.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin], capture_output=True,
-                              text=True, timeout=300).stdout
-    out, fn, body = {}, None, []
-
-    def opcode(ins: str) -> str:
-        words = ins.split()
-        return words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
-
-    def count(ins_list):
-        ops = [opcode(i) for i in ins_list]
-        return {"instructions": len(ops),
-                "mufu_ex2": sum(o == "MUFU.EX2" for o in ops),
-                "mufu_other": sum(o.startswith("MUFU") and o != "MUFU.EX2" for o in ops)}
-
-    def close():
-        if fn is None:
-            return
-        addr = [(int(a, 16), ins) for a, ins in body]
-        loop = []
-        for a, ins in addr:
-            target = re.search(r"0x([0-9a-f]+)", ins)
-            if opcode(ins).startswith("BRA") and target and int(target.group(1), 16) < a:
-                span = [i for b, i in addr if int(target.group(1), 16) <= b <= a]
-                loop = span if len(span) > len(loop) else loop
-        name = subprocess.run(["c++filt", fn], capture_output=True, text=True).stdout.strip() \
-            if shutil.which("c++filt") else fn
-        out[name] = dict(count([i for _, i in addr]), loop=count(loop), **ptxas.get(fn, {}))
-
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            close()
-            fn, body = m.group(1), []
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;?\s*(?:/\*.*)?$", line)
-        if m and fn and m.group(2):
-            body.append((m.group(1), m.group(2).rstrip(" ;")))
-    close()
-    return out
-
-
-def make_variants(tmp: str) -> list[str]:
-    trees = []
-    for name, values in VARIANTS.items():
-        copy = torch_turns.copy_tree(os.path.join(tmp, name))
-        path = os.path.join(copy, SOURCE)
-        with open(path) as f:
-            lines = f.read().splitlines(keepends=True)
-        for prefix, value in values.items():
-            hits = [i for i, ln in enumerate(lines) if ln.startswith(prefix)]
-            if len(hits) != 1:
-                raise SystemExit(f"FAIL: no single '{prefix}' line in {SOURCE}")
-            comment = lines[hits[0]].partition("//")[2]
-            lines[hits[0]] = f"{prefix}{value};" + (f"  //{comment}" if comment else "\n")
-        with open(path, "w") as f:
-            f.writelines(lines)
-        trees.append(copy)
-    return trees
-
-
 def print_sass(trees: list[str]) -> None:
     print(json.dumps({"bound_ms": bounds_ms()}), flush=True)
     for tree in trees:
-        print(json.dumps({"tree": tree, "sass": sass_counts(tree)}), flush=True)
+        print(json.dumps({"tree": tree, "sass": torch_turns.sass_counts(tree, SOURCE)}),
+              flush=True)
 
 
 def main() -> int:
     variants = "--variants" in sys.argv
     if variants:
         sys.argv.remove("--variants")
+    extra = (lambda tmp: torch_turns.make_variants(tmp, SOURCE, VARIANTS)) if variants else None
     return torch_turns.main(__file__, worker, reps=10, timed=lambda k: k.endswith("_ms"),
-                            extra_trees=make_variants if variants else None, after=print_sass)
+                            extra_trees=extra, after=print_sass)
 
 
 if __name__ == "__main__":

@@ -27,7 +27,9 @@ J and K, the tile's NT and NN layouts with STORE, with their bias gate, and
 J and K in float64, the SIMT tile, at the in-core factor's shapes; float32
 L, the NN layout with SUB_FROM in place, with its bias gate and its
 untouched-region check, and L in float64, the SIMT tile, at the sharded
-TRSM's).
+TRSM's) or `chip_smoke.cov_kernel_checks` (Kernel A in float32 and
+float64, four covariances, cross, Gram and band at ragged shapes, over
+NaN-filled outputs, its pinned diagonal bit for bit).
 The tactile-update mutations (the noise floor, W's upper block, alpha0,
 the out-of-core tail in the mean, a converged seed's steps) and five of the
 committee's (`gp/experts.py`: W's tril, the rBCM weight, the floor scale,
@@ -50,9 +52,9 @@ import tempfile
 
 import torch_turns
 
-OOC, NN, NT, INV, QUAD, JOINT = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
-                                 "inv_and_trail_kernels", "quad_kernel_checks",
-                                 "joint_kernel_checks")
+OOC, NN, NT, INV, QUAD, JOINT, COV = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
+                                      "inv_and_trail_kernels", "quad_kernel_checks",
+                                      "joint_kernel_checks", "cov_kernel_checks")
 EXPERTS = "gpis_tpu_torch/gp/experts.py"
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
@@ -112,7 +114,11 @@ MUTATIONS = [
      "const int64_t col = k < head ? k : k + nvec * PER;",
      "const int64_t col = k < head ? k : k + nvec * PER + 1;"),
     ("A band mode puts k(0) + noise at the in-core diagonal", OOC, "gpis_tpu_torch/csrc/cov.cu",
-     "if (sym && row0 + i == j)", "if (sym && i == j)"),
+     "row0 + r0 - cb, k0,", "r0 - cb, k0,"),
+    ("A's scalar path stops a column short of the right edge", COV, "gpis_tpu_torch/csrc/cov.cu",
+     "if (cb + c < n) o[c] = v[c];", "if (cb + c < n - 1) o[c] = v[c];"),
+    ("A drops the diagonal in tiles it enters mid-tile", COV, "gpis_tpu_torch/csrc/cov.cu",
+     "&& c0 < row0 + r0 + rows) {", "&& c0 <= row0 + r0) {"),
     ("J stops its k loop one slice short of the tile's last column (the SIMT body: J in "
      "float64)", INV, "gpis_tpu_torch/csrc/chol.cu", "ldv, cols, 0,\n             col0 + cols);",
      "ldv, cols, 0,\n             col0 + cols - BK);"),

@@ -10,6 +10,7 @@ without them:
 import numpy as np
 import pytest
 import torch
+import torch_cov_cases
 
 from gpis_tpu_torch.config import ModelConfig
 from gpis_tpu_torch import _build
@@ -40,16 +41,30 @@ def _spd(rng, n):
     return g @ g.T / n + np.eye(n)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode, m, n", [("gram", 700, 700)] + torch_cov_cases.edge_cases())
 @pytest.mark.parametrize("name", KERNELS)
-def test_cuda_cov_matches_twin(cuda, name):
-    rng = np.random.default_rng(11)
-    x = torch.as_tensor(rng.normal(size=(700, 3)), dtype=torch.float32, device=cuda)
-    noise = torch.full((700,), 1e-3, device=cuda)
+def test_cuda_cov_matches_twin(cuda, name, mode, m, n, dtype):
+    x, noise, q, row0 = (torch.as_tensor(v, dtype=dtype, device=cuda)
+                         if isinstance(v, np.ndarray) else v
+                         for v in torch_cov_cases.edge_inputs(mode, m, n))
     params = kf.kernel_params(LENGTHSCALE[name], 1.1)
-    got = kg.gram(name, x, params, noise=noise)
-    want = cuda_gram.cov_reference(name, x, x, params, noise=noise, sym=True)
-    # f32 values <= k(0) + noise; the two sides round r2 and k differently.
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    a, nz, sym = x, noise, True
+    if mode == "cross":
+        a, nz, sym = q, None, False
+    elif mode == "band":
+        a, nz = x[row0:row0 + m], noise[row0:row0 + m]
+    torch.full((m, n), float("nan"), dtype=dtype, device=cuda)  # the next (m, n) block: NaN
+    _build.LAUNCHES.clear()
+    got = cuda_gram.cov(name, a, x, params, noise=nz, sym=sym, row0=row0)
+    assert _build.LAUNCHES["gram_band" if mode == "band" else "cov"] == 1
+    want = cuda_gram.cov_reference(name, a, x, params, noise=nz, sym=sym, row0=row0 or 0)
+    # Only the rounding of r2 and k differs.
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if sym:  # the pinned diagonal, k(0) + noise[i], bit for bit
+        r0 = row0 or 0
+        assert torch.equal(got[:, r0:r0 + m].diagonal(), want[:, r0:r0 + m].diagonal())
 
 
 def test_cuda_panel_and_row_update_match_twins(cuda):

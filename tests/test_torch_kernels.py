@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cov_cases
 import torch_exp_warm  # noqa: F401 -- warms torch.exp before any test (see the module)
 
 from gpis_tpu.api.session import ObjectModelSession as JaxSession
@@ -92,6 +93,31 @@ def test_cross_cov_twin_matches_cross_cov_pallas(name):
     ls = LENGTHSCALE[name]
     got = kg.cross_cov(name, _t(q), _t(x), kf.kernel_params(ls, 0.9))
     want = jpg.cross_cov_pallas(name, jnp.asarray(q), jnp.asarray(x), jkf.kernel_params(ls, 0.9))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("mode, m, n", torch_cov_cases.edge_cases())
+@pytest.mark.parametrize("name", KERNELS)
+def test_cov_twin_matches_pallas_at_tile_edges(name, mode, m, n):
+    """The twin Kernel A is held to on the card, against the JAX Pallas
+    calls in interpret mode, float64 at 1e-12: cross_cov_pallas,
+    gram_pallas (noise on the diagonal) and gram_band_pallas (m rows at
+    row0, with noise)."""
+    x, noise, q, row0 = torch_cov_cases.edge_inputs(mode, m, n)
+    ls = LENGTHSCALE[name]
+    tp, jp = kf.kernel_params(ls, 1.1), jkf.kernel_params(ls, 1.1)
+    if mode == "cross":
+        got = cuda_gram.cov(name, _t(q), _t(x), tp)
+        want = jpg.cross_cov_pallas(name, jnp.asarray(q), jnp.asarray(x), jp)
+    elif mode == "gram":
+        got = cuda_gram.cov(name, _t(x), _t(x), tp, noise=_t(noise), sym=True)
+        want = jpg.gram_pallas(name, jnp.asarray(x), jp, jnp.asarray(noise))
+    else:
+        band, nb = x[row0:row0 + m], noise[row0:row0 + m]
+        got = cuda_gram.cov(name, _t(band), _t(x), tp, noise=_t(nb), sym=True, row0=row0)
+        want = jpg.gram_band_pallas(name, jnp.asarray(band), jnp.asarray(x), jp,
+                                    jnp.asarray(nb), row0)
+    assert got.shape == (m, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
 
 
