@@ -60,6 +60,7 @@ from gpis_tpu_torch.parallel.mesh import make_row_mesh
 from gpis_tpu_torch.surface import grid as grid_mod
 from gpis_tpu_torch.surface import marching, projection
 from gpis_tpu_torch.utils import checkpoint as ckpt
+from gpis_tpu_torch.utils import profiling
 from gpis_tpu_torch.viz import export
 
 __all__ = ["ObjectModelSession"]
@@ -125,8 +126,10 @@ class ObjectModelSession:
 
     def _sync(self):
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with profiling.wait("session.sync"):
+                torch.cuda.synchronize(self.device)
 
+    @profiling.spanned("session.start")
     def start(self, points, *, normals=None, params=None, out_of_core: bool = False,
               experts: int = 0, expert_gate: int = 0, expert_beta: str = "rbcm"):
         """Downsample, normalize, label and fit an (N,3) world-frame cloud.
@@ -237,13 +240,16 @@ class ObjectModelSession:
         if self.model is None:
             raise RuntimeError("no model fitted yet; call start(points) first")
 
+    @profiling.spanned("session.query")
     def query(self, points_world):
         """Posterior (mean, variance) at world-frame points, as numpy."""
         self._require_model()
         q = torch.as_tensor(np.asarray(points_world, self.config.dtype), device=self.device)
         mean, var = gpr.predict(self.model, self.frame.to_normalized(q))
-        return mean.cpu().numpy(), var.cpu().numpy()
+        with profiling.wait("session.copy", 2):
+            return mean.cpu().numpy(), var.cpu().numpy()
 
+    @profiling.spanned("session.evaluate_grid")
     def evaluate_grid(self, resolution=None, extent=None):
         """Dense posterior grid in the normalized frame, as numpy:
         (mean (R,R,R), var (R,R,R), axis (R,))."""
@@ -252,7 +258,8 @@ class ObjectModelSession:
         mean, var, axis = grid_mod.evaluate_grid(
             self.model, resolution or self.config.grid_resolution,
             extent or self.config.grid_extent)
-        out = mean.cpu().numpy(), var.cpu().numpy(), axis.cpu().numpy()
+        with profiling.wait("session.copy", 3):
+            out = mean.cpu().numpy(), var.cpu().numpy(), axis.cpu().numpy()
         self.stats["grid_s"] = time.perf_counter() - t0
         return out
 
@@ -282,6 +289,7 @@ class ObjectModelSession:
         ok = ok.cpu().numpy()
         return self.frame.to_world(pts).cpu().numpy()[ok], ok
 
+    @profiling.spanned("session.update")
     def update(self, touch_points_world, *, targets=None):
         """Append tactile points (world frame; targets 0, the surface, by
         default) with the config's touch noise.  An in-core value model
@@ -297,8 +305,9 @@ class ObjectModelSession:
         self._require_model()
         kind = model_kind(self.model)
         cfg = self.config
-        pts = self.frame.to_normalized(torch.as_tensor(
-            np.asarray(touch_points_world, cfg.dtype), device=self.device))
+        with profiling.wait("session.upload"):
+            pts = torch.as_tensor(np.asarray(touch_points_world, cfg.dtype), device=self.device)
+        pts = self.frame.to_normalized(pts)
         y = (torch.zeros(pts.shape[0], dtype=pts.dtype, device=self.device) if targets is None
              else torch.as_tensor(targets, dtype=pts.dtype, device=self.device))
         if kind == "experts":
@@ -355,6 +364,7 @@ class ObjectModelSession:
         if 4 * self.model.capacity >= 1024:
             self.model = gpd.with_linv_joint(self.model)
 
+    @profiling.spanned("session.next_best_path")
     def next_best_path(self, *, seed_world=None):
         """The next best tactile path (`explore.planner.next_best_path`) from
         `seed_world` (default: the surface point of highest variance), as an
@@ -366,7 +376,11 @@ class ObjectModelSession:
             seed = self.frame.to_normalized(torch.as_tensor(
                 np.asarray(seed_world, self.config.dtype), device=self.device))
         res = planner.next_best_path(self.model, self.explore_config, seed_point=seed)
-        res.path = self.frame.to_world(torch.as_tensor(res.path, device=self.device)).cpu().numpy()
+        with profiling.wait("session.upload"):
+            path = torch.as_tensor(res.path, device=self.device)
+        path = self.frame.to_world(path)
+        with profiling.wait("session.copy"):
+            res.path = path.cpu().numpy()
         return res
 
     def is_done(self, n_probe: int = 256) -> bool:
@@ -397,6 +411,7 @@ class ObjectModelSession:
                            best_path=res.path)
         return res
 
+    @profiling.spanned("session.optimize_hyperparameters")
     def optimize_hyperparameters(self, **kw):
         """MLL optimization (config 3) in place, then a refit with the
         optimum; keywords go to the optimizer (`steps`, `learning_rate`,

@@ -73,7 +73,8 @@ def _parser():
     p.add_argument("--normals", action="store_true",
                    help="use surface normals from the cloud file as derivative observations")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the fit to DIR")
+                   help="write a torch.profiler Chrome trace of the fit to DIR, and the "
+                        "port's spans and counters beside it as spans.<pid>.<ns>.json")
     p.add_argument("--out-of-core", action="store_true",
                    help="panel-streamed fit for clouds whose factor exceeds the card's "
                         "memory; the checkpoint's W panels land beside the output in "

@@ -15,6 +15,7 @@ import torch
 
 from gpis_tpu_torch.config import ModelConfig
 from gpis_tpu_torch._build import resolve_device
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["Frame", "TrainingSet", "normalize_cloud", "build_training_set", "fibonacci_sphere"]
 
@@ -70,7 +71,8 @@ def build_training_set(points, cfg: ModelConfig, normals=None, *, device="cuda")
     accepted and unused, as in the JAX package: the session hands normals to
     the joint fit itself."""
     dev = resolve_device(device)
-    pts = torch.as_tensor(np.asarray(points), device=dev)
+    with profiling.wait("training.upload"):
+        pts = torch.as_tensor(np.asarray(points), device=dev)
     surf, frame = normalize_cloud(pts)
     dt = surf.dtype
     n_s = surf.shape[0]
@@ -79,8 +81,9 @@ def build_training_set(points, cfg: ModelConfig, normals=None, *, device="cuda")
         internal = torch.as_tensor(fibonacci_sphere(cfg.n_internal, 0.1), dtype=dt, device=dev)
     else:
         internal = torch.zeros((cfg.n_internal, 3), dtype=dt, device=dev)
-    external = torch.as_tensor(fibonacci_sphere(cfg.n_external, cfg.external_radius),
-                               dtype=dt, device=dev)
+    with profiling.wait("training.upload"):
+        external = torch.as_tensor(fibonacci_sphere(cfg.n_external, cfg.external_radius),
+                                   dtype=dt, device=dev)
 
     def full(n, v):
         return torch.full((n,), v, dtype=dt, device=dev)

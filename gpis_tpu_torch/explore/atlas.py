@@ -31,6 +31,7 @@ from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.surface import projection
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["Chart", "make_charts", "disc_samples", "project_and_chart"]
 
@@ -82,8 +83,9 @@ def make_charts(model, centers, cfg: ExploreConfig, *, ids, parents):
     one predict, one copy of each to the host."""
     centers = torch.as_tensor(centers).to(dtype=model.dtype, device=model.device)
     both = _agree(model, torch.cat([centers, projection.surface_normals(model, centers)], dim=1))
-    var = gpr.predict(model, both[:, :3].contiguous())[1].cpu().numpy()
-    both = both.cpu().numpy()
+    var = gpr.predict(model, both[:, :3].contiguous())[1]
+    with profiling.wait("chart.copy", 2):
+        var, both = var.cpu().numpy(), both.cpu().numpy()
     centers, normals = both[:, :3], both[:, 3:]
     prior = float(kf.k_diag0(model.kernel, model.params))
     charts = []
@@ -100,15 +102,19 @@ def project_and_chart(model, x0, cfg: ExploreConfig, *, cid, parent):
     projection, the normal there (the mean's gradient, normalized) and a
     one-point predict.  Returns None when the projection does not
     converge."""
+    profiling.count("project.tried")
     x, ok = projection.project_point(model, torch.as_tensor(x0))
     g = projection._gradient(model, x[None, :])[0]
     n = g / torch.clamp(torch.linalg.vector_norm(g), min=1e-12)
     both = _agree(model, torch.cat([x, n, ok.to(x.dtype)[None]]))
-    host = both.cpu().numpy()
+    with profiling.wait("chart.copy"):
+        host = both.cpu().numpy()
     if not host[6]:
         return None
     n = host[3:6]
-    var = float(gpr.predict(model, both[None, :3], gate=0)[1][0])
+    var = gpr.predict(model, both[None, :3], gate=0)[1][0]
+    with profiling.wait("chart.var"):
+        var = float(var)
     u, v = _tangent_basis(n)
     prior = float(kf.k_diag0(model.kernel, model.params))
     return Chart(id=int(cid), center=host[:3], normal=n, u=u, v=v,

@@ -29,6 +29,7 @@ from gpis_tpu_torch.config import ExploreConfig
 from gpis_tpu_torch.explore import atlas as atlas_mod
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.surface import projection
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["ExplorationResult", "next_best_path", "is_done"]
 
@@ -45,8 +46,11 @@ class ExplorationResult:
 
 
 def _predict_var(model, points) -> np.ndarray:
-    q = torch.as_tensor(points).to(dtype=model.dtype, device=model.device)
-    return gpr.predict(model, q)[1].cpu().numpy()
+    with profiling.wait("plan.upload"):
+        q = torch.as_tensor(points).to(dtype=model.dtype, device=model.device)
+    var = gpr.predict(model, q)[1]
+    with profiling.wait("plan.var"):
+        return var.cpu().numpy()
 
 
 def is_done(model, cfg: ExploreConfig, probe_points) -> bool:
@@ -72,10 +76,12 @@ def _default_seed(model) -> np.ndarray:
     the value-observation noise of the C core points on every model kind,
     the first C entries of y are their value targets (a joint layout's
     gradients come after), and the first C rows of x their coordinates."""
-    noise_v = model.noise.cpu().numpy()
-    c_v = noise_v.shape[0]
-    on_surface = (model.y[:c_v].cpu().numpy() == 0.0) & (noise_v < 1e6)
-    cand = model.x[:c_v].cpu().numpy()[on_surface]
+    with profiling.wait("plan.seed", 3):
+        noise_v = model.noise.cpu().numpy()
+        c_v = noise_v.shape[0]
+        y, x = model.y[:c_v].cpu().numpy(), model.x[:c_v].cpu().numpy()
+    on_surface = (y == 0.0) & (noise_v < 1e6)
+    cand = x[on_surface]
     if len(cand) == 0:
         raise ValueError("model has no surface-labeled training points to seed from")
     return cand[int(np.argmax(_predict_var(model, cand)))]
@@ -85,11 +91,12 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
     """Grow the atlas from a surface seed toward high variance and return
     the next best tactile path.  Deterministic: candidates are taken by
     argmax variance, so repeated calls on one model give the same path."""
-    if seed_point is None:
-        seed_point = _default_seed(model)
-    seed, _ = projection.project_point(
-        model, torch.as_tensor(seed_point).to(model.dtype))
-    charts = atlas_mod.make_charts(model, seed[None, :], cfg, ids=[0], parents=[-1])
+    with profiling.span("plan.seed"):
+        if seed_point is None:
+            seed_point = _default_seed(model)
+        seed, _ = projection.project_point(
+            model, torch.as_tensor(seed_point).to(model.dtype))
+        charts = atlas_mod.make_charts(model, seed[None, :], cfg, ids=[0], parents=[-1])
 
     frontier = [charts[0]]
     best_leaf, best_var = charts[0], charts[0].variance
@@ -109,20 +116,29 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
         return True
 
     while not reached and next_id < cfg.max_charts and frontier:
-        # Every frontier chart's disc candidates in one predict.
-        cand_blocks = [atlas_mod.disc_samples(c, cfg.n_disc_samples) for c in frontier]
-        cands = np.concatenate(cand_blocks, axis=0)
-        qpad = np.zeros((-(-len(cands) // 256) * 256, 3), dtype=cands.dtype)
-        qpad[:len(cands)] = cands
-        var = _predict_var(model, qpad)[:len(cands)]
+        with profiling.span("plan.candidates"):
+            # Every frontier chart's disc candidates in one predict.
+            cand_blocks = [atlas_mod.disc_samples(c, cfg.n_disc_samples) for c in frontier]
+            cands = np.concatenate(cand_blocks, axis=0)
+            qpad = np.zeros((-(-len(cands) // 256) * 256, 3), dtype=cands.dtype)
+            qpad[:len(cands)] = cands
+            var = _predict_var(model, qpad)[:len(cands)]
 
-        # Candidates that fall back inside existing charts score -inf (the
-        # tree explores instead of oscillating).
-        centers = np.stack([c.center for c in charts])
-        radii = np.array([c.radius for c in charts])
-        d = np.linalg.norm(cands[:, None, :] - centers[None, :, :], axis=-1)
-        covered = (d < 0.8 * radii[None, :]).any(axis=1)
-        score = np.where(covered, -np.inf, var)
+        with profiling.span("plan.score"):
+            # Candidates that fall back inside existing charts score -inf
+            # (the tree explores instead of oscillating).
+            centers = np.stack([c.center for c in charts])
+            radii = np.array([c.radius for c in charts])
+            d = np.linalg.norm(cands[:, None, :] - centers[None, :, :], axis=-1)
+            covered = (d < 0.8 * radii[None, :]).any(axis=1)
+            score = np.where(covered, -np.inf, var)
+            if cfg.strategy == "single_path":
+                # Only the newest chart expands; its block is the last one.
+                lo = len(cands) - cfg.n_disc_samples
+                score = np.where(np.arange(len(score)) >= lo, score, -np.inf)
+            # Candidates best first: a failed projection must not orphan
+            # good candidates on the same disc, so up to 8 are tried.
+            order = np.argsort(-score)
 
         def owner(idx):
             # The frontier chart a flat candidate index belongs to.
@@ -133,10 +149,6 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
                 acc += len(blk)
             return frontier[-1]
 
-        if cfg.strategy == "single_path":
-            # Only the newest chart expands; its block is the last one.
-            lo = len(cands) - cfg.n_disc_samples
-            score = np.where(np.arange(len(score)) >= lo, score, -np.inf)
         if not np.isfinite(score).any():
             if cfg.strategy == "single_path":
                 # The active chart's disc is covered: re-seed from the next
@@ -146,16 +158,14 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
                     continue
             break
 
-        # Candidates best first: a failed projection must not orphan good
-        # candidates on the same disc, so up to 8 are tried.
-        order = np.argsort(-score)
         new = None
         for cand_idx in order[:8]:
             if not np.isfinite(score[cand_idx]):
                 break
             parent = owner(int(cand_idx))
-            new = atlas_mod.project_and_chart(model, cands[int(cand_idx)], cfg, cid=next_id,
-                                              parent=parent.id)
+            with profiling.span("plan.chart"):
+                new = atlas_mod.project_and_chart(model, cands[int(cand_idx)], cfg,
+                                                  cid=next_id, parent=parent.id)
             if new is not None:
                 break
         if new is None:
@@ -174,6 +184,7 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
             continue
 
         charts.append(new)
+        profiling.count("plan.charts")
         next_id += 1
         if cfg.strategy == "single_path":
             frontier = [new]
@@ -186,6 +197,7 @@ def next_best_path(model, cfg: ExploreConfig, *, seed_point=None) -> Exploration
             best_leaf, best_var = new, new.variance
             reached = True
 
-    path, normals = _extract_path(charts, best_leaf.id)
+    with profiling.span("plan.path"):
+        path, normals = _extract_path(charts, best_leaf.id)
     return ExplorationResult(path=path, normals=normals, charts=charts,
                              target_variance=best_var, reached_threshold=reached)

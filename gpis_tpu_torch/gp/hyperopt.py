@@ -29,6 +29,7 @@ import torch
 from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.kernels import derivative as kd
 from gpis_tpu_torch.linalg import cholesky as lin
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["optimize", "optimize_joint", "HyperoptResult"]
 
@@ -208,41 +209,54 @@ def _minimize(loss, theta0: dict, *, steps: int, learning_rate: float, optimizer
 
     history, log_ls, best, best_val = [], [], t0.detach().clone(), math.inf
     i_ls = keys.index("log_ls")
+    dev = t0.device
     if optimizer == "lbfgs":
         def value_and_grad(t_np):
-            t = torch.as_tensor(t_np, dtype=t0.dtype, device=t0.device).requires_grad_(True)
-            v = loss(unflat(t))
-            (g,) = torch.autograd.grad(v, t)
-            return float(v.detach()), g.detach().cpu().numpy().astype(np.float64)
+            t = torch.as_tensor(t_np, dtype=t0.dtype, device=dev).requires_grad_(True)
+            with profiling.span("hyperopt.forward", device=dev):
+                v = loss(unflat(t))
+            with profiling.span("hyperopt.pullback", device=dev):
+                (g,) = torch.autograd.grad(v, t)
+            with profiling.wait("hyperopt.value", 2):
+                return float(v.detach()), g.detach().cpu().numpy().astype(np.float64)
 
         lbfgs = _LBFGS(len(keys))
-        theta = t0.detach().cpu().numpy().astype(np.float64)
+        with profiling.wait("hyperopt.theta"):
+            theta = t0.detach().cpu().numpy().astype(np.float64)
         for _ in range(steps):
-            v, g = value_and_grad(theta)
-            history.append(-v)
-            log_ls.append(float(theta[i_ls]))
-            if v < best_val:
-                best, best_val = torch.as_tensor(theta, dtype=t0.dtype, device=t0.device), v
-            direction = -lbfgs.precondition(g, theta)
-            theta = theta + _zoom_linesearch(value_and_grad, theta, direction, v, g) * direction
+            with profiling.span("hyperopt.step"):
+                v, g = value_and_grad(theta)
+                history.append(-v)
+                log_ls.append(float(theta[i_ls]))
+                if v < best_val:
+                    best, best_val = torch.as_tensor(theta, dtype=t0.dtype, device=dev), v
+                direction = -lbfgs.precondition(g, theta)
+                theta = theta + _zoom_linesearch(value_and_grad, theta, direction, v,
+                                                 g) * direction
     else:
         theta = t0.detach().clone().requires_grad_(True)
         opt = torch.optim.Adam([theta], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
         for _ in range(steps):
-            opt.zero_grad()
-            val = loss(unflat(theta))
-            val.backward()
-            v = val.item()
-            history.append(-v)
-            log_ls.append(float(theta.detach()[i_ls]))
-            if v < best_val:
-                best, best_val = theta.detach().clone(), v
-            opt.step()
+            with profiling.span("hyperopt.step"):
+                opt.zero_grad()
+                with profiling.span("hyperopt.forward", device=dev):
+                    val = loss(unflat(theta))
+                with profiling.span("hyperopt.pullback", device=dev):
+                    val.backward()
+                with profiling.wait("hyperopt.value", 2):
+                    v = val.item()
+                    ls = float(theta.detach()[i_ls])
+                history.append(-v)
+                log_ls.append(ls)
+                if v < best_val:
+                    best, best_val = theta.detach().clone(), v
+                opt.step()
     return unflat(best), best_val, history, log_ls
 
 
 def _as_scalar(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device).detach().clone()
+    with profiling.wait("hyperopt.scalar"):
+        return torch.as_tensor(v, dtype=like.dtype, device=like.device).detach().clone()
 
 
 def optimize(kernel: str, xp, yp, noisep, init_params, *, n_real: int, learn_signal: bool = False,
@@ -274,8 +288,10 @@ def optimize(kernel: str, xp, yp, noisep, init_params, *, n_real: int, learn_sig
     best, best_val, history, log_ls = _minimize(loss, theta0, steps=steps,
                                                 learning_rate=learning_rate, optimizer=optimizer)
     params, noise, scale = unpack(best)
-    return HyperoptResult(params={k: float(v) for k, v in params.items()}, noise=noise.detach(),
-                          noise_scale=float(scale), history=history, mll=-float(best_val),
+    with profiling.wait("hyperopt.result", len(params) + 1):
+        params, scale = {k: float(v) for k, v in params.items()}, float(scale)
+    return HyperoptResult(params=params, noise=noise.detach(), noise_scale=scale,
+                          history=history, mll=-float(best_val),
                           lengthscale_history=[math.exp(v) for v in log_ls])
 
 

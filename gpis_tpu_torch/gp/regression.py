@@ -43,6 +43,7 @@ from gpis_tpu_torch.kernels.cuda_query import exact_fp32, fused_query, staged_qu
 from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import outofcore as ooc
 from gpis_tpu_torch.linalg.cuda_chol import blocked_linv
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["pad_training", "fit", "fit_padded", "fit_inference", "model_from_factor",
            "with_inverse", "with_linv", "predict", "predict_mean", "update", "reset_touches",
@@ -71,7 +72,9 @@ def pad_training(x, y, noise, capacity: int, pad_noise: float, dtype=None):
 
 
 def _has_nan_diagonal(l: torch.Tensor) -> bool:
-    return bool(torch.isnan(l.diagonal()).any())
+    nan = torch.isnan(l.diagonal()).any()
+    with profiling.wait("fit.nan_check"):
+        return bool(nan)
 
 
 def _first_jitter(kernel, params, dtype, capacity: int) -> float:
@@ -94,9 +97,12 @@ def fit(kernel: str, x, y, noise, params, *, block: int = 128, touch_capacity: i
     jitter = _first_jitter(kernel, params, dtype, capacity)
     extra = 0.0
     for attempt in range(max_jitter_retries + 1):
-        model = fit_padded(kernel, xp, yp, noisep + extra, params, n0=n0, chol_impl=chol_impl,
-                           pad_noise=pad_noise)
-        if not _has_nan_diagonal(model.chol):
+        profiling.count("fit.attempts")
+        with profiling.span("fit.attempt"):
+            model = fit_padded(kernel, xp, yp, noisep + extra, params, n0=n0,
+                               chol_impl=chol_impl, pad_noise=pad_noise)
+            failed = _has_nan_diagonal(model.chol)
+        if not failed:
             return model
         extra = jitter * (10.0**attempt)
     raise FloatingPointError(
@@ -139,8 +145,11 @@ def fit_inference(kernel: str, x, y, noise, params, *, block: int = 128,
     jitter = _first_jitter(kernel, params, dtype, n0)
     extra = 0.0
     for attempt in range(max_jitter_retries + 1):
-        l = lin.cholesky(kg.gram(kernel, xp, params, noise=noisep + extra))
-        if not _has_nan_diagonal(l):
+        profiling.count("fit.attempts")
+        with profiling.span("fit.attempt"):
+            l = lin.cholesky(kg.gram(kernel, xp, params, noise=noisep + extra))
+            failed = _has_nan_diagonal(l)
+        if not failed:
             break
         del l  # only one C x C attempt is alive at a time
         extra = jitter * (10.0**attempt)
@@ -299,7 +308,9 @@ def update(model: GPModel, new_x, new_y, new_noise) -> GPModel:
     # Dtype-aware floor (as the fit's jitter): in float32 a touch noise of
     # 1e-6 can make the trailing block indefinite.
     floor = 4.0 * torch.finfo(dt).eps * c * float(kf.k_diag0(model.kernel, model.params))
-    new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev), min=floor)
+    with profiling.wait("update.upload"):
+        new_noise = torch.as_tensor(new_noise, dtype=dt, device=dev)
+    new_noise = torch.clamp(new_noise, min=floor)
 
     start = n0 + model.n_touch
     x, y, noise = model.x.clone(), model.y.clone(), model.noise.clone()

@@ -20,6 +20,7 @@ import torch
 from gpis_tpu_torch.kernels import cuda_gram
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.kernels.cuda_gram import pairwise_r2
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["pairwise_r2", "gram", "gram_reference", "gram_ad", "cross_cov", "add_noise_diag"]
 
@@ -72,7 +73,9 @@ class _GramAD(torch.autograd.Function):
         ctx.name, ctx.band, ctx.keys = name, band, keys
         ctx.noise_is_scalar = noise.ndim == 0
         ctx.save_for_backward(x, noise, *values)
-        return gram(name, x, {k: float(v) for k, v in zip(keys, values)}, noise)
+        with profiling.wait("gram.params", len(values)):
+            params = {k: float(v) for k, v in zip(keys, values)}
+        return gram(name, x, params, noise)
 
     @staticmethod
     def backward(ctx, kbar):

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from gpis_tpu_torch.linalg import cuda_chol
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["cholesky", "blocked_cholesky", "blocked_cholesky_ad", "blocked_linv", "solve_lower",
            "solve_lower_t", "cho_solve"]
@@ -38,6 +39,11 @@ _BLOCKED_MIN = 4096
 def cholesky(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of SPD `a`.  The blocked path overwrites `a`,
     so the caller must not use `a` afterwards."""
+    with profiling.span("chol.factor", device=a.device):
+        return _cholesky(a)
+
+
+def _cholesky(a: torch.Tensor) -> torch.Tensor:
     n = a.shape[0]
     if a.device.type == "cuda" and n >= _BLOCKED_MIN:
         if n % _BLOCK == 0:
@@ -51,7 +57,9 @@ def cholesky(a: torch.Tensor) -> torch.Tensor:
         # no strided view.
         return cuda_chol.blocked_cholesky(ap, _BLOCK)[:n, :n].contiguous()
     l, info = torch.linalg.cholesky_ex(a)
-    if int(info):
+    with profiling.wait("chol.info"):
+        failed = int(info)
+    if failed:
         l.diagonal().fill_(float("nan"))
     return l.contiguous()  # row-major, as the row-band kernels take it
 
@@ -85,7 +93,8 @@ class _BlockedCholeskyAD(torch.autograd.Function):
     def forward(ctx, a, block):
         # The factor overwrites a: the graph keeps only L, and the Gram's own
         # backward (`gram_ad`) never reads the Gram it produced.
-        l = cuda_chol.blocked_cholesky(a, block)
+        with profiling.span("chol.factor", device=a.device):
+            l = cuda_chol.blocked_cholesky(a, block)
         ctx.mark_dirty(a)
         ctx.save_for_backward(l)
         return l

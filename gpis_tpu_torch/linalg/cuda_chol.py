@@ -62,6 +62,7 @@ import os
 import torch
 
 from gpis_tpu_torch import _build
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["panel_update", "panel_update_reference", "row_update", "row_update_reference",
            "gemm_nt_masked", "gemm_nt_masked_reference", "gemm_nn_acc_masked",
@@ -453,7 +454,8 @@ def _tri_small_inv(ld: torch.Tensor) -> torch.Tensor:
 def _potrf(d: torch.Tensor):
     """Lower factor of a B x B block and whether it is positive definite."""
     ld, info = torch.linalg.cholesky_ex(d)
-    return ld, int(info) == 0
+    with profiling.wait("potrf"):
+        return ld, int(info) == 0
 
 
 def blocked_cholesky(a: torch.Tensor, block: int = 256, *,
@@ -471,6 +473,7 @@ def blocked_cholesky(a: torch.Tensor, block: int = 256, *,
     inv = _panel_solve(panel_solve) == "inv"
     for j0 in range(0, n, block):
         j1 = j0 + block
+        profiling.count("chol.panels")
         panel_update(a, j0, block)
         ld, ok = _potrf(a[j0:j1, j0:j1])
         if not ok:

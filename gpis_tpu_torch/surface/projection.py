@@ -26,6 +26,7 @@ from gpis_tpu_torch.gp import regression as gpr
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.kernels import derivative as kd
 from gpis_tpu_torch.linalg import outofcore as ooc
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["project_points", "surface_normals", "project_point"]
 
@@ -76,7 +77,8 @@ def _mean_and_gradient(model, q: torch.Tensor):
 
 
 def _project(model, seeds: torch.Tensor, max_iters: int, tol: float, step_clip: float):
-    x = torch.as_tensor(seeds).to(dtype=model.dtype, device=model.device, copy=True)
+    with profiling.wait("project.upload"):
+        x = torch.as_tensor(seeds).to(dtype=model.dtype, device=model.device, copy=True)
     if x.shape[0] == 0:
         return x, torch.zeros((0,), dtype=torch.bool, device=x.device)
     # f and g at the point where the last step ended: the JAX loop evaluates
@@ -84,7 +86,8 @@ def _project(model, seeds: torch.Tensor, max_iters: int, tol: float, step_clip: 
     # reusing them gives the same numbers.
     f, g = _mean_and_gradient(model, x)
     for _ in range(max_iters):
-        active = torch.nonzero(f.abs() > tol).flatten()
+        with profiling.wait("project.active"):
+            active = torch.nonzero(f.abs() > tol).flatten()
         if active.numel() == 0:
             break
         fa, ga = f[active], g[active]
