@@ -21,7 +21,9 @@ Phases, one printed line or more each; any failure exits nonzero:
    the split-TF32 tensor-core tile with the QUAD epilogue, F's kq
    generated in the tile) are held per query against the twin run in
    float64, at ragged shapes, twice bit for bit, in float64 too, and to the
-   bias gate on nonnegative W and kq (`quad_kernel_checks`).  Plus the
+   bias gate on nonnegative W and kq (`quad_kernel_checks`); float32 D's
+   bits against a recorded sha256 at ragged shapes up to C = 20,480, every
+   call twice (`tc_quad_bits`).  Plus the
    variance-quad regime the JAX package's `_QSPLIT` note measured
    (C = 1,024, noise 1e-3), D and F held against a float64 plain run, D
    timed at M = 128 beside M = 8,192, and the staged route (A or E, then
@@ -332,6 +334,13 @@ F32_EPS = 2.0**-23
 # B and G joined the tile: the NN path's bits, held through the NT layout.
 TC_NN_SHA256 = "80f361d50b98a21f53c802b2af88c8539f44861abac322890bda8cc4a7b3fd30"
 TC_NN_SHA256_SMS = 132
+# sha256 of float32 D's (mean, quad) at fixed inputs (`tc_quad_digest`),
+# recorded on an H100 with the lockstep body D had before its warp-specialised
+# one.  D's plan keeps every tile whole, so its bits do not depend on the
+# multiprocessor count.
+TC_QUAD_SHA256 = "4cc23065ac532e3d8be0161d543ea905f2cb8fa762276414dacc90b0ec21c0c8"
+TC_QUAD_MS = (1, 127, 129, 1000, 8192)
+TC_QUAD_CS = (1000, 1152, 20480)
 
 
 def fail(msg: str) -> None:
@@ -1034,6 +1043,46 @@ def tc_nn_bits(torch) -> None:
         fail("float32 C or H no longer gives its recorded bits")
 
 
+def tc_quad_digest(torch) -> tuple[str, list]:
+    """sha256 over float32 D's (mean, quad) at M in TC_QUAD_MS queries
+    against C in TC_QUAD_CS (kq ragged at its row and k edges: M and C off
+    the 128 tile and C = 1,000 off the 32-deep chunk), on `fixed_matrix`
+    inputs with W lower-triangular; each call made twice.  Returns the digest
+    and the shapes whose second call gave other bits than the first."""
+    import hashlib
+
+    from gpis_tpu_torch.kernels import cuda_query
+
+    dev = torch.device("cuda")
+    h, unstable = hashlib.sha256(), []
+    for c in TC_QUAD_CS:
+        w = fixed_matrix(torch, c, c, 8, dev).tril_()
+        alpha = fixed_matrix(torch, 1, c, 9, dev)[0]
+        kq = fixed_matrix(torch, max(TC_QUAD_MS), c, 10, dev)
+        for m in TC_QUAD_MS:
+            mean, quad = cuda_query.staged_quad(kq[:m], w, alpha)
+            again = cuda_query.staged_quad(kq[:m], w, alpha)
+            if not (torch.equal(mean, again[0]) and torch.equal(quad, again[1])):
+                unstable.append((m, c))
+            h.update(mean.cpu().numpy().tobytes())
+            h.update(quad.cpu().numpy().tobytes())
+        del w, alpha, kq
+    torch.cuda.empty_cache()
+    return h.hexdigest(), unstable
+
+
+def tc_quad_bits(torch) -> None:
+    """D's warp-specialised body must give the lockstep body's bits: its
+    digest against the recorded one (TC_QUAD_SHA256), every call twice."""
+    digest, unstable = tc_quad_digest(torch)
+    same = digest == TC_QUAD_SHA256
+    say(f"  D sha256 {digest} {'ok' if same else 'FAILED'} (recorded: {TC_QUAD_SHA256})")
+    if unstable:
+        fail(f"float32 D gave other bits on a second call at (M, C) {unstable}")
+    if not same:
+        fail("float32 D no longer gives its recorded bits")
+
+
 def nt_kernel_checks(torch, gen, results: dict) -> None:
     """Kernels B and G in float32 (the split-TF32 tensor-core body, NT
     layout) against their twins run in float64: tol TC_TOL x sum|a||b| of
@@ -1709,6 +1758,7 @@ def phase2(torch, results: dict) -> None:
     nn_kernel_checks(torch, gen, results)
     nn_kernel_times(torch, gen, results)
     tc_nn_bits(torch)
+    tc_quad_bits(torch)
     nt_kernel_checks(torch, gen, results)
     nt_kernel_times(torch, gen, results)
     inv_and_trail_kernels(torch, gen, results)

@@ -66,9 +66,19 @@
 // What bounds it: four TF32 passes, 494.7 TFLOP/s / 4 = 124 TFLOP/s of
 // useful work on an H100 at 700 W; the operands are read once per 128 x 128
 // output tile per k chunk (~34 flops a byte), far above the memory roofline.
+// Short of that, each 8-deep step costs the CUDA cores as much as the tensor
+// cores: a warp's 64 step values take 64 x (+1, & ~1, FADD) to round and
+// add, and a 32-deep chunk's split 2 x 4,096 values x (two cvt.rna, each
+// four instructions, and a subtraction).  Measured inside D (clock64 a
+// region, M 8,192 x C 16,384, an H100 at 700 W): a chunk ~4,200 cycles
+// against the four passes' 2,048, a warp's rounding of its step ~350-400,
+// about twice the issue time of its 128 integer instructions; with the
+// rounding and the split both cut out (wrong results, for the measurement)
+// the same schedule ran the call in 21.8 ms against its 37.3.
 //
-// Layout and pipeline, one 128 x 128 output tile over one k range [kb, ke)
-// a CTA, 256 threads = two warpgroups of 64 x 128:
+// Layout and pipeline of the lockstep body (B, C, F, G, H, J, K and L), one
+// 128 x 128 output tile over one k range [kb, ke) a CTA, 256 threads = two
+// warpgroups of 64 x 128 (D's differs; below):
 //   * TMA loads raw 32-deep k chunks, A as a 128 x 32 box and B as four
 //     32 x 32 boxes, 128-byte swizzled, into a two-stage ring signalled by
 //     mbarriers; thread 0 issues them (a producer warp would cap the
@@ -97,6 +107,25 @@
 //     generator's extent and queries past n generate 0; columns past a
 //     tile's live end meet W's zeros past its diagonal, as TMA's reads
 //     there do.
+//   * D (QUAD, B through TMA) runs its own body, `tc_quad_ws`, on 384
+//     threads: the two consumer warpgroups keep the lockstep body's threads
+//     0-255, rows and step order; a third, the producer, issues the TMA
+//     loads and splits every chunk, so no consumer splits.  Its split tiles
+//     keep TMA's 128-byte-swizzled layout (each 16 bytes of a raw box to the
+//     same 16 bytes of its hi and lo tiles, 1 KB-aligned 16 KB tiles that
+//     wgmma reads in its 128B-swizzle mode), split buffer c & 1 signalled
+//     full by the producer's 128 threads and empty by the consumers' 8 warps
+//     on mbarriers, not __syncthreads.  The consumers ping-pong: they take
+//     turns on two named barriers to issue a step, so one warpgroup's four
+//     products run while the other waits for and rounds its own; each holds
+//     one step tile (acc and step, ~150 registers of the 168 a 384-thread
+//     CTA gives, so no setmaxnreg).  Two step tiles in flight a warpgroup
+//     (wgmma.wait_group 1) needed 192 accumulator registers, and ptxas
+//     serialized its wgmmas (C7514) in every form tried.  The others keep
+//     the lockstep body: F generates B a quarter a step on the consumers'
+//     threads, which a producer would have to take over whole; B, C, G, H,
+//     J, K and L together take about a twentieth of D's device time in a
+//     surface, and C's and H's bits are recorded.
 //   * A CTA writes its tile directly when it owns the tile's whole k range,
 //     else to an f32 partial in a workspace; `tc_nn_finish_kernel` sums a
 //     tile's partials in a fixed order (no atomics: the same bits every run)
@@ -205,6 +234,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
@@ -512,13 +545,38 @@ __device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, boo
   }
 }
 
+// D's warp-specialised body (tc_quad_ws): three warpgroups, the two that
+// run the products (consumers, the lockstep body's threads 0-255 with their
+// rows) and one that loads and splits (the producer, threads 256-383).
+constexpr int WS_THREADS = 3 * 128;
+// Named barriers (0 is __syncthreads): the consumers', the producer's, and
+// the consumers' turns to issue (TURN_BAR for WG 0, TURN_BAR + 1 for WG 1).
+constexpr int CONSUMER_BAR = 1, PRODUCER_BAR = 2, TURN_BAR = 3;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <bool WS>
+__device__ __forceinline__ void consumers_sync() {
+  if constexpr (WS)
+    named_sync(CONSUMER_BAR, 2 * 128);
+  else
+    __syncthreads();
+}
+
 // QUAD: the tile's colsum(acc^2) over its 128 rows into partial row m0 / 128
 // of out (ldo = n), columns masked at n; rows past the operand's were read
 // as zeros and add 0.  A thread's two rows a column, then the warp's 16 rows
 // by xor shuffles over the lanes of equal lane & 3 (every lane ends with the
 // same bits), then the eight warps' sums in `red` (8 x 128 floats), added in
 // warp order.  The first flush stores the partial; a later one (none in the
-// kernel's own plan) adds to it.
+// kernel's own plan) adds to it.  The threads that meet are the CTA's (the
+// lockstep body) or, with WS, D's two consumer warpgroups.
+template <bool WS = false>
 __device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& u, bool first,
                                             float* red, float* out, int64_t ldo, int64_t n,
                                             int wg, int warp, int lane) {
@@ -534,7 +592,7 @@ __device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& 
 #pragma unroll
     for (int i = 0; i < 32; ++i) sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
   }
-  __syncthreads();  // red is free: the k loop (or an earlier flush) is done with it
+  consumers_sync<WS>();  // red is free: the k loop (or an earlier flush) is done with it
   if (lane < 4) {
     float* r = red + (4 * wg + warp) * BN;
 #pragma unroll
@@ -543,7 +601,7 @@ __device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& 
       r[acc_col(lane, 4 * g + 1)] = sq[2 * g + 1];
     }
   }
-  __syncthreads();
+  consumers_sync<WS>();
   const int t = threadIdx.x;
   if (t < BN && u.n0 + t < n) {
     float sum = red[t];
@@ -567,24 +625,15 @@ __device__ __forceinline__ void hand_off(const float (&acc)[64], const Unit& u, 
     flush<EPI>(acc, u, first, ws, s, lds, out, ldo, m, n, wg, warp, lane);
 }
 
-template <int LAYOUT, int EPI, class GEN = TmaB>
-__global__ void __launch_bounds__(THREADS, 1)
-tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-          const Unit* __restrict__ units, const float* s_in, int64_t lds, float* out,
-          int64_t ldo, int64_t m, int64_t n, float* __restrict__ ws, const GenArgs g) {
-  static_assert(EPI != QUAD || LAYOUT == NT, "QUAD is NT's epilogue");
-  static_assert(kTmaB<GEN> || LAYOUT == NT, "a generated B is NT's (k-contiguous rows)");
-  extern __shared__ char smem_raw[];
-  char* base = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                       ~uintptr_t(1023));  // 128-byte swizzle: 1 KB aligned
-  Smem s;
-  s.raw[0] = base;
-  s.raw[1] = base + RAW_BYTES;
-  s.split[0] = base + 2 * RAW_BYTES;
-  s.split[1] = s.split[0] + 4 * SPLIT_BYTES;
-  s.full = reinterpret_cast<uint64_t*>(s.split[1] + 4 * SPLIT_BYTES);
-
-  const Unit u = units[blockIdx.x];
+// The lockstep body (B, C, F, G, H, J, K and L): 256 threads, each chunk
+// split by all of them, each step's four products waited for and rounded
+// by the warpgroup that issued them (see the note at the top).
+template <int LAYOUT, int EPI, class GEN>
+__device__ __forceinline__ void tc_lockstep(const Smem& s, const CUtensorMap* ta,
+                                            const CUtensorMap* tb, const Unit& u,
+                                            const float* s_in, int64_t lds, float* out,
+                                            int64_t ldo, int64_t m, int64_t n, float* ws,
+                                            const GenArgs& g) {
   const int nch = (u.ke - u.kb + BK - 1) / BK;
   const int t = threadIdx.x;
   // A generated B: this thread's query (row t & 127 of the tile) for the unit.
@@ -611,8 +660,8 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
   }
   __syncthreads();
   if (t == 0) {
-    issue_chunk<LAYOUT, GEN>(s, 0, &ta, &tb, u.m0, u.n0, u.kb);
-    if (nch > 1) issue_chunk<LAYOUT, GEN>(s, 1, &ta, &tb, u.m0, u.n0, u.kb + BK);
+    issue_chunk<LAYOUT, GEN>(s, 0, ta, tb, u.m0, u.n0, u.kb);
+    if (nch > 1) issue_chunk<LAYOUT, GEN>(s, 1, ta, tb, u.m0, u.n0, u.kb + BK);
   }
   mbar_wait(&s.full[0], 0);
   if constexpr (kTmaB<GEN>) {
@@ -627,7 +676,7 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  if (t == 0 && nch > 2) issue_chunk<LAYOUT, GEN>(s, 0, &ta, &tb, u.m0, u.n0, u.kb + 2 * BK);
+  if (t == 0 && nch > 2) issue_chunk<LAYOUT, GEN>(s, 0, ta, tb, u.m0, u.n0, u.kb + 2 * BK);
 
   const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
   float acc[64], step[64];
@@ -699,12 +748,198 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncthreads();
       if (t == 0 && c + 3 < nch)
-        issue_chunk<LAYOUT, GEN>(s, (c + 1) & 1, &ta, &tb, u.m0, u.n0, u.kb + (c + 3) * BK);
+        issue_chunk<LAYOUT, GEN>(s, (c + 1) & 1, ta, tb, u.m0, u.n0, u.kb + (c + 3) * BK);
     }
   }
 
   hand_off<EPI>(acc, u, !segmented || nch <= SEG_CHUNKS, reinterpret_cast<float*>(s.raw[0]), ws,
                 s_in, lds, out, ldo, m, n, wg, warp, lane);
+}
+
+// D's split tiles keep TMA's own layout: a 128 x 32 float tile, row r's
+// 16-byte chunk j at r * 128 + ((j ^ (r & 7)) << 4) (128-byte swizzle), so
+// the split maps each 16 bytes of a raw box to the same 16 bytes of its hi
+// and lo tiles, and wgmma reads them in its 128B-swizzle mode: 8-row groups
+// 1,024 bytes apart, an 8-deep k slice 32 bytes into each row (the hardware
+// applies the XOR).  Tiles are 1 KB aligned.
+constexpr int SW_TILE_BYTES = BM * BK * 4;  // 16 KB
+constexpr int SW_SPLIT_BYTES = 4 * SW_TILE_BYTES;  // A hi, A lo, B hi, B lo
+static_assert(SW_SPLIT_BYTES <= 4 * SPLIT_BYTES, "D's split buffers fit the common layout's");
+
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, const float4& v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// A raw chunk (A's box, then B's) into D's split buffer at dst, by the
+// producer's 128 threads, of which this is thread t: the same split as
+// split_rows', 16 bytes at a time, each to the same offset of its hi and lo
+// tiles.  A thread's eight loads of a box go out together: the producer
+// has one warp on each of the SM's four schedulers, so the loads' latency
+// is hidden by the thread's own independent loads, not by other warps.
+__device__ __forceinline__ void split_swizzled(uint32_t raw, uint32_t dst, int t) {
+  constexpr int PER_BOX = SW_TILE_BYTES / 16 / 128;  // 16-byte vectors a thread a box: 8
+#pragma unroll 1
+  for (int box = 0; box < 2; ++box) {
+    float4 v[PER_BOX];
+#pragma unroll
+    for (int j = 0; j < PER_BOX; ++j)
+      v[j] = lds128(raw + box * SW_TILE_BYTES + (j * 128 + t) * 16);
+#pragma unroll
+    for (int j = 0; j < PER_BOX; ++j) {
+      const uint32_t off = (j * 128 + t) * 16;
+      float4 h, l;
+      split(v[j].x, h.x, l.x);
+      split(v[j].y, h.y, l.y);
+      split(v[j].z, h.z, l.z);
+      split(v[j].w, h.w, l.w);
+      sts128(dst + 2 * box * SW_TILE_BYTES + off, h);
+      sts128(dst + (2 * box + 1) * SW_TILE_BYTES + off, l);
+    }
+  }
+}
+
+// One step of D's: the four products of its 8-deep k slice st, small first,
+// into a fresh tile d, committed as one group.  The lockstep body's order,
+// pass for pass.
+__device__ __forceinline__ void quad_step(float (&d)[64], const char* a_lo, const char* a_hi,
+                                          const char* b_lo, const char* b_hi, int st) {
+  const int off = st * STEP_K * 4;
+  fence_operand(d);
+  wgmma_fence();
+  wgmma_tf32(d, desc_sw128(a_lo + off), desc_sw128(b_lo + off), 0);
+  wgmma_tf32(d, desc_sw128(a_lo + off), desc_sw128(b_hi + off), 1);
+  wgmma_tf32(d, desc_sw128(a_hi + off), desc_sw128(b_lo + off), 1);
+  wgmma_tf32(d, desc_sw128(a_hi + off), desc_sw128(b_hi + off), 1);
+  wgmma_commit();
+}
+
+// D's body: a producer warpgroup loads and splits, two consumer warpgroups
+// take turns on the tensor cores (see the note at the top).
+// Barriers in s.full: raw[2] (TMA bytes), split_full[2] (the producer's 128
+// threads), split_empty[2] (the consumers' 8 warps).
+template <int LAYOUT>
+__device__ __forceinline__ void tc_quad_ws(const Smem& s, const CUtensorMap* ta,
+                                           const CUtensorMap* tb, const Unit& u, float* out,
+                                           int64_t ldo, int64_t n) {
+  uint64_t* split_full = s.full + 2;
+  uint64_t* split_empty = s.full + 4;
+  const int nch = (u.ke - u.kb + BK - 1) / BK;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    mbar_init(&s.full[0], 1);
+    mbar_init(&s.full[1], 1);
+    mbar_init(&split_full[0], 128);
+    mbar_init(&split_full[1], 128);
+    mbar_init(&split_empty[0], 8);
+    mbar_init(&split_empty[1], 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (t >= 2 * 128) {  // the producer: chunk c's raw stage c & 1 into split buffer c & 1
+    const int p = t - 2 * 128;
+    if (p == 0) {
+      issue_chunk<LAYOUT, TmaB>(s, 0, ta, tb, u.m0, u.n0, u.kb);
+      if (nch > 1) issue_chunk<LAYOUT, TmaB>(s, 1, ta, tb, u.m0, u.n0, u.kb + BK);
+    }
+    const uint32_t raw0 = smem_u32(s.raw[0]), split0 = smem_u32(s.split[0]);
+    for (int c = 0; c < nch; ++c) {
+      const int b = c & 1;
+      mbar_wait(&s.full[b], (c >> 1) & 1);
+      if (c >= 2) mbar_wait(&split_empty[b], ((c >> 1) - 1) & 1);  // chunk c - 2 is done
+      split_swizzled(raw0 + b * RAW_BYTES, split0 + b * SW_SPLIT_BYTES, p);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(&split_full[b]);
+      if (c + 2 < nch) {  // the raw stage is read: chunk c + 2 into it
+        named_sync(PRODUCER_BAR, 128);
+        if (p == 0) issue_chunk<LAYOUT, TmaB>(s, b, ta, tb, u.m0, u.n0, u.kb + (c + 2) * BK);
+      }
+    }
+    return;
+  }
+
+  // wg through a shuffle: ptxas then knows it, and the descriptors made
+  // from it, to be warp-uniform, and builds them on the uniform datapath.
+  const int wg = __shfl_sync(0xffffffffu, t >> 7, 0), warp = (t >> 5) & 3, lane = t & 31;
+  float acc[64], d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  // Ping-pong: the warpgroups take turns to issue a step (WG 0 at TURN_BAR,
+  // WG 1 at TURN_BAR + 1, each opened by the other's arrival after its own
+  // issue), so that one's step runs on the tensor cores while the other
+  // waits for and rounds its own.  WG 1 opens WG 0's first turn; its last
+  // step opens none.
+  if (wg == 1) named_arrive(TURN_BAR, 2 * 128);
+  for (int c = 0; c < nch; ++c) {
+    const int b = c & 1;
+    mbar_wait(&split_full[b], (c >> 1) & 1);
+    const char* sp = s.split[0] + b * SW_SPLIT_BYTES;
+    const char* a_hi = sp + wg * 64 * BK * 4;  // this warpgroup's 64 rows
+    const char* a_lo = a_hi + SW_TILE_BYTES;
+    const char* b_hi = sp + 2 * SW_TILE_BYTES;
+    const char* b_lo = b_hi + SW_TILE_BYTES;
+#pragma unroll
+    for (int st = 0; st < BK / STEP_K; ++st) {
+      named_sync(TURN_BAR + wg, 2 * 128);
+      quad_step(d, a_lo, a_hi, b_lo, b_hi, st);
+      if (wg == 0 || c + 1 < nch || st + 1 < BK / STEP_K)
+        named_arrive(TURN_BAR + 1 - wg, 2 * 128);
+      wgmma_wait();
+      fence_operand(d);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += round23(d[i]);
+    }
+    if (lane == 0) mbar_arrive(&split_empty[b]);  // this warp is done with chunk c
+  }
+  // The producer is past its last read of the raw ring: it split every chunk.
+  quad_colsum<true>(acc, u, true, reinterpret_cast<float*>(s.raw[0]), out, ldo, n, wg, warp,
+                    lane);
+}
+
+// The launch shape: D (QUAD with B through TMA) warp-specialised, 384
+// threads; every other instantiation the lockstep body's 256.
+template <int EPI, class GEN>
+struct CtaShape {
+  static constexpr bool warp_specialised = EPI == QUAD && kTmaB<GEN>;
+  static constexpr int threads = warp_specialised ? WS_THREADS : THREADS;
+};
+
+template <int LAYOUT, int EPI, class GEN = TmaB>
+__global__ void __launch_bounds__(CtaShape<EPI, GEN>::threads, 1)
+tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+          const Unit* __restrict__ units, const float* s_in, int64_t lds, float* out,
+          int64_t ldo, int64_t m, int64_t n, float* __restrict__ ws, const GenArgs g) {
+  static_assert(EPI != QUAD || LAYOUT == NT, "QUAD is NT's epilogue");
+  static_assert(kTmaB<GEN> || LAYOUT == NT, "a generated B is NT's (k-contiguous rows)");
+  extern __shared__ char smem_raw[];
+  char* base = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                       ~uintptr_t(1023));  // 128-byte swizzle: 1 KB aligned
+  Smem s;
+  s.raw[0] = base;
+  s.raw[1] = base + RAW_BYTES;
+  s.split[0] = base + 2 * RAW_BYTES;
+  s.split[1] = s.split[0] + 4 * SPLIT_BYTES;
+  s.full = reinterpret_cast<uint64_t*>(s.split[1] + 4 * SPLIT_BYTES);
+  const Unit u = units[blockIdx.x];
+  if constexpr (CtaShape<EPI, GEN>::warp_specialised)
+    tc_quad_ws<LAYOUT>(s, &ta, &tb, u, out, ldo, n);
+  else
+    tc_lockstep<LAYOUT, EPI, GEN>(s, &ta, &tb, u, s_in, lds, out, ldo, m, n, ws, g);
 }
 
 // One tile's partials summed in slot order, then the epilogue; blockIdx.y
@@ -800,8 +1035,9 @@ int launch(const float* a, int64_t lda, const float* b, int64_t ldb, int64_t k_e
     if (!kTmaB<GEN>) tb = ta;  // not read
     cudaFuncSetAttribute(tc_kernel<LAYOUT, EPI, GEN>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    tc_kernel<LAYOUT, EPI, GEN><<<(unsigned int)n_units, THREADS, SMEM_BYTES, stream>>>(
-        ta, tb, units, s, lds, out, ldo, m, n, ws, g);
+    tc_kernel<LAYOUT, EPI, GEN>
+        <<<(unsigned int)n_units, CtaShape<EPI, GEN>::threads, SMEM_BYTES, stream>>>(
+            ta, tb, units, s, lds, out, ldo, m, n, ws, g);
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -169,6 +169,12 @@ MUTATIONS = [
     ("F band's plan without k_offset (the in-core bound)", QUAD,
      "gpis_tpu_torch/kernels/cuda_query.py", "upper=\"rows\", k_offset=int(row0), whole=True)",
      "upper=\"rows\", k_offset=0, whole=True)"),
+    ("D adds each truncated step unrounded (its warp-specialised body)", QUAD,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "  for (int i = 0; i < 64; ++i) acc[i] += round23(d[i]);",
+     "  for (int i = 0; i < 64; ++i) acc[i] += d[i];"),
+    ("D's producer stores zero lo tiles (1xTF32 W and kq)", QUAD,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "sts128(dst + (2 * box + 1) * SW_TILE_BYTES + off, l);",
+     "sts128(dst + (2 * box + 1) * SW_TILE_BYTES + off, make_float4(0.f, 0.f, 0.f, 0.f));"),
     ("F's generator drops the lo half (1xTF32 kq)", QUAD, "gpis_tpu_torch/csrc/tc_nn.cuh",
      "*reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = l;",
      "*reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = make_float4(0.f, 0.f, 0.f, 0.f);"),

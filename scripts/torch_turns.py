@@ -17,6 +17,7 @@ a kernel source's SASS (nvcc and cuobjdump, on the machine with the card).
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -100,12 +101,13 @@ def _tool(name: str) -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
 
 
-def sass_counts(tree: str, source: str) -> dict:
+def sass_counts(tree: str, source: str, ops: bool = False) -> dict:
     """Per function of the tree's `source` (nvcc -cubin for sm_90a,
     cuobjdump -sass): its SASS instructions, MUFU.EX2 and other MUFU
     operations, the same within each of its loops (the spans of its
     backward branches of 16 instructions or more, longest first), and
-    ptxas's registers and spill bytes."""
+    ptxas's registers and spill bytes; with `ops`, each loop's count of
+    every opcode too, and ptxas's warnings."""
     src = os.path.join(tree, source)
     with tempfile.TemporaryDirectory() as tmp:
         cubin = os.path.join(tmp, "kernel.cubin")
@@ -114,7 +116,7 @@ def sass_counts(tree: str, source: str) -> dict:
                               capture_output=True, text=True, timeout=600)
         if proc.returncode:
             return {"error": proc.stderr[-2000:]}
-        ptxas, fn = {}, None
+        ptxas, fn, notes = {}, None, []
         for line in proc.stderr.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -125,6 +127,8 @@ def sass_counts(tree: str, source: str) -> dict:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and fn:
                 ptxas.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            if ops and ("warning" in line.lower() or "Performance" in line):
+                notes.append(line.strip())
         sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin], capture_output=True,
                               text=True, timeout=300).stdout
     out, fn, body = {}, None, []
@@ -134,10 +138,13 @@ def sass_counts(tree: str, source: str) -> dict:
         return words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
 
     def count(ins_list):
-        ops = [opcode(i) for i in ins_list]
-        return {"instructions": len(ops),
-                "mufu_ex2": sum(o == "MUFU.EX2" for o in ops),
-                "mufu_other": sum(o.startswith("MUFU") and o != "MUFU.EX2" for o in ops)}
+        names = [opcode(i) for i in ins_list]
+        out = {"instructions": len(names),
+               "mufu_ex2": sum(o == "MUFU.EX2" for o in names),
+               "mufu_other": sum(o.startswith("MUFU") and o != "MUFU.EX2" for o in names)}
+        if ops:
+            out["ops"] = dict(collections.Counter(names).most_common())
+        return out
 
     def close():
         if fn is None:
@@ -153,8 +160,9 @@ def sass_counts(tree: str, source: str) -> dict:
         loops.sort(key=len, reverse=True)
         name = subprocess.run(["c++filt", fn], capture_output=True, text=True).stdout.strip() \
             if shutil.which("c++filt") else fn
+        warnings = [n for n in notes if fn in n]
         out[name] = dict(count([i for _, i in addr]), loops=[count(lp) for lp in loops],
-                         **ptxas.get(fn, {}))
+                         **ptxas.get(fn, {}), **({"warnings": warnings} if warnings else {}))
 
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
