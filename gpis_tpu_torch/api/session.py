@@ -18,7 +18,8 @@ row mesh (`parallel.mesh`): every rank constructs it and calls each verb
 with the same arguments, and `start` fits the row-sharded value model
 (`gp.sharded_model.fit_sharded`), or with `normals=` the sharded joint
 model (`gp.sharded_joint.fit_sharded_joint`), on rank 0's cloud, which it
-broadcasts.
+broadcasts; there `start` drops the old model before it fits, so a rank
+holds one model's bands at a time (`reset` drops it on its own).
 `query`, `evaluate_grid`, `extract_surface` and `surface_points` serve the
 fitted model; `update` borders tactile points into it (a joint model past
 its touch slots is refit with every touch folded into its core);
@@ -56,6 +57,7 @@ from gpis_tpu_torch.gp import sharded_model as gsm
 from gpis_tpu_torch.gp.kinds import model_kind
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.linalg import outofcore as ooc
+from gpis_tpu_torch.linalg import sharded as sh
 from gpis_tpu_torch.parallel.mesh import make_row_mesh
 from gpis_tpu_torch.surface import grid as grid_mod
 from gpis_tpu_torch.surface import marching, projection
@@ -92,15 +94,13 @@ def _ooc_panel(rows: int) -> int:
 def _broadcast_cloud(points: np.ndarray, mesh) -> np.ndarray:
     """Rank 0's cloud (N, 3), or (N, 6) with its normals, on every rank: its
     length, then its rows."""
-    n = torch.tensor([len(points)], dtype=torch.int64, device=mesh.device)
-    torch.distributed.broadcast(n, src=0)
+    n = sh._bcast_from(torch.tensor([len(points)], dtype=torch.int64, device=mesh.device), 0)
     if mesh.rank == 0:
         buf = torch.as_tensor(np.ascontiguousarray(points), device=mesh.device)
     else:
         buf = torch.empty((int(n.item()), points.shape[1]), dtype=getattr(torch, str(points.dtype)),
                           device=mesh.device)
-    torch.distributed.broadcast(buf, src=0)
-    return buf.cpu().numpy()
+    return sh._bcast_from(buf, 0).cpu().numpy()
 
 
 class ObjectModelSession:
@@ -123,6 +123,11 @@ class ObjectModelSession:
         self.frame = None
         self.training = None
         self.stats: dict[str, float] = {}
+
+    def reset(self):
+        """Drop the fitted model so that its memory (on a mesh, this rank's
+        bands of L and W) is free; `start` fits anew."""
+        self.model = None
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -169,6 +174,9 @@ class ObjectModelSession:
                 points, normals = both[:, :3], both[:, 3:]
             else:
                 points = _broadcast_cloud(points, self.mesh)
+            # A rank holds one model's bands, not two: the old ones go before
+            # the fit (at C 147,456 two models' bands are 87 GB a rank).
+            self.reset()
         cfg = self.config
         if cfg.voxel_leaf > 0:
             if normals is not None:

@@ -30,7 +30,6 @@ import dataclasses
 import functools
 
 import torch
-import torch.distributed as dist
 
 from gpis_tpu_torch.gp.model import as_dtype, round_up
 from gpis_tpu_torch.gp.sharded_model import _all_gather
@@ -106,8 +105,7 @@ def _joint_update_tail(name: str, params, x_all, nf_all, ng, c: int, l_loc: torc
         l21_cols = kt @ w_loc.T
         del kt
         part = l21_cols @ w_loc
-    parts = [torch.empty_like(l21_cols) for _ in range(mesh.size)]
-    dist.all_gather(parts, l21_cols)
+    parts = sh._all_gather(l21_cols, mesh.size)
     t = sh._psum(part)  # L21 W, (band, J)
     if not last:
         return l_loc, w_loc

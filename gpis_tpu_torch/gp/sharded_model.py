@@ -15,12 +15,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 
 from gpis_tpu_torch.gp.model import as_dtype, round_up
 from gpis_tpu_torch.kernels import functions as kf
 from gpis_tpu_torch.linalg import sharded as sh
 from gpis_tpu_torch.parallel.mesh import RowMesh, make_row_mesh
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["ShardedGPModel", "fit_sharded"]
 
@@ -100,9 +100,7 @@ class ShardedGPModel:
 
 
 def _all_gather(t: torch.Tensor, p: int) -> torch.Tensor:
-    parts = [torch.empty_like(t) for _ in range(p)]
-    dist.all_gather(parts, t.contiguous())
-    return torch.cat(parts)
+    return torch.cat(sh._all_gather(t, p))
 
 
 def _capacity(n: int, touch_capacity: int, p: int, block: int) -> int:
@@ -143,6 +141,7 @@ def fit_sharded(kernel: str, x, y, noise, params, mesh: RowMesh | None = None, *
         jitter = 4.0 * torch.finfo(dt).eps * c * abs(float(kf.k_diag0(kernel, params)))
     use_kernels = dev.type == "cuda"
     for extra in (0.0, jitter, jitter * 100.0, jitter * 1e4):
+        profiling.count("fit.attempts")
         a = sh.sharded_gram(kernel, xp, params, noisep + extra, mesh)
         l = sh.sharded_cholesky(a, mesh, block=block, use_kernels=use_kernels)
         if not sh.any_nan_diagonal(l, mesh):

@@ -14,6 +14,18 @@ torch.distributed: `_bcast_from` (a psum of a masked value) is
 `dist.broadcast(src=owner)`, `psum` is `all_reduce`, and the query ring's
 `ppermute` is `dist.batch_isend_irecv` to the next rank.
 
+Tracing (`utils.profiling`, recorded only while a profiler runs): device
+spans `shard.gram`, `shard.factor` and `shard.linv` around the band Gram,
+the factor and W; `shard.hop` around each ring hop's band quad; device
+spans `comm.bcast`, `comm.all_reduce`, `comm.all_gather` and `comm.ring`
+around each collective (on a card the span's time is the stream's in the
+collective, waits on slower ranks included); counters `shard.panels` (the
+factor's block columns), `shard.hops` and `comm.bytes`, the payload this
+rank puts into the collectives (a broadcast's tensor on its source, its own
+tensor of an all-reduce or all-gather, what it sends along the ring); host
+waits `wait.shard.potrf` (the factor's `int(info)` a block column) and
+`wait.shard.ring` (the ring's request waits).
+
 The kernels: the band Gram is Kernel A's band mode; the factor's panel
 update is Kernel G (`gemm_nt_masked`) on the rows of the band at or below
 the panel -- G computes S - A[:, :k0] B[:, :k0]^T on strided views, which is
@@ -39,6 +51,7 @@ from gpis_tpu_torch.kernels import gram as kg
 from gpis_tpu_torch.linalg import cholesky as lin
 from gpis_tpu_torch.linalg import cuda_chol
 from gpis_tpu_torch.parallel.mesh import RowMesh
+from gpis_tpu_torch.utils import profiling
 
 __all__ = ["sharded_gram", "sharded_cholesky", "sharded_solve_lower_vec",
            "sharded_solve_lower_t_vec", "sharded_cho_solve_vec", "sharded_linv",
@@ -46,15 +59,34 @@ __all__ = ["sharded_gram", "sharded_cholesky", "sharded_solve_lower_vec",
            "sharded_predict_linv", "any_nan_diagonal"]
 
 
+def _sent(t: torch.Tensor) -> None:
+    profiling.count("comm.bytes", t.numel() * t.element_size())
+
+
 def _bcast_from(t: torch.Tensor, owner: int) -> torch.Tensor:
     """Broadcast the owner's t to every rank, in place (t is contiguous)."""
-    dist.broadcast(t, src=owner)
+    with profiling.span("comm.bcast", device=t.device):
+        dist.broadcast(t, src=owner)
+    if dist.get_rank() == owner:
+        _sent(t)
     return t
 
 
 def _psum(t: torch.Tensor) -> torch.Tensor:
-    dist.all_reduce(t)
+    with profiling.span("comm.all_reduce", device=t.device):
+        dist.all_reduce(t)
+    _sent(t)
     return t
+
+
+def _all_gather(t: torch.Tensor, p: int) -> list[torch.Tensor]:
+    """Every rank's t (the same shape on each), in rank order."""
+    parts = [torch.empty_like(t) for _ in range(p)]
+    t = t.contiguous()
+    with profiling.span("comm.all_gather", device=t.device):
+        dist.all_gather(parts, t)
+    _sent(t)
+    return parts
 
 
 def _block_layout(c: int, mesh: RowMesh, block: int) -> tuple[int, int]:
@@ -75,8 +107,9 @@ def sharded_gram(name: str, x: torch.Tensor, params, noise, mesh: RowMesh) -> to
     row0, rows_per = mesh.band(c)
     noise = torch.as_tensor(noise, dtype=x.dtype, device=x.device).broadcast_to((c,))
     band = slice(row0, row0 + rows_per)
-    return cuda_gram.cov(name, x[band].contiguous(), x.contiguous(), params,
-                         noise=noise[band].contiguous(), sym=True, row0=row0)
+    with profiling.span("shard.gram", device=x.device):
+        return cuda_gram.cov(name, x[band].contiguous(), x.contiguous(), params,
+                             noise=noise[band].contiguous(), sym=True, row0=row0)
 
 
 def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
@@ -99,36 +132,40 @@ def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
     if rows_per * mesh.size != c:
         raise ValueError(f"band {tuple(a_loc.shape)} is not 1/{mesh.size} of a square matrix")
     dt, dev = a_loc.dtype, a_loc.device
-    for j0 in range(0, c, block):
-        j1 = j0 + block
-        owner, lrow = divmod(j0, rows_per)
-        mine = owner == mesh.rank
-        r_s = _clip(j0 - row0, rows_per)  # first local row at global row >= j0
-        if j0:
-            row_j = (a_loc[lrow:lrow + block, :j0].contiguous() if mine
-                     else torch.empty((block, j0), dtype=dt, device=dev))
-            _bcast_from(row_j, owner)
-            if r_s < rows_per:
-                panel = a_loc[r_s:, j0:j1]
-                if use_kernels:
-                    panel.copy_(cuda_chol.gemm_nt_masked(a_loc[r_s:], row_j, panel, j0))
-                else:
-                    panel.sub_(a_loc[r_s:, :j0] @ row_j.T)
-        s = (a_loc[lrow:lrow + block, j0:j1].contiguous() if mine
-             else torch.empty((block, block), dtype=dt, device=dev))
-        _bcast_from(s, owner)
-        ljj, info = torch.linalg.cholesky_ex(s)
-        if int(info):
-            a_loc[:, row0:row0 + rows_per].diagonal().fill_(float("nan"))
-            return a_loc
-        r_b = _clip(j1 - row0, rows_per)  # first local row at global row >= j1
-        if r_b < rows_per:
-            a_loc[r_b:, j0:j1] = torch.linalg.solve_triangular(ljj.T, a_loc[r_b:, j0:j1],
-                                                               upper=True, left=False)
-        if mine:
-            a_loc[lrow:lrow + block, j0:j1] = ljj
-        a_loc[:r_s, j0:j1] = 0.0  # the strict upper triangle
-    return a_loc
+    with profiling.span("shard.factor", device=dev):
+        for j0 in range(0, c, block):
+            profiling.count("shard.panels")
+            j1 = j0 + block
+            owner, lrow = divmod(j0, rows_per)
+            mine = owner == mesh.rank
+            r_s = _clip(j0 - row0, rows_per)  # first local row at global row >= j0
+            if j0:
+                row_j = (a_loc[lrow:lrow + block, :j0].contiguous() if mine
+                         else torch.empty((block, j0), dtype=dt, device=dev))
+                _bcast_from(row_j, owner)
+                if r_s < rows_per:
+                    panel = a_loc[r_s:, j0:j1]
+                    if use_kernels:
+                        panel.copy_(cuda_chol.gemm_nt_masked(a_loc[r_s:], row_j, panel, j0))
+                    else:
+                        panel.sub_(a_loc[r_s:, :j0] @ row_j.T)
+            s = (a_loc[lrow:lrow + block, j0:j1].contiguous() if mine
+                 else torch.empty((block, block), dtype=dt, device=dev))
+            _bcast_from(s, owner)
+            ljj, info = torch.linalg.cholesky_ex(s)
+            with profiling.wait("shard.potrf"):
+                bad = int(info)
+            if bad:
+                a_loc[:, row0:row0 + rows_per].diagonal().fill_(float("nan"))
+                return a_loc
+            r_b = _clip(j1 - row0, rows_per)  # first local row at global row >= j1
+            if r_b < rows_per:
+                a_loc[r_b:, j0:j1] = torch.linalg.solve_triangular(ljj.T, a_loc[r_b:, j0:j1],
+                                                                   upper=True, left=False)
+            if mine:
+                a_loc[lrow:lrow + block, j0:j1] = ljj
+            a_loc[:r_s, j0:j1] = 0.0  # the strict upper triangle
+        return a_loc
 
 
 def any_nan_diagonal(l_loc: torch.Tensor, mesh: RowMesh) -> bool:
@@ -205,17 +242,18 @@ def sharded_linv(l_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
     s = torch.zeros((rows_per, c), dtype=dt, device=dev)
     s[:, row0:row0 + rows_per].diagonal().fill_(1.0)
     trail = cuda_chol.band_trail if use_kernel else cuda_chol.band_trail_reference
-    for j0 in range(0, c, block):
-        j1 = j0 + block
-        owner, lrow = divmod(j0, rows_per)
-        mine = owner == mesh.rank
-        wj = (torch.linalg.solve_triangular(l_loc[lrow:lrow + block, j0:j1],
-                                            s[lrow:lrow + block], upper=False).contiguous()
-              if mine else torch.empty((block, c), dtype=dt, device=dev))
-        _bcast_from(wj, owner)
-        trail(s, l_loc[:, j0:j1], wj, j0, row0)
-        if mine:
-            s[lrow:lrow + block] = wj
+    with profiling.span("shard.linv", device=dev):
+        for j0 in range(0, c, block):
+            j1 = j0 + block
+            owner, lrow = divmod(j0, rows_per)
+            mine = owner == mesh.rank
+            wj = (torch.linalg.solve_triangular(l_loc[lrow:lrow + block, j0:j1],
+                                                s[lrow:lrow + block], upper=False).contiguous()
+                  if mine else torch.empty((block, c), dtype=dt, device=dev))
+            _bcast_from(wj, owner)
+            trail(s, l_loc[:, j0:j1], wj, j0, row0)
+            if mine:
+                s[lrow:lrow + block] = wj
     return s
 
 
@@ -279,8 +317,7 @@ def sharded_update_tail(name: str, params, x: torch.Tensor, noise, l_loc: torch.
     else:
         l21_cols = kg.cross_cov(name, x_tail, x, params) @ w_loc.T  # this rank's columns of L21
         part = l21_cols @ w_loc
-    parts = [torch.empty_like(l21_cols) for _ in range(mesh.size)]
-    dist.all_gather(parts, l21_cols)
+    parts = _all_gather(l21_cols, mesh.size)
     t = _psum(part)  # L21 W, (band, C)
     if mesh.rank != mesh.size - 1:
         return l_loc, w_loc
@@ -302,8 +339,12 @@ def _ring_shift(q: torch.Tensor, quad: torch.Tensor, mesh: RowMesh):
     got = torch.empty_like(out)
     ops = [dist.P2POp(dist.isend, out, (mesh.rank + 1) % mesh.size),
            dist.P2POp(dist.irecv, got, (mesh.rank - 1) % mesh.size)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    with profiling.span("comm.ring", device=out.device):
+        reqs = dist.batch_isend_irecv(ops)
+        with profiling.wait("shard.ring"):
+            for req in reqs:
+                req.wait()
+    _sent(out)
     return got[:, :3].contiguous(), got[:, 3].contiguous()
 
 
@@ -340,12 +381,14 @@ def sharded_predict_linv(name: str, q: torch.Tensor, x: torch.Tensor, params,
     quad = torch.zeros((per,), dtype=q.dtype, device=q.device)
     qv = q_loc
     for _ in range(mesh.size):
-        if precision is None:
-            quad = quad + cuda_query.quad_band(gen, name, qv, cols, params, w_loc, row0)
-        else:
-            with cuda_query.exact_fp32():
-                v = w_loc @ cross(name, qv, x, params).T
-            quad = quad + torch.sum(v * v, dim=0)
+        profiling.count("shard.hops")
+        with profiling.span("shard.hop"):
+            if precision is None:
+                quad = quad + cuda_query.quad_band(gen, name, qv, cols, params, w_loc, row0)
+            else:
+                with cuda_query.exact_fp32():
+                    v = w_loc @ cross(name, qv, x, params).T
+                quad = quad + torch.sum(v * v, dim=0)
         if mesh.size > 1:
             qv, quad = _ring_shift(qv, quad, mesh)
     return mean, float(kf.k_diag0(name, params)) - quad
