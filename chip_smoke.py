@@ -23,7 +23,8 @@ Phases, one printed line or more each; any failure exits nonzero:
    float64, at ragged shapes, twice bit for bit, in float64 too, and to the
    bias gate on nonnegative W and kq (`quad_kernel_checks`); float32 D's
    bits against a recorded sha256 at ragged shapes up to C = 20,480, every
-   call twice (`tc_quad_bits`).  Plus the
+   call twice (`tc_quad_bits`), and float32 F's, value and joint, in its
+   four modes (`tc_fused_quad_bits`).  Plus the
    variance-quad regime the JAX package's `_QSPLIT` note measured
    (C = 1,024, noise 1e-3), D and F held against a float64 plain run, D
    timed at M = 128 beside M = 8,192, and the staged route (A or E, then
@@ -341,6 +342,13 @@ TC_NN_SHA256_SMS = 132
 TC_QUAD_SHA256 = "4cc23065ac532e3d8be0161d543ea905f2cb8fa762276414dacc90b0ec21c0c8"
 TC_QUAD_MS = (1, 127, 129, 1000, 8192)
 TC_QUAD_CS = (1000, 1152, 20480)
+# sha256 of float32 F's outputs at fixed inputs (`tc_fused_quad_digest`):
+# fused_quad's (mean, quad) and quad_band's quad, value and joint, recorded
+# on an H100 with the lockstep body F had before it joined D's
+# warp-specialised one.  Its plan keeps every tile whole, as D's.
+TC_FUSED_QUAD_SHA256 = "3a68b3df6e6225ecc95bc68502b445863527b564296dd2d70923f4a35154fe27"
+TC_FUSED_BANDS = ((300, 0), (300, 700), (300, 28672))  # (R, row0)
+TC_FUSED_BAND_MS = (129, 8192)
 
 
 def fail(msg: str) -> None:
@@ -1083,6 +1091,76 @@ def tc_quad_bits(torch) -> None:
         fail("float32 D no longer gives its recorded bits")
 
 
+def fused_columns(torch, kind: str, c: int, dev):
+    """F's column metadata of `c` columns on fixed inputs: value columns
+    x (c, 3) in [-1, 1)^3, or the packed joint columns of c // 4 such
+    points (their value rows, then a gradient row an axis)."""
+    from gpis_tpu_torch.kernels import cuda_joint
+
+    if kind == "value":
+        return fixed_matrix(torch, c, 3, 11, dev) * 2.0
+    x = fixed_matrix(torch, c // 4, 3, 12, dev) * 2.0
+    return cuda_joint.pack_meta(cuda_joint.joint_meta(x))
+
+
+def tc_fused_quad_digest(torch) -> tuple[str, list]:
+    """sha256 over float32 F's outputs on `fixed_matrix` inputs (queries in
+    [-1, 1)^3, rbf at lengthscale 0.4), value and joint: fused_quad's (mean,
+    quad) at M in TC_QUAD_MS against C in TC_QUAD_CS (J for the joint
+    generator), W lower-triangular; quad_band's quad at M in
+    TC_FUSED_BAND_MS for each (R, row0) of TC_FUSED_BANDS (R off the 128
+    tile, row0 on the chunk and off it), each band of width row0 + R, lower
+    triangular from row0 on.  Each call made twice.  Returns the digest and
+    the shapes whose second call gave other bits than the first."""
+    import hashlib
+
+    from gpis_tpu_torch.kernels import cuda_query
+
+    dev = torch.device("cuda")
+    p = {"lengthscale": 0.4, "signal_variance": 1.0}
+    q = fixed_matrix(torch, max(TC_QUAD_MS), 3, 13, dev) * 2.0
+    h, unstable = hashlib.sha256(), []
+
+    def digest(what, run):
+        first, again = run(), run()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            unstable.append(what)
+        for out in first:
+            h.update(out.cpu().numpy().tobytes())
+
+    for kind in ("value", "joint"):
+        for c in TC_QUAD_CS:
+            cols = fused_columns(torch, kind, c, dev)
+            w = fixed_matrix(torch, c, c, 8, dev).tril_()
+            alpha = fixed_matrix(torch, 1, c, 9, dev)[0]
+            for m in TC_QUAD_MS:
+                digest((kind, m, c), lambda: cuda_query.fused_quad(kind, "rbf", q[:m], cols, p,
+                                                                   alpha, w))
+            del w, alpha
+        for r, row0 in TC_FUSED_BANDS:
+            cols = fused_columns(torch, kind, row0 + r, dev)
+            band = fixed_matrix(torch, r, row0 + r, 14, dev).tril_(row0)
+            for m in TC_FUSED_BAND_MS:
+                digest((kind, "band", m, r, row0), lambda: (cuda_query.quad_band(
+                    kind, "rbf", q[:m], cols, p, band, row0),))
+            del band
+    torch.cuda.empty_cache()
+    return h.hexdigest(), unstable
+
+
+def tc_fused_quad_bits(torch) -> None:
+    """F in D's warp-specialised body must give its lockstep body's bits:
+    its digest against the recorded one (TC_FUSED_QUAD_SHA256), every call
+    twice."""
+    digest, unstable = tc_fused_quad_digest(torch)
+    same = digest == TC_FUSED_QUAD_SHA256
+    say(f"  F sha256 {digest} {'ok' if same else 'FAILED'} (recorded: {TC_FUSED_QUAD_SHA256})")
+    if unstable:
+        fail(f"float32 F gave other bits on a second call at {unstable}")
+    if not same:
+        fail("float32 F no longer gives its recorded bits")
+
+
 def nt_kernel_checks(torch, gen, results: dict) -> None:
     """Kernels B and G in float32 (the split-TF32 tensor-core body, NT
     layout) against their twins run in float64: tol TC_TOL x sum|a||b| of
@@ -1759,6 +1837,7 @@ def phase2(torch, results: dict) -> None:
     nn_kernel_times(torch, gen, results)
     tc_nn_bits(torch)
     tc_quad_bits(torch)
+    tc_fused_quad_bits(torch)
     nt_kernel_checks(torch, gen, results)
     nt_kernel_times(torch, gen, results)
     inv_and_trail_kernels(torch, gen, results)

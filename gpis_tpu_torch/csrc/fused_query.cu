@@ -33,13 +33,14 @@
 // pass sums the partials in a fixed order (no atomics).  What differs: each
 // k chunk of kq is generated from coordinates instead of being loaded.
 //   * float32: the split-TF32 tensor-core tile (tc_nn.cuh), NT layout with
-//     the QUAD epilogue and a generated B: W comes through TMA, and each
-//     128-query x 32-column kq chunk is computed straight into B's split hi
-//     and lo tiles while the previous chunk is on the tensor cores, a
-//     quarter a step (thread t: query t & 127, columns (t >> 7) * 16 ...
-//     + 16), from column metadata staged in shared memory a chunk ahead.
-//     The plan (`_tc_plan` upper "rows", k_offset = the band's first row,
-//     never split) gives each tile its live k range.
+//     the QUAD epilogue and a generated B, in D's warp-specialised body: W
+//     comes through TMA, and the producer warpgroup computes each
+//     128-query x 32-column kq chunk straight into B's split hi and lo
+//     tiles (thread p: query p, the chunk's 32 columns) while the consumers
+//     run earlier chunks on the tensor cores, from column metadata staged in
+//     shared memory two chunks ahead.  The plan (`_tc_plan` upper "rows",
+//     k_offset = the band's first row, never split) gives each tile its
+//     live k range.
 //   * float64: the SIMT tile of common.cuh, 64 x 64: each 16-column k slice
 //     of kq is generated into shared memory; thread t generates query t % 64
 //     (its coordinates held in registers for the whole block) at columns

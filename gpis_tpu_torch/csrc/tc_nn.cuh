@@ -76,9 +76,9 @@
 // rounding and the split both cut out (wrong results, for the measurement)
 // the same schedule ran the call in 21.8 ms against its 37.3.
 //
-// Layout and pipeline of the lockstep body (B, C, F, G, H, J, K and L), one
+// Layout and pipeline of the lockstep body (B, C, G, H, J, K and L), one
 // 128 x 128 output tile over one k range [kb, ke) a CTA, 256 threads = two
-// warpgroups of 64 x 128 (D's differs; below):
+// warpgroups of 64 x 128 (the QUAD kernels' differs; below):
 //   * TMA loads raw 32-deep k chunks, A as a 128 x 32 box and B as four
 //     32 x 32 boxes, 128-byte swizzled, into a two-stage ring signalled by
 //     mbarriers; thread 0 issues them (a producer warp would cap the
@@ -93,23 +93,9 @@
 //     so that the transposing stores of a quarter warp fall on distinct banks.
 //   * The split of chunk c + 1 runs while chunk c's first step is on the
 //     tensor cores; two split buffers alternate.
-//   * A generated B (F): the raw ring carries A's box alone, and B's hi and
-//     lo tiles of chunk c + 1 are computed while chunk c is on the tensor
-//     cores, a quarter a step (one k group of four columns a thread), so
-//     that the generation overlaps all four steps and not the first alone.
-//     Thread t generates query row t & 127 (its coordinates in registers for
-//     the whole unit) at the chunk's columns (t >> 7) * 16 ... + 16, so a
-//     warp reads each column's metadata as one broadcast.  The metadata of
-//     a chunk's 32 columns sits in shared memory (the raw stage's unused B
-//     half), loaded one element a thread a chunk ahead: read one global load
-//     at a time inside each value, it held F at 2x D's time.  kq is computed
-//     in FP32, split and stored as a split tile's rows.  Columns past the
-//     generator's extent and queries past n generate 0; columns past a
-//     tile's live end meet W's zeros past its diagonal, as TMA's reads
-//     there do.
-//   * D (QUAD, B through TMA) runs its own body, `tc_quad_ws`, on 384
-//     threads: the two consumer warpgroups keep the lockstep body's threads
-//     0-255, rows and step order; a third, the producer, issues the TMA
+//   * D and F (QUAD) run the warp-specialised body, `tc_quad_ws`, on 384
+//     threads: two consumer warpgroups (threads 0-255, the lockstep body's
+//     rows and step order) and a third, the producer, that issues the TMA
 //     loads and splits every chunk, so no consumer splits.  Its split tiles
 //     keep TMA's 128-byte-swizzled layout (each 16 bytes of a raw box to the
 //     same 16 bytes of its hi and lo tiles, 1 KB-aligned 16 KB tiles that
@@ -121,11 +107,31 @@
 //     one step tile (acc and step, ~150 registers of the 168 a 384-thread
 //     CTA gives, so no setmaxnreg).  Two step tiles in flight a warpgroup
 //     (wgmma.wait_group 1) needed 192 accumulator registers, and ptxas
-//     serialized its wgmmas (C7514) in every form tried.  The others keep
-//     the lockstep body: F generates B a quarter a step on the consumers'
-//     threads, which a producer would have to take over whole; B, C, G, H,
-//     J, K and L together take about a twentieth of D's device time in a
-//     surface, and C's and H's bits are recorded.
+//     serialized its wgmmas (C7514) in every form tried.
+//   * A generated B (F): the raw ring carries A's box alone, and the
+//     producer generates kq's 128 x 32 chunk beside A's split.  Producer
+//     thread p generates query row p (its coordinates in registers for the
+//     whole unit) at the chunk's 32 columns, and stores each k group of four
+//     columns' hi and lo as one 16-byte vector at the offset TMA would have
+//     put it.  The metadata of a chunk's 32 columns sits in shared memory
+//     (the raw stage's unused B half), field-major, so that a k group's four
+//     columns of one field are one broadcast 16-byte load; the producer
+//     loads it from memory two chunks ahead.  kq is computed in FP32 by the
+//     generator and split as a loaded operand is.  Columns past the
+//     generator's extent and queries past n generate 0; columns past a
+//     tile's live end meet W's zeros past its diagonal, as TMA's reads there
+//     do.  The producer issues on the same schedulers as the consumers'
+//     rounding, which already fill them, so its generator is kept lean: the
+//     covariance is a template argument of the producer (one instantiation
+//     a covariance, picked a launch), which folds the generator's dispatch
+//     away, and a chunk whose columns and query are all live skips the
+//     mask, and the metadata is read with `ld.shared.v4` a group ahead.
+//     With the dispatch, the mask and generic loads inside each value F ran
+//     no faster in this body than in the lockstep one (M 8,192, C 16,384,
+//     an H100 at 700 W: 57.3 against 56.8 ms; 44.0 ms without).
+//   * B, C, G, H, J, K and L keep the lockstep body: together they take
+//     about a twentieth of D's device time in a surface, and C's and H's
+//     bits are recorded.
 //   * A CTA writes its tile directly when it owns the tile's whole k range,
 //     else to an f32 partial in a workspace; `tc_nn_finish_kernel` sums a
 //     tile's partials in a fixed order (no atomics: the same bits every run)
@@ -160,6 +166,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace gpis {
 namespace tc {
@@ -409,48 +417,6 @@ __device__ __forceinline__ void issue_chunk(const Smem& s, int stage, const CUte
   }
 }
 
-// A generated B's column metadata: the 32 columns of a chunk, GEN::STRIDE
-// floats each, in shared memory (the raw stage's B half, which TMA leaves
-// alone when B is generated), so that a value's reads are broadcasts from
-// shared memory rather than one global load after another.  Thread t <
-// 32 * STRIDE loads element t (0 past the columns) one chunk ahead.
-__device__ __forceinline__ float* meta_of(const Smem& s, int stage) {
-  return reinterpret_cast<float*>(s.raw[stage] + RAW_A_BYTES);
-}
-template <class GEN>
-__device__ __forceinline__ float meta_load(const GenArgs& g, int64_t k0) {
-  const int t = threadIdx.x;
-  if (t >= BK * GEN::STRIDE || k0 + t / GEN::STRIDE >= g.ncols) return 0.0f;
-  return g.cols[k0 * GEN::STRIDE + t];
-}
-
-// Group j (0..3) of B's hi and lo tiles of the 32-deep chunk at column k0,
-// generated from its metadata `meta`: thread t computes kq of query row
-// t & 127 (coordinates qv; `live` false past the queries, which generate 0)
-// at the four columns k0 + 4 k4 ... + 4, k4 = (t >> 7) * 4 + j, splits each
-// value and stores the group.  Columns past g.ncols generate 0.
-template <class GEN>
-__device__ __forceinline__ void gen_group(const GenArgs& g, const float* meta,
-                                          const float (&qv)[3], bool live, int64_t k0, int j,
-                                          char* b_hi, char* b_lo) {
-  const int t = threadIdx.x;
-  const int row = t & (BN - 1);
-  const int k4 = (t >> 7) * 4 + j;
-  float v[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {  // one column for the whole warp: a broadcast
-    const float x = GEN::eval(g.kid, qv, meta + (4 * k4 + e) * GEN::STRIDE, g.ls, g.sv);
-    v[e] = live && k0 + 4 * k4 + e < g.ncols ? x : 0.0f;
-  }
-  float4 h, l;
-  split(v[0], h.x, l.x);
-  split(v[1], h.y, l.y);
-  split(v[2], h.z, l.z);
-  split(v[3], h.w, l.w);
-  *reinterpret_cast<float4*>(b_hi + split_off(row, k4)) = h;
-  *reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = l;
-}
-
 // Output rows and columns of accumulator register i of thread `lane` in warp
 // `warp` of its warpgroup (wgmma's m64nN fp32 layout).
 __device__ __forceinline__ int acc_row(int warp, int lane, int i) {
@@ -545,9 +511,10 @@ __device__ __forceinline__ void flush(const float (&acc)[64], const Unit& u, boo
   }
 }
 
-// D's warp-specialised body (tc_quad_ws): three warpgroups, the two that
-// run the products (consumers, the lockstep body's threads 0-255 with their
-// rows) and one that loads and splits (the producer, threads 256-383).
+// The QUAD kernels' warp-specialised body (tc_quad_ws): three warpgroups,
+// the two that run the products (consumers, the lockstep body's threads
+// 0-255 with their rows) and one that loads, generates and splits (the
+// producer, threads 256-383).
 constexpr int WS_THREADS = 3 * 128;
 // Named barriers (0 is __syncthreads): the consumers', the producer's, and
 // the consumers' turns to issue (TURN_BAR for WG 0, TURN_BAR + 1 for WG 1).
@@ -560,26 +527,15 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <bool WS>
-__device__ __forceinline__ void consumers_sync() {
-  if constexpr (WS)
-    named_sync(CONSUMER_BAR, 2 * 128);
-  else
-    __syncthreads();
-}
-
 // QUAD: the tile's colsum(acc^2) over its 128 rows into partial row m0 / 128
 // of out (ldo = n), columns masked at n; rows past the operand's were read
 // as zeros and add 0.  A thread's two rows a column, then the warp's 16 rows
 // by xor shuffles over the lanes of equal lane & 3 (every lane ends with the
 // same bits), then the eight warps' sums in `red` (8 x 128 floats), added in
-// warp order.  The first flush stores the partial; a later one (none in the
-// kernel's own plan) adds to it.  The threads that meet are the CTA's (the
-// lockstep body) or, with WS, D's two consumer warpgroups.
-template <bool WS = false>
-__device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& u, bool first,
-                                            float* red, float* out, int64_t ldo, int64_t n,
-                                            int wg, int warp, int lane) {
+// warp order, by the two consumer warpgroups.
+__device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& u, float* red,
+                                            float* out, int64_t ldo, int64_t n, int wg, int warp,
+                                            int lane) {
   float sq[32];  // [col group i >> 2][col i & 1]
 #pragma unroll
   for (int g = 0; g < 16; ++g) {
@@ -592,7 +548,7 @@ __device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& 
 #pragma unroll
     for (int i = 0; i < 32; ++i) sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
   }
-  consumers_sync<WS>();  // red is free: the k loop (or an earlier flush) is done with it
+  named_sync(CONSUMER_BAR, 2 * 128);  // red is free: the k loop is done with it
   if (lane < 4) {
     float* r = red + (4 * wg + warp) * BN;
 #pragma unroll
@@ -601,88 +557,48 @@ __device__ __forceinline__ void quad_colsum(const float (&acc)[64], const Unit& 
       r[acc_col(lane, 4 * g + 1)] = sq[2 * g + 1];
     }
   }
-  consumers_sync<WS>();
+  named_sync(CONSUMER_BAR, 2 * 128);
   const int t = threadIdx.x;
   if (t < BN && u.n0 + t < n) {
     float sum = red[t];
 #pragma unroll
     for (int w = 1; w < 8; ++w) sum += red[w * BN + t];
-    float* p = out + (int64_t)(u.m0 / BM) * ldo + u.n0 + t;
-    *p = first ? sum : *p + sum;
+    out[(int64_t)(u.m0 / BM) * ldo + u.n0 + t] = sum;
   }
 }
 
-// A unit's running sum to where it goes: `flush`, or for QUAD `quad_colsum`
-// (its partial row; `red` is the raw ring, free once the k loop is done).
-template <int EPI>
-__device__ __forceinline__ void hand_off(const float (&acc)[64], const Unit& u, bool first,
-                                         float* red, float* ws, const float* s, int64_t lds,
-                                         float* out, int64_t ldo, int64_t m, int64_t n, int wg,
-                                         int warp, int lane) {
-  if constexpr (EPI == QUAD)
-    quad_colsum(acc, u, first, red, out, ldo, n, wg, warp, lane);
-  else
-    flush<EPI>(acc, u, first, ws, s, lds, out, ldo, m, n, wg, warp, lane);
-}
-
-// The lockstep body (B, C, F, G, H, J, K and L): 256 threads, each chunk
-// split by all of them, each step's four products waited for and rounded
-// by the warpgroup that issued them (see the note at the top).
-template <int LAYOUT, int EPI, class GEN>
+// The lockstep body (B, C, G, H, J, K and L): 256 threads, each chunk split
+// by all of them, each step's four products waited for and rounded by the
+// warpgroup that issued them (see the note at the top).
+template <int LAYOUT, int EPI>
 __device__ __forceinline__ void tc_lockstep(const Smem& s, const CUtensorMap* ta,
                                             const CUtensorMap* tb, const Unit& u,
                                             const float* s_in, int64_t lds, float* out,
-                                            int64_t ldo, int64_t m, int64_t n, float* ws,
-                                            const GenArgs& g) {
+                                            int64_t ldo, int64_t m, int64_t n, float* ws) {
+  static_assert(EPI != QUAD, "QUAD runs the warp-specialised body");
   const int nch = (u.ke - u.kb + BK - 1) / BK;
   const int t = threadIdx.x;
-  // A generated B: this thread's query (row t & 127 of the tile) for the unit.
-  float qv[3] = {0.0f, 0.0f, 0.0f};
-  bool live = false;
-  if constexpr (!kTmaB<GEN>) {
-    const int64_t qi = u.n0 + (t & (BN - 1));
-    live = qi < n;
-    if (live) {
-      qv[0] = g.q[qi * 3];
-      qv[1] = g.q[qi * 3 + 1];
-      qv[2] = g.q[qi * 3 + 2];
-    }
-  }
-  // NT sums in 2,048-deep segments; QUAD in one running sum (it squares).
-  constexpr bool segmented = LAYOUT == NT && EPI != QUAD;
+  constexpr bool segmented = LAYOUT == NT;  // NT sums in 2,048-deep segments
   if (t == 0) {
     mbar_init(&s.full[0], 1);
     mbar_init(&s.full[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if constexpr (!kTmaB<GEN>) {
-    if (t < BK * GEN::STRIDE) meta_of(s, 0)[t] = meta_load<GEN>(g, u.kb);
-  }
   __syncthreads();
   if (t == 0) {
-    issue_chunk<LAYOUT, GEN>(s, 0, ta, tb, u.m0, u.n0, u.kb);
-    if (nch > 1) issue_chunk<LAYOUT, GEN>(s, 1, ta, tb, u.m0, u.n0, u.kb + BK);
+    issue_chunk<LAYOUT, TmaB>(s, 0, ta, tb, u.m0, u.n0, u.kb);
+    if (nch > 1) issue_chunk<LAYOUT, TmaB>(s, 1, ta, tb, u.m0, u.n0, u.kb + BK);
   }
   mbar_wait(&s.full[0], 0);
-  if constexpr (kTmaB<GEN>) {
-    split_chunk<LAYOUT>(s.raw[0], s.split[0]);
-  } else {  // chunk 0's B whole, and chunk 1's metadata
-    split_rows(s.raw[0], s.split[0], s.split[0] + SPLIT_BYTES);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      gen_group<GEN>(g, meta_of(s, 0), qv, live, u.kb, j, s.split[0] + 2 * SPLIT_BYTES,
-                     s.split[0] + 3 * SPLIT_BYTES);
-    if (t < BK * GEN::STRIDE) meta_of(s, 1)[t] = meta_load<GEN>(g, u.kb + BK);
-  }
+  split_chunk<LAYOUT>(s.raw[0], s.split[0]);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
-  if (t == 0 && nch > 2) issue_chunk<LAYOUT, GEN>(s, 0, ta, tb, u.m0, u.n0, u.kb + 2 * BK);
+  if (t == 0 && nch > 2) issue_chunk<LAYOUT, TmaB>(s, 0, ta, tb, u.m0, u.n0, u.kb + 2 * BK);
 
   const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
   float acc[64], step[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  float meta_next = 0.0f;  // a generated B: chunk c + 2's metadata element, in flight
 
   for (int c = 0; c < nch; ++c) {
     const char* sp = s.split[c & 1];
@@ -715,23 +631,7 @@ __device__ __forceinline__ void tc_lockstep(const Smem& s, const CUtensorMap* ta
       wgmma_commit();
       if (st == 0 && c + 1 < nch) {  // split the next chunk while this step runs
         mbar_wait(&s.full[(c + 1) & 1], ((c + 1) >> 1) & 1);
-        if constexpr (kTmaB<GEN>) {
-          split_chunk<LAYOUT>(s.raw[(c + 1) & 1], s.split[(c + 1) & 1]);
-        } else {
-          split_rows(s.raw[(c + 1) & 1], s.split[(c + 1) & 1],
-                     s.split[(c + 1) & 1] + SPLIT_BYTES);
-          meta_next = meta_load<GEN>(g, u.kb + (c + 2) * BK);
-        }
-      }
-      if constexpr (!kTmaB<GEN>) {  // the next chunk's B, a quarter a step
-        if (c + 1 < nch) {
-          char* next = s.split[(c + 1) & 1];
-          gen_group<GEN>(g, meta_of(s, (c + 1) & 1), qv, live, u.kb + (c + 1) * BK, st,
-                         next + 2 * SPLIT_BYTES, next + 3 * SPLIT_BYTES);
-          // Chunk c's metadata was read in the last loop; its slot takes c + 2's.
-          if (st == BK / STEP_K - 1 && t < BK * GEN::STRIDE)
-            meta_of(s, c & 1)[t] = meta_next;
-        }
+        split_chunk<LAYOUT>(s.raw[(c + 1) & 1], s.split[(c + 1) & 1]);
       }
       wgmma_wait();
       fence_operand(step);
@@ -739,8 +639,7 @@ __device__ __forceinline__ void tc_lockstep(const Smem& s, const CUtensorMap* ta
       for (int i = 0; i < 64; ++i) acc[i] += round23(step[i]);
     }
     if (segmented && (c + 1) % SEG_CHUNKS == 0 && c + 1 < nch) {
-      hand_off<EPI>(acc, u, c + 1 == SEG_CHUNKS, reinterpret_cast<float*>(s.raw[0]), ws, s_in,
-                    lds, out, ldo, m, n, wg, warp, lane);
+      flush<EPI>(acc, u, c + 1 == SEG_CHUNKS, ws, s_in, lds, out, ldo, m, n, wg, warp, lane);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
     }
@@ -748,23 +647,23 @@ __device__ __forceinline__ void tc_lockstep(const Smem& s, const CUtensorMap* ta
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       __syncthreads();
       if (t == 0 && c + 3 < nch)
-        issue_chunk<LAYOUT, GEN>(s, (c + 1) & 1, ta, tb, u.m0, u.n0, u.kb + (c + 3) * BK);
+        issue_chunk<LAYOUT, TmaB>(s, (c + 1) & 1, ta, tb, u.m0, u.n0, u.kb + (c + 3) * BK);
     }
   }
 
-  hand_off<EPI>(acc, u, !segmented || nch <= SEG_CHUNKS, reinterpret_cast<float*>(s.raw[0]), ws,
-                s_in, lds, out, ldo, m, n, wg, warp, lane);
+  flush<EPI>(acc, u, !segmented || nch <= SEG_CHUNKS, ws, s_in, lds, out, ldo, m, n, wg, warp,
+             lane);
 }
 
-// D's split tiles keep TMA's own layout: a 128 x 32 float tile, row r's
-// 16-byte chunk j at r * 128 + ((j ^ (r & 7)) << 4) (128-byte swizzle), so
-// the split maps each 16 bytes of a raw box to the same 16 bytes of its hi
-// and lo tiles, and wgmma reads them in its 128B-swizzle mode: 8-row groups
-// 1,024 bytes apart, an 8-deep k slice 32 bytes into each row (the hardware
-// applies the XOR).  Tiles are 1 KB aligned.
+// The QUAD body's split tiles keep TMA's own layout: a 128 x 32 float tile,
+// row r's 16-byte chunk j at r * 128 + ((j ^ (r & 7)) << 4) (128-byte
+// swizzle), so the split maps each 16 bytes of a raw box to the same 16
+// bytes of its hi and lo tiles, and wgmma reads them in its 128B-swizzle
+// mode: 8-row groups 1,024 bytes apart, an 8-deep k slice 32 bytes into each
+// row (the hardware applies the XOR).  Tiles are 1 KB aligned.
 constexpr int SW_TILE_BYTES = BM * BK * 4;  // 16 KB
 constexpr int SW_SPLIT_BYTES = 4 * SW_TILE_BYTES;  // A hi, A lo, B hi, B lo
-static_assert(SW_SPLIT_BYTES <= 4 * SPLIT_BYTES, "D's split buffers fit the common layout's");
+static_assert(SW_SPLIT_BYTES <= 4 * SPLIT_BYTES, "the QUAD split buffers fit the common layout's");
 
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t addr = smem_u32(p);
@@ -785,16 +684,17 @@ __device__ __forceinline__ void sts128(uint32_t addr, const float4& v) {
                : "memory");
 }
 
-// A raw chunk (A's box, then B's) into D's split buffer at dst, by the
-// producer's 128 threads, of which this is thread t: the same split as
-// split_rows', 16 bytes at a time, each to the same offset of its hi and lo
-// tiles.  A thread's eight loads of a box go out together: the producer
+// BOXES raw boxes of a chunk (A's, then D's B) into the split buffer at dst,
+// by the producer's 128 threads, of which this is thread t: the same split
+// as split_rows', 16 bytes at a time, each to the same offset of its hi and
+// lo tiles.  A thread's eight loads of a box go out together: the producer
 // has one warp on each of the SM's four schedulers, so the loads' latency
 // is hidden by the thread's own independent loads, not by other warps.
+template <int BOXES>
 __device__ __forceinline__ void split_swizzled(uint32_t raw, uint32_t dst, int t) {
   constexpr int PER_BOX = SW_TILE_BYTES / 16 / 128;  // 16-byte vectors a thread a box: 8
 #pragma unroll 1
-  for (int box = 0; box < 2; ++box) {
+  for (int box = 0; box < BOXES; ++box) {
     float4 v[PER_BOX];
 #pragma unroll
     for (int j = 0; j < PER_BOX; ++j)
@@ -813,9 +713,160 @@ __device__ __forceinline__ void split_swizzled(uint32_t raw, uint32_t dst, int t
   }
 }
 
-// One step of D's: the four products of its 8-deep k slice st, small first,
-// into a fresh tile d, committed as one group.  The lockstep body's order,
-// pass for pass.
+// A generated B's column metadata: a chunk's 32 columns, GEN::STRIDE floats
+// each, field-major in the raw stage's B half (TMA leaves it alone when B
+// is generated): field f of column j at f * 32 + j.  Producer thread p
+// fetches elements p, p + 128, ... of the chunk's block from memory (0 past
+// the columns) two chunks ahead, and stores them once the slot is free.
+__device__ __forceinline__ float* meta_of(const Smem& s, int stage) {
+  return reinterpret_cast<float*>(s.raw[stage] + RAW_A_BYTES);
+}
+template <class GEN>
+struct GenMeta {
+  static constexpr int COUNT = BK * GEN::STRIDE;
+  static constexpr int PER_THREAD = (COUNT + 127) / 128;
+  float v[PER_THREAD];
+  __device__ __forceinline__ void fetch(const GenArgs& g, int64_t k0, int p) {
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int e = p + 128 * i;
+      v[i] = e < COUNT && k0 + e / GEN::STRIDE < g.ncols ? g.cols[k0 * GEN::STRIDE + e] : 0.0f;
+    }
+  }
+  __device__ __forceinline__ void store(float* meta, int p) const {
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int e = p + 128 * i;
+      if (e < COUNT) meta[(e % GEN::STRIDE) * BK + e / GEN::STRIDE] = v[i];
+    }
+  }
+};
+struct NoMeta {};
+// GenMeta<TmaB> is only named here, never instantiated.
+template <class GEN>
+using MetaRegs = std::conditional_t<kTmaB<GEN>, NoMeta, GenMeta<GEN>>;
+
+// The four fields of column j .. j + 3 of a chunk's metadata (at shared
+// address meta): a broadcast 16-byte load a field.
+template <class GEN>
+__device__ __forceinline__ void meta_fields(float4 (&f)[GEN::STRIDE], uint32_t meta, int j) {
+#pragma unroll
+  for (int i = 0; i < GEN::STRIDE; ++i) f[i] = lds128(meta + (i * BK + j) * 4);
+}
+
+// kq's 32-deep chunk for query row p (coordinates qv) from the chunk's
+// metadata at shared address meta, split into B's hi tile at b_hi and its
+// lo tile after it: each k group of four columns one 16-byte store to each
+// tile, at the offset TMA would have given it.  The chunk's first `lim`
+// columns are live; the others, past the generator's extent or (lim 0) past
+// the queries, generate 0 (MASKED false: all 32 are live).  KID, the
+// covariance function, is a template argument so that the generator's
+// dispatch on it folds away.  Each group's metadata is loaded while the
+// group before it is computed.
+template <class GEN, int KID, bool MASKED>
+__device__ __forceinline__ void gen_chunk(const GenArgs& g, uint32_t meta, const float (&qv)[3],
+                                          int lim, uint32_t b_hi, int p) {
+  const uint32_t row = b_hi + p * 128;
+  const int sw = p & 7;
+  float4 f[GEN::STRIDE], next[GEN::STRIDE];
+  meta_fields<GEN>(f, meta, 0);
+#pragma unroll
+  for (int k4 = 0; k4 < BK / 4; ++k4) {
+    if (k4 + 1 < BK / 4) meta_fields<GEN>(next, meta, 4 * k4 + 4);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float col[GEN::STRIDE];
+#pragma unroll
+      for (int i = 0; i < GEN::STRIDE; ++i)
+        col[i] = e == 0 ? f[i].x : e == 1 ? f[i].y : e == 2 ? f[i].z : f[i].w;
+      const float x = GEN::eval(KID, qv, col, g.ls, g.sv);
+      v[e] = !MASKED || 4 * k4 + e < lim ? x : 0.0f;
+    }
+    float4 h, l;
+    split(v[0], h.x, l.x);
+    split(v[1], h.y, l.y);
+    split(v[2], h.z, l.z);
+    split(v[3], h.w, l.w);
+    const uint32_t off = row + ((k4 ^ sw) << 4);
+    sts128(off, h);
+    sts128(off + SW_TILE_BYTES, l);
+#pragma unroll
+    for (int i = 0; i < GEN::STRIDE; ++i) f[i] = next[i];
+  }
+}
+
+// The producer warpgroup (thread p of 128): chunk c's raw stage c & 1 into
+// split buffer c & 1, A's box split and B's box split (D) or B generated
+// (F, covariance KID).  Barriers in s.full: raw[2] (TMA bytes),
+// split_full[2] (the producer's 128 threads), split_empty[2] (the
+// consumers' 8 warps).
+template <int LAYOUT, class GEN, int KID>
+__device__ __forceinline__ void quad_producer(const Smem& s, const CUtensorMap* ta,
+                                              const CUtensorMap* tb, const Unit& u, int64_t n,
+                                              const GenArgs& g, int nch, int p) {
+  uint64_t* split_full = s.full + 2;
+  uint64_t* split_empty = s.full + 4;
+  if (p == 0) {
+    issue_chunk<LAYOUT, GEN>(s, 0, ta, tb, u.m0, u.n0, u.kb);
+    if (nch > 1) issue_chunk<LAYOUT, GEN>(s, 1, ta, tb, u.m0, u.n0, u.kb + BK);
+  }
+  // A generated B: this thread's query for the unit, and chunk c + 2's
+  // metadata in flight.
+  [[maybe_unused]] float qv[3] = {0.0f, 0.0f, 0.0f};
+  [[maybe_unused]] bool live = false;
+  [[maybe_unused]] MetaRegs<GEN> next;
+  if constexpr (!kTmaB<GEN>) {
+    const int64_t qi = u.n0 + p;
+    live = qi < n;
+    if (live) {
+      qv[0] = g.q[qi * 3];
+      qv[1] = g.q[qi * 3 + 1];
+      qv[2] = g.q[qi * 3 + 2];
+    }
+    next.fetch(g, u.kb, p);
+    next.store(meta_of(s, 0), p);
+    next.fetch(g, u.kb + BK, p);
+    next.store(meta_of(s, 1), p);
+    named_sync(PRODUCER_BAR, 128);
+  }
+  const uint32_t raw0 = smem_u32(s.raw[0]), split0 = smem_u32(s.split[0]);
+  for (int c = 0; c < nch; ++c) {
+    const int b = c & 1;
+    if constexpr (!kTmaB<GEN>) {
+      if (c + 2 < nch) next.fetch(g, u.kb + (c + 2) * BK, p);
+    }
+    mbar_wait(&s.full[b], (c >> 1) & 1);
+    if (c >= 2) mbar_wait(&split_empty[b], ((c >> 1) - 1) & 1);  // chunk c - 2 is done
+    const uint32_t dst = split0 + b * SW_SPLIT_BYTES;
+    split_swizzled<(kTmaB<GEN> ? 2 : 1)>(raw0 + b * RAW_BYTES, dst, p);
+    if constexpr (!kTmaB<GEN>) {
+      const int64_t k0 = u.kb + c * BK;
+      const int lim = live ? (int)(g.ncols - k0 < BK ? g.ncols - k0 : BK) : 0;
+      const uint32_t meta = smem_u32(meta_of(s, b)), b_hi = dst + 2 * SW_TILE_BYTES;
+      if (lim == BK)
+        gen_chunk<GEN, KID, false>(g, meta, qv, lim, b_hi, p);
+      else
+        gen_chunk<GEN, KID, true>(g, meta, qv, lim, b_hi, p);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_arrive(&split_full[b]);
+    // The raw stage (and a generated B's metadata slot) is read: chunk
+    // c + 2 into it.  A generated B meets here one chunk earlier too, so
+    // that the metadata stored at chunk c is seen by all at chunk c + 2.
+    if (c + (kTmaB<GEN> ? 2 : 1) < nch) {
+      named_sync(PRODUCER_BAR, 128);
+      if (c + 2 < nch) {
+        if (p == 0) issue_chunk<LAYOUT, GEN>(s, b, ta, tb, u.m0, u.n0, u.kb + (c + 2) * BK);
+        if constexpr (!kTmaB<GEN>) next.store(meta_of(s, b), p);
+      }
+    }
+  }
+}
+
+// One step of the QUAD body's: the four products of its 8-deep k slice st,
+// small first, into a fresh tile d, committed as one group.  The lockstep
+// body's order, pass for pass.
 __device__ __forceinline__ void quad_step(float (&d)[64], const char* a_lo, const char* a_hi,
                                           const char* b_lo, const char* b_hi, int st) {
   const int off = st * STEP_K * 4;
@@ -828,14 +879,13 @@ __device__ __forceinline__ void quad_step(float (&d)[64], const char* a_lo, cons
   wgmma_commit();
 }
 
-// D's body: a producer warpgroup loads and splits, two consumer warpgroups
-// take turns on the tensor cores (see the note at the top).
-// Barriers in s.full: raw[2] (TMA bytes), split_full[2] (the producer's 128
-// threads), split_empty[2] (the consumers' 8 warps).
-template <int LAYOUT>
+// D's and F's body: a producer warpgroup loads, generates and splits, two
+// consumer warpgroups take turns on the tensor cores (see the note at the
+// top).
+template <int LAYOUT, class GEN>
 __device__ __forceinline__ void tc_quad_ws(const Smem& s, const CUtensorMap* ta,
                                            const CUtensorMap* tb, const Unit& u, float* out,
-                                           int64_t ldo, int64_t n) {
+                                           int64_t ldo, int64_t n, const GenArgs& g) {
   uint64_t* split_full = s.full + 2;
   uint64_t* split_empty = s.full + 4;
   const int nch = (u.ke - u.kb + BK - 1) / BK;
@@ -851,23 +901,23 @@ __device__ __forceinline__ void tc_quad_ws(const Smem& s, const CUtensorMap* ta,
   }
   __syncthreads();
 
-  if (t >= 2 * 128) {  // the producer: chunk c's raw stage c & 1 into split buffer c & 1
+  if (t >= 2 * 128) {
     const int p = t - 2 * 128;
-    if (p == 0) {
-      issue_chunk<LAYOUT, TmaB>(s, 0, ta, tb, u.m0, u.n0, u.kb);
-      if (nch > 1) issue_chunk<LAYOUT, TmaB>(s, 1, ta, tb, u.m0, u.n0, u.kb + BK);
-    }
-    const uint32_t raw0 = smem_u32(s.raw[0]), split0 = smem_u32(s.split[0]);
-    for (int c = 0; c < nch; ++c) {
-      const int b = c & 1;
-      mbar_wait(&s.full[b], (c >> 1) & 1);
-      if (c >= 2) mbar_wait(&split_empty[b], ((c >> 1) - 1) & 1);  // chunk c - 2 is done
-      split_swizzled(raw0 + b * RAW_BYTES, split0 + b * SW_SPLIT_BYTES, p);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      mbar_arrive(&split_full[b]);
-      if (c + 2 < nch) {  // the raw stage is read: chunk c + 2 into it
-        named_sync(PRODUCER_BAR, 128);
-        if (p == 0) issue_chunk<LAYOUT, TmaB>(s, b, ta, tb, u.m0, u.n0, u.kb + (c + 2) * BK);
+    if constexpr (kTmaB<GEN>) {
+      quad_producer<LAYOUT, GEN, 0>(s, ta, tb, u, n, g, nch, p);
+    } else {
+      switch (g.kid) {  // the generator's covariance (common.cuh KernelId)
+        case RBF:
+          quad_producer<LAYOUT, GEN, RBF>(s, ta, tb, u, n, g, nch, p);
+          break;
+        case LAPLACE:
+          quad_producer<LAYOUT, GEN, LAPLACE>(s, ta, tb, u, n, g, nch, p);
+          break;
+        case INVERSE_MULTIQUADRIC:
+          quad_producer<LAYOUT, GEN, INVERSE_MULTIQUADRIC>(s, ta, tb, u, n, g, nch, p);
+          break;
+        default:
+          quad_producer<LAYOUT, GEN, THIN_PLATE>(s, ta, tb, u, n, g, nch, p);
       }
     }
     return;
@@ -906,26 +956,26 @@ __device__ __forceinline__ void tc_quad_ws(const Smem& s, const CUtensorMap* ta,
     }
     if (lane == 0) mbar_arrive(&split_empty[b]);  // this warp is done with chunk c
   }
-  // The producer is past its last read of the raw ring: it split every chunk.
-  quad_colsum<true>(acc, u, true, reinterpret_cast<float*>(s.raw[0]), out, ldo, n, wg, warp,
-                    lane);
+  // The producer is past its last read of the raw ring's A boxes: it split
+  // every chunk (a generated B's metadata lies past the 4 KB `red` takes).
+  quad_colsum(acc, u, reinterpret_cast<float*>(s.raw[0]), out, ldo, n, wg, warp, lane);
 }
 
-// The launch shape: D (QUAD with B through TMA) warp-specialised, 384
-// threads; every other instantiation the lockstep body's 256.
-template <int EPI, class GEN>
+// The launch shape: D and F (QUAD) warp-specialised, 384 threads; every
+// other kernel the lockstep body's 256.
+template <int EPI>
 struct CtaShape {
-  static constexpr bool warp_specialised = EPI == QUAD && kTmaB<GEN>;
+  static constexpr bool warp_specialised = EPI == QUAD;
   static constexpr int threads = warp_specialised ? WS_THREADS : THREADS;
 };
 
 template <int LAYOUT, int EPI, class GEN = TmaB>
-__global__ void __launch_bounds__(CtaShape<EPI, GEN>::threads, 1)
+__global__ void __launch_bounds__(CtaShape<EPI>::threads, 1)
 tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
           const Unit* __restrict__ units, const float* s_in, int64_t lds, float* out,
           int64_t ldo, int64_t m, int64_t n, float* __restrict__ ws, const GenArgs g) {
   static_assert(EPI != QUAD || LAYOUT == NT, "QUAD is NT's epilogue");
-  static_assert(kTmaB<GEN> || LAYOUT == NT, "a generated B is NT's (k-contiguous rows)");
+  static_assert(kTmaB<GEN> || EPI == QUAD, "a generated B is the QUAD body's");
   extern __shared__ char smem_raw[];
   char* base = reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                        ~uintptr_t(1023));  // 128-byte swizzle: 1 KB aligned
@@ -936,10 +986,10 @@ tc_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
   s.split[1] = s.split[0] + 4 * SPLIT_BYTES;
   s.full = reinterpret_cast<uint64_t*>(s.split[1] + 4 * SPLIT_BYTES);
   const Unit u = units[blockIdx.x];
-  if constexpr (CtaShape<EPI, GEN>::warp_specialised)
-    tc_quad_ws<LAYOUT>(s, &ta, &tb, u, out, ldo, n);
+  if constexpr (CtaShape<EPI>::warp_specialised)
+    tc_quad_ws<LAYOUT, GEN>(s, &ta, &tb, u, out, ldo, n, g);
   else
-    tc_lockstep<LAYOUT, EPI, GEN>(s, &ta, &tb, u, s_in, lds, out, ldo, m, n, ws, g);
+    tc_lockstep<LAYOUT, EPI>(s, &ta, &tb, u, s_in, lds, out, ldo, m, n, ws);
 }
 
 // One tile's partials summed in slot order, then the epilogue; blockIdx.y
@@ -1036,7 +1086,7 @@ int launch(const float* a, int64_t lda, const float* b, int64_t ldb, int64_t k_e
     cudaFuncSetAttribute(tc_kernel<LAYOUT, EPI, GEN>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     tc_kernel<LAYOUT, EPI, GEN>
-        <<<(unsigned int)n_units, CtaShape<EPI, GEN>::threads, SMEM_BYTES, stream>>>(
+        <<<(unsigned int)n_units, CtaShape<EPI>::threads, SMEM_BYTES, stream>>>(
             ta, tb, units, s, lds, out, ldo, m, n, ws, g);
     err = (int)cudaGetLastError();
     if (err) return err;

@@ -16,6 +16,9 @@ the band modes of A and F, at phase 7's shapes), `chip_smoke.quad_kernel_checks`
 (float32 D and F's four modes, the tile's NT layout with the QUAD epilogue,
 F with a generated B, against float64 twins per query, in the `_QSPLIT`
 regime and with the bias gate; and D and F in float64, the SIMT bodies),
+`chip_smoke.tc_fused_quad_bits` (float32 F's bits against the recorded
+sha256; F has no bias gate of its own: its float32 generation of kq alone
+moves a nonnegative quad's mean ~1.9e-7 from the float64 twin's),
 `chip_smoke.nn_kernel_checks` (float32 C and H, the split-TF32 tensor-core
 kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
 (float32 B and G, its NT layout, with the bias gate at a = b; and B and G
@@ -55,6 +58,7 @@ import torch_turns
 OOC, NN, NT, INV, QUAD, JOINT, COV = ("ooc_kernels", "nn_kernel_checks", "nt_kernel_checks",
                                       "inv_and_trail_kernels", "quad_kernel_checks",
                                       "joint_kernel_checks", "cov_kernel_checks")
+F_BITS = "tc_fused_quad_bits"  # takes torch alone
 EXPERTS = "gpis_tpu_torch/gp/experts.py"
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
@@ -159,9 +163,9 @@ MUTATIONS = [
     ("QUAD drops one warpgroup's rows from the column sum", QUAD,
      "gpis_tpu_torch/csrc/tc_nn.cuh", "for (int w = 1; w < 8; ++w) sum += red[w * BN + t];",
      "for (int w = 1; w < 4; ++w) sum += red[w * BN + t];"),
-    ("QUAD squares before the last chunk (NT's 2,048-deep segments flushed mid-k)", QUAD,
-     "gpis_tpu_torch/csrc/tc_nn.cuh", "constexpr bool segmented = LAYOUT == NT && EPI != QUAD;",
-     "constexpr bool segmented = LAYOUT == NT;"),
+    ("F's generator stores each k group of four columns one group off", QUAD,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "const uint32_t off = row + ((k4 ^ sw) << 4);",
+     "const uint32_t off = row + ((((k4 + 1) & 7) ^ sw) << 4);"),
     ("D's plan ends each tile's triangle one chunk short", QUAD,
      "gpis_tpu_torch/kernels/cuda_query.py",
      '_tc_launch_args("staged_quad", w, kq, c, m, c, upper="rows",',
@@ -169,15 +173,18 @@ MUTATIONS = [
     ("F band's plan without k_offset (the in-core bound)", QUAD,
      "gpis_tpu_torch/kernels/cuda_query.py", "upper=\"rows\", k_offset=int(row0), whole=True)",
      "upper=\"rows\", k_offset=0, whole=True)"),
-    ("D adds each truncated step unrounded (its warp-specialised body)", QUAD,
+    ("D adds each truncated step unrounded (the warp-specialised body, B through TMA)", QUAD,
      "gpis_tpu_torch/csrc/tc_nn.cuh", "  for (int i = 0; i < 64; ++i) acc[i] += round23(d[i]);",
-     "  for (int i = 0; i < 64; ++i) acc[i] += d[i];"),
-    ("D's producer stores zero lo tiles (1xTF32 W and kq)", QUAD,
+     "  for (int i = 0; i < 64; ++i) acc[i] += kTmaB<GEN> ? d[i] : round23(d[i]);"),
+    ("F adds each truncated step unrounded (the warp-specialised body, B generated)", F_BITS,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "  for (int i = 0; i < 64; ++i) acc[i] += round23(d[i]);",
+     "  for (int i = 0; i < 64; ++i) acc[i] += kTmaB<GEN> ? round23(d[i]) : d[i];"),
+    ("the producer stores zero lo tiles of its TMA boxes (1xTF32 W, and D's kq)", QUAD,
      "gpis_tpu_torch/csrc/tc_nn.cuh", "sts128(dst + (2 * box + 1) * SW_TILE_BYTES + off, l);",
      "sts128(dst + (2 * box + 1) * SW_TILE_BYTES + off, make_float4(0.f, 0.f, 0.f, 0.f));"),
-    ("F's generator drops the lo half (1xTF32 kq)", QUAD, "gpis_tpu_torch/csrc/tc_nn.cuh",
-     "*reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = l;",
-     "*reinterpret_cast<float4*>(b_lo + split_off(row, k4)) = make_float4(0.f, 0.f, 0.f, 0.f);"),
+    ("F's producer stores zero lo tiles of the generated B (1xTF32 kq)", QUAD,
+     "gpis_tpu_torch/csrc/tc_nn.cuh", "sts128(off + SW_TILE_BYTES, l);",
+     "sts128(off + SW_TILE_BYTES, make_float4(0.f, 0.f, 0.f, 0.f));"),
     ("the quad's reduce skips the last partial row", QUAD, "gpis_tpu_torch/csrc/quad.cuh",
      "for (int64_t i = 0; i < tiles; ++i) s += partial[i * m + q];",
      "for (int64_t i = 0; i < tiles - 1; ++i) s += partial[i * m + q];"),
@@ -238,6 +245,7 @@ MUTATIONS = [
 
 RUN = ("import torch, chip_smoke as cs; "
        "cs.{}(torch, torch.Generator(device='cuda').manual_seed(0), {{}})")
+RUN_BITS = "import torch, chip_smoke as cs; cs.{}(torch)"
 
 
 def _command(check: str, copy: str) -> tuple[list[str], dict]:
@@ -247,7 +255,7 @@ def _command(check: str, copy: str) -> tuple[list[str], dict]:
     if check.startswith("tests/"):
         env["JAX_PLATFORMS"] = "cpu"
         return [sys.executable, "-m", "pytest", check, "-q", "-x", "-p", "no:cacheprovider"], env
-    return [sys.executable, "-c", RUN.format(check)], env
+    return [sys.executable, "-c", (RUN_BITS if check == F_BITS else RUN).format(check)], env
 
 
 def main() -> int:

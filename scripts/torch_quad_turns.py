@@ -12,15 +12,18 @@ on the same inputs made from one seed: D (`staged_quad`) at M 8,192 and
 M 128 against C 16,384, at M 8,192 against C 20,480 (the benchmark's
 capacity) and at the planner's M 1, 32, 256 and 2,048 against C 17,408,
 F value at M 8,192, C 16,384, F joint at J 21,504,
-F band value (R 4,096 at row0 28,672 of C 32,768) and F band joint (R 1,024
-at row0 19,456 of J 20,480).  Each time is the mean of N calls by CUDA
-events after a warm-up.  One JSON line a run, then for each other tree the
-per-shape ratio of its two runs' mean to this tree's (OTHER / this), and
-the card's name and power limit.  Then, for every tree, D's SASS
-(`torch_turns.sass_counts` on csrc/query.cu): its registers, spills and
-ptxas's warnings, and each loop of 16 instructions or more with its
-instructions by pipe (`PIPES`: ALU, FMA, the tensor cores' HGMMA, the
-uniform datapath, shared memory and barriers) and by opcode.
+F band value (R 4,096 at row0 28,672 of C 32,768), F band joint (R 1,024
+at row0 19,456 of J 20,480) and F band value at the last rank's band of the
+four-card cell `sharded147k` (R 36,864 at row0 110,592 of C 147,456: a
+21.7 GB band, one call ~2 s, so half as many calls).  Each time is the mean
+of N calls by CUDA events after a warm-up.  One JSON line a run, then for
+each other tree the per-shape ratio of its two runs' mean to this tree's
+(OTHER / this), and the card's name and power limit.  Then, for every
+tree, the SASS of D (`torch_turns.sass_counts` on csrc/query.cu) and of F
+value and joint (csrc/fused_query.cu): registers, spills and ptxas's
+warnings, and each loop of 16 instructions or more with its instructions
+by pipe (`PIPES`: ALU, FMA, the tensor cores' HGMMA, the uniform datapath,
+shared memory and barriers) and by opcode.
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ def pipe_of(opcode: str) -> str:
 
 
 def print_sass(trees: list[str]) -> None:
-    """D's SASS in each tree: registers, spills, ptxas's warnings, and each
-    loop's instructions by pipe and by opcode."""
+    """D's and F's SASS in each tree: registers, spills, ptxas's warnings,
+    and each loop's instructions by pipe and by opcode."""
     for tree in trees:
-        fns = torch_turns.sass_counts(tree, "gpis_tpu_torch/csrc/query.cu", ops=True)
+        fns = {}
+        for source in ("query.cu", "fused_query.cu"):
+            fns.update(torch_turns.sass_counts(tree, f"gpis_tpu_torch/csrc/{source}", ops=True))
         for name, f in fns.items():
             if "tc_kernel<1, 3" not in name:
                 continue
@@ -89,7 +94,7 @@ def worker(tree: str, reps: int) -> dict:
     p = {"lengthscale": 0.4, "signal_variance": 1.0}
 
     def tril_w(rows, width, row0):
-        w = torch.tril(torch.randn((rows, width), generator=gen, device=dev), diagonal=row0)
+        w = torch.randn((rows, width), generator=gen, device=dev).tril_(diagonal=row0)
         return w.div_(torch.arange(row0 + 1, row0 + rows + 1, device=dev).sqrt()[:, None])
 
     def ms(fn):
@@ -131,6 +136,11 @@ def worker(tree: str, reps: int) -> dict:
     wjb = tril_w(1024, jb.shape[0], jb.shape[0] - 1024)
     out["F_band_joint_M8192_R1024_row0_19456"] = ms(
         lambda: cuda_query.quad_band("joint", "rbf", q, jb, p, wjb, jb.shape[0] - 1024))
+    del wjb, xb
+    xr = torch.as_tensor(fibonacci_sphere(147456), dtype=torch.float32, device=dev)
+    wr = tril_w(36864, 147456, 110592)
+    out["F_band_value_M8192_R36864_row0_110592"] = torch_turns.device_ms(
+        lambda: cuda_query.quad_band("value", "rbf", q, xr, p, wr, 110592), max(1, reps // 2))
     return out
 
 

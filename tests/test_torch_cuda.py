@@ -435,6 +435,19 @@ def test_cuda_tc_quad_gives_its_recorded_bits(cuda):
     assert digest == chip_smoke.TC_QUAD_SHA256
 
 
+def test_cuda_tc_fused_quad_gives_its_recorded_bits(cuda):
+    """float32 F's outputs, value and joint, on fixed inputs: fused_quad at
+    M in {1, 127, 129, 1,000, 8,192} against C in {1,000, 1,152, 20,480},
+    quad_band with R 300 at row0 0, 700 and 28,672; the sha256 of their
+    bits against the one chip_smoke.py records (the lockstep body's), and
+    each call made twice, bit for bit."""
+    import chip_smoke
+
+    digest, unstable = chip_smoke.tc_fused_quad_digest(torch)
+    assert not unstable, unstable
+    assert digest == chip_smoke.TC_FUSED_QUAD_SHA256
+
+
 def test_cuda_tc_quad_refuses_a_view_tma_cannot_address(cuda):
     gen = torch.Generator(device=cuda).manual_seed(28)
     c, m = 512, 256
