@@ -17,11 +17,11 @@ Phases, one printed line or more each; any failure exits nonzero:
    committee's cross and the planner's M = 1 and M = 256 against C = 17,408
    (`cov_small_shapes`); A's line keeps the main path's Gram error as its
    max_abs_err and those checks' worst error over max(1, max|K|), per
-   dtype, as cov_checks_rel.  The quads of Kernels D and F (in float32
-   the split-TF32 tensor-core tile with the QUAD epilogue, F's kq
-   generated in the tile) are held per query against the twin run in
-   float64, at ragged shapes, twice bit for bit, in float64 too, and to the
-   bias gate on nonnegative W and kq (`quad_kernel_checks`); float32 D's
+   dtype, as cov_checks_rel.  The quads of Kernels D and F (the split-TF32
+   tensor-core tile with the QUAD epilogue, F's kq generated in the tile)
+   are held per query against the twin run in float64, at ragged shapes,
+   twice bit for bit, and to the bias gate on nonnegative W and kq
+   (`quad_kernel_checks`); float32 D's
    bits against a recorded sha256 at ragged shapes up to C = 20,480, every
    call twice (`tc_quad_bits`), and float32 F's, value and joint, in its
    four modes (`tc_fused_quad_bits`).  Plus the
@@ -35,26 +35,26 @@ Phases, one printed line or more each; any failure exits nonzero:
    grid, extract_surface and a 65,536-point query (the on-the-fly route).
    Gates: surface RMSE < 0.02, no NaN, the large query agreeing with the
    chunked staged route, every kernel of the path launched by this run.  A
-   small float64 session on the card is also held to the CPU path at 1e-6.
+   float64 session on the card must be refused (the card runs float32;
+   float64 runs on the CPU).
 4. The joint (surface-normal) slice: start(points, normals=...) on a
    4,992-point sphere (J = 21,504), the 64^3 grid, extract_surface, a
    65,536-point query and predict_gradient at 256 surface points.  Gates:
    surface RMSE < 0.02, min cos(normal, radial) > 0.99, no NaN, every
-   kernel of the path launched by this run; a small float64 joint session
-   on the card held to the CPU path at 1e-6.
+   kernel of the path launched by this run.
 5. The out-of-core value slice: start(points, out_of_core=True) on phase
    3's cloud (C = 16,384, panel 1,024), the 64^3 grid, extract_surface and
    a 65,536-point query.  Gates: surface RMSE < 0.02, no NaN, the grid
    within 1e-2 of phase 3's in-core grid, every kernel of the path
-   launched; a small float64 out-of-core session held to the CPU path at
-   1e-6.
+   launched.
 6. The out-of-core joint slice: the same on phase 4's cloud with normals
    (J = 20,480, panel 1,024), against phase 4's grid.
 7. The host spill: ooc_fit on a 32,640-point sphere's training set
    (C = 32,768, panel 4,096) in a tiered store held to a 1 GB device budget,
    then a 65,536-point query.  Gates: spilled W panels, peak device memory
    under the budget plus the fit's own reserve, and the answer within 1e-2
-   of an in-core fit_inference of the same set in float64 (in float32 the
+   of a float64 plain PyTorch fit of the same set on the card (library
+   Cholesky and triangular solve, `plain_posterior64`; in float32 the
    in-core factor at this size needs the jitter ladder's first rung,
    4 eps C k(0) ~ 1.6e-2, which moves the posterior by about as much as the
    gate: the two float32 fits would solve different systems).
@@ -92,21 +92,20 @@ Phases, one printed line or more each; any failure exits nonzero:
    against float64 there; after the joint refit, whose float32 W-quad errs
    by more than a touch beside the cloud lowers the variance, the fall is
    held on a float64 run and the float32 variance within 5e-4 of it; both
-   float64 runs follow the counted run); surface RMSE
+   float64 runs follow the counted run, on the CPU); surface RMSE
    < 0.02 and no NaN; each out-of-core and the sharded grid within 1e-2 of
    the in-core grid after the same touches; surface_points within 1e-5 of
    f = 0 with >= 95 % of seeds converged; A, E, D, F, F band, B and C
-   launched; small float64 sessions (value with surface_points, joint
-   through its refit, out of core) updated on the card and held to the CPU
-   path at 1e-6.
+   launched.
 11. Marginal-likelihood hyperparameter optimization (config 3) through the
-   entry points a user calls.  (a) BASELINE.md's config-3 bar in float64:
-   y drawn from an RBF GP of lengthscale 0.5 on 4,000 points (capacity
-   4,096, so the MLL's Gram is Kernel A under `gram_ad` and its factor
-   Kernel B under `blocked_cholesky_ad`), `optimize` from 2.0 (4x off) for
-   150 Adam steps; gates: the lengthscale within 10 % of 0.5, the start's
-   gradient within 1e-4 (norm-wise) of a central difference and within
-   1e-6 of the CPU twins'.  (b) Phase 3's value session (float32,
+   entry points a user calls.  (a) BASELINE.md's config-3 bar: y drawn
+   from an RBF GP of lengthscale 0.5 on 4,000 points (capacity 4,096, so
+   the MLL's Gram is Kernel A under `gram_ad` and its factor Kernel B
+   under `blocked_cholesky_ad`), `optimize` in float32 from 2.0 (4x off)
+   for 150 Adam steps; gates: the lengthscale within 10 % of 0.5; the
+   start's gradient in float64 (Kernel A, the library's factor) within
+   1e-4 (norm-wise) of a central difference and within 1e-6 of the CPU
+   twins', and the float32 one within 1e-3 of it.  (b) Phase 3's value session (float32,
    C = 16,384): optimize_hyperparameters(steps=10), the refit's 64^3 grid
    and surface; gates: no NaN in the history, the best MLL above the
    start's, RMSE < 0.02; then one objective step timed whole and split
@@ -117,8 +116,7 @@ Phases, one printed line or more each; any failure exits nonzero:
    cos(normal, radial) > 0.99.  (d) Phase 5's out-of-core session,
    method="stream": one objective step timed, its start gradient held to
    (b)'s dense float32 one within twice that one's distance to float64
-   plus 1e-4 x max|g|, two steps and the refit; a small float64 stream
-   objective held to the CPU path at 1e-6.  (e) Phase 6's out-of-core joint
+   plus 1e-4 x max|g|, two steps and the refit.  (e) Phase 6's out-of-core joint
    session, one stream step, and phase 9's one-rank NCCL sharded model,
    method="distributed", two steps.  Each refit's grid in (d) and (e)
    within 1e-2 of the in-core pipeline's at the refit's hyperparameters,
@@ -137,7 +135,7 @@ Phases, one printed line or more each; any failure exits nonzero:
    0.7); reached_threshold as the target's variance says; no empty path
    (each call's projection attempts and failures printed); after each
    round the variance fell at every contact in the cap, and at the contacts
-   on the observed part it fell on a float64 replay and rose in float32 by
+   on the observed part it fell on a float64 replay (on the CPU) and rose in float32 by
    at most the quad's error there; the cap's maximum variance fell over the
    rounds; extract_surface(64) RMSE < 0.02, no NaN.  The crash: /save, the
    node and its session dropped, a new node /loads the file: its 65,536-
@@ -149,11 +147,9 @@ Phases, one printed line or more each; any failure exits nonzero:
    the cap, no NaN; the joint and sharded checkpoints restored to the bit;
    the out-of-core checkpoint (its W panels under path + ".w/") too.
    Launches of (a) and (b):
-   A, B, C, D, E, F, A band and F band.  (c) Small float64 sessions on the
-   card held to the CPU path chart for chart at 1e-6 (value under both
-   strategies, joint, out of core; is_done), and a float64 checkpoint
-   saved without its factor refit on the card (Kernels A, B, C) within
-   1e-6 of the saved model.  (d) Kernel D at the planner's M = 1, 32, 256
+   A, B, C, D, E, F, A band and F band.  (c) A checkpoint saved without
+   its factor (C = 4,096) refit on the card (Kernels A, B, C) within 1e-6
+   of the saved model.  (d) Kernel D at the planner's M = 1, 32, 256
    and 2,048 (C = 17,408) held per query to its float64 twin (1e-4), twice
    bit for bit, and timed beside the library's W kq^T and its bound.
 13. The local-expert committee (`gp/experts.py`) at the JAX package's
@@ -185,9 +181,7 @@ Phases, one printed line or more each; any failure exits nonzero:
    of max|W| of its float32 factor's exact inverse (float64), which the raw
    W misses by 30-36 and the step with a float32 residual by ~60
    (scripts/torch_committee_newton.py): the step exists to remove that
-   error.  (g) Small float64 committees on the card (value with a touch
-   batch and a PoE step, joint with a touch batch) held to the CPU path at
-   1e-6; one gated pair of (a) and of (f), the cross (A or E) against its
+   error.  (g) One gated pair of (a) and of (f), the cross (A or E) against its
    twin and D per query against float64 (1e-4), timed beside the twin and
    the library's W kq^T.  ~66 s.
 14. The command line, `gpis_tpu_torch.cli.main.main` in this process and
@@ -275,13 +269,12 @@ band (the band by the card's time, behind a spin kernel).
 Phase 2 also holds the out-of-core kernels (I, and A and F in band mode)
 to their twins at phase 7's shapes, I bit for bit also at its scalar edges
 (heads and tails, odd pitches, float64, 70,000 rows).  B, C, G, H, J, K and
-L, in float32 one split-TF32 tensor-core kernel (C, H, K and L its NN
-layout, B, G and J its NT layout), are held to their twins run in float64
+L, one split-TF32 tensor-core kernel that takes float32 only (C, H, K and
+L its NN layout, B, G and J its NT layout), are held to their twins run in float64
 at 2e-6 x sum|a||b| of the worst output (B, G, H and L plus 4 ulps of
 max|S| or max|U|), and to a bias gate on nonnegative operands, |mean (out
 - twin) / sum|a||b|| <= 2e-8, for B and G with a = b (sums of squares on
-the diagonal); B, G, J, K and L also in float64 (the SIMT tile); L also
-leaves S bit-identical outside its live block.  C's and
+the diagonal); L also leaves S bit-identical outside its live block.  C's and
 H's bits are held by one sha256 to those recorded before B and G joined
 their tile.  C and B are timed across j0, H at phase 7's k-step and finish
 shapes, G at its k-step and diagonal-block shapes, J and K at the first, a
@@ -494,7 +487,7 @@ def query_kernel(torch, gen, kq, results: dict | None) -> None:
 
 def quad_test_w(torch, c: int, gen):
     """A random lower-triangular W for Kernel D's check.  Row i is scaled by
-    1/sqrt(i+1), so every 64-row tile of W carries a share of each query's
+    1/sqrt(i+1), so every row tile of W carries a share of each query's
     quad that a kernel skipping it would miss by far more than QUAD_REL_TOL."""
     w = torch.tril(torch.randn((c, c), generator=gen, device=gen.device))
     return w.div_(torch.arange(1, c + 1, device=w.device, dtype=w.dtype).sqrt()[:, None])
@@ -1173,8 +1166,7 @@ def nt_kernel_checks(torch, gen, results: dict) -> None:
     8,192 and 16,128); G at phase 7's k-step (R 8,192, P 4,096, k0 0, 4,096
     and 28,672; at k0 0 out is S, bit for bit), its right-looking TRSM (256
     columns of the k-step's output over k = c0 3,840) and its diagonal
-    block (a = b = the band, k0 24,576).  Then B and G in float64, the SIMT
-    tile, against their twins at 1e-12 x sum|a||b|."""
+    block (a = b = the band, k0 24,576)."""
     from gpis_tpu_torch.linalg import cuda_chol
 
     dev = gen.device
@@ -1256,26 +1248,6 @@ def nt_kernel_checks(torch, gen, results: dict) -> None:
           err_name="|mean rel err|")
     results["gemm_nt_masked"] = dict(max_abs_err=worst_g)
     del cur, lk, acc, prod
-    torch.cuda.empty_cache()
-
-    # float64, the SIMT tile: B in place, G with a ragged k0.
-    n, j0 = 4096, 2048
-    m64 = torch.randn((n, n), generator=gen, device=dev, dtype=torch.float64) / j0**0.5
-    got = cuda_chol.panel_update(m64.clone(), j0, bw)
-    want = cuda_chol.panel_update_reference(m64.clone(), j0, bw)
-    scale = (m64[j0:, :j0].abs() @ m64[j0:j0 + bw, :j0].abs().T).max().item()
-    check(f"panel_update float64 C={n} j0={j0} (tol 1e-12 x sum|a||b|)",
-          (got - want).abs().max().item(), 1e-12 * scale)
-    a64, b64 = m64[:2048], m64[2048:3072]
-    k0 = 3000
-    s64 = m64[:2048, k0:k0 + 1024]
-    got = cuda_chol.gemm_nt_masked(a64, b64, s64, k0)
-    want = cuda_chol.gemm_nt_masked_reference(a64, b64, s64, k0)
-    scale = (a64[:, :k0].abs() @ b64[:, :k0].abs().T).max().item()
-    check(f"gemm_nt_masked float64 R={a64.shape[0]} P={b64.shape[0]} k0={k0} "
-          "(tol 1e-12 x sum|a||b|)",
-          (got - want).abs().max().item(), 1e-12 * scale)
-    del m64, got, want
     torch.cuda.empty_cache()
 
 
@@ -1362,9 +1334,7 @@ def inv_kernel_checks(torch, gen, results: dict) -> None:
     sum|a||b| of the worst output; the output's memory poisoned with NaN
     first (STORE reads none of it), reruns bit-identical; and the bias gate,
     |mean (out - twin) / sum|a||b|| <= TC_BIAS on nonnegative operands (a
-    nonnegative lower-triangular V) at the deepest step of each.  Then J and
-    K in float64, the SIMT tile, against their twins at 1e-12 x
-    sum|a||b|."""
+    nonnegative lower-triangular V) at the deepest step of each."""
     from gpis_tpu_torch.linalg import cuda_chol
 
     dev = gen.device
@@ -1407,19 +1377,6 @@ def inv_kernel_checks(torch, gen, results: dict) -> None:
     results["panel_scale"] = dict(max_abs_err=worst_j)
     results["row_scale"] = dict(max_abs_err=worst_k)
     del a, acc, rhs, got, vpos
-
-    # float64, the SIMT tile, at a ragged shape.
-    v64 = lower_inv(torch, gen, b).double()
-    a64 = torch.randn((4096, 4096), generator=gen, device=dev, dtype=torch.float64)
-    acc64, rhs64 = a64[700:, 300:300 + b], a64[:b, 100:3100]
-    for what, got, want, scale in (
-            (f"panel_scale float64 R={acc64.shape[0]}", cuda_chol.panel_scale(acc64, v64),
-             acc64 @ v64.T, acc64.abs() @ v64.abs().T),
-            (f"row_scale float64 N={rhs64.shape[1]}", cuda_chol.row_scale(v64, rhs64),
-             v64 @ rhs64, v64.abs() @ rhs64.abs())):
-        check(f"{what} B={b} (tol 1e-12 x sum|a||b|)", (got - want).abs().max().item(),
-              1e-12 * scale.max().item())
-    del a64, acc64, rhs64, v64
     torch.cuda.empty_cache()
 
 
@@ -1487,8 +1444,7 @@ def inv_and_trail_kernels(torch, gen, results: dict) -> None:
     layout with SUB_FROM in place, against its float64 twin at TC_TOL x
     sum|a||b| of the worst output plus 4 float32 ulps of max|S|, S
     bit-identical outside the live block, the bias gate on nonnegative
-    operands; float64 L (the SIMT tile) at 1e-12 x sum|a||b| at a ragged
-    shape.  Then L timed beside its float32 twin and `addmm`: the card's
+    operands.  Then L timed beside its float32 twin and `addmm`: the card's
     time (`device_ms`, the kernels line's), CUDA events around back-to-back
     calls, and the host's enqueue."""
     from gpis_tpu_torch.linalg import cuda_chol
@@ -1527,17 +1483,6 @@ def inv_and_trail_kernels(torch, gen, results: dict) -> None:
     check(f"band_trail bias on nonnegative operands, j0={j0}", abs(bias), TC_BIAS,
           err_name="|mean rel err|")
     del got, l_col
-    # float64, the SIMT tile: a ragged band (R 3,000 at row0 1,000, B 200).
-    s64 = torch.randn((3000, 4000), generator=gen, device=dev, dtype=torch.float64)
-    l64 = torch.randn((3000, 4000), generator=gen, device=dev, dtype=torch.float64)[:, 1400:1600]
-    w64 = torch.randn((200, 4000), generator=gen, device=dev, dtype=torch.float64)
-    w64[:, 1600:] = 0.0
-    got = cuda_chol.band_trail(s64.clone(), l64, w64, 1400, 1000)
-    want, r_b, w = trail_want(torch, s64, l64, w64, 1400, 1000, 200)
-    check("band_trail float64 R=3000 B=200 j0=1400 row0=1000 (tol 1e-12 x sum|a||b|)",
-          (got - want).abs().max().item(),
-          1e-12 * (l64[r_b:].abs() @ w64[:, :w].abs()).max().item())
-    del s64, l64, w64, got, want
 
     # Timed at P = 1, j0 = 8,192: 7,936 live rows x 8,448 columns, k 256.
     l_col = l_band[:, j0:j0 + b]
@@ -1591,7 +1536,7 @@ def quad_kernel_checks(torch, gen, results: dict) -> None:
     absolute, 5x below the single-pass error); D's mean bias on nonnegative
     W and kq (TC_BIAS); F's four modes at ragged shapes (M 129 and 1,000, C
     and R off the 128 tile, a band at row0 700); D, F and F band twice, bit
-    for bit; and D, F and F band in float64 (the SIMT bodies) at 1e-10."""
+    for bit."""
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.kernels import cuda_joint, cuda_query
     from gpis_tpu_torch.kernels import gram as kg
@@ -1629,51 +1574,46 @@ def quad_kernel_checks(torch, gen, results: dict) -> None:
           err_name="bias")
     del w, kq, quad_r
 
-    # F's four modes and D at ragged shapes, float32 against float64 twins,
-    # then float64 against float64; each call twice, bit for bit.
+    # F's four modes and D at ragged shapes, float32 against float64 twins;
+    # each call twice, bit for bit.
     jcols = cuda_joint.pack_meta(cuda_joint.joint_meta(
         torch.as_tensor(fibonacci_sphere(250), dtype=torch.float32, device=dev)))  # J = 1,000
     vcols = x[:1000].contiguous()
-    for dtype in (torch.float32, torch.float64):
-        tol = QUAD_REL_TOL if dtype == torch.float32 else 1e-10
-        t = str(dtype)[6:]
-        for kind, cols in (("value", vcols), ("joint", jcols)):
-            cols = cols.to(dtype)
-            n = cols.shape[0]
-            for m in (129, 1000):
-                qm = q[:m].to(dtype)
-                w = quad_test_w(torch, n, gen).to(dtype)
-                alpha = torch.randn((n,), generator=gen, device=dev).to(dtype)
-                kq64 = cuda_query.generated_kq(kind, "rbf", qm.double(), cols.double(), p)
-                mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w.double(),
-                                                                  alpha.double())
-                runs = {"fused_quad": lambda: cuda_query.fused_quad(kind, "rbf", qm, cols, p,
-                                                                    alpha, w)}
-                if kind == "value":
-                    kq = kq64.to(dtype)
-                    runs["staged_quad"] = lambda: cuda_query.staged_quad(kq, w, alpha)
-                for name, run in runs.items():
-                    (mean, quad), again = run(), run()
-                    shape = f"{t} {kind} M={m} {'C' if kind == 'value' else 'J'}={n}"
-                    check(f"{name} {shape} quad, per query", quad_rel_err(torch, quad, quad_r),
-                          tol, err_name="max_rel_err")
-                    check(f"{name} {shape} mean", (mean.double() - mean_r).abs().max().item(),
-                          tol * (kq64.abs() @ alpha.double().abs()).max().item())
-                    check(f"{name} {shape} run twice", float(not (
-                        torch.equal(mean, again[0]) and torch.equal(quad, again[1]))), 0.0,
-                        err_name="bits differ")
-            for rows, row0 in ((300, 0), (300, 700), (128, 256)):
-                qm = q[:1000].to(dtype)
-                w = band_test_w(torch, rows, row0, row0 + rows, gen).to(dtype)
-                quad = cuda_query.quad_band(kind, "rbf", qm, cols, p, w, row0)
-                quad_r = cuda_query.quad_band_reference(kind, "rbf", qm.double(), cols.double(),
-                                                        p, w.double(), row0)
-                shape = f"{t} {kind} M=1000 R={rows} row0={row0}"
-                check(f"quad_band {shape}, per query", quad_rel_err(torch, quad, quad_r), tol,
-                      err_name="max_rel_err")
-                check(f"quad_band {shape} run twice", float(not torch.equal(
-                    quad, cuda_query.quad_band(kind, "rbf", qm, cols, p, w, row0))), 0.0,
+    for kind, cols in (("value", vcols), ("joint", jcols)):
+        n = cols.shape[0]
+        for m in (129, 1000):
+            qm = q[:m]
+            w = quad_test_w(torch, n, gen)
+            alpha = torch.randn((n,), generator=gen, device=dev)
+            kq64 = cuda_query.generated_kq(kind, "rbf", qm.double(), cols.double(), p)
+            mean_r, quad_r = cuda_query.staged_quad_reference(kq64, w.double(), alpha.double())
+            runs = {"fused_quad": lambda: cuda_query.fused_quad(kind, "rbf", qm, cols, p, alpha,
+                                                                w)}
+            if kind == "value":
+                kq = kq64.float()
+                runs["staged_quad"] = lambda: cuda_query.staged_quad(kq, w, alpha)
+            for name, run in runs.items():
+                (mean, quad), again = run(), run()
+                shape = f"float32 {kind} M={m} {'C' if kind == 'value' else 'J'}={n}"
+                check(f"{name} {shape} quad, per query", quad_rel_err(torch, quad, quad_r),
+                      QUAD_REL_TOL, err_name="max_rel_err")
+                check(f"{name} {shape} mean", (mean.double() - mean_r).abs().max().item(),
+                      QUAD_REL_TOL * (kq64.abs() @ alpha.double().abs()).max().item())
+                check(f"{name} {shape} run twice", float(not (
+                    torch.equal(mean, again[0]) and torch.equal(quad, again[1]))), 0.0,
                     err_name="bits differ")
+        for rows, row0 in ((300, 0), (300, 700), (128, 256)):
+            qm = q[:1000]
+            w = band_test_w(torch, rows, row0, row0 + rows, gen)
+            quad = cuda_query.quad_band(kind, "rbf", qm, cols, p, w, row0)
+            quad_r = cuda_query.quad_band_reference(kind, "rbf", qm.double(), cols.double(), p,
+                                                    w.double(), row0)
+            shape = f"float32 {kind} M=1000 R={rows} row0={row0}"
+            check(f"quad_band {shape}, per query", quad_rel_err(torch, quad, quad_r),
+                  QUAD_REL_TOL, err_name="max_rel_err")
+            check(f"quad_band {shape} run twice", float(not torch.equal(
+                quad, cuda_query.quad_band(kind, "rbf", qm, cols, p, w, row0))), 0.0,
+                err_name="bits differ")
 
 
 COV_LENGTHSCALE = {"rbf": 0.8, "laplace": 0.8, "inverse_multiquadric": 0.8, "thin_plate": 2.5}
@@ -1805,8 +1745,8 @@ def phase2(torch, results: dict) -> None:
     instances.update(cov_small_shapes(torch, q, params))
 
     # D, F and F band checked at their edges (`quad_kernel_checks`: C = 4,096
-    # on a real kq, the `_QSPLIT` regime, the bias gate, float64), then D
-    # timed at the slice's 16,384 on a real 8,192-query kq chunk.
+    # on a real kq, the `_QSPLIT` regime, the bias gate), then D timed at the
+    # slice's 16,384 on a real 8,192-query kq chunk.
     quad_kernel_checks(torch, gen, results)
     query_kernel(torch, gen, kq, results)
     del kq
@@ -1849,15 +1789,14 @@ def phase3(torch, launches) -> dict:
     from gpis_tpu_torch import ModelConfig, ObjectModelSession
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
 
-    # A small float64 session on the card against the CPU path (the port's
-    # own plain twins): the 1e-6 parity bar of the CPU tests.
-    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
-                        n_internal=1, block=128, touch_capacity=0, dtype="float64")
-    pts = fibonacci_sphere(896)
-    grids = [ObjectModelSession(small, device=d).start(pts).evaluate_grid(24, 1.5)
-             for d in ("cuda", "cpu")]
-    err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
-    check("slice float64, C=1024, 24^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
+    # The card runs float32 (its tensor-core kernels take nothing else): a
+    # float64 session there is refused; float64 runs on the CPU.
+    try:
+        ObjectModelSession(ModelConfig(dtype="float64"), device="cuda")
+    except ValueError:
+        pass
+    else:
+        fail("a float64 session on the card was not refused")
 
     cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
                       n_internal=1, block=128, touch_capacity=0, grid_resolution=64,
@@ -1963,15 +1902,6 @@ def phase4(torch, launches) -> dict:
     from gpis_tpu_torch.data.gpis import fibonacci_sphere
     from gpis_tpu_torch.gp import derivative as gpd
 
-    # A small float64 joint session on the card against the CPU path.
-    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
-                        n_internal=1, block=128, touch_capacity=128, dtype="float64")
-    pts = fibonacci_sphere(384)
-    grids = [ObjectModelSession(small, device=d).start(pts, normals=pts).evaluate_grid(16, 1.5)
-             for d in ("cuda", "cpu")]
-    err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
-    check("joint slice float64, C=512 J=2176, 16^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
-
     n, radius, center = JOINT_SPHERE
     center = np.asarray(center, np.float32)
     pts = (fibonacci_sphere(n, radius) + center).astype(np.float32)
@@ -2030,32 +1960,11 @@ def phase4(torch, launches) -> dict:
 OOC_KERNELS = ("gemm_nt_masked", "gemm_nn_acc_masked", "stripe_write", "quad_band")
 
 
-def small_ooc_parity(normals: bool) -> None:
-    """A small float64 out-of-core session on the card against the CPU path
-    (the port's plain twins) at 1e-6: value C = 1,024 (panel 256), or joint
-    J = 2,048 (panel 256)."""
-    from gpis_tpu_torch import ModelConfig, ObjectModelSession
-    from gpis_tpu_torch.data.gpis import fibonacci_sphere
-
-    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
-                        n_internal=1, block=128, dtype="float64")
-    pts = fibonacci_sphere(384 if normals else 896)
-    kw = {"normals": pts} if normals else {}
-    sessions = [ObjectModelSession(small, device=d).start(pts, out_of_core=True, **kw)
-                for d in ("cuda", "cpu")]
-    grids = [s.evaluate_grid(24, 1.5) for s in sessions]
-    err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
-    what = "joint J=2048" if normals else "value C=1024"
-    check(f"out-of-core {what} (panel {sessions[0].model.panel}) float64, 24^3 grid, "
-          "cuda vs cpu (mean and var)", err, 1e-6)
-
-
 def ooc_session_phase(torch, launches, incore, normals: bool) -> dict:
     """The out-of-core slice through ObjectModelSession.start(out_of_core=True)
     on an in-core phase's cloud, held to that phase's grid."""
     from gpis_tpu_torch import ObjectModelSession
 
-    small_ooc_parity(normals)
     if normals:
         cfg, pts, nrm, in_mean, in_var = incore
         kw = {"normals": nrm}
@@ -2158,11 +2067,7 @@ def phase7(torch, launches) -> dict:
     mean32, var32 = (t.cpu().numpy() for t in grid.evaluate_points_chunked(ref32, q))
     del ref32
     torch.cuda.empty_cache()
-    ref = regression.fit_inference(cfg.kernel, ts.x.double(), ts.y.double(), ts.noise.double(),
-                                   params, block=cfg.block, pad_noise=cfg.pad_noise)
-    ref_jitter = float(ref.noise[0] - ts.noise[0].double())
-    rmean, rvar = (t.cpu().numpy() for t in grid.evaluate_points_chunked(ref, q.double()))
-    del ref
+    rmean, rvar = plain_posterior64(torch, cfg.kernel, ts.x, ts.y, ts.noise, params, q)
     torch.cuda.empty_cache()
     gap_mean, gap_var = float(np.abs(mean - rmean).max()), float(np.abs(var - rvar).max())
     gap32_mean = float(np.abs(mean32 - rmean).max())
@@ -2177,7 +2082,7 @@ def phase7(torch, launches) -> dict:
         "h2d_bytes": traffic.get("h2d_bytes", 0), "d2h_bytes": traffic.get("d2h_bytes", 0),
         "max_memory_allocated_bytes": peak, "peak_bound_bytes": SPILL_BUDGET + reserve,
         "gap_mean": gap_mean, "gap_var": gap_var, "jitter": jitter,
-        "reference_jitter_float64": ref_jitter, "incore_float32_jitter": jitter32,
+        "incore_float32_jitter": jitter32,
         "incore_float32_gap_mean": gap32_mean, "incore_float32_gap_var": gap32_var,
         "card": card_line(),
     }))
@@ -2187,9 +2092,8 @@ def phase7(torch, launches) -> dict:
         fail("the 1 GB budget spilled no W panel")
     check("host spill: peak device memory against budget + reserve", peak,
           SPILL_BUDGET + reserve, err_name="bytes")
-    check("host spill: query against in-core float64 fit_inference: mean", gap_mean,
-          OOC_GRID_GAP)
-    check("host spill: query against in-core float64 fit_inference: var", gap_var, OOC_GRID_GAP)
+    check("host spill: query against a float64 plain fit: mean", gap_mean, OOC_GRID_GAP)
+    check("host spill: query against a float64 plain fit: var", gap_var, OOC_GRID_GAP)
     require_launches(counts, ("gram_band", "panel_update") + OOC_KERNELS, "host spill")
     spill = {"x": ts.x.cpu().numpy(), "y": ts.y.cpu().numpy(), "noise": ts.noise.cpu().numpy(),
              "q": q.cpu().numpy(), "mean": mean, "var": var, "cfg": cfg, "params": params}
@@ -2476,48 +2380,15 @@ def touched_checks(what: str, var0, mean, var) -> dict:
     return out
 
 
-def small_update_parity() -> None:
-    """Small float64 sessions on the card, updated with the same touches as
-    the CPU path and held to it at 1e-6: value (C = 1,152, with W; then
-    surface_points), joint (J = 2,176: two bordering batches, then the
-    overflow refit) and out of core (C = 1,024, panel 256)."""
-    from gpis_tpu_torch import ModelConfig, ObjectModelSession
-    from gpis_tpu_torch.data.gpis import fibonacci_sphere
-
-    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
-                        n_internal=1, block=128, touch_capacity=128, dtype="float64")
-    batches = touch_batches(np.random.default_rng(11), 3, (0.0, 0.0, 0.0), 1.0)
-    for what, n, normals, out_of_core, n_batches in (
-            ("value C=1152", 896, False, False, 2),
-            ("joint J=2176 (border, border, refit)", 384, True, False, 3),
-            ("out-of-core value C=1024", 896, False, True, 2)):
-        pts = fibonacci_sphere(n)
-        kw = {"normals": pts} if normals else {}
-        sessions = [ObjectModelSession(small, device=d).start(pts, out_of_core=out_of_core, **kw)
-                    for d in ("cuda", "cpu")]
-        for s in sessions:
-            for b in batches[:n_batches]:
-                s.update(b.astype(np.float64))
-        grids = [s.evaluate_grid(16, 1.5) for s in sessions]
-        err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
-        check(f"updated {what} float64, 16^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
-        if what.startswith("value"):
-            (p_c, ok_c), (p_h, ok_h) = (s.surface_points(n=64) for s in sessions)
-            if not np.array_equal(ok_c, ok_h):
-                fail("surface_points converged masks differ between cuda and cpu")
-            check("surface_points float64, 64 seeds, cuda vs cpu", float(np.abs(p_c - p_h).max()),
-                  1e-6)
-
-
 def value_float64(cfg, pts, batches, seen):
-    """Phase 10's value session in float64 on the card: the variance at the
+    """Phase 10's value session in float64 on the CPU: the variance at the
     observed touches `seen` after the fit, and before and after their own
     batch (which follows `batches`), with the mean after it."""
     import dataclasses
 
     from gpis_tpu_torch import ObjectModelSession
 
-    sess = ObjectModelSession(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+    sess = ObjectModelSession(dataclasses.replace(cfg, dtype="float64"), device="cpu")
     sess.start(pts.astype(np.float64))
     var_fit = sess.query(seen)[1]
     for b in batches:
@@ -2529,13 +2400,13 @@ def value_float64(cfg, pts, batches, seen):
 
 
 def joint_refit_float64(cfg4, jpts, normals, batches, touched):
-    """Phase 10's joint session in float64 on the card: the variance at the
+    """Phase 10's joint session in float64 on the CPU: the variance at the
     touched points before the updates and after the last batch's refit."""
     import dataclasses
 
     from gpis_tpu_torch import ObjectModelSession
 
-    sess = ObjectModelSession(dataclasses.replace(cfg4, dtype="float64"), device="cuda")
+    sess = ObjectModelSession(dataclasses.replace(cfg4, dtype="float64"), device="cpu")
     sess.start(jpts.astype(np.float64), normals=normals.astype(np.float64))
     var0 = sess.query(touched)[1]
     for b in batches:
@@ -2555,7 +2426,8 @@ def phase10(torch, launches, cfg3, cfg4) -> dict:
     value batch on the observed part: where the cloud is dense a touch
     moves the float32 variance by less than its rounding (the touch noise
     is floored at 4 eps C k(0), ~8e-3 here).  The launches are counted over
-    the float32 sessions only; the float64 runs that hold them follow."""
+    the float32 sessions only; the float64 runs that hold them follow, on
+    the CPU."""
     import dataclasses
     import os
     import tempfile
@@ -2570,7 +2442,6 @@ def phase10(torch, launches, cfg3, cfg4) -> dict:
     from gpis_tpu_torch.kernels import functions as kf
     from gpis_tpu_torch.surface import grid, marching
 
-    small_update_parity()
     cfg = dataclasses.replace(cfg3, touch_capacity=TOUCH_CAPACITY)
     pts = capped_sphere(16256)
     n_j, radius, center = JOINT_SPHERE
@@ -2752,7 +2623,7 @@ def phase10(torch, launches, cfg3, cfg4) -> dict:
     torch.cuda.synchronize()
     counts = dict(launches)
 
-    # Float64 on the card, after the counted run.  The observed batch: the
+    # Float64 on the CPU, after the counted run.  The observed batch: the
     # fall, and the float32 rise held to the float32 quad's error there
     # (after the fit, against float64).
     var_fit64, var0_64, mean_64, var_64 = value_float64(cfg, pts, value_touch, seen)
@@ -2765,7 +2636,7 @@ def phase10(torch, launches, cfg3, cfg4) -> dict:
     # unfloored (as in JAX), and the float32 quad through W = L^{-1} of that
     # system errs by ~1e-4 (W's error grows with 1 / sqrt(noise)), more than
     # a touch beside the cloud lowers the variance.  So the fall is held in
-    # float64 on the card, and the float32 variance to the float64 one.
+    # float64 on the CPU, and the float32 variance to the float64 one.
     var0_64, var_64 = joint_refit_float64(cfg4, jpts, normals, joint_touch, touched)
     touched_checks("joint in core float64 (after the refit)", var0_64, None, var_64)
     out["joint"]["refit_var_gap_float64"] = float(np.abs(var_refit - var_64).max())
@@ -2807,13 +2678,14 @@ def phase10(torch, launches, cfg3, cfg4) -> dict:
 
 # ---------------------------------------------------------------- phase 11
 
-CFG3_N, CFG3_C = 4000, 4096  # config 3's bar: points, capacity (Kernels A and B in float64)
+CFG3_N, CFG3_C = 4000, 4096  # config 3's bar: points, capacity (Kernels A and B)
 CFG3_LS, CFG3_LS0, CFG3_NOISE = 0.5, 2.0, 1e-2  # the truth, the start 4x off, the noise
 CFG3_STEPS = 150
 CFG3_LS_TOL = 0.10  # the lengthscale within 10 % of the truth
 FD_REL = 1e-4  # the gradient against a central finite difference (BASELINE.md config 3)
 FD_STEP = 1e-5
 CPU_REL = 1e-6  # the card's float64 gradient against the CPU twins'
+F32_GRAD_REL = 1e-3  # the card's float32 gradient against its float64 one (norm-wise)
 HYPEROPT_STEPS = {"value": 10, "joint": 5, "stream": 2, "ooc_joint": 1, "distributed": 2}
 
 
@@ -2837,11 +2709,13 @@ def rel_err(got, want) -> float:
 
 
 def config3_bar(torch, launches) -> dict:
-    """BASELINE.md's config-3 bar on the card in float64: y drawn from an RBF
-    GP of lengthscale 0.5 on 4,000 points (capacity 4,096, so the MLL's Gram
-    is Kernel A and its factor Kernel B), `optimize` from lengthscale 2.0;
-    the start's gradient against a central finite difference and against
-    the CPU twins."""
+    """BASELINE.md's config-3 bar on the card: y drawn from an RBF GP of
+    lengthscale 0.5 on 4,000 points (capacity 4,096, so the MLL's Gram is
+    Kernel A and its factor Kernel B under `blocked_cholesky_ad`),
+    `optimize` in float32 from lengthscale 2.0.  The start's gradient in
+    float64 (Kernel A, the library's factor) against a central finite
+    difference and against the CPU twins', and the float32 one against
+    it."""
     from gpis_tpu_torch.gp import hyperopt as ho
     from gpis_tpu_torch.gp import regression as gpr
     from gpis_tpu_torch.kernels import gram as kg
@@ -2853,11 +2727,13 @@ def config3_bar(torch, launches) -> dict:
     y = torch.linalg.cholesky(k) @ torch.tensor(rng.normal(size=CFG3_N), device="cuda")
     del k
     xp, yp, noisep = gpr.pad_training(x, y, CFG3_NOISE, CFG3_C, 1e10)
+    xp32, yp32, noisep32 = xp.float(), yp.float(), noisep.float()
     torch.cuda.synchronize()
     launches.clear()
     t0 = time.perf_counter()
-    res = ho.optimize("rbf", xp, yp, noisep, {"lengthscale": CFG3_LS0, "signal_variance": 1.0},
-                      n_real=CFG3_N, steps=CFG3_STEPS)
+    res = ho.optimize("rbf", xp32, yp32, noisep32,
+                      {"lengthscale": CFG3_LS0, "signal_variance": 1.0}, n_real=CFG3_N,
+                      steps=CFG3_STEPS)
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
     counts = dict(launches)
@@ -2865,27 +2741,33 @@ def config3_bar(torch, launches) -> dict:
     within = [abs(v - CFG3_LS) / CFG3_LS <= CFG3_LS_TOL for v in res.lengthscale_history]
     steps_to_bar = next((i for i in range(len(within)) if all(within[i:])), None)
     theta0 = [np.log(CFG3_LS0), 0.0]
-    mll0, g = mll_and_grad(torch, xp, yp, noisep, CFG3_N, theta0)
+    lib = gpr._library_chol
+    mll0, g = mll_and_grad(torch, xp, yp, noisep, CFG3_N, theta0, chol_impl=lib)
     fd = []
     for i in range(2):
         up, dn = list(theta0), list(theta0)
         up[i] += FD_STEP
         dn[i] -= FD_STEP
-        fd.append((mll_and_grad(torch, xp, yp, noisep, CFG3_N, up)[0]
-                   - mll_and_grad(torch, xp, yp, noisep, CFG3_N, dn)[0]) / (2 * FD_STEP))
+        fd.append((mll_and_grad(torch, xp, yp, noisep, CFG3_N, up, chol_impl=lib)[0]
+                   - mll_and_grad(torch, xp, yp, noisep, CFG3_N, dn, chol_impl=lib)[0])
+                  / (2 * FD_STEP))
     _, g_cpu = mll_and_grad(torch, xp.cpu(), yp.cpu(), noisep.cpu(), CFG3_N, theta0)
-    out = {"config3": "rbf ls 0.5 from 2.0, float64", "n": CFG3_N, "capacity": CFG3_C,
+    _, g32 = mll_and_grad(torch, xp32, yp32, noisep32, CFG3_N, theta0)
+    out = {"config3": "rbf ls 0.5 from 2.0, float32", "n": CFG3_N, "capacity": CFG3_C,
            "steps": CFG3_STEPS, "lengthscale": ls, "noise_scale": res.noise_scale,
            "steps_to_bar": steps_to_bar, "optimize_s": opt_s, "step_s": opt_s / CFG3_STEPS,
            "mll_start": mll0, "mll_best": res.mll, "grad_start": g.tolist(), "grad_fd": fd,
-           "grad_cpu": g_cpu.tolist(), "launches": counts, "card": card_line()}
+           "grad_cpu": g_cpu.tolist(), "grad_start_f32": g32.tolist(), "launches": counts,
+           "card": card_line()}
     say(json.dumps(out))
     check("config 3: lengthscale from 2.0 against the truth 0.5 (relative)",
           abs(ls - CFG3_LS) / CFG3_LS, CFG3_LS_TOL, err_name="rel_err")
-    check("config 3: gradient at the start against a central difference (norm-wise)",
+    check("config 3: float64 gradient at the start against a central difference (norm-wise)",
           rel_err(g, fd), FD_REL, err_name="rel_err")
     check("config 3: the card's float64 gradient against the CPU twins' (norm-wise)",
           rel_err(g, g_cpu), CPU_REL, err_name="rel_err")
+    check("config 3: the card's float32 gradient against its float64 one (norm-wise)",
+          rel_err(g32, g), F32_GRAD_REL, err_name="rel_err")
     require_launches(counts, ("cov", "panel_update"), "config-3 bar")
     return counts
 
@@ -2960,7 +2842,8 @@ def value_hyperopt(torch, launches, incore) -> tuple[dict, dict]:
     xp, yp, noisep = gpr.pad_training(ts.x, ts.y, ts.noise, c, cfg.pad_noise)
     theta0 = [np.log(cfg.lengthscale), 0.0]
     g32 = mll_and_grad(torch, xp, yp, noisep, c, theta0)[1]
-    g64 = mll_and_grad(torch, xp.double(), yp.double(), noisep.double(), c, theta0)[1]
+    g64 = mll_and_grad(torch, xp.double(), yp.double(), noisep.double(), c, theta0,
+                       chol_impl=gpr._library_chol)[1]
     split = objective_split(torch, xp, yp, noisep)
     nan_steps = [i for i, h in enumerate(hist) if not np.isfinite(h)]
     out = {"hyperopt": "value session, float32", "capacity": c, "steps": len(hist),
@@ -3024,26 +2907,6 @@ def joint_hyperopt(torch, launches, incore) -> dict:
     return counts
 
 
-def small_stream_parity(torch) -> None:
-    """A small float64 stream objective (C = 1,024, panel 256) on the card
-    against the CPU path at 1e-6."""
-    from gpis_tpu_torch.data.gpis import fibonacci_sphere
-    from gpis_tpu_torch.gp import ooc_hyperopt as oho
-
-    x = fibonacci_sphere(1000)
-    y = np.random.default_rng(5).normal(size=1000) * 0.3
-    got = []
-    for dev in ("cuda", "cpu"):
-        mll, g = oho.ooc_mll_and_grad("rbf", torch.tensor(x, device=dev),
-                                      torch.tensor(y, device=dev), 1e-3,
-                                      {"lengthscale": 0.4, "signal_variance": 1.0}, panel=256,
-                                      noise_scale=1.3)
-        got.append([float(mll)] + [float(g[k]) for k in ("log_ls", "log_noise_scale",
-                                                          "log_sv")])
-    check("stream objective float64, C=1024, cuda vs cpu (MLL and gradient, relative)",
-          max(abs(a - b) / abs(b) for a, b in zip(*got)), CPU_REL, err_name="rel_err")
-
-
 def refit_checks(torch, what, sess, params, noise, joint=None) -> tuple[tuple, float]:
     """A refit's 64^3 grid against the in-core pipeline's (fit_inference, or
     the joint fit and W) on the same training set at the refit's
@@ -3096,7 +2959,6 @@ def stream_hyperopt(torch, launches, incore, dense) -> dict:
     from gpis_tpu_torch import ObjectModelSession
     from gpis_tpu_torch.gp import ooc_hyperopt as oho
 
-    small_stream_parity(torch)
     cfg, pts, _, _ = incore
     torch.cuda.synchronize()
     launches.clear()
@@ -3239,7 +3101,6 @@ EXPLORE_ROUNDS = 4  # explore-and-touch rounds through the service
 CAP_TARGET_Z = 0.7  # the first path's target: its direction from the centre has z above this
 REPLAY_TOL = 1e-6  # the restored session against the uninterrupted one after a replayed batch
 PLANNER_M = (1, 32, 256, 2048)  # D at the planner's M: a chart, a disc, is_done, a frontier
-PARITY_CLOUD = 896  # phase 12's float64 parity sessions: C = 1,024 value, J = 2,048 + T joint
 
 
 class PlannerCounts:
@@ -3375,14 +3236,14 @@ def profile_call(torch, fn) -> dict:
 
 
 def float64_replay(cfg, pts, rounds, observed):
-    """Phase 12's service session in float64 on the card, touched with the
+    """Phase 12's service session in float64 on the CPU, touched with the
     same contacts: at each round's observed contacts (`observed[r]`, a
     mask), the variance before and after the round's update."""
     import dataclasses
 
     from gpis_tpu_torch import ObjectModelSession
 
-    sess = ObjectModelSession(dataclasses.replace(cfg, dtype="float64"), device="cuda")
+    sess = ObjectModelSession(dataclasses.replace(cfg, dtype="float64"), device="cpu")
     sess.start(pts.astype(np.float64))
     out = []
     for contacts, seen in zip(rounds, observed):
@@ -3692,45 +3553,21 @@ def random_capped_cloud(n: int, seed: int) -> np.ndarray:
     return d[d[:, 2] <= CAP_Z][:n]
 
 
-def parity_float64() -> None:
-    """Phase 12 (c): small float64 sessions on the card held to the CPU path
-    chart for chart (ids, parents, centres, radii, variances) at 1e-6: the
-    value session's next_best_path under both strategies, the joint and
-    out-of-core sessions' under single_path, and is_done on each; then a
-    float64 value checkpoint saved without its factor, loaded on the card
-    (Kernels A, B and C refit it), against the saved model."""
+def checkpoint_refit() -> None:
+    """Phase 12 (c): a value checkpoint (C = 4,096) saved without its
+    factor, loaded on the card (Kernels A, B and C refit it), against the
+    saved model."""
     import os
     import tempfile
 
     from gpis_tpu_torch import ModelConfig, ObjectModelSession
-    from gpis_tpu_torch.config import ExploreConfig
     from gpis_tpu_torch.utils import checkpoint as ckpt
 
-    small = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
-                        n_internal=1, block=128, touch_capacity=128, dtype="float64")
-    pts = random_capped_cloud(PARITY_CLOUD, 14)
-    for what, kw, strategies in (("value", {}, ("single_path", "multi_branch")),
-                                 ("joint", {"normals": pts}, ("single_path",)),
-                                 ("out-of-core value", {"out_of_core": True}, ("single_path",))):
-        for strategy in strategies:
-            ecfg = ExploreConfig(max_charts=12, n_disc_samples=16, variance_threshold=1.0,
-                                 strategy=strategy)
-            sessions = [ObjectModelSession(small, ecfg, device=d).start(pts, **kw)
-                        for d in ("cuda", "cpu")]
-            got, want = (s.next_best_path() for s in sessions)
-            if [(c.id, c.parent) for c in got.charts] != [(c.id, c.parent) for c in want.charts]:
-                fail(f"{what} {strategy} float64: the atlas differs between cuda and cpu")
-            err = max(max(float(np.abs(a.center - b.center).max()), abs(a.radius - b.radius),
-                          abs(a.variance - b.variance)) for a, b in zip(got.charts, want.charts))
-            check(f"{what} {strategy} float64 next_best_path, {len(got.charts)} charts, cuda vs "
-                  "cpu (centres, radii, variances)", err, 1e-6)
-            if sessions[0].is_done() != sessions[1].is_done():
-                fail(f"{what} float64 is_done differs between cuda and cpu")
     cfg = ModelConfig(kernel="rbf", lengthscale=0.4, noise_surface=1e-3, n_external=127,
-                      n_internal=1, block=128, touch_capacity=0, dtype="float64")
+                      n_internal=1, block=128, touch_capacity=0)
     sess = ObjectModelSession(cfg, device="cuda").start(random_capped_cloud(3968, 15))
     if sess.model.capacity != 4096 or sess.model.linv is not sess.model.chol:
-        fail(f"the float64 checkpoint session is not a C=4096 fit_inference model "
+        fail(f"the checkpoint session is not a C=4096 fit_inference model "
              f"(capacity {sess.model.capacity})")
     path = os.path.join(tempfile.mkdtemp(prefix="gpis_ckpt_"), "nofactor.npz")
     ckpt.save_model(path, sess.model, factor=False)
@@ -3738,9 +3575,8 @@ def parity_float64() -> None:
     want = sess.query(q)
     sess.model = ckpt.load_model(path, device="cuda")
     got = sess.query(q)
-    check("float64 factor=False checkpoint, C=4096, refit on the card, against the saved "
-          "model (mean and var)", max(float(np.abs(a - b).max()) for a, b in zip(got, want)),
-          1e-6)
+    check("factor=False checkpoint, C=4096, refit on the card, against the saved model "
+          "(mean and var)", max(float(np.abs(a - b).max()) for a, b in zip(got, want)), 1e-6)
 
 
 def planner_quad(torch, model, out: dict) -> None:
@@ -3825,7 +3661,7 @@ def phase12(torch, launches, cfg3, cfg4) -> dict:
                                 "var_max_rise": rise})
         check(f"round {r + 1}, observed contacts: float32 variance rise against the quad's error",
               rise, quad_err, err_name="max_rise")
-    parity_float64()
+    checkpoint_refit()
     planner_quad(torch, out.pop("_model"), out)
     out["phase_s"] = time.perf_counter() - t_start
     say(f"  launches in the exploration run: {counts}")
@@ -4214,33 +4050,6 @@ def committee_joint(torch, cfg, out: dict):
     return sess
 
 
-def committee_float64() -> None:
-    """(g) Small float64 committees on the card held to the CPU path at
-    1e-6: value (B = 512, W formed) with a touch batch and one PoE step
-    with its refit, joint (J = 2,048 + T) with a touch batch."""
-    from gpis_tpu_torch import ObjectModelSession
-    from gpis_tpu_torch.data.gpis import fibonacci_sphere
-
-    small = committee_config(touch_capacity=128, dtype="float64")
-    batch = touch_batches(np.random.default_rng(17), 1, (0.0, 0.0, 0.0), 1.0)[0]
-    for what, n, normals, experts in (("value E=4", 896, False, 4),
-                                      ("joint E=2", 384, True, 2)):
-        pts = fibonacci_sphere(n)
-        kw = {"normals": pts} if normals else {}
-        sessions = [ObjectModelSession(small, device=d).start(pts, experts=experts,
-                                                              expert_gate=2, **kw)
-                    for d in ("cuda", "cpu")]
-        for s in sessions:
-            s.update(batch.astype(np.float64))
-            if not normals:
-                s.optimize_hyperparameters(method="poe", steps=1)
-        grids = [s.evaluate_grid(16, 1.5) for s in sessions]
-        err = max(np.abs(a - b).max() for a, b in zip(grids[0][:2], grids[1][:2]))
-        extra = "" if normals else ", after a PoE step and its refit"
-        check(f"{what} committee float64 (B {sessions[0].model.capacity}), touched{extra}, "
-              "16^3 grid, cuda vs cpu (mean and var)", err, 1e-6)
-
-
 def committee_pair_kernels(torch, value_model, joint_model, out: dict) -> None:
     """(g) One gated (chunk, expert) pair of (a) and of (f): the cross
     (Kernel A, or E with the joint columns and touch slots) against its
@@ -4339,7 +4148,6 @@ def phase13(torch, launches) -> dict:
     # with its W and quad against float64 (a and f), then (g).
     out["value"]["split"] = expert_split(torch, value_model, "(a)")
     out["joint"]["split"] = expert_split(torch, jsess.model, "(f)")
-    committee_float64()
     committee_pair_kernels(torch, value_model, jsess.model, out)
     out["phase_s"] = time.perf_counter() - t_start
     say(f"  launches in the committee run: {counts}")
@@ -5169,30 +4977,46 @@ BENCH_MEAN_GAP = 1e-5
 BENCH_VAR_GAP = 1e-4
 
 
-def bench_reference(torch, grid: dict, steps: int) -> dict:
-    """The bench's saved grid (mean, var) against float64 plain PyTorch on
-    the same inputs, the noise below 1 raised by the warm-up ladder's
-    `steps`: a Gram by the covariance's plain twin, `torch.linalg.cholesky`,
-    alpha by cho_solve and the variance by a triangular solve, at
-    BENCH_REF_POINTS grid points.  Returns the max absolute gaps."""
-    from gpis_tpu_torch.cli import bench
+def plain_posterior64(torch, name, x, y, noise, params, q, chunk: int = 8192):
+    """A float64 plain PyTorch posterior on x's device: the Gram by the
+    covariance's plain twin, `torch.linalg.cholesky_ex`, alpha by
+    cho_solve, and at q (`chunk` rows at a time) the mean and the variance
+    by a triangular solve.  Returns (mean, var) as NumPy arrays."""
     from gpis_tpu_torch.kernels import functions as kf
     from gpis_tpu_torch.kernels import gram as kg
     from gpis_tpu_torch.kernels.cuda_gram import cov_reference
+
+    x, y, noise, q = (t.double() for t in (x, y, noise, q))
+    l, info = torch.linalg.cholesky_ex(kg.gram_reference(name, x, params, noise=noise))
+    if int(info):
+        fail(f"the float64 plain reference's Gram is not positive definite (info {int(info)})")
+    alpha = torch.cholesky_solve(y[:, None], l)[:, 0]
+    k0 = kf.k_diag0(name, params)
+    mean, var = [], []
+    for i in range(0, q.shape[0], chunk):
+        kq = cov_reference(name, q[i:i + chunk], x, params)
+        v = torch.linalg.solve_triangular(l, kq.T, upper=False)
+        mean.append((kq @ alpha).cpu().numpy())
+        var.append((k0 - (v * v).sum(0)).cpu().numpy())
+        del kq, v
+    return np.concatenate(mean), np.concatenate(var)
+
+
+def bench_reference(torch, grid: dict, steps: int) -> dict:
+    """The bench's saved grid (mean, var) against float64 plain PyTorch on
+    the same inputs (`plain_posterior64`), the noise below 1 raised by the
+    warm-up ladder's `steps`, at BENCH_REF_POINTS grid points.  Returns the
+    max absolute gaps."""
+    from gpis_tpu_torch.cli import bench
     from gpis_tpu_torch.surface.grid import make_grid
 
-    name = bench.CONFIG.kernel
     x, y, noise, params, _ = bench.workload(bench.N_SURFACE, dtype=torch.float64, device="cuda")
     noise = torch.where(noise < 1.0, noise * 10.0**steps, noise)
-    l = torch.linalg.cholesky(kg.gram_reference(name, x, params, noise=noise))
-    alpha = torch.cholesky_solve(y[:, None], l)[:, 0]
     coords, _ = make_grid(bench.RES, bench.EXTENT, dtype=torch.float64, device="cuda")
     idx = np.random.default_rng(0).choice(coords.shape[0], BENCH_REF_POINTS, replace=False)
-    kq = cov_reference(name, coords[torch.as_tensor(idx, device="cuda")], x, params)
-    v = torch.linalg.solve_triangular(l, kq.T, upper=False)
-    mean = (kq @ alpha).cpu().numpy()
-    var = (kf.k_diag0(name, params) - (v * v).sum(0)).cpu().numpy()
-    del x, l, kq, v
+    mean, var = plain_posterior64(torch, bench.CONFIG.kernel, x, y, noise, params,
+                                  coords[torch.as_tensor(idx, device="cuda")])
+    del x, coords
     torch.cuda.empty_cache()
     return {"mean_gap": float(np.abs(grid["mean"].ravel()[idx] - mean).max()),
             "var_gap": float(np.abs(grid["var"].ravel()[idx] - var).max())}

@@ -32,7 +32,7 @@ import time
 import torch
 
 __all__ = ["LAUNCHES", "build", "library", "call", "check_cuda_args", "check_cuda_rows",
-           "resolve_device"]
+           "resolve_device", "takes_kernel"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -42,14 +42,14 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I64, _I32, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
 
-# C signatures of csrc/*.cu, one per dtype suffix (_f32, _f64).  A pointer or
-# the stream passed without c_void_p would be cut to 32 bits by ctypes.
+# C signatures of csrc/*.cu, each bound as `name_f32`, and as `name_f64` too
+# for the names in _BOTH_DTYPES.  A pointer or the stream passed without
+# c_void_p would be cut to 32 bits by ctypes.
 _SIGNATURES = {
     # a, m, b, n, noise, sym, row0, kernel_id, ls, sv, out, stream
     "gpis_cov": [_P, _I64, _P, _I64, _P, _I32, _I64, _I32, _F64, _F64, _P, _P],
     # mat, n, j0, bw, units, n_units, tiles, n_tiles, ws, stream (the plan and
-    # workspace of the float32 tensor-core body, here and below; the float64
-    # SIMT body ignores them)
+    # workspace of the tensor-core body, here and below)
     "gpis_panel_update": [_P, _I64, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
     # lrow, w, n, j0, bw, out, units, n_units, tiles, n_tiles, ws, stream
     "gpis_row_update": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _P],
@@ -82,6 +82,10 @@ _SIGNATURES = {
     "gpis_band_trail": [_P, _I64, _P, _I64, _P, _I64, _I64, _I64, _I64, _P, _I64, _P, _I64, _P,
                         _P],
 }
+
+# A (cov), E (joint_cov) and I (stripe_write) have one body for both dtypes;
+# the tensor-core kernels take float32 only (`takes_kernel`).
+_BOTH_DTYPES = ("gpis_cov", "gpis_joint_cov", "gpis_stripe_write")
 
 _lib = None
 
@@ -177,7 +181,7 @@ def library():
     if _lib is None:
         lib = ctypes.CDLL(build()[0])
         for name, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+            for suffix in ("_f32", "_f64") if name in _BOTH_DTYPES else ("_f32",):
                 fn = getattr(lib, name + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -196,6 +200,19 @@ def call(name: str, like: torch.Tensor, *args) -> None:
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}{_SUFFIX[like.dtype]} launch failed: cudaError {err}")
+
+
+def takes_kernel(what: str, t: torch.Tensor) -> bool:
+    """Whether a tensor-core kernel (B, C, D, F, G, H, J, K or L) gets t: a
+    CUDA tensor does, a CPU tensor takes the kernel's plain twin.  Those
+    kernels take float32 only, so a CUDA tensor of any other dtype raises:
+    float64 runs on the CPU."""
+    if t.device.type == "cpu":
+        return False
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what}: dtype {t.dtype} not supported on {t.device} (float32; "
+                        "float64 runs on device='cpu')")
+    return True
 
 
 def _check_device_dtype(what: str, tensors) -> None:

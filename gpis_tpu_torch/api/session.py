@@ -119,6 +119,9 @@ class ObjectModelSession:
         else:
             self.device = resolve_device(device)
         self.dtype = getattr(torch, self.config.dtype)
+        if self.device.type == "cuda" and self.dtype != torch.float32:
+            raise ValueError(f"ModelConfig.dtype {self.config.dtype!r} on {self.device}: the "
+                             "card's kernels take float32 (float64 runs on device='cpu')")
         self.model = None
         self.frame = None
         self.training = None

@@ -69,12 +69,11 @@
 // stops its k loop at its last row.
 //
 // The Pallas kernels were one bf16x3 `_dot3` pass each over a constant V
-// block.  Here, in float32, J is the tensor-core tile's NT layout and K its
-// NN layout, both with the STORE epilogue (tc_nn.cuh), each 128 x 128 tile
-// over its own k range [0, min(tile's last column (J) or row (K) + 1, B)):
-// the plan's per-tile upper bound (`_tc_plan` upper), at most B = 256 deep,
-// so never split; in float64 they keep the SIMT tile below (64 x 64 tiles,
-// the same bound).
+// block.  Here J is the tensor-core tile's NT layout and K its NN layout,
+// both with the STORE epilogue (tc_nn.cuh), each 128 x 128 tile over its
+// own k range [0, min(tile's last column (J) or row (K) + 1, B)): the
+// plan's per-tile upper bound (`_tc_plan` upper), at most B = 256 deep, so
+// never split.
 //
 // L, band trailing update, replaces `band_trail_update_pallas` (pallas_call
 // at :241, body `_trail_kernel` :188), the right-looking sharded TRSM step
@@ -89,221 +88,38 @@
 // tile is launched outside it.  The Pallas kernel copied those tiles
 // through, which is why it lost to XLA on the TPU
 // (gpis_tpu/linalg/sharded.py:317-322).  L is H's product with the sign
-// flipped, on that row-trimmed view: in float32 the tensor-core tile's NN
-// layout with the SUB_FROM epilogue in place (out = S; the tile reads only
-// Lcol and Wj, other buffers), at most B = 256 deep, so never split.
+// flipped, on that row-trimmed view: the tensor-core tile's NN layout with
+// the SUB_FROM epilogue in place (out = S; the tile reads only Lcol and Wj,
+// other buffers), at most B = 256 deep, so never split.
 //
-// In float32, B, C, G, H, J, K and L run on the tensor cores (tc_nn.cuh:
-// split-TF32 wgmma, TMA, a fixed-order split-K reduce; B, G and J as its NT
-// layout, B as G in place); the SIMT bodies below serve their float64
-// instantiations (H's body serves L in float64).
+// B, C, G, H, J, K and L run on the tensor cores (tc_nn.cuh: split-TF32
+// wgmma, TMA, a fixed-order split-K reduce; B, G and J as its NT layout, B
+// as G in place) and take float32 only: their wrappers refuse a float64
+// card tensor (`_build.takes_kernel`).  I, a copy, takes both.
 //
 // What bounds them on the H100: arithmetic for B, C, G, H and L; bytes for
-// I, and for float32 J and K.
+// I, J and K.
 // At n = 16,384 each factor is ~n^3/3 multiply-adds, against 2 n^2 * 4 bytes
-// of traffic per step, so the products sit far above the memory roofline;
-// for the SIMT bodies (float64) the bound is the SIMT rate, for float32 B,
-// C, G, H, J, K and L the split-TF32 rate (494.7 / 4 TFLOP/s, tc_nn.cuh).
+// of traffic per step, so the products sit far above the memory roofline at
+// the split-TF32 rate (494.7 / 4 TFLOP/s, tc_nn.cuh).
 // I moves 2 R W elements and computes nothing.  J and K are one (R, B) x
 // (B, B) product each (~1 GFLOP at R = 16,128, B = 256, 33 MB moved): at
 // the split-TF32 rate their bytes bound them (~10 us), and launched 63 and
 // 64 times a factor behind the factor step's host sync, their launches and
 // the host loop around them set much of their share of fit_s (PERF.md
 // section 5).
-// What the SIMT design does about it: a shared-memory tiled SGEMM (64 x 64
-// output tiles, k-slices of 16, 4 x 4 FMA register tiles a thread) whose k
-// loop stops at j0 (k0 for G), so the dead k >= j0 half of every product is
-// never loaded or multiplied -- "port the skip, not the DMA trick" of the
-// Pallas index maps.  C also starts its k loop at the tile's first column,
-// since W[k, c] = 0 for k < c, and writes zeros, without reading anything,
-// for output tiles at columns >= j0; H launches no tile at columns >= w.
-// J and K stop their k loops at the tile's last column (row) of the
-// triangle; L launches tiles only in the live rows and columns.
-// Accumulation of the SIMT bodies: plain FP32 (FP64) FMA, see common.cuh.
+// What the design does about it: each output tile's k range is its live
+// one (`_tc_plan`).  B's and G's stop at j0 (k0), so the dead k >= j0 half
+// of every product is never loaded or multiplied -- "port the skip, not the
+// DMA trick" of the Pallas index maps.  C's also start at the tile's first
+// column, since W[k, c] = 0 for k < c, and its finish tiles past j0's tile
+// write zeros without reading anything; H plans no tile at columns >= w.
+// J's and K's stop at the tile's last column (row) of the triangle; L plans
+// tiles only in the live rows and columns.
 #include "common.cuh"
 #include "tc_nn.cuh"
 
 namespace gpis {
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-panel_update_kernel(T* __restrict__ mat, int64_t n, int64_t j0, int64_t bw) {
-  __shared__ TileSmem<T> sm;
-  const int64_t col_tiles = (bw + TILE - 1) / TILE;
-  const int64_t row0 = j0 + (int64_t)(blockIdx.x / col_tiles) * TILE;  // global row
-  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;       // panel column
-  const int rows = (int)min64(TILE, n - row0);
-  const int cols = (int)min64(TILE, bw - col0);
-  T acc[4][4] = {};
-  nt_product(sm, acc, mat + row0 * n, n, rows, mat + (j0 + col0) * n, n, cols, 0, j0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < cols) mat[(row0 + r) * n + j0 + col0 + c] -= acc[i][jj];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-row_update_kernel(const T* __restrict__ lrow, const T* __restrict__ w, int64_t n, int64_t j0,
-                  int64_t bw, T* __restrict__ out) {
-  __shared__ TileSmem<T> sm;
-  const int64_t col_tiles = (n + TILE - 1) / TILE;
-  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;  // row of the panel
-  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;  // output column
-  const int rows = (int)min64(TILE, bw - row0);
-  const int cols = (int)min64(TILE, n - col0);
-  T acc[4][4] = {};
-  if (col0 < j0) {
-    // W lower-triangular: only k >= col0 meets a nonzero W[k, c] in this tile.
-    for (int64_t k0 = col0; k0 < j0; k0 += BK) {
-      load_rows_kmajor(sm.a, lrow + row0 * n, n, rows, k0, j0);
-      load_cols_kmajor(sm.b, w + col0, n, cols, k0, j0);
-      __syncthreads();
-      tile_fma(sm, acc);
-      __syncthreads();
-    }
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < cols) out[(row0 + r) * n + col0 + c] = col0 + c < j0 ? acc[i][jj] : T(0);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-gemm_nt_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r, const T* __restrict__ b,
-                      int64_t ldb, int64_t p, const T* s, int64_t lds, T* out, int64_t ldo,
-                      int64_t k0) {
-  __shared__ TileSmem<T> sm;
-  const int64_t col_tiles = (p + TILE - 1) / TILE;
-  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
-  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
-  const int rows = (int)min64(TILE, r - row0);
-  const int cols = (int)min64(TILE, p - col0);
-  T acc[4][4] = {};
-  nt_product(sm, acc, a + row0 * lda, lda, rows, b + col0 * ldb, ldb, cols, 0, k0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty + 16 * i;
-    if (rr >= rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tx + 16 * jj;
-      // S is read before out is written by the same thread: out may be S.
-      if (c < cols) {
-        const T v = s[(row0 + rr) * lds + col0 + c];
-        out[(row0 + rr) * ldo + col0 + c] = v - acc[i][jj];
-      }
-    }
-  }
-}
-
-template <typename T, bool SUB>
-__global__ void __launch_bounds__(NTHREADS)
-gemm_nn_acc_masked_kernel(const T* __restrict__ a, int64_t lda, int64_t r,
-                          const T* __restrict__ b, int64_t ldb, int64_t kd, T* u, int64_t ldu,
-                          int64_t w) {
-  __shared__ TileSmem<T> sm;
-  const int64_t col_tiles = (w + TILE - 1) / TILE;
-  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
-  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
-  const int rows = (int)min64(TILE, r - row0);
-  const int cols = (int)min64(TILE, w - col0);
-  T acc[4][4] = {};
-  for (int64_t k0 = 0; k0 < kd; k0 += BK) {
-    load_rows_kmajor(sm.a, a + row0 * lda, lda, rows, k0, kd);
-    load_cols_kmajor(sm.b, b + col0, ldb, cols, k0, kd);
-    __syncthreads();
-    tile_fma(sm, acc);
-    __syncthreads();
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty + 16 * i;
-    if (rr >= rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < cols) u[(row0 + rr) * ldu + col0 + c] += SUB ? -acc[i][jj] : acc[i][jj];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-panel_scale_kernel(const T* __restrict__ acc_in, int64_t lda, int64_t r, const T* __restrict__ v,
-                   int64_t ldv, int64_t b, T* __restrict__ out, int64_t ldo) {
-  __shared__ TileSmem<T> sm;
-  const int64_t col_tiles = (b + TILE - 1) / TILE;
-  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
-  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
-  const int rows = (int)min64(TILE, r - row0);
-  const int cols = (int)min64(TILE, b - col0);
-  T acc[4][4] = {};
-  // V[c, k] = 0 for k > c: the tile's columns end at col0 + cols - 1.
-  nt_product(sm, acc, acc_in + row0 * lda, lda, rows, v + col0 * ldv, ldv, cols, 0,
-             col0 + cols);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty + 16 * i;
-    if (rr >= rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < cols) out[(row0 + rr) * ldo + col0 + c] = acc[i][jj];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-row_scale_kernel(const T* __restrict__ v, int64_t ldv, int64_t b, const T* __restrict__ rhs,
-                 int64_t ldr, int64_t n, T* __restrict__ out, int64_t ldo) {
-  __shared__ TileSmem<T> sm;
-  const int64_t col_tiles = (n + TILE - 1) / TILE;
-  const int64_t row0 = (int64_t)(blockIdx.x / col_tiles) * TILE;
-  const int64_t col0 = (int64_t)(blockIdx.x % col_tiles) * TILE;
-  const int rows = (int)min64(TILE, b - row0);
-  const int cols = (int)min64(TILE, n - col0);
-  T acc[4][4] = {};
-  // V[r, k] = 0 for k > r: the tile's rows end at row0 + rows - 1.
-  const int64_t k_end = row0 + rows;
-  for (int64_t k0 = 0; k0 < k_end; k0 += BK) {
-    load_rows_kmajor(sm.a, v + row0 * ldv, ldv, rows, k0, k_end);
-    load_cols_kmajor(sm.b, rhs + col0, ldr, cols, k0, k_end);
-    __syncthreads();
-    tile_fma(sm, acc);
-    __syncthreads();
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rr = ty + 16 * i;
-    if (rr >= rows) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = tx + 16 * jj;
-      if (c < cols) out[(row0 + rr) * ldo + col0 + c] = acc[i][jj];
-    }
-  }
-}
 
 // I's work items: STRIPE_ITEM vectors each, `1 << vpr_log2` of one row's
 // vectors (a power of two, >= the row's count up to STRIPE_ITEM) from each of
@@ -365,77 +181,6 @@ stripe_write_kernel(T* __restrict__ dst, int64_t ldd, const T* __restrict__ blk,
 }
 
 template <typename T>
-static int launch_panel_update(T* mat, int64_t n, int64_t j0, int64_t bw, void* stream) {
-  if (j0 <= 0 || bw <= 0 || j0 >= n) return 0;
-  const unsigned int blocks = ceil_div(n - j0, TILE) * ceil_div(bw, TILE);
-  panel_update_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(mat, n, j0, bw);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_row_update(const T* lrow, const T* w, int64_t n, int64_t j0, int64_t bw,
-                             T* out, void* stream) {
-  if (n <= 0 || bw <= 0) return 0;
-  const unsigned int blocks = ceil_div(bw, TILE) * ceil_div(n, TILE);
-  row_update_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(lrow, w, n, j0, bw, out);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_gemm_nt_masked(const T* a, int64_t lda, int64_t r, const T* b, int64_t ldb,
-                                 int64_t p, const T* s, int64_t lds, T* out, int64_t ldo,
-                                 int64_t k0, void* stream) {
-  if (r <= 0 || p <= 0) return 0;
-  const unsigned int blocks = ceil_div(r, TILE) * ceil_div(p, TILE);
-  gemm_nt_masked_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
-      a, lda, r, b, ldb, p, s, lds, out, ldo, k0);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_gemm_nn_acc_masked(const T* a, int64_t lda, int64_t r, const T* b,
-                                     int64_t ldb, int64_t kd, T* u, int64_t ldu, int64_t w,
-                                     void* stream) {
-  if (r <= 0 || w <= 0 || kd <= 0) return 0;
-  const unsigned int blocks = ceil_div(r, TILE) * ceil_div(w, TILE);
-  gemm_nn_acc_masked_kernel<T, false><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
-      a, lda, r, b, ldb, kd, u, ldu, w);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_panel_scale(const T* acc, int64_t lda, int64_t r, const T* v, int64_t ldv,
-                              int64_t b, T* out, int64_t ldo, void* stream) {
-  if (r <= 0 || b <= 0) return 0;
-  const unsigned int blocks = ceil_div(r, TILE) * ceil_div(b, TILE);
-  panel_scale_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(acc, lda, r, v, ldv, b,
-                                                                       out, ldo);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_row_scale(const T* v, int64_t ldv, int64_t b, const T* rhs, int64_t ldr,
-                            int64_t n, T* out, int64_t ldo, void* stream) {
-  if (b <= 0 || n <= 0) return 0;
-  const unsigned int blocks = ceil_div(b, TILE) * ceil_div(n, TILE);
-  row_scale_kernel<T><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(v, ldv, b, rhs, ldr, n, out,
-                                                                     ldo);
-  return (int)cudaGetLastError();
-}
-
-// L in float64: H's SIMT body with the sign flipped, on the live block that
-// the wrapper trimmed (s and lcol at its first row, rows x w).
-template <typename T>
-static int launch_band_trail(T* s, int64_t lds, const T* lcol, int64_t ldl, const T* wj,
-                             int64_t ldw, int64_t rows, int64_t w, int64_t bw, void* stream) {
-  if (rows <= 0 || w <= 0 || bw <= 0) return 0;
-  const unsigned int blocks = ceil_div(rows, TILE) * ceil_div(w, TILE);
-  gemm_nn_acc_masked_kernel<T, true><<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(
-      lcol, ldl, rows, wj, ldw, bw, s, lds, w);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 static int launch_stripe_write(T* dst, int64_t ldd, const T* blk, int64_t ldb, int64_t r,
                                int64_t w, int64_t c0, void* stream) {
   if (r <= 0 || w <= 0) return 0;
@@ -486,12 +231,6 @@ int gpis_panel_update_f32(float* mat, int64_t n, int64_t j0, int64_t bw, const v
       static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
 }
 
-// B in float64 keeps the SIMT tile; it takes no plan.
-int gpis_panel_update_f64(double* mat, int64_t n, int64_t j0, int64_t bw, const void*, int64_t,
-                          const void*, int64_t, double*, void* stream) {
-  return gpis::launch_panel_update<double>(mat, n, j0, bw, stream);
-}
-
 // C in float32: out (bw x n) = lrow[:, :j0] W[:j0, :j0] on the tensor cores,
 // over W's live triangle as planned by `_nn_plan` (units, finish tiles and
 // the partials' workspace); B's columns >= j0 read as zeros, so the tile
@@ -505,13 +244,6 @@ int gpis_row_update_f32(const float* lrow, const float* w, int64_t n, int64_t j0
       n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
 }
 
-// C in float64 keeps the SIMT tile; it takes no plan.
-int gpis_row_update_f64(const double* lrow, const double* w, int64_t n, int64_t j0,
-                        int64_t bw, double* out, const void*, int64_t, const void*, int64_t,
-                        double*, void* stream) {
-  return gpis::launch_row_update<double>(lrow, w, n, j0, bw, out, stream);
-}
-
 // H in float32: u[:, :w] += a b[:, :w] on the tensor cores over the plan.
 int gpis_gemm_nn_acc_masked_f32(const float* a, int64_t lda, int64_t r, const float* b,
                                 int64_t ldb, int64_t kd, float* u, int64_t ldu, int64_t w,
@@ -521,14 +253,6 @@ int gpis_gemm_nn_acc_masked_f32(const float* a, int64_t lda, int64_t r, const fl
   return gpis::tc::launch<gpis::tc::NN, gpis::tc::ADD>(
       a, lda, b, ldb, kd, w, nullptr, 0, u, ldu, r, w, static_cast<const gpis::tc::Unit*>(units),
       n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
-}
-
-// H in float64 keeps the SIMT tile; it takes no plan.
-int gpis_gemm_nn_acc_masked_f64(const double* a, int64_t lda, int64_t r, const double* b,
-                                int64_t ldb, int64_t kd, double* u, int64_t ldu, int64_t w,
-                                const void*, int64_t, const void*, int64_t, double*,
-                                void* stream) {
-  return gpis::launch_gemm_nn_acc_masked<double>(a, lda, r, b, ldb, kd, u, ldu, w, stream);
 }
 
 // G in float32: out = s - a[:, :k0] b[:, :k0]^T on the tensor cores over the
@@ -542,14 +266,6 @@ int gpis_gemm_nt_masked_f32(const float* a, int64_t lda, int64_t r, const float*
       a, lda, b, ldb, k0, p, s, lds, out, ldo, r, p, static_cast<const gpis::tc::Unit*>(units),
       n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws,
       (cudaStream_t)stream);
-}
-
-// G in float64 keeps the SIMT tile; it takes no plan.
-int gpis_gemm_nt_masked_f64(const double* a, int64_t lda, int64_t r, const double* b,
-                            int64_t ldb, int64_t p, const double* s, int64_t lds, double* out,
-                            int64_t ldo, int64_t k0, const void*, int64_t, const void*, int64_t,
-                            double*, void* stream) {
-  return gpis::launch_gemm_nt_masked<double>(a, lda, r, b, ldb, p, s, lds, out, ldo, k0, stream);
 }
 
 #define GPIS_STRIPE_ENTRY_POINTS(T, SUF)                                                        \
@@ -574,13 +290,6 @@ int gpis_panel_scale_f32(const float* acc, int64_t lda, int64_t r, const float* 
       n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
 }
 
-// J in float64 keeps the SIMT tile; it takes no plan.
-int gpis_panel_scale_f64(const double* acc, int64_t lda, int64_t r, const double* v, int64_t ldv,
-                         int64_t b, double* out, int64_t ldo, const void*, int64_t, const void*,
-                         int64_t, double*, void* stream) {
-  return gpis::launch_panel_scale<double>(acc, lda, r, v, ldv, b, out, ldo, stream);
-}
-
 // K in float32: out (b x n) = V rhs on the tensor cores, NN layout, over the
 // plan (`_tc_plan` upper "rows": each 128-row tile stops at k = its last
 // row + 1).  STORE, as C.
@@ -591,13 +300,6 @@ int gpis_row_scale_f32(const float* v, int64_t ldv, int64_t b, const float* rhs,
   return gpis::tc::launch<gpis::tc::NN, gpis::tc::STORE>(
       v, ldv, rhs, ldr, b, n, nullptr, 0, out, ldo, b, n, static_cast<const gpis::tc::Unit*>(units),
       n_units, static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
-}
-
-// K in float64 keeps the SIMT tile; it takes no plan.
-int gpis_row_scale_f64(const double* v, int64_t ldv, int64_t b, const double* rhs, int64_t ldr,
-                       int64_t n, double* out, int64_t ldo, const void*, int64_t, const void*,
-                       int64_t, double*, void* stream) {
-  return gpis::launch_row_scale<double>(v, ldv, b, rhs, ldr, n, out, ldo, stream);
 }
 
 // L in float32: S -= Lcol Wj on the live block, on the tensor cores: the NN
@@ -614,13 +316,6 @@ int gpis_band_trail_f32(float* s, int64_t lds, const float* lcol, int64_t ldl, c
       lcol, ldl, wj, ldw, bw, w, s, lds, s, lds, rows, w,
       static_cast<const gpis::tc::Unit*>(units), n_units,
       static_cast<const gpis::tc::FinishTile*>(tiles), n_tiles, ws, (cudaStream_t)stream);
-}
-
-// L in float64 keeps the SIMT tile; it takes no plan.
-int gpis_band_trail_f64(double* s, int64_t lds, const double* lcol, int64_t ldl,
-                        const double* wj, int64_t ldw, int64_t rows, int64_t w, int64_t bw,
-                        const void*, int64_t, const void*, int64_t, double*, void* stream) {
-  return gpis::launch_band_trail<double>(s, lds, lcol, ldl, wj, ldw, rows, w, bw, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,9 @@
-// Shared device code for the gpis_tpu_torch kernels (sm_90a).
-//
-// Precision: every product is accumulated with plain FP32 (or FP64) FMA on
-// the SIMT cores.  That is exact-grade float32, so the bf16x3 split that the
-// TPU kernels needed (gpis_tpu/linalg/pallas_chol.py `_dot3`,
-// gpis_tpu/kernels/pallas_query.py `quad_dot`) has no counterpart here, and
-// the TF32 trap that the `_QSPLIT` comment measured at ~1e-2 absolute on the
-// variance quad cannot occur: no tensor core is used.
+// Shared device code for the gpis_tpu_torch kernels (sm_90a): the
+// covariance functions and their derivatives in r2 that Kernels A (cov.cu),
+// E (joint.cu) and F's kq generators (quad.cuh) evaluate, and the CTA size
+// and index helpers of the SIMT kernels.  The products of B, C, D, F, G, H,
+// J, K and L run on the tensor cores in split TF32 (tc_nn.cuh), float32
+// only.
 //
 // Index arithmetic is 64-bit throughout: row * ld + col overflows int32 once
 // a C x C matrix has C > 46,340, which an 80 GB card holds in-core.
@@ -108,86 +106,8 @@ __device__ __forceinline__ T d2k_dr2(int kid, T r2, T ls, T sv) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// One 64 x 64 output tile of a product, 256 threads, 4 x 4 outputs a thread.
-// Thread (ty, tx) = (t / 16, t % 16) owns rows ty + 16 i and columns
-// tx + 16 j (i, j < 4), so neighbouring threads write neighbouring columns.
-// Shared tiles are stored k-major with one pad column against bank conflicts.
-// (128 x 128 tiles with 8 x 8 register tiles measured slower: 99 registers a
-// thread leave 2 blocks an SM, too few to hide the unprefetched tile loads.)
-constexpr int TILE = 64;
-constexpr int BK = 16;
+// Threads of a SIMT kernel's CTA (A, E, and D's and F's means).
 constexpr int NTHREADS = 256;
-
-template <typename T>
-struct TileSmem {
-  T a[BK][TILE + 1];
-  T b[BK][TILE + 1];
-};
-
-// Loads rows [0, rows) x k [k0, k0 + BK) of a row-major matrix whose k index
-// is contiguous (element (r, k) at p[r * ld + k]) into s[k][r], zero-filled
-// outside rows and k_end.
-template <typename T>
-__device__ __forceinline__ void load_rows_kmajor(T (*s)[TILE + 1], const T* __restrict__ p,
-                                                 int64_t ld, int rows, int64_t k0,
-                                                 int64_t k_end) {
-#pragma unroll
-  for (int e = threadIdx.x; e < TILE * BK; e += NTHREADS) {
-    int r = e / BK, kk = e % BK;
-    int64_t k = k0 + kk;
-    s[kk][r] = (r < rows && k < k_end) ? p[(int64_t)r * ld + k] : T(0);
-  }
-}
-
-// Loads k [k0, k0 + BK) x columns [0, cols) of a row-major matrix whose
-// column index is contiguous (element (k, c) at p[k * ld + c]) into s[k][c].
-template <typename T>
-__device__ __forceinline__ void load_cols_kmajor(T (*s)[TILE + 1], const T* __restrict__ p,
-                                                 int64_t ld, int cols, int64_t k0,
-                                                 int64_t k_end) {
-#pragma unroll
-  for (int e = threadIdx.x; e < TILE * BK; e += NTHREADS) {
-    int kk = e / TILE, c = e % TILE;
-    int64_t k = k0 + kk;
-    s[kk][c] = (c < cols && k < k_end) ? p[k * ld + c] : T(0);
-  }
-}
-
-// acc[i][j] += sum over the BK slice of a[k][ty + 16 i] * b[k][tx + 16 j].
-template <typename T>
-__device__ __forceinline__ void tile_fma(const TileSmem<T>& sm, T (&acc)[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    T av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = sm.a[kk][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = sm.b[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
-// acc = A[rows of the tile, k_begin:k_end] . B[cols of the tile, k_begin:k_end]^T
-// with both operands k-contiguous ("NT"), as in the Cholesky panel update and
-// the variance quad.
-template <typename T>
-__device__ __forceinline__ void nt_product(TileSmem<T>& sm, T (&acc)[4][4],
-                                           const T* __restrict__ a, int64_t lda, int a_rows,
-                                           const T* __restrict__ b, int64_t ldb, int b_rows,
-                                           int64_t k_begin, int64_t k_end) {
-  for (int64_t k0 = k_begin; k0 < k_end; k0 += BK) {
-    load_rows_kmajor(sm.a, a, lda, a_rows, k0, k_end);
-    load_rows_kmajor(sm.b, b, ldb, b_rows, k0, k_end);
-    __syncthreads();
-    tile_fma(sm, acc);
-    __syncthreads();
-  }
-}
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 

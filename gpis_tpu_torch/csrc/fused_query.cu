@@ -31,85 +31,32 @@
 // query tile) pair, loops k over the tile's live columns only, keeps
 // v = W kq^T in registers and writes partial[i, q] = colsum(v^2); a second
 // pass sums the partials in a fixed order (no atomics).  What differs: each
-// k chunk of kq is generated from coordinates instead of being loaded.
-//   * float32: the split-TF32 tensor-core tile (tc_nn.cuh), NT layout with
-//     the QUAD epilogue and a generated B, in D's warp-specialised body: W
-//     comes through TMA, and the producer warpgroup computes each
-//     128-query x 32-column kq chunk straight into B's split hi and lo
-//     tiles (thread p: query p, the chunk's 32 columns) while the consumers
-//     run earlier chunks on the tensor cores, from column metadata staged in
-//     shared memory two chunks ahead.  The plan (`_tc_plan` upper "rows",
-//     k_offset = the band's first row, never split) gives each tile its
-//     live k range.
-//   * float64: the SIMT tile of common.cuh, 64 x 64: each 16-column k slice
-//     of kq is generated into shared memory; thread t generates query t % 64
-//     (its coordinates held in registers for the whole block) at columns
-//     t / 64 + 4 j, so a warp reads one column's metadata (a broadcast) and
-//     writes 32 consecutive shared-memory words.
+// k chunk of kq is generated from coordinates instead of being loaded.  The
+// product is the split-TF32 tensor-core tile (tc_nn.cuh), NT layout with
+// the QUAD epilogue and a generated B, in D's warp-specialised body: W comes
+// through TMA, and the producer warpgroup computes each 128-query x
+// 32-column kq chunk straight into B's split hi and lo tiles (thread p:
+// query p, the chunk's 32 columns) while the consumers run earlier chunks
+// on the tensor cores, from column metadata staged in shared memory two
+// chunks ahead.  The plan (`_tc_plan` upper "rows", k_offset = the band's
+// first row, never split) gives each tile its live k range.  F takes
+// float32 only: its wrappers refuse a float64 card query
+// (`_build.takes_kernel`).
 // A block of W row tile i sees only columns below its bound, so the mean
 // needs every column in a pass of its own: a warp per query regenerates its
-// kq row (the TPU kernel took it from its i == 0 grid plane), SIMT in both.
+// kq row (the TPU kernel took it from its i == 0 grid plane), on the SIMT
+// cores.
 //
 // What bounds it on the H100: arithmetic, as for D (~c^2 / 2 * m FMAs, at
-// the split-TF32 rate in float32), plus the generation: every live (W tile,
-// query tile) pair regenerates its kq slice, c / 128 / 2 times per kq
-// element on average in float32 (one exp for the value model, two for the
-// joint one), on the SIMT cores beside the tensor cores' product.
+// the split-TF32 rate), plus the generation: every live (W tile, query
+// tile) pair regenerates its kq slice, c / 128 / 2 times per kq element on
+// average (one exp for the value model, two for the joint one), on the SIMT
+// cores beside the tensor cores' product.
 #include "common.cuh"
 #include "quad.cuh"
 #include "tc_nn.cuh"
 
 namespace gpis {
-
-template <typename T, class Gen>
-__global__ void __launch_bounds__(NTHREADS)
-fused_partial_kernel(const T* __restrict__ q, int64_t m, const T* __restrict__ cols, int64_t c,
-                     const T* __restrict__ w, int64_t ldw, int64_t nrows, int64_t row_base,
-                     int kid, T ls, T sv, T* __restrict__ partial) {
-  __shared__ TileSmem<T> sm;
-  __shared__ T red[16][TILE];
-  const int64_t q_tiles = (m + TILE - 1) / TILE;
-  const int64_t it = blockIdx.x / q_tiles;
-  const int64_t row0 = it * TILE;                                // W row in the band
-  const int64_t q0 = (int64_t)(blockIdx.x % q_tiles) * TILE;    // query
-  const int rows = (int)min64(TILE, nrows - row0);
-  const int qs = (int)min64(TILE, m - q0);
-  const int qi = threadIdx.x % TILE;  // this thread's generated query
-  T qv[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) qv[d] = qi < qs ? q[(q0 + qi) * 3 + d] : T(0);
-  T acc[4][4] = {};
-  // W lower-triangular: the tile's last global row bounds its live columns.
-  const int64_t k_end = min64(row_base + row0 + rows, c);
-  for (int64_t k0 = 0; k0 < k_end; k0 += BK) {
-    load_rows_kmajor(sm.a, w + row0 * ldw, ldw, rows, k0, k_end);
-#pragma unroll
-    for (int kk = threadIdx.x / TILE; kk < BK; kk += NTHREADS / TILE) {
-      const int64_t k = k0 + kk;
-      sm.b[kk][qi] = (qi < qs && k < k_end)
-                         ? Gen::eval(kid, qv, cols + k * Gen::STRIDE, ls, sv) : T(0);
-    }
-    __syncthreads();
-    tile_fma(sm, acc);
-    __syncthreads();
-  }
-  // Rows past `rows` and queries past `qs` were zero-filled: acc is 0 there.
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    T s = T(0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s += acc[i][j] * acc[i][j];
-    red[ty][tx + 16 * j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < TILE && threadIdx.x < qs) {
-    T s = T(0);
-#pragma unroll
-    for (int r = 0; r < 16; ++r) s += red[r][threadIdx.x];
-    partial[it * m + q0 + threadIdx.x] = s;
-  }
-}
 
 template <typename T, class Gen>
 __global__ void fused_mean_kernel(const T* __restrict__ q, int64_t m, const T* __restrict__ cols,
@@ -125,32 +72,6 @@ __global__ void fused_mean_kernel(const T* __restrict__ q, int64_t m, const T* _
 #pragma unroll
   for (int off = 16; off > 0; off /= 2) s += __shfl_down_sync(0xffffffffu, s, off);
   if (lane == 0) mean[qi] = s;
-}
-
-// float64: the SIMT body over 64-row tiles, the partials' sum, the mean.
-template <class Gen>
-static int launch_fused_f64(const double* q, int64_t m, const double* cols, int64_t c,
-                            const double* w, const double* alpha, int kid, double ls, double sv,
-                            double* partial, double* mean, double* quad, cudaStream_t s) {
-  fused_partial_kernel<double, Gen><<<ceil_div(c, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
-      q, m, cols, c, w, c, c, 0, kid, ls, sv, partial);
-  quad_reduce_kernel<double><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, ceil_div(c, TILE),
-                                                              quad);
-  fused_mean_kernel<double, Gen><<<ceil_div(m, NTHREADS / 32), NTHREADS, 0, s>>>(
-      q, m, cols, c, alpha, kid, ls, sv, mean);
-  return (int)cudaGetLastError();
-}
-
-template <class Gen>
-static int launch_band_f64(const double* q, int64_t m, const double* cols, int64_t c,
-                           const double* w, int64_t ldw, int64_t rows, int64_t row0, int kid,
-                           double ls, double sv, double* partial, double* quad, cudaStream_t s) {
-  fused_partial_kernel<double, Gen>
-      <<<ceil_div(rows, TILE) * ceil_div(m, TILE), NTHREADS, 0, s>>>(
-          q, m, cols, c, w, ldw, rows, row0, kid, ls, sv, partial);
-  quad_reduce_kernel<double><<<ceil_div(m, 256), 256, 0, s>>>(partial, m, ceil_div(rows, TILE),
-                                                              quad);
-  return (int)cudaGetLastError();
 }
 
 // float32: the tensor-core tile over the plan, A = W's rows [0, rows) (k
@@ -210,20 +131,6 @@ int gpis_fused_quad_f32(const float* q, int64_t m, const float* cols, int64_t c,
                                                 s);
 }
 
-// F in float64 keeps the SIMT tile; it takes no plan.
-int gpis_fused_quad_f64(const double* q, int64_t m, const double* cols, int64_t c, int joint,
-                        const double* w, const double* alpha, int kid, double ls, double sv,
-                        double* partial, double* mean, double* quad, const void*, int64_t,
-                        const void*, int64_t, double*, void* stream) {
-  if (m == 0 || c == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (joint)
-    return gpis::launch_fused_f64<gpis::JointGen>(q, m, cols, c, w, alpha, kid, ls, sv, partial,
-                                                  mean, quad, s);
-  return gpis::launch_fused_f64<gpis::ValueGen>(q, m, cols, c, w, alpha, kid, ls, sv, partial,
-                                                mean, quad, s);
-}
-
 // F's band mode in float32: the band (rows x width, ldw) at global row row0,
 // over the plan (`_tc_plan(rows, m, width, upper="rows", k_offset=row0,
 // whole=True)`: each tile's live k ends at row0 + its last band row + 1).
@@ -243,21 +150,6 @@ int gpis_quad_band_f32(const float* q, int64_t m, const float* cols, int64_t c, 
   return gpis::launch_quad_f32<gpis::ValueGen>(q, m, cols, w, ldw, rows, width, kid, ls, sv,
                                                partial, quad, units, n_units, tiles, n_tiles,
                                                ws, s);
-}
-
-// F's band mode in float64 keeps the SIMT tile; it takes no plan.
-int gpis_quad_band_f64(const double* q, int64_t m, const double* cols, int64_t c, int joint,
-                       const double* w, int64_t ldw, int64_t rows, int64_t width, int64_t row0,
-                       int kid, double ls, double sv, double* partial, double* quad,
-                       const void*, int64_t, const void*, int64_t, double*, void* stream) {
-  (void)width;
-  if (m == 0 || rows == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (joint)
-    return gpis::launch_band_f64<gpis::JointGen>(q, m, cols, c, w, ldw, rows, row0, kid, ls, sv,
-                                                 partial, quad, s);
-  return gpis::launch_band_f64<gpis::ValueGen>(q, m, cols, c, w, ldw, rows, row0, kid, ls, sv,
-                                               partial, quad, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,6 @@
 // What Kernels D (query.cu) and F (fused_query.cu) share: the kq generators
-// of F, which the float64 SIMT body and the float32 tensor-core tile
-// (tc_nn.cuh, a generated B) both call, and the pass that sums the variance
-// quad's partials.
+// of F, which the tensor-core tile (tc_nn.cuh, a generated B) and F's mean
+// call, and the pass that sums the variance quad's partials.
 #pragma once
 
 #include "common.cuh"

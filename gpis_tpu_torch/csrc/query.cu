@@ -17,53 +17,20 @@
 //
 // What bounds it on the H100: arithmetic.  A 8,192-query chunk against
 // C = 16,384 is ~C^2 / 2 * m multiply-adds (1.1e12) on 1 GiB of W plus
-// 512 MiB of kq, far above the memory roofline.
-//   * float32: the split-TF32 tensor-core tile (tc_nn.cuh), NT layout with
-//     the QUAD epilogue: 128 x 128 tiles (W rows x queries), W and kq
-//     through TMA, each tile over k < its last row + 1 (`_tc_plan` upper
-//     "rows", never split), squared and summed over its rows in registers;
-//     partial is (ceil(c / 128), m).  Bound: 123.7 TFLOP/s of useful work.
-//   * float64: the SIMT tile of common.cuh (4 x 4 FMA register tiles,
-//     k-slices of 16, 64 x 64 tiles); partial is (ceil(c / 64), m).
+// 512 MiB of kq, far above the memory roofline.  The product is the
+// split-TF32 tensor-core tile (tc_nn.cuh), NT layout with the QUAD
+// epilogue: 128 x 128 tiles (W rows x queries), W and kq through TMA, each
+// tile over k < its last row + 1 (`_tc_plan` upper "rows", never split),
+// squared and summed over its rows in registers; partial is
+// (ceil(c / 128), m).  Bound: 123.7 TFLOP/s of useful work.  It takes
+// float32 only: its wrapper refuses a float64 card query (`_build.takes_kernel`).
 // W is re-read once per query tile; the 50 MB L2 absorbs part of that.  The
-// mean (a GEMV on kq, bound by its bytes) stays SIMT in both.
+// mean (a GEMV on kq, bound by its bytes) is a SIMT kernel.
 #include "common.cuh"
 #include "quad.cuh"
 #include "tc_nn.cuh"
 
 namespace gpis {
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-quad_partial_kernel(const T* __restrict__ kq, int64_t m, const T* __restrict__ w, int64_t c,
-                    T* __restrict__ partial) {
-  __shared__ TileSmem<T> sm;
-  __shared__ T red[16][TILE];
-  const int64_t q_tiles = (m + TILE - 1) / TILE;
-  const int64_t it = blockIdx.x / q_tiles;
-  const int64_t row0 = it * TILE;                                // W row
-  const int64_t q0 = (int64_t)(blockIdx.x % q_tiles) * TILE;    // query
-  const int rows = (int)min64(TILE, c - row0);
-  const int qs = (int)min64(TILE, m - q0);
-  T acc[4][4] = {};
-  nt_product(sm, acc, w + row0 * c, c, rows, kq + q0 * c, c, qs, 0, min64(row0 + TILE, c));
-  // Rows past `rows` and queries past `qs` were loaded as zeros: acc is 0.
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    T s = T(0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s += acc[i][j] * acc[i][j];
-    red[ty][tx + 16 * j] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < TILE && threadIdx.x < qs) {
-    T s = T(0);
-#pragma unroll
-    for (int r = 0; r < 16; ++r) s += red[r][threadIdx.x];
-    partial[it * m + q0 + threadIdx.x] = s;
-  }
-}
 
 template <typename T>
 __global__ void mean_kernel(const T* __restrict__ kq, int64_t m, const T* __restrict__ alpha,
@@ -107,19 +74,6 @@ int gpis_staged_quad_f32(const float* kq, int64_t m, const float* w, const float
   if (err) return err;
   return gpis::finish_staged_quad<float>(kq, m, alpha, c, gpis::ceil_div(c, gpis::tc::BM),
                                          partial, mean, quad, s);
-}
-
-// D in float64 keeps the SIMT tile; it takes no plan.
-int gpis_staged_quad_f64(const double* kq, int64_t m, const double* w, const double* alpha,
-                         int64_t c, double* partial, double* mean, double* quad, const void*,
-                         int64_t, const void*, int64_t, double*, void* stream) {
-  if (m == 0 || c == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  gpis::quad_partial_kernel<double>
-      <<<gpis::ceil_div(c, gpis::TILE) * gpis::ceil_div(m, gpis::TILE), gpis::NTHREADS, 0, s>>>(
-          kq, m, w, c, partial);
-  return gpis::finish_staged_quad<double>(kq, m, alpha, c, gpis::ceil_div(c, gpis::TILE),
-                                          partial, mean, quad, s);
 }
 
 }  // extern "C"

@@ -25,8 +25,8 @@
 // of it at global row row0), B = kq, each 128-row tile of W over k up to
 // its last global row (W is lower-triangular); D reads kq through TMA, F
 // generates each kq chunk from coordinates straight into B's split tiles (a
-// generator `GEN`, quad.cuh).  All nine replace their FP32 SIMT bodies in
-// float32; the float64 instantiations keep the SIMT tile of common.cuh.
+// generator `GEN`, quad.cuh).  All nine take float32 only; their wrappers
+// refuse a float64 card tensor (`_build.takes_kernel`).
 //
 // Precision: FP32-grade products from TF32 wgmma ("split TF32").
 //   * Each operand is split as x = hi + lo, hi = rna_tf32(x),

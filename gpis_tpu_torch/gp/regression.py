@@ -107,7 +107,7 @@ def fit(kernel: str, x, y, noise, params, *, block: int = 128, touch_capacity: i
         extra = jitter * (10.0**attempt)
     raise FloatingPointError(
         f"Cholesky failed even with jitter {extra:.2e}; the Gram matrix is "
-        f"numerically indefinite (try larger noise or float64)"
+        f"numerically indefinite (try larger noise, or float64 on the CPU)"
     )
 
 

@@ -119,7 +119,7 @@ def sharded_mll_and_grad(kernel, xp, yp, noisep, params, mesh: RowMesh, *, block
     params = {k: float(v) for k, v in params.items()}
 
     a = sh.sharded_gram(kernel, xp, params, noise_eff, mesh)
-    l_loc = sh.sharded_cholesky(a, mesh, block=block, use_kernels=dev.type == "cuda")
+    l_loc = sh.sharded_cholesky(a, mesh, block=block)
     w_loc = sh.sharded_linv(l_loc, mesh, block=block)
     alpha = sh.sharded_alpha_from_linv(w_loc, yp, mesh)
     mll_core, g_ls, g_ns, g_sv = _mll_and_grad_collective(
@@ -287,7 +287,7 @@ def sharded_joint_mll_and_grad(kernel, x_all, yj, nf_all, ng, params, mesh: RowM
 
     cuda = dev.type == "cuda"
     a = sharded_joint_gram(kernel, x_all, params, nf_eff, ng, mesh, c=c)
-    l_loc = sh.sharded_cholesky(a, mesh, block=block, use_kernels=cuda)
+    l_loc = sh.sharded_cholesky(a, mesh, block=block)
     w_loc = sh.sharded_linv(l_loc, mesh, block=block, use_kernel=cuda)
     alpha = sh.sharded_alpha_from_linv(w_loc, yj, mesh)
     mll_core, g_ls, g_ns, g_sv = _joint_collective(

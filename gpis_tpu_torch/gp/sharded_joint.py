@@ -280,7 +280,7 @@ def fit_sharded_joint(kernel: str, x, y, normals, noise_f, noise_g, params,
     cuda = dev.type == "cuda"
     for extra in (0.0, jitter, jitter * 100.0, jitter * 1e4):
         a = sharded_joint_gram(kernel, xp, params, nf + extra, ng + extra, mesh, c=c)
-        l = sh.sharded_cholesky(a, mesh, block=block, use_kernels=cuda)
+        l = sh.sharded_cholesky(a, mesh, block=block)
         if not sh.any_nan_diagonal(l, mesh):
             nf, ng = nf + extra, ng + extra
             break

@@ -139,11 +139,10 @@ def fit_sharded(kernel: str, x, y, noise, params, mesh: RowMesh | None = None, *
     params = {k: float(v) for k, v in params.items()}
     if jitter is None:
         jitter = 4.0 * torch.finfo(dt).eps * c * abs(float(kf.k_diag0(kernel, params)))
-    use_kernels = dev.type == "cuda"
     for extra in (0.0, jitter, jitter * 100.0, jitter * 1e4):
         profiling.count("fit.attempts")
         a = sh.sharded_gram(kernel, xp, params, noisep + extra, mesh)
-        l = sh.sharded_cholesky(a, mesh, block=block, use_kernels=use_kernels)
+        l = sh.sharded_cholesky(a, mesh, block=block)
         if not sh.any_nan_diagonal(l, mesh):
             noisep = noisep + extra
             break

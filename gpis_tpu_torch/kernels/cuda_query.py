@@ -22,13 +22,14 @@ gpis_tpu/kernels/pallas_query.py:250-437).
   (TF32 off): the `precision=` route of the predict functions, which takes
   the plain twins in place of the split-TF32 tile.
 
-In float32, D and F are the split-TF32 tensor-core tile (csrc/tc_nn.cuh,
-NT layout, QUAD epilogue; F with kq generated into the tile's shared
-memory): the plan (`cuda_chol._tc_plan`, upper "rows", never split) runs
-each 128-row tile of W over k up to its last global row, and TMA reads W
-(and D's kq), so each such view must start on 16 bytes with rows a
-multiple of 4 floats (`cuda_chol._check_tma`: a view that is not raises).
-In float64 they keep the SIMT tile.
+D and F are the split-TF32 tensor-core tile (csrc/tc_nn.cuh, NT layout,
+QUAD epilogue; F with kq generated into the tile's shared memory), float32
+only: the plan (`cuda_chol._tc_plan`, upper "rows", never split) runs each
+128-row tile of W over k up to its last global row, and TMA reads W (and
+D's kq), so each such view must start on 16 bytes with rows a multiple of
+4 floats (`cuda_chol._check_tma`: a view that is not raises).  A CPU query
+takes their plain twins (`_build.takes_kernel`); a float64 one on the card
+raises.
 
 Routing.  A query takes the staged route unless its staged kq would exceed
 `KQ_STAGE_MAX` bytes; then it takes Kernel F, which needs O(M) memory.
@@ -89,12 +90,10 @@ def staged_quad_reference(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
     return kq @ alpha, torch.sum(v * v, dim=0)
 
 
-def _check_launch(what: str, m: int, c: int, dtype: torch.dtype) -> int:
-    """W's row tiles (the partials' rows): 128 rows in float32 (the
-    tensor-core tile), 64 in float64 (common.cuh TILE)."""
-    tile = cuda_chol.TC_TILE if dtype == torch.float32 else 64
-    tiles = -(-c // tile)
-    if tiles * -(-m // tile) > _MAX_BLOCKS:
+def _check_launch(what: str, m: int, c: int) -> int:
+    """W's row tiles of the tensor-core tile (the partials' rows)."""
+    tiles = -(-c // cuda_chol.TC_TILE)
+    if tiles * -(-m // cuda_chol.TC_TILE) > _MAX_BLOCKS:
         raise ValueError(f"{what}: {m} queries x capacity {c} exceed one launch")
     return tiles
 
@@ -106,15 +105,14 @@ def staged_quad(kq: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor):
     if w.shape != (c, c) or alpha.shape != (c,):
         raise ValueError(f"staged_quad: kq {tuple(kq.shape)}, W {tuple(w.shape)}, "
                          f"alpha {tuple(alpha.shape)} do not agree")
-    if kq.device.type == "cpu":
+    if not _build.takes_kernel("staged_quad", kq):
         return staged_quad_reference(kq, w, alpha)
     _build.check_cuda_args("staged_quad", kq, w, alpha)
-    tiles = _check_launch("staged_quad", m, c, kq.dtype)
+    tiles = _check_launch("staged_quad", m, c)
     partial = torch.empty((tiles, m), dtype=kq.dtype, device=kq.device)
     mean = torch.empty((m,), dtype=kq.dtype, device=kq.device)
     quad = torch.empty((m,), dtype=kq.dtype, device=kq.device)
-    # float32: A = W (C x C), B = kq (M x C), each W row tile over k < its
-    # last row + 1.
+    # A = W (C x C), B = kq (M x C), each W row tile over k < its last row + 1.
     plan, _keep = cuda_chol._tc_launch_args("staged_quad", w, kq, c, m, c, upper="rows",
                                             whole=True)
     _build.call("gpis_staged_quad", kq, kq.data_ptr(), m, w.data_ptr(), alpha.data_ptr(), c,
@@ -152,16 +150,16 @@ def fused_quad(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
             or w.shape != (c, c) or alpha.shape != (c,)):
         raise ValueError(f"fused_quad: q {tuple(q.shape)}, columns {tuple(cols.shape)}, "
                          f"W {tuple(w.shape)}, alpha {tuple(alpha.shape)} do not agree")
-    if q.device.type == "cpu":
+    if not _build.takes_kernel("fused_quad", q):
         return fused_quad_reference(gen, name, q, cols, params, alpha, w)
     if name not in KERNEL_IDS or (gen == "joint" and not kf.supports_derivatives(name)):
         raise ValueError(f"fused_quad: no CUDA {gen} generator for covariance {name!r}")
     _build.check_cuda_args("fused_quad", q, cols, w, alpha)
-    tiles = _check_launch("fused_quad", m, c, q.dtype)
+    tiles = _check_launch("fused_quad", m, c)
     partial = torch.empty((tiles, m), dtype=q.dtype, device=q.device)
     mean = torch.empty((m,), dtype=q.dtype, device=q.device)
     quad = torch.empty((m,), dtype=q.dtype, device=q.device)
-    # float32: A = W, B generated (no B operand read), as D's plan.
+    # A = W, B generated (no B operand read), as D's plan.
     plan, _keep = cuda_chol._tc_launch_args("fused_quad", w, None, c, m, c, upper="rows",
                                             whole=True)
     _build.call("gpis_fused_quad", q, q.data_ptr(), m, cols.data_ptr(), c, int(gen == "joint"),
@@ -195,19 +193,19 @@ def quad_band(gen: str, name: str, q: torch.Tensor, cols: torch.Tensor, params,
             or not 0 <= row0 <= row0 + r <= width <= c):
         raise ValueError(f"quad_band: q {tuple(q.shape)}, columns {tuple(cols.shape)}, "
                          f"W band {tuple(w_band.shape)} at row {row0} do not agree")
-    if q.device.type == "cpu":
+    if not _build.takes_kernel("quad_band", q):
         return quad_band_reference(gen, name, q, cols, params, w_band, row0)
     if name not in KERNEL_IDS or (gen == "joint" and not kf.supports_derivatives(name)):
         raise ValueError(f"quad_band: no CUDA {gen} generator for covariance {name!r}")
     _build.check_cuda_args("quad_band", q, cols)
     _build.check_cuda_rows("quad_band", w_band)
-    tiles = _check_launch("quad_band", m, r, q.dtype)
+    tiles = _check_launch("quad_band", m, r)
     partial = torch.empty((tiles, m), dtype=q.dtype, device=q.device)
     quad = torch.empty((m,), dtype=q.dtype, device=q.device)
     if m == 0 or r == 0:
         return quad.zero_()
-    # float32: A = the band (R x width), B generated; the band's tile at row
-    # r0 is live for k < row0 + r0 + 128.
+    # A = the band (R x width), B generated; the band's tile at row r0 is
+    # live for k < row0 + r0 + 128.
     plan, _keep = cuda_chol._tc_launch_args("quad_band", w_band, None, r, m, width,
                                             upper="rows", k_offset=int(row0), whole=True)
     _build.call("gpis_quad_band", q, q.data_ptr(), m, cols.data_ptr(), c, int(gen == "joint"),

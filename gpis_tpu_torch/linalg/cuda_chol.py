@@ -26,21 +26,19 @@ and L take their views the same way.  All but I are bound by arithmetic on
 the card, I by bytes; csrc/chol.cu says how their loops skip the dead part
 of each product.
 
-In float32, B, C, G, H, J, K and L are one split-TF32 tensor-core kernel
+B, C, G, H, J, K and L are one split-TF32 tensor-core kernel
 (csrc/tc_nn.cuh; C, H, K and L its NN layout, G and J its NT layout, B G
-and L in place):
-TMA reads their operands, so each float32 view it reads must start on 16
-bytes with a leading dimension of a multiple of 4 floats (`_check_tma`; a
-view that is not raises ValueError -- there is no staging copy), and
-`_tc_plan` cuts the work into 128 x 128 output tiles, each over its live k
-range (for J and K, up to the tile's last column or row of the triangular
-V), split into equal-depth units when the tiles alone would not fill two
-waves of the card; a second kernel sums a split tile's partials in a fixed
-order.  In float64 they keep the SIMT tile.  Around
-them, as in the JAX package, the B x B potrf (`torch.linalg.cholesky_ex`),
-the panel and row triangular solves (`torch.linalg.solve_triangular`) and,
-under `panel_solve="inv"`, the B x B inverse V = Ljj^{-1} stay library
-calls.
+and L in place), float32 only.  TMA reads their operands, so each view it
+reads must start on 16 bytes with a leading dimension of a multiple of 4
+floats (`_check_tma`; a view that is not raises ValueError -- there is no
+staging copy), and `_tc_plan` cuts the work into 128 x 128 output tiles,
+each over its live k range (for J and K, up to the tile's last column or
+row of the triangular V), split into equal-depth units when the tiles
+alone would not fill two waves of the card; a second kernel sums a split
+tile's partials in a fixed order.  Around them, as in the JAX package, the
+B x B potrf (`torch.linalg.cholesky_ex`), the panel and row triangular
+solves (`torch.linalg.solve_triangular`) and, under `panel_solve="inv"`,
+the B x B inverse V = Ljj^{-1} stay library calls.
 
 `panel_solve` picks the factor's and TRSM's diagonal-block solve: "xla"
 (the default, the JAX package's name for it) solves each (R, B) panel and
@@ -49,8 +47,10 @@ multiplies by it through J and K.  `PANEL_SOLVE` reads GPIS_PANEL_SOLVE
 once, at import, as `pallas_chol._PANEL_SOLVE` does; a call's
 `panel_solve=None` takes it.
 
-Each wrapper takes a CPU tensor to its plain twin (`*_reference`) and a CUDA
-tensor to its kernel, and raises on anything the kernel does not take.
+Each wrapper hands a CUDA tensor to its kernel and a CPU tensor to its
+plain twin (`*_reference`; `_build.takes_kernel`), and raises on anything
+the kernel does not take: B, C, G, H, J, K and L take float32 only (float64
+runs on the CPU), I float32 and float64.
 """
 
 from __future__ import annotations
@@ -174,8 +174,8 @@ def _tc_plan_on(device: torch.device, rows: int, cols: int, k_hi: int, triangle:
 
 
 def _check_tma(what: str, *mats: torch.Tensor) -> None:
-    """The float32 tensor-core body reads its operands through TMA: each
-    view must start on a 16-byte boundary and step rows by a multiple of 16
+    """The tensor-core body reads its operands through TMA: each view must
+    start on a 16-byte boundary and step rows by a multiple of 16
     bytes.  Every view of the factors and TRSMs qualifies (widths, panels
     and blocks are multiples of 4 columns); a view that does not raises, as
     there is no staging copy."""
@@ -190,12 +190,10 @@ def _tc_launch_args(what: str, a: torch.Tensor, b: torch.Tensor | None, rows: in
                     k_hi: int, *, triangle: bool = False, width: int = 0,
                     upper: str | None = None, k_offset: int = 0, whole: bool = False):
     """The plan and workspace arguments of the tensor-core tile's entry
-    points (B, C, D, F, G, H, J, K and L): for float32, after `_check_tma`
-    on the operands the kernel reads through TMA (a, and b unless F
-    generates it: None); for float64 (the SIMT tile) null.  A plan with no
-    partials takes no workspace.  Returns (args, keep-alive tensors)."""
-    if a.dtype != torch.float32:
-        return (None, 0, None, 0, None), ()
+    points (B, C, D, F, G, H, J, K and L), after `_check_tma` on the
+    operands the kernel reads through TMA (a, and b unless F generates it:
+    None).  A plan with no partials takes no workspace.  Returns (args,
+    keep-alive tensors)."""
     _check_tma(what, *(t for t in (a, b) if t is not None))
     units, finish, n_slots = _tc_plan_on(a.device, rows, cols, k_hi, triangle, width, upper,
                                          k_offset, whole)
@@ -219,12 +217,12 @@ def panel_update(m: torch.Tensor, j0: int, block: int) -> torch.Tensor:
     n = _check_square("panel_update", m)
     if not 0 <= j0 < n or block <= 0 or j0 + block > n:
         raise ValueError(f"panel_update: panel [{j0}, {j0 + block}) outside {n}")
-    if m.device.type == "cpu":
+    if not _build.takes_kernel("panel_update", m):
         return panel_update_reference(m, j0, block)
     _build.check_cuda_args("panel_update", m)
     if j0 == 0:  # no finished columns: nothing to subtract, nothing launched
         return m
-    # In float32, G in place: a = m[j0:, :j0], b = m[j0:j0+B, :j0], S = out =
+    # G in place: a = m[j0:, :j0], b = m[j0:j0+B, :j0], S = out =
     # m[j0:, j0:j0+B]; it reads columns < j0 and writes [j0, j0+B).
     plan, _keep = _tc_launch_args("panel_update", m[j0:, :j0], m[j0:j0 + block, :j0], n - j0,
                                   block, j0)
@@ -250,7 +248,7 @@ def row_update(w: torch.Tensor, l_row: torch.Tensor, j0: int) -> torch.Tensor:
         raise ValueError(f"row_update: l_row must be (B, {n}), got {tuple(l_row.shape)}")
     if not 0 <= j0 <= n:
         raise ValueError(f"row_update: j0={j0} outside [0, {n}]")
-    if w.device.type == "cpu":
+    if not _build.takes_kernel("row_update", w):
         return row_update_reference(w, l_row, j0)
     _build.check_cuda_args("row_update", w, l_row)
     if j0 == 0:  # W[:0] is empty: the update is zero, nothing launched
@@ -277,7 +275,7 @@ def gemm_nt_masked(a: torch.Tensor, b: torch.Tensor, s: torch.Tensor, k0: int) -
     if a.shape[0] != r or b.shape[0] != p or not 0 <= k0 <= min(a.shape[1], b.shape[1]):
         raise ValueError(f"gemm_nt_masked: a {tuple(a.shape)}, b {tuple(b.shape)}, "
                          f"s {tuple(s.shape)}, k0={k0} do not agree")
-    if s.device.type == "cpu":
+    if not _build.takes_kernel("gemm_nt_masked", s):
         return gemm_nt_masked_reference(a, b, s, k0)
     _build.check_cuda_rows("gemm_nt_masked", a, b, s)
     out = torch.empty((r, p), dtype=s.dtype, device=s.device)
@@ -304,7 +302,7 @@ def gemm_nn_acc_masked(u: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: int
     if u.shape[0] != r or b.shape[0] != k or not 0 <= w <= min(u.shape[1], b.shape[1]):
         raise ValueError(f"gemm_nn_acc_masked: u {tuple(u.shape)}, a {tuple(a.shape)}, "
                          f"b {tuple(b.shape)}, w={w} do not agree")
-    if u.device.type == "cpu":
+    if not _build.takes_kernel("gemm_nn_acc_masked", u):
         return gemm_nn_acc_masked_reference(u, a, b, w)
     _build.check_cuda_rows("gemm_nn_acc_masked", u, a, b)
     if r == 0 or k == 0 or w == 0:  # nothing to add, nothing launched
@@ -346,13 +344,13 @@ def panel_scale_reference(acc, v) -> torch.Tensor:
 
 def panel_scale(acc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """acc @ v^T as a new (R, B) tensor, for acc (R, B) a row-major view and
-    v (B, B) LOWER-triangular (the kernel skips its zero upper half).  In
-    float32 the tensor-core tile's NT layout, each 128-column tile over
-    k < its last column + 1 (`_tc_plan` upper "cols")."""
+    v (B, B) LOWER-triangular (the kernel skips its zero upper half): the
+    tensor-core tile's NT layout, each 128-column tile over k < its last
+    column + 1 (`_tc_plan` upper "cols")."""
     r, b = acc.shape
     if v.shape != (b, b):
         raise ValueError(f"panel_scale: acc {tuple(acc.shape)} and v {tuple(v.shape)} do not agree")
-    if acc.device.type == "cpu":
+    if not _build.takes_kernel("panel_scale", acc):
         return panel_scale_reference(acc, v)
     _build.check_cuda_rows("panel_scale", acc, v)
     out = torch.empty((r, b), dtype=acc.dtype, device=acc.device)
@@ -372,13 +370,12 @@ def row_scale_reference(v, rhs) -> torch.Tensor:
 
 def row_scale(v: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """v @ rhs as a new (B, N) tensor, for v (B, B) LOWER-triangular and
-    rhs (B, N) a row-major view.  In float32 the tensor-core tile's NN
-    layout, each 128-row tile over k < its last row + 1 (`_tc_plan` upper
-    "rows")."""
+    rhs (B, N) a row-major view: the tensor-core tile's NN layout, each
+    128-row tile over k < its last row + 1 (`_tc_plan` upper "rows")."""
     b, n = rhs.shape
     if v.shape != (b, b):
         raise ValueError(f"row_scale: v {tuple(v.shape)} and rhs {tuple(rhs.shape)} do not agree")
-    if rhs.device.type == "cpu":
+    if not _build.takes_kernel("row_scale", rhs):
         return row_scale_reference(v, rhs)
     _build.check_cuda_rows("row_scale", v, rhs)
     out = torch.empty((b, n), dtype=rhs.dtype, device=rhs.device)
@@ -414,15 +411,15 @@ def band_trail(s: torch.Tensor, l_col: torch.Tensor, wj: torch.Tensor, j0: int,
     s (R, C) is a row band of S at global rows [row0, row0 + R), l_col
     (R, B) the band's column panel j of L, wj (B, C) the W row panel j,
     zero at columns >= j0 + B (the update leaves those columns alone).
-    Each is a row-major view.  In float32 the tensor-core tile's NN layout
-    with SUB_FROM in place on the live block (`_trail_ranges`), planned over
-    its rows x columns, k < B."""
+    Each is a row-major view.  The tensor-core tile's NN layout with
+    SUB_FROM in place on the live block (`_trail_ranges`), planned over its
+    rows x columns, k < B."""
     r, c = s.shape
     b = l_col.shape[1]
     if l_col.shape[0] != r or wj.shape != (b, c) or j0 < 0 or row0 < 0:
         raise ValueError(f"band_trail: s {tuple(s.shape)}, l_col {tuple(l_col.shape)}, "
                          f"wj {tuple(wj.shape)}, j0={j0}, row0={row0} do not agree")
-    if s.device.type == "cpu":
+    if not _build.takes_kernel("band_trail", s):
         return band_trail_reference(s, l_col, wj, j0, row0)
     _build.check_cuda_rows("band_trail", s, l_col, wj)
     r_b, w = _trail_ranges(r, c, b, int(j0), int(row0))

@@ -112,8 +112,7 @@ def sharded_gram(name: str, x: torch.Tensor, params, noise, mesh: RowMesh) -> to
                              noise=noise[band].contiguous(), sym=True, row0=row0)
 
 
-def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
-                     use_kernels: bool = False) -> torch.Tensor:
+def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256) -> torch.Tensor:
     """Lower Cholesky factor of the row-band-sharded SPD matrix whose band
     is a_loc, IN PLACE (left-looking, as in the JAX package):
 
@@ -123,10 +122,10 @@ def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
           o broadcasts the diagonal block S; every rank factors Ljj = chol(S)
           every rank: rows >= j0 + B of the panel = panel @ Ljj^{-T}
 
-    use_kernels runs the panel update through Kernel G, else a plain
-    product.  A block that is not positive definite leaves the diagonal NaN
-    on every rank (every rank factors the same broadcast S, so all stop at
-    the same block and no collective is left unmatched)."""
+    The panel update is `cuda_chol.gemm_nt_masked` (G, or its twin on a
+    CPU band).  A block that is not positive definite leaves the
+    diagonal NaN on every rank (every rank factors the same broadcast S, so
+    all stop at the same block and no collective is left unmatched)."""
     rows_per, c = a_loc.shape
     row0, _ = _block_layout(c, mesh, block)
     if rows_per * mesh.size != c:
@@ -145,10 +144,7 @@ def sharded_cholesky(a_loc: torch.Tensor, mesh: RowMesh, *, block: int = 256,
                 _bcast_from(row_j, owner)
                 if r_s < rows_per:
                     panel = a_loc[r_s:, j0:j1]
-                    if use_kernels:
-                        panel.copy_(cuda_chol.gemm_nt_masked(a_loc[r_s:], row_j, panel, j0))
-                    else:
-                        panel.sub_(a_loc[r_s:, :j0] @ row_j.T)
+                    panel.copy_(cuda_chol.gemm_nt_masked(a_loc[r_s:], row_j, panel, j0))
             s = (a_loc[lrow:lrow + block, j0:j1].contiguous() if mine
                  else torch.empty((block, block), dtype=dt, device=dev))
             _bcast_from(s, owner)

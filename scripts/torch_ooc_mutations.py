@@ -13,24 +13,23 @@ For each mutation below it copies the repository to a temporary directory,
 breaks one kernel (or its plan) there, and runs the phase-2 check that
 covers it against the broken build: `chip_smoke.ooc_kernels` (Kernel I and
 the band modes of A and F, at phase 7's shapes), `chip_smoke.quad_kernel_checks`
-(float32 D and F's four modes, the tile's NT layout with the QUAD epilogue,
-F with a generated B, against float64 twins per query, in the `_QSPLIT`
-regime and with the bias gate; and D and F in float64, the SIMT bodies),
+(D and F's four modes, the tile's NT layout with the QUAD epilogue, F with
+a generated B, against float64 twins per query, in the `_QSPLIT` regime and
+with the bias gate),
 `chip_smoke.tc_fused_quad_bits` (float32 F's bits against the recorded
 sha256; F has no bias gate of its own: its float32 generation of kq alone
 moves a nonnegative quad's mean ~1.9e-7 from the float64 twin's),
 `chip_smoke.nn_kernel_checks` (float32 C and H, the split-TF32 tensor-core
 kernel's NN layout, with its bias gate), `chip_smoke.nt_kernel_checks`
-(float32 B and G, its NT layout, with the bias gate at a = b; and B and G
-in float64, the SIMT tile), `chip_smoke.joint_kernel_checks` (Kernel E in
+(B and G, its NT layout, with the bias gate at a = b),
+`chip_smoke.joint_kernel_checks` (Kernel E in
 float32 and float64, three covariances, aligned and ragged layouts, value
 rows, an off-tile band with noise and general metadata, over NaN-filled
-outputs, twice bit for bit) or `chip_smoke.inv_and_trail_kernels` (float32
-J and K, the tile's NT and NN layouts with STORE, with their bias gate, and
-J and K in float64, the SIMT tile, at the in-core factor's shapes; float32
-L, the NN layout with SUB_FROM in place, with its bias gate and its
-untouched-region check, and L in float64, the SIMT tile, at the sharded
-TRSM's) or `chip_smoke.cov_kernel_checks` (Kernel A in float32 and
+outputs, twice bit for bit) or `chip_smoke.inv_and_trail_kernels` (J and
+K, the tile's NT and NN layouts with STORE, with their bias gate, at the
+in-core factor's shapes; L, the NN layout with SUB_FROM in place, with its
+bias gate and its untouched-region check, at the sharded TRSM's) or
+`chip_smoke.cov_kernel_checks` (Kernel A in float32 and
 float64, four covariances, cross, Gram and band at ragged shapes, over
 NaN-filled outputs, its pinned diagonal bit for bit).
 The tactile-update mutations (the noise floor, W's upper block, alpha0,
@@ -63,15 +62,6 @@ EXPERTS = "gpis_tpu_torch/gp/experts.py"
 
 # (what, the chip_smoke check that covers it, source file, text, broken text)
 MUTATIONS = [
-    ("F band mode with the in-core live-column bound (i+1)*64 (the SIMT body: F band in "
-     "float64)", QUAD, "gpis_tpu_torch/csrc/fused_query.cu",
-     "const int64_t k_end = min64(row_base + row0 + rows, c);",
-     "const int64_t k_end = min64(row0 + rows, c);"),
-    ("G skips its last k slice (the SIMT NT body: G in float64)", NT,
-     "gpis_tpu_torch/csrc/chol.cu", "ldb, cols, 0, k0);", "ldb, cols, 0, k0 - BK);"),
-    ("L skips its last k slice (the SIMT NN body: L and H in float64)", INV,
-     "gpis_tpu_torch/csrc/chol.cu",
-     "for (int64_t k0 = 0; k0 < kd; k0 += BK) {", "for (int64_t k0 = 0; k0 < kd - BK; k0 += BK) {"),
     ("C/H drop the hi*lo cross product", NN, "gpis_tpu_torch/csrc/tc_nn.cuh",
      "wgmma_tf32(step, desc(a_hi + off), desc(b_lo + off), 1);", ""),
     ("C/H as 1xTF32 (lo halves zero)", NN, "gpis_tpu_torch/csrc/tc_nn.cuh",
@@ -123,12 +113,6 @@ MUTATIONS = [
      "if (cb + c < n) o[c] = v[c];", "if (cb + c < n - 1) o[c] = v[c];"),
     ("A drops the diagonal in tiles it enters mid-tile", COV, "gpis_tpu_torch/csrc/cov.cu",
      "&& c0 < row0 + r0 + rows) {", "&& c0 <= row0 + r0) {"),
-    ("J stops its k loop one slice short of the tile's last column (the SIMT body: J in "
-     "float64)", INV, "gpis_tpu_torch/csrc/chol.cu", "ldv, cols, 0,\n             col0 + cols);",
-     "ldv, cols, 0,\n             col0 + cols - BK);"),
-    ("K stops its k loop one slice short of the tile's last row (the SIMT body: K in float64)",
-     INV, "gpis_tpu_torch/csrc/chol.cu", "const int64_t k_end = row0 + rows;",
-     "const int64_t k_end = row0 + rows - BK;"),
     ("J/K's plan ends each tile's triangle one chunk short of its last column / row", INV,
      "gpis_tpu_torch/linalg/cuda_chol.py", "else m0 + k_offset) + t,",
      "else m0 + k_offset) + t - TC_CHUNK,"),
@@ -201,8 +185,7 @@ MUTATIONS = [
      "gpis_tpu_torch/csrc/joint.cu", "cm[m][6] * da - cm[m][2 + KIND]", "cm[m][6] * da - cm[m][3]"),
     ("update drops the touch noise floor", "tests/test_torch_update.py::"
      "test_update_noise_floor_matches_jax", "gpis_tpu_torch/gp/regression.py",
-     "new_noise = torch.clamp(torch.as_tensor(new_noise, dtype=dt, device=dev), min=floor)",
-     "new_noise = torch.as_tensor(new_noise, dtype=dt, device=dev)"),
+     "new_noise = torch.clamp(new_noise, min=floor)", "new_noise = new_noise"),
     ("update leaves W's block [:n0, n0:] as it found it", "tests/test_torch_update.py::"
      "test_update_zeroes_the_upper_block_of_w_as_jax_does", "gpis_tpu_torch/gp/regression.py",
      "    linv[:n, n:] = 0.0\n", ""),

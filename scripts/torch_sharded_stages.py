@@ -7,9 +7,9 @@ The training set is chip_smoke.py phase 3's: an N-point Fibonacci sphere,
 rbf, lengthscale 0.4, surface noise 1e-3, 127 external points and 1
 internal, float32, so C = 16,384.  After the kernels are built and NCCL's
 communicator is built (its first collective, timed apart), each stage of
-`fit_sharded` runs in turns with its alternative: the band Gram (Kernel A
-band); the distributed Cholesky with its panel updates through Kernel G
-and through a plain product; W = L^{-1} right-looking with its trailing
+`fit_sharded` runs, in turns with its alternatives where it has them: the
+band Gram (Kernel A band); the distributed Cholesky, its panel updates
+through Kernel G; W = L^{-1} right-looking with its trailing
 update through Kernel L and through `addmm_`, and left-looking
 (`sharded_linv_ll`); alpha.  Beside them, the in-core factor and TRSM on
 the same Gram (Kernels B and C, and J and K under panel_solve="inv").
@@ -73,13 +73,10 @@ def main() -> int:
         mesh = make_row_mesh(1)
         a, out["gram_band_s"] = timed(lambda: sh.sharded_gram("rbf", ts.x, params, ts.noise,
                                                               mesh))
-        chol = {}
-        for use_kernels in (True, False, False, True):
-            key = "cholesky_G_s" if use_kernels else "cholesky_plain_s"
-            l, secs = timed(lambda: sh.sharded_cholesky(a.clone(), mesh, block=256,
-                                                        use_kernels=use_kernels))
-            chol.setdefault(key, []).append(secs)
-        out.update(chol)
+        out["cholesky_s"] = []
+        for _ in range(2):
+            l, secs = timed(lambda: sh.sharded_cholesky(a.clone(), mesh, block=256))
+            out["cholesky_s"].append(secs)
         trsm = {}
         for name in ("addmm", "kernel_L", "left_looking", "left_looking", "kernel_L", "addmm"):
             if name == "left_looking":

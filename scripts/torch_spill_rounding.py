@@ -14,8 +14,8 @@ taken three ways:
 * f64    -- the update in float64, rounded once to float32.
 
 Each on phase 7's training-set order (the Fibonacci sphere as built) and on
-three seeded permutations of its rows, and each held, as phase 7 is, to an
-in-core float64 fit of the same order: the max gaps of mean and variance.
+three seeded permutations of its rows, and each held, as phase 7 is, to a
+float64 plain fit of the same order: the max gaps of mean and variance.
 A kernel fault would move its gaps away from the other two routes' on
 every order; float32's own edge moves all three together on one order.
 The route switch lives here, never in the package.  Prints one JSON line a
@@ -38,11 +38,9 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from gpis_tpu_torch import ModelConfig  # noqa: E402
 from gpis_tpu_torch.data import gpis  # noqa: E402
-from gpis_tpu_torch.gp import regression  # noqa: E402
 from gpis_tpu_torch.kernels import functions as kf  # noqa: E402
 from gpis_tpu_torch.linalg import cuda_chol  # noqa: E402
 from gpis_tpu_torch.linalg import outofcore as ooc  # noqa: E402
-from gpis_tpu_torch.surface import grid  # noqa: E402
 
 ORDERS = ("fibonacci", 1, 2, 3)  # phase 7's own order, then seeds of a row permutation
 
@@ -78,10 +76,7 @@ def main() -> int:
             gen = torch.Generator(device="cuda").manual_seed(order)
             perm = torch.randperm(ts.x.shape[0], generator=gen, device="cuda")
         x, y, noise = ts.x[perm].contiguous(), ts.y[perm].contiguous(), ts.noise[perm]
-        ref = regression.fit_inference(cfg.kernel, x.double(), y.double(), noise.double(),
-                                       params, block=cfg.block, pad_noise=cfg.pad_noise)
-        rmean, rvar = (t.cpu().numpy() for t in grid.evaluate_points_chunked(ref, q.double()))
-        del ref
+        rmean, rvar = cs.plain_posterior64(torch, cfg.kernel, x, y, noise, params, q)
         torch.cuda.empty_cache()
         for route, fn in ROUTES.items():
             cuda_chol_h = cuda_chol.gemm_nn_acc_masked

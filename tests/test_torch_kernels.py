@@ -309,6 +309,22 @@ def test_wrappers_validate_before_launch():
         _build.check_cuda_args("test", x.to(torch.float16))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_takes_kernel_refuses_float64_off_the_cpu(dtype):
+    """The tensor-core kernels' routing rule: a CPU tensor takes the twin in
+    either dtype; off the CPU (a meta tensor stands for a card's here)
+    float32 takes the kernel and float64 raises, in the wrappers too."""
+    assert not _build.takes_kernel("test", torch.zeros(2, dtype=dtype))
+    meta = torch.empty((8, 8), dtype=dtype, device="meta")
+    if dtype == torch.float32:
+        assert _build.takes_kernel("test", meta)
+        return
+    with pytest.raises(TypeError, match="float64"):
+        _build.takes_kernel("test", meta)
+    with pytest.raises(TypeError, match="panel_update"):
+        cuda_chol.panel_update(meta, 0, 8)
+
+
 def test_twins_launch_nothing_on_cpu():
     _build.LAUNCHES.clear()
     q, x, params, alpha, w = _query_problem("rbf", c=256, m=64)

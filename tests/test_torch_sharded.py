@@ -118,7 +118,7 @@ def test_sharded_gram_matches_jax(p, problem, ranks, jax_mesh):
 
 
 @P
-@pytest.mark.parametrize("key", ["chol", "chol_kernels"])
+@pytest.mark.parametrize("key", ["chol"])
 def test_sharded_cholesky_matches_jax(p, key, problem, ranks, jax_mesh):
     mesh = jax_mesh[p]
     a = jsh.sharded_gram("rbf", _j(problem["x"]), _params(), _j(problem["noise"]), mesh)
@@ -126,6 +126,26 @@ def test_sharded_cholesky_matches_jax(p, key, problem, ranks, jax_mesh):
     got = _bands(ranks(p), key)
     np.testing.assert_allclose(got, want, atol=1e-6)
     assert np.all(np.triu(got, 1) == 0.0)
+
+
+@P
+def test_sharded_cholesky_marks_an_indefinite_matrix_on_every_rank(p, problem, ranks, jax_mesh):
+    """A Gram that is not positive definite from its second block on (the
+    rank script's noise of global rows >= B at -10): every rank stops at
+    that block with its band's own diagonal NaN, and every rank's
+    `any_nan_diagonal` agrees with the JAX package's factor of the same
+    Gram, whose diagonal is not finite."""
+    noise = problem["noise"].copy()
+    noise[B:] = -10.0
+    mesh = jax_mesh[p]
+    a = jsh.sharded_gram("rbf", _j(problem["x"]), _params(), _j(noise), mesh)
+    want = np.diagonal(np.asarray(jsh.sharded_cholesky(a, mesh, block=B)))
+    assert not np.isfinite(want).all()
+    for rank, out in enumerate(ranks(p)):
+        band = out["chol_indefinite"]
+        rows = band.shape[0]
+        assert np.isnan(np.diagonal(band[:, rank * rows:(rank + 1) * rows])).all(), rank
+        assert bool(out["chol_indefinite_flag"]), rank
 
 
 @P

@@ -149,7 +149,7 @@ def test_check_tma_accepts_every_factor_view_of_b_and_g(monkeypatch, tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
                             world_size=1)
     try:
-        sh.sharded_cholesky(a, make_row_mesh(1, device="cpu"), block=128, use_kernels=True)
+        sh.sharded_cholesky(a, make_row_mesh(1, device="cpu"), block=128)
     finally:
         dist.destroy_process_group()
     assert seen["gemm_nt_masked"] > n_ooc

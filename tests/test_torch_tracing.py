@@ -264,8 +264,8 @@ def test_device_spans_resolve_on_a_card():
                 a = a @ a / 2048.0
         with profiling.span("idle", device=True):
             pass
-        a = torch.randn(4096, 4096, device="cuda", dtype=torch.float64)
-        k = a @ a.T + 4096 * torch.eye(4096, device="cuda", dtype=torch.float64)
+        a = torch.randn(4096, 4096, device="cuda")
+        k = a @ a.T + 4096 * torch.eye(4096, device="cuda")
         lin.cholesky(k)
     snap = profiling.snapshot()
     ms = dict(zip([s[0] for s in snap["spans"]], snap["device_ms"]))

@@ -62,8 +62,14 @@ def run(out_dir: str, rank: int, world: int) -> None:
     a = sh.sharded_gram("rbf", t["x"], params, t["noise"], mesh)
     out["gram"] = a.numpy().copy()
     out["chol"] = sh.sharded_cholesky(a, mesh, block=block).numpy()
-    a = sh.sharded_gram("rbf", t["x"], params, t["noise"], mesh)
-    out["chol_kernels"] = sh.sharded_cholesky(a, mesh, block=block, use_kernels=True).numpy()
+    # Not positive definite from its second block on: the noise of global
+    # rows >= B takes the diagonal below zero.
+    bad_noise = t["noise"].clone()
+    bad_noise[block:] = -10.0
+    bad = sh.sharded_cholesky(sh.sharded_gram("rbf", t["x"], params, bad_noise, mesh), mesh,
+                              block=block)
+    out["chol_indefinite"] = bad.numpy()
+    out["chol_indefinite_flag"] = np.array(sh.any_nan_diagonal(bad, mesh))
 
     l_loc = t["l"][band].contiguous()
     out["solve_lower"] = sh.sharded_solve_lower_vec(l_loc, t["y"], mesh, block=block).numpy()
